@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port, ``tds_tpu_torch``, on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+It builds the port's kernels from the sources in this checkout and drives
+the laikago contact rollout through them. Phases, each of which raises on
+failure, so that the run exits non-zero and prints no final line:
+
+1. device: a CUDA device, its name and power limit, TF32 off;
+2. build: the PGS kernel ``tds_tpu_torch/csrc/pgs.cu`` with nvcc for sm_90a;
+3. kernel: the PGS kernel against its plain PyTorch version on the card, on
+   random problems and on the operands of one laikago step at batch 4096,
+   and both versions' times at the main path's shape;
+4. device against CPU: 50 float64 ``sim_step``s at batch 8 on the card
+   (through the kernel) against the same on the CPU (plain version);
+5. main path: ``LaikagoEnv`` in float32 on the card, ``reset`` at batch 4096
+   and a 100-step ``rollout`` of the zero linear policy (the shape that
+   ``bench.py`` times), with the kernel's launches counted;
+6. trained policy: ``logs/laikago_ars/policy_r2b.pkl`` replayed in float32
+   for 2000 steps at batch 8, held to the thresholds of
+   ``tests/test_trained_policy.py``, with the kernel's launches counted.
+
+The line before the last is the ``kernels`` JSON object; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
+"""
+
+import contextlib
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent
+CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy_r2b.pkl"
+MAIN_BATCH = 4096
+ROLLOUT_STEPS = 100
+REPLAY_BATCH, REPLAY_STEPS, REPLAY_SEED = 8, 2000, 0
+# (memory bytes/s, float32 FLOP/s, float64 FLOP/s outside the tensor cores),
+# NVIDIA's data sheets; the first key found in the device name applies
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12, 26e12),
+    "H100 NVL": (3.9e12, 60e12, 30e12),
+    "H100": (3.35e12, 67e12, 34e12),
+}
+# |kernel - plain| <= atol + rtol * |plain|, as tests/test_pallas_pgs.py
+# holds its kernel in float32; float64 differs only by summation order
+PGS_TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (0.0, 1e-12)}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_peaks(name):
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return peaks
+    raise ValueError(f"no peak rates known for {name!r}; add them to PEAKS")
+
+
+def device_ms(fn, rounds, per_round, backlog_ms=20):
+    """Median device time (ms) of one call of ``fn``, from CUDA events
+    around each of ``rounds * per_round`` calls. In each round a sleep
+    kernel queued first keeps the stream busy while the host enqueues, so
+    the host's own time per call is not counted. A round must stay under
+    the launch queue's depth (about a thousand operations), or the host
+    blocks until the device drains it; the check below finds that too."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(per_round)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(per_round)]
+        slept = torch.cuda.Event()
+        torch.cuda._sleep(int(backlog_ms * 2e6))  # cycles; at most 2 GHz, so >= backlog_ms
+        slept.record()
+        for start, end in zip(starts, ends):
+            start.record()
+            fn()
+            end.record()
+        if slept.query():
+            raise RuntimeError("the device went idle while the host enqueued; no device time measured")
+        torch.cuda.synchronize()
+        times += [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    return statistics.median(times)
+
+
+def wall_ms(fn, reps):
+    """Host wall time (ms) of one call, enqueue and run, over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+# -- phase 1 ---------------------------------------------------------------
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device and torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    log(f"device: {name}, {torch.cuda.device_count()} visible; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log("TF32 is off for matmul and cuDNN: float32 products run in full float32")
+    return name
+
+
+# -- phase 2 ---------------------------------------------------------------
+def phase_build():
+    from tds_tpu_torch.contact import pgs
+
+    t0 = time.perf_counter()
+    lib = pgs.build()
+    log(f"build: K1 pgs.cu -> {lib.relative_to(REPO) if lib.is_relative_to(REPO) else lib} in {time.perf_counter() - t0:.1f} s")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+# -- phase 3 ---------------------------------------------------------------
+def random_pgs_problem(batch, n_c, dtype, generator):
+    """SPD A = J J^T + 1e-3 I with J (n, 8), as tests/test_pallas_pgs.py."""
+    n = 3 * n_c
+    dev = generator.device
+    j = torch.randn(batch, n, 8, generator=generator, dtype=torch.float64, device=dev)
+    a = j @ j.transpose(-1, -2) + 1e-3 * torch.eye(n, dtype=torch.float64, device=dev)
+    b = torch.randn(batch, n, generator=generator, dtype=torch.float64, device=dev)
+    lo = torch.cat([torch.zeros(batch, n_c, device=dev)] + [torch.full((batch, n_c), -0.5, device=dev)] * 2, -1)
+    hi = torch.cat([torch.full((batch, n_c), 1e5, device=dev)] + [torch.full((batch, n_c), 0.5, device=dev)] * 2, -1)
+    dep = [-1] * n_c + list(range(n_c)) * 2
+    return [t.to(dtype).contiguous() for t in (a, b, lo, hi)], dep
+
+
+@contextlib.contextmanager
+def recorded_pgs_calls():
+    """Records the operands of every PGS call made inside the block."""
+    from tds_tpu_torch.contact import pgs
+
+    calls = []
+    solve = pgs.solve_pgs
+
+    def recording_solve(*args):
+        calls.append(args)
+        return solve(*args)
+
+    pgs.solve_pgs = recording_solve
+    try:
+        yield calls
+    finally:
+        pgs.solve_pgs = solve
+
+
+def phase_kernel(env, card):
+    from tds_tpu_torch.contact import pgs
+
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+
+    # the toes reach the ground about 65 steps after the reset: harvest the
+    # operands of a step with the contacts active
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    state = rollout(env, policy, None, state, obs, ROLLOUT_STEPS)[0]
+    with recorded_pgs_calls() as calls:
+        env.step(state, torch.zeros(MAIN_BATCH, env.action_dim, dtype=env.dtype, device=env.device))
+    if len(calls) != 1:
+        raise AssertionError(f"expected one PGS call in a laikago step, saw {len(calls)}")
+    main_args = calls[0]
+    active = int((main_args[1] != 0).sum())
+    if active == 0:
+        raise AssertionError("no contact row is active in the harvested laikago step")
+    log(f"kernel: harvested the PGS operands of laikago step {ROLLOUT_STEPS + env.settle_steps + 1} "
+        f"at batch {MAIN_BATCH}: {active} of {main_args[1].numel()} rows active")
+    cases = [
+        (f"random B={b} n={3 * nc} it={it} {str(dt)[6:]}", *random_pgs_problem(b, nc, dt, gen), it)
+        for b, nc, it in ((4096, 4, 1), (4096, 8, 1), (1000, 4, 3))
+        for dt in (torch.float32, torch.float64)
+    ]
+    a, b, lo, hi, dep, it = main_args
+    cases.append((f"laikago step B={b.shape[0]} n={b.shape[1]} it={it} {str(b.dtype)[6:]}", [a, b, lo, hi], dep, it))
+    results = []
+    for label, operands, dep, it in cases:
+        x = pgs.solve_pgs(*operands, dep, it)
+        ref = pgs.solve_pgs_reference(*operands, dep, it)
+        torch.cuda.synchronize()
+        rtol, atol = PGS_TOL[x.dtype]
+        err = (x - ref).abs()
+        excess = (err - (atol + rtol * ref.abs())).max().item()
+        log(f"kernel: {label}: max |kernel - plain| = {err.max().item():.3e} (|plain| <= {ref.abs().max().item():.3g}; rtol {rtol}, atol {atol})")
+        if not torch.isfinite(x).all() or excess > 0:
+            raise AssertionError(f"PGS kernel disagrees with its plain version on {label}")
+        results.append({"case": label, "max_abs_err": err.max().item()})
+
+    # time both versions on the main path's own operands (A stays in L2, as
+    # in the step, where the previous op just wrote it)
+    a, b, lo, hi, dep, it = main_args
+    ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), rounds=5, per_round=20)
+    plain_ms = device_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), rounds=10, per_round=4, backlog_ms=50)
+    kernel_wall = wall_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), reps=200)
+    plain_wall = wall_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), reps=20)
+    bsz, n = b.shape
+    elt = b.element_size()
+    n_bytes = elt * (bsz * n * n + 4 * bsz * n) + 4 * n  # A, b, lo, hi, x, dep
+    n_ops = it * bsz * n * (2 * n + 3)  # per row: n-1 products and sums, b - delta, a divide, two bound scales
+    bandwidth, f32_rate, f64_rate = card
+    t_bytes = n_bytes / bandwidth * 1e3
+    t_ops = n_ops / (f32_rate if b.dtype == torch.float32 else f64_rate) * 1e3
+    log(f"kernel: main-path shape B={bsz} n={n} it={it} {b.dtype}: kernel {ms * 1e3:.2f} us on the device "
+        f"({kernel_wall * 1e3:.2f} us wall per call), plain {plain_ms * 1e3:.1f} us on the device ({plain_wall * 1e3:.1f} us wall), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+        f"({n_bytes} bytes, {n_ops} flops)")
+    return {
+        "name": "pgs",
+        "route": "cuda",
+        "source": "tds_tpu_torch/csrc/pgs.cu",
+        "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)",
+        "launches": None,
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "ms": ms,
+        "kernel_ms": ms,
+        "wall_ms": kernel_wall,
+        "plain_ms": plain_ms,
+        "plain_wall_ms": plain_wall,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
+        "cases": results,
+    }
+
+
+# -- phase 4 ---------------------------------------------------------------
+def phase_device_vs_cpu():
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    batch, steps, tol = 8, 50, 1e-9
+    # started 3 cm lower than the env's default, so that the toes touch the
+    # ground from the first step and every step runs a contact solve
+    start = (0.0, 0.0, 0.45)
+    cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu", start_base_position=start)
+    gpu_env = LaikagoEnv(dtype=torch.float64, start_base_position=start)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    noise = (torch.rand(batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.1
+    actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qc, qdc = cpu_env.initial_state(noise=noise)
+    qg, qdg = gpu_env.initial_state(noise=noise)
+    before = pgs.launches
+    worst = 0.0
+    active = []
+    for t in range(steps):
+        qc, qdc = cpu_env.sim_step(qc, qdc, actions[t])
+        with recorded_pgs_calls() as calls:
+            qg, qdg = gpu_env.sim_step(qg, qdg, actions[t].cuda())
+        active.append(int((calls[0][1] != 0).sum()))
+        for got, expected in ((qg.cpu(), qc), (qdg.cpu(), qdc)):
+            excess = ((got - expected).abs() - tol * (1 + expected.abs())).max().item()
+            worst = max(worst, (got - expected).abs().max().item())
+            if excess > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"device and CPU sim_step differ beyond {tol} at step {t + 1}")
+    if pgs.launches - before != steps:
+        raise AssertionError(f"{steps} steps on the card launched the PGS kernel {pgs.launches - before} times")
+    if min(active) == 0:
+        raise AssertionError("a step of the device-against-CPU run had no active contact row")
+    log(f"device vs CPU: {steps} float64 sim_steps at batch {batch}: max |cuda - cpu| = {worst:.3e} "
+        f"(tolerance {tol} abs + rel), {steps} kernel launches, {min(active)} to {max(active)} "
+        f"of {calls[0][1].numel()} contact rows active per step")
+
+
+# -- phase 5 ---------------------------------------------------------------
+# the functions a laikago step calls, by the module whose namespace it
+# calls them through; stage_breakdown wraps each to time it
+STAGES = (
+    ("tds_tpu_torch.envs.locomotion", "pd_tau"),
+    ("tds_tpu_torch.envs.locomotion", "fk_links"),
+    ("tds_tpu_torch.envs.locomotion", "aba_factor"),
+    ("tds_tpu_torch.envs.locomotion", "forward_dynamics_from_kin"),
+    ("tds_tpu_torch.envs.locomotion", "integrate_euler_qdd"),
+    ("tds_tpu_torch.envs.locomotion", "resolve_contacts"),
+    ("tds_tpu_torch.world", "gather_pair_contacts"),
+    ("tds_tpu_torch.world", "resolve_collision"),
+    ("tds_tpu_torch.contact.mlcp", "point_jacobian_kin"),
+    ("tds_tpu_torch.contact.mlcp", "minv_mul"),
+    ("tds_tpu_torch.contact.pgs", "solve_pgs"),
+    ("tds_tpu_torch.envs.locomotion", "integrate_q"),
+)
+
+
+@contextlib.contextmanager
+def timed_stages():
+    """Wraps every function of STAGES so that each call adds its host time
+    to ``host_s[name]`` and runs inside a profiler range ``stage:name``."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    host_s = dict.fromkeys((name for _, name in STAGES), 0.0)
+    saved = []
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            with record_function(f"stage:{name}"):
+                out = fn(*args, **kwargs)
+            host_s[name] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    try:
+        for module_name, name in STAGES:
+            module = importlib.import_module(module_name)
+            saved.append((module, name, getattr(module, name)))
+            setattr(module, name, wrap(name, getattr(module, name)))
+        yield host_s
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+def stage_breakdown(env, policy, state, obs, steps):
+    """Per step: device operations and device-busy ms in all, and host ms,
+    device operations and device ms of each stage of STAGES, over ``steps``
+    rollout steps. Host times come from a run without the profiler; device
+    numbers from torch.profiler (None when it saw no device activity). The
+    profiler ties a kernel to a stage through the PyTorch operation that
+    launched it, so the PGS kernel, launched through ctypes, is counted in
+    the totals and in ``pgs_kernel_ms`` but in no stage."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tds_tpu_torch.rollout import rollout
+
+    rollout(env, policy, None, state, obs, 1)
+    torch.cuda.synchronize()
+    with timed_stages() as host_s:
+        t0 = time.perf_counter()
+        rollout(env, policy, None, state, obs, steps)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        host_s = dict(host_s)  # before the profiled run adds to it
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rollout(env, policy, None, state, obs, steps)
+            torch.cuda.synchronize()
+    events = prof.events()
+    # the stage ranges also appear on the device's timeline: leave them out
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:")]
+    if not device_events:
+        return None
+    stages = {name: {"host_ms": host_s[name] * 1e3 / steps, "device_ops": 0, "device_ms": 0.0} for name in host_s}
+
+    def kernels_under(event):
+        return list(event.kernels) + [k for child in event.cpu_children for k in kernels_under(child)]
+
+    for e in events:
+        if e.name.startswith("stage:"):
+            kernels = kernels_under(e)
+            row = stages[e.name[len("stage:"):]]
+            row["device_ops"] += len(kernels) / steps
+            row["device_ms"] += sum(k.duration for k in kernels) / 1e3 / steps
+    return {
+        "step_ms_with_stage_timers": step_s * 1e3 / steps,
+        "device_ops": len(device_events) / steps,
+        "device_ms": sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / steps,
+        "pgs_kernel_ms": sum(e.time_range.elapsed_us() for e in device_events if "pgs_kernel" in e.name) / 1e3 / steps,
+        "stages": stages,
+    }
+
+
+def phase_main_path(env):
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    torch.cuda.synchronize()
+    pgs.launches = 0
+    t0 = time.perf_counter()
+    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, obs, total, alive = rollout(env, policy, None, state, obs, ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = pgs.launches
+    expected = ROLLOUT_STEPS + env.settle_steps
+    if launches != expected:
+        raise AssertionError(f"the main path launched the PGS kernel {launches} times, expected {expected}")
+    for name, t in (("q", state.q), ("qd", state.qd), ("obs", obs), ("total reward", total)):
+        if t.shape[0] != MAIN_BATCH or not torch.isfinite(t).all():
+            raise AssertionError(f"{name} is not finite or has shape {tuple(t.shape)}")
+    z = state.q[:, 2]
+    if not bool(alive.all()) or not bool(((z > 0.3) & (z < 0.6)).all()):
+        raise AssertionError(f"the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, z in [{z.min():.3f}, {z.max():.3f}]")
+    step_ms = (t2 - t1) * 1e3 / ROLLOUT_STEPS
+    log(f"main path: reset (10 settle steps) at batch {MAIN_BATCH} in {(t1 - t0) * 1e3:.1f} ms; "
+        f"{ROLLOUT_STEPS}-step rollout {step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; "
+        f"PGS kernel launches {launches}; z in [{z.min():.3f}, {z.max():.3f}]")
+    breakdown = stage_breakdown(env, policy, state, obs, steps=5)
+    if breakdown is None:
+        log("main path: device operations per step not measured (the profiler saw no device activity)")
+    else:
+        log(f"main path: {breakdown['device_ops']:.0f} device operations per step (torch.profiler), device busy "
+            f"{breakdown['device_ms']:.3f} ms/step of {step_ms:.3f} ms ({100 * (1 - breakdown['device_ms'] / step_ms):.1f}% idle), "
+            f"PGS kernel {breakdown['pgs_kernel_ms'] * 1e3:.2f} us/step")
+        log(f"main path: stages per step (host ms timed without the profiler, {breakdown['step_ms_with_stage_timers']:.3f} ms/step "
+            "with the stage timers; device operations and ms from the profiler; gather_pair_contacts to "
+            "solve_pgs are parts of resolve_contacts):")
+        for name, row in breakdown["stages"].items():
+            log(f"  {name:26s} host {row['host_ms']:8.3f} ms  device ops {row['device_ops']:6.0f}  device {row['device_ms']:7.3f} ms")
+    return launches
+
+
+# -- phase 6 ---------------------------------------------------------------
+def phase_trained_policy(env):
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
+    from tds_tpu_torch.rollout import rollout
+
+    saved, _ = load_checkpoint(str(CHECKPOINT))
+    policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype)
+    gen = torch.Generator(device="cpu").manual_seed(REPLAY_SEED)
+    u = torch.rand((REPLAY_BATCH, env.action_dim), generator=gen, dtype=env.dtype)
+    torch.cuda.synchronize()
+    pgs.launches = 0
+    state, obs = env.reset(noise=-env.reset_noise + 2.0 * env.reset_noise * u)
+    t0 = time.perf_counter()
+    state, obs, total, alive = rollout(env, policy, stat, state, obs, REPLAY_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = pgs.launches
+    expected = REPLAY_STEPS + env.settle_steps
+    if launches != expected:
+        raise AssertionError(f"the trained-policy replay launched the PGS kernel {launches} times, expected {expected}")
+    x, z = state.q[:, 0].cpu(), state.q[:, 2].cpu()
+    total, alive = total.cpu(), alive.cpu()
+    failed = []
+    for i in range(REPLAY_BATCH):
+        ok = alive[i] == 1.0 and x[i] > 1.6 and 0.3 < z[i] < 0.6 and total[i] > 1100.0
+        log(f"trained policy: env {i}: alive {alive[i]:.0f} x {x[i]:.3f} z {z[i]:.3f} total {total[i]:.1f} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(i)
+    if failed:
+        raise AssertionError(f"the trained policy failed the thresholds in envs {failed}")
+    log(f"trained policy: {REPLAY_STEPS} steps at batch {REPLAY_BATCH} in {seconds:.1f} s; all envs walk; "
+        f"PGS kernel launches {launches}")
+
+
+def main():
+    name = phase_device()
+    card = card_peaks(name)
+    phase_build()
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    env = LaikagoEnv(dtype=torch.float32)
+    kernel = phase_kernel(env, card)
+    phase_device_vs_cpu()
+    kernel["launches"] = phase_main_path(env)
+    phase_trained_policy(env)
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

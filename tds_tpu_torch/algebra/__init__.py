@@ -1,0 +1,6 @@
+"""Spatial algebra on batched torch tensors (counterpart of tds_tpu.algebra).
+
+``smallmat`` and ``update`` of the JAX package work around TPU limits and
+have no counterpart: their call sites are ``@``/``torch.einsum`` and
+out-of-place writes here.
+"""

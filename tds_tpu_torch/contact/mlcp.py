@@ -1,0 +1,172 @@
+"""Impulse-level contact resolution: MLCP assembly and projected
+Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
+
+- rows [normals(k) | friction1(k) | friction2(k)] over the k candidates;
+- b_i = -(1+restitution)*vn - erp*d/dt, rows masked by collision = (d < 0);
+- A = J M^-1 J^T + cfm*I, with M^-1 J^T from the O(n) ABA factor
+  (``minv_method="aba"``);
+- PGS with friction bounds scaled by the current normal impulse, through
+  :func:`tds_tpu_torch.contact.pgs.solve_pgs` (the CUDA kernel on the card,
+  the plain version on the CPU);
+- impulse qd_a += M_a^-1 J_a^T p, qd_b -= M_b^-1 J_b^T p.
+
+The friction plane-space vectors are normalized, as in the JAX package.
+The JAX package's ``pgs_impl`` switch is dropped: the device of the
+operands picks the PGS path. ``minv_method="crba"``, ``top_k`` compaction
+and ``delassus_dtype="bf16"`` are not ported yet and raise.
+"""
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from tds_tpu_torch.collision.narrowphase import Contact
+from tds_tpu_torch.contact import pgs
+from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, minv_mul
+from tds_tpu_torch.dynamics.jacobian import point_jacobian_kin
+from tds_tpu_torch.dynamics.kinematics import fk_links
+from tds_tpu_torch.model.multibody import MultiBodyModel
+
+
+class ContactSolverParams(NamedTuple):
+    """Solver knobs, with the JAX package's defaults."""
+
+    pgs_iterations: int = 1
+    erp: float = 0.2
+    cfm: float = 1e-5
+    num_friction_dir: int = 2
+    friction: float = 0.5  # world default
+    restitution: float = 0.0
+    minv_method: str = "aba"
+    top_k: int = 0
+    delassus_dtype: str = "f32"
+
+
+def plane_space(n):
+    """Two unit tangent vectors orthogonal to n (the normalized variant),
+    branchless."""
+    n_sqr = n[..., 2] * n[..., 2]
+    mostly_z = n_sqr > 0.5
+    a = n[..., 1] * n[..., 1] + torch.where(mostly_z, n_sqr, n[..., 0] * n[..., 0])
+    k = 1.0 / a.clamp_min(1e-30).sqrt()
+    zero = torch.zeros_like(k)
+    p = torch.stack(
+        [
+            torch.where(mostly_z, zero, -n[..., 1] * k),
+            torch.where(mostly_z, -n[..., 2] * k, n[..., 0] * k),
+            torch.where(mostly_z, n[..., 1] * k, zero),
+        ],
+        dim=-1,
+    )
+    return p, torch.linalg.cross(n, p, dim=-1)
+
+
+class ContactBatch(NamedTuple):
+    """Candidate contacts between one pair of bodies, with static link ids."""
+
+    contact: Contact  # fields (B, k, 3) / (B, k)
+    link_a: Tuple[int, ...]  # static, len k
+    link_b: Tuple[int, ...]
+    friction: torch.Tensor  # (k,) or (B, k)
+    restitution: torch.Tensor
+
+
+def _check_params(params: ContactSolverParams, n_c: int):
+    if params.minv_method != "aba":
+        raise NotImplementedError("minv_method='crba' is not ported to tds_tpu_torch yet")
+    if 0 < params.top_k < n_c:
+        raise NotImplementedError("top_k candidate compaction is not ported to tds_tpu_torch yet")
+    if params.delassus_dtype != "f32":
+        raise NotImplementedError("delassus_dtype='bf16' is not ported to tds_tpu_torch yet")
+
+
+def resolve_collision(
+    model_a: MultiBodyModel,
+    q_a,
+    qd_a,
+    model_b: MultiBodyModel,
+    q_b,
+    qd_b,
+    batch: ContactBatch,
+    dt,
+    params: ContactSolverParams = ContactSolverParams(),
+    kin_a=None,
+    kin_b=None,
+    factor_a=None,
+    factor_b=None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (qd_a', qd_b', impulses) after resolving the contact batch.
+    Either body may have zero DoF (a static ground plane). ``kin_*`` and
+    ``factor_*`` share the step's FK pass and ABA factor."""
+    n_a, n_b = model_a.dof_qd, model_b.dof_qd
+    cp = batch.contact
+    n_c = cp.count
+    if n_c == 0 or (n_a == 0 and n_b == 0):
+        return qd_a, qd_b, None
+    _check_params(params, n_c)
+    dtype = cp.distance.dtype
+    collision = (cp.distance < 0.0).to(dtype)  # (B, k)
+    col3 = collision[..., None]
+
+    def body(model, q, qd, kin, factor, links, points):
+        """Per-candidate Jacobians (B, k, 3, n) and the M^-1 row solver."""
+        if kin is None:
+            kin = fk_links(model, q, torch.zeros_like(qd))
+        if factor is None:
+            factor = aba_factor(model, kin)
+        jac = torch.stack(
+            [
+                point_jacobian_kin(model, kin.base_x_world, kin.x_world, None, links[i], points[..., i, :])
+                for i in range(n_c)
+            ],
+            dim=-3,
+        )
+
+        def minv_rows(rows):  # (B, R, n) -> (B, R, n) = rows M^-1
+            return minv_mul(model, kin, factor, rows.movedim(-2, 0)).movedim(0, -2)
+
+        return jac, minv_rows
+
+    rel_vel = 0.0
+    if n_a:
+        jac_a, solve_a = body(model_a, q_a, qd_a, kin_a, factor_a, batch.link_a, cp.point_a)
+        rel_vel = rel_vel + (jac_a @ qd_a[..., None, :, None]).squeeze(-1)
+    if n_b:
+        jac_b, solve_b = body(model_b, q_b, qd_b, kin_b, factor_b, batch.link_b, cp.point_b)
+        rel_vel = rel_vel - (jac_b @ qd_b[..., None, :, None]).squeeze(-1)
+
+    vn = (cp.normal_on_b * rel_vel).sum(-1)
+    baumgarte = params.erp * cp.distance / dt
+    b_n = (-(1.0 + batch.restitution) * vn - baumgarte) * collision
+    fr1, fr2 = plane_space(cp.normal_on_b)
+    dirs = [cp.normal_on_b * col3, fr1 * col3, fr2 * col3][: 1 + params.num_friction_dir]
+    rhs = torch.cat([b_n] + [-(d * rel_vel).sum(-1) for d in dirs[1:]], dim=-1)  # (B, R)
+    n_rows = rhs.shape[-1]
+
+    def rows(jac):  # J^T d per candidate and direction -> (B, R, n)
+        return torch.cat([torch.einsum("...kdn,...kd->...kn", jac, d) for d in dirs], dim=-2)
+
+    delassus = []  # J (M^-1 J^T) of each dynamic body
+    if n_a:
+        j_a = rows(jac_a)
+        jminv_a = solve_a(j_a)
+        delassus.append(j_a @ jminv_a.transpose(-1, -2))
+    if n_b:
+        j_b = rows(jac_b)
+        jminv_b = solve_b(j_b)
+        delassus.append(j_b @ jminv_b.transpose(-1, -2))
+    a_mat = sum(delassus[1:], delassus[0]) + params.cfm * torch.eye(n_rows, dtype=dtype, device=rhs.device)
+
+    bshape = rhs.shape[:-1]
+    fric = batch.friction.expand(bshape + (n_c,))
+    nfd = params.num_friction_dir
+    lo = torch.cat([torch.zeros_like(fric)] + [-fric] * nfd, dim=-1)
+    hi = torch.cat([torch.full_like(fric, 1e5)] + [fric] * nfd, dim=-1)
+    limit_dependency = [-1] * n_c + list(range(n_c)) * nfd
+
+    p = pgs.solve_pgs(a_mat.contiguous(), rhs, lo, hi, limit_dependency, params.pgs_iterations)
+    if n_a:
+        qd_a = qd_a + (p[..., None, :] @ jminv_a).squeeze(-2)
+    if n_b:
+        qd_b = qd_b - (p[..., None, :] @ jminv_b).squeeze(-2)
+    return qd_a, qd_b, p

@@ -1,0 +1,24 @@
+"""Memoizing URDF loader (counterpart of tds_tpu/urdf/cache.py)."""
+
+from typing import Dict, Tuple
+
+import torch
+
+from tds_tpu_torch.urdf.converter import convert_to_multibody
+from tds_tpu_torch.urdf.parser import parse_urdf_file
+from tds_tpu_torch.utils.file_utils import find_file
+
+_MODEL_CACHE: Dict[Tuple, object] = {}
+
+
+def construct(name: str, is_floating: bool = False, dtype=torch.float64, mesh_contacts: int = 0):
+    """Returns (MultiBodyModel on the CPU, collision attachments), cached by
+    (resolved path, floating flag, dtype, mesh_contacts). Move the model to
+    the card with ``model.to(device, dtype)``."""
+    path = find_file(name)
+    key = (path, is_floating, dtype, mesh_contacts)
+    if key not in _MODEL_CACHE:
+        _MODEL_CACHE[key] = convert_to_multibody(
+            parse_urdf_file(path), is_floating, dtype, mesh_contacts=mesh_contacts
+        )
+    return _MODEL_CACHE[key]

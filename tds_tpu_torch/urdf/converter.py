@@ -1,0 +1,118 @@
+"""UrdfStructures -> MultiBodyModel + collision attachments (counterpart of
+tds_tpu/urdf/converter.py), keeping the JAX package's deliberate reference
+quirks:
+
+- only the DIAGONAL inertia entries are read, and the inertial frame's
+  rotation maps I -> R^T I R and com -> R^T com (note the transpose);
+- revolute/prismatic axes snap to X/Y/Z only when they are exact unit
+  vectors, and other axes are used verbatim (not normalized);
+- URDF joint damping is dropped unless ``use_joint_damping``;
+- collision meshes are visual-only (skipped);
+- each geom carries its link's ``<contact>`` lateral friction and
+  restitution, which ``world.gather_pair_contacts`` reads.
+
+Only plane and sphere collision shapes are ported; boxes, capsules,
+cylinders and opted-in meshes raise NotImplementedError.
+"""
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from tds_tpu_torch.model.geometry import GeomAttachment, Plane, Sphere
+from tds_tpu_torch.model.joints import JointType
+from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_rpy
+from tds_tpu_torch.urdf.structures import UrdfStructures
+
+_UNIT_AXES = {(1.0, 0.0, 0.0): 0, (0.0, 1.0, 0.0): 1, (0.0, 0.0, 1.0): 2}
+
+
+def _inertia_com_and_matrix(inertial):
+    """(com, inertia about the com) in the link frame, reference convention."""
+    rot = np_rpy(*inertial.origin_rpy)
+    com = np.asarray(inertial.origin_xyz, dtype=float)
+    return rot.T @ com, rot.T @ np.diag(inertial.inertia_xxyyzz) @ rot
+
+
+def _joint_type(urdf_type: str, axis) -> Tuple[JointType, Tuple[float, float, float]]:
+    axis = tuple(float(a) for a in axis)
+    if urdf_type == "fixed":
+        return JointType.FIXED, (1.0, 0.0, 0.0)
+    if urdf_type == "spherical":
+        return JointType.SPHERICAL, (1.0, 0.0, 0.0)
+    if urdf_type in ("revolute", "continuous"):
+        first, general = JointType.REVOLUTE_X, JointType.REVOLUTE_AXIS
+    elif urdf_type == "prismatic":
+        first, general = JointType.PRISMATIC_X, JointType.PRISMATIC_AXIS
+    else:
+        raise ValueError(f"cannot convert joint type {urdf_type!r}")
+    if axis in _UNIT_AXES:
+        return JointType(int(first) + _UNIT_AXES[axis]), axis
+    return general, axis
+
+
+def _shape(geom):
+    if geom.geom_type == "sphere":
+        return Sphere(geom.radius)
+    if geom.geom_type == "plane":
+        return Plane(tuple(geom.normal), geom.constant)
+    raise NotImplementedError(
+        f"{geom.geom_type!r} collision shapes are not ported to tds_tpu_torch yet"
+    )
+
+
+def _attachments(link_index, link, mesh_contacts) -> List[GeomAttachment]:
+    out = []
+    for col in link.collisions:
+        if col.geometry.geom_type == "mesh":
+            if mesh_contacts > 0:
+                raise NotImplementedError("the mesh narrowphase is not ported to tds_tpu_torch yet")
+            continue  # visual-only, as in the reference
+        out.append(
+            GeomAttachment(
+                link_index=link_index,
+                shape=_shape(col.geometry),
+                pos=tuple(col.origin_xyz),
+                rpy=tuple(col.origin_rpy),
+                friction=link.contact.lateral_friction,
+                restitution=link.contact.restitution,
+            )
+        )
+    return out
+
+
+def convert_to_multibody(
+    urdf: UrdfStructures,
+    is_floating: bool = False,
+    dtype=torch.float64,
+    use_joint_damping: bool = False,
+    mesh_contacts: int = 0,
+) -> Tuple[MultiBodyModel, Tuple[GeomAttachment, ...]]:
+    """Returns (model on the CPU, collision attachments); base shapes use
+    link_index=-1."""
+    if is_floating:
+        raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
+    b = MultiBodyBuilder(is_floating=is_floating, name=urdf.robot_name)
+    base = urdf.base_links[0]
+    b.set_base_inertia(base.inertial.mass, *_inertia_com_and_matrix(base.inertial))
+    geoms = _attachments(-1, base, mesh_contacts)
+    for i, joint in enumerate(urdf.joints):
+        link = urdf.links[i]
+        jt, axis = _joint_type(joint.joint_type, joint.axis_xyz)
+        com, inertia = _inertia_com_and_matrix(link.inertial)
+        b.add_link(
+            jt,
+            parent=link.parent_index,
+            x_t_pos=joint.origin_xyz,
+            x_t_rpy=joint.origin_rpy,
+            axis=axis,
+            mass=link.inertial.mass,
+            com=com,
+            inertia_about_com=inertia,
+            damping=joint.damping if use_joint_damping else 0.0,
+            link_name=link.link_name,
+            joint_name=joint.joint_name,
+        )
+        geoms += _attachments(i, link, mesh_contacts)
+    return b.finalize(dtype=dtype), tuple(geoms)

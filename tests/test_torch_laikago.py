@@ -1,0 +1,169 @@
+"""The port's laikago env against the JAX package's and against the C++
+golden trajectory, float64 on the CPU.
+
+- sim_step step by step for 200 steps at batch 4 with seeded random
+  actions in +-0.4: 1e-8 up to step 100, 1e-6 after;
+- tests/golden/laikago_pd_contact_trajectory.json for 500 steps at the
+  tolerances of tests/test_golden_reference.py;
+- reset from the same noise (10 settle steps), then observation, step and
+  reward_done on the same states, at 1e-10.
+"""
+
+import json
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from tds_tpu.envs.laikago import LaikagoEnv as JaxLaikago  # noqa: E402
+from tds_tpu_torch.contact.mlcp import ContactSolverParams  # noqa: E402
+from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
+from tds_tpu_torch.model.geometry import Sphere  # noqa: E402
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "laikago_pd_contact_trajectory.json")
+TOL = 1e-10
+
+
+@pytest.fixture(scope="module")
+def envs():
+    return JaxLaikago(dtype=jnp.float64), LaikagoEnv(dtype=torch.float64, device="cpu")
+
+
+def _step_tol(t):
+    return 1e-8 if t <= 100 else 1e-6
+
+
+def test_sim_step_matches_jax_for_200_steps(envs):
+    j_env, t_env = envs
+    batch, rng = 4, np.random.default_rng(2024)
+    q, qd = jax.vmap(j_env.initial_state)(jax.random.split(jax.random.PRNGKey(0), batch))
+    j_step = jax.jit(jax.vmap(j_env.sim_step))
+    tq, tqd = torch.from_numpy(np.array(q)), torch.from_numpy(np.array(qd))
+    for t in range(1, 201):
+        action = rng.uniform(-0.4, 0.4, size=(batch, j_env.action_dim))
+        q, qd = j_step(q, qd, jnp.asarray(action))
+        tq, tqd = t_env.sim_step(tq, tqd, torch.from_numpy(action))
+        tol = _step_tol(t)
+        np.testing.assert_allclose(tq.numpy(), np.asarray(q), rtol=tol, atol=tol, err_msg=f"q at step {t}")
+        np.testing.assert_allclose(tqd.numpy(), np.asarray(qd), rtol=tol, atol=tol, err_msg=f"qd at step {t}")
+
+
+def test_golden_pd_contact_trajectory(envs):
+    """The C++ reference's 500-step PD contact trajectory (zero action)."""
+    _, t_env = envs
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    snaps = golden["snapshots"]
+    assert abs(golden["dt"] - t_env.dt) < 1e-15
+    q = torch.tensor([snaps["0"]["q"]], dtype=torch.float64)
+    qd = torch.tensor([snaps["0"]["qd"]], dtype=torch.float64)
+    zero = torch.zeros(1, t_env.action_dim, dtype=torch.float64)
+    checked = 0
+    for t in range(1, 501):
+        q, qd = t_env.sim_step(q, qd, zero)
+        if str(t) in snaps:
+            tol = _step_tol(t)
+            np.testing.assert_allclose(q[0].numpy(), snaps[str(t)]["q"], rtol=tol, atol=tol, err_msg=f"q at step {t}")
+            np.testing.assert_allclose(qd[0].numpy(), snaps[str(t)]["qd"], rtol=tol, atol=tol, err_msg=f"qd at step {t}")
+            checked += 1
+    assert checked >= 5
+
+
+@pytest.fixture(scope="module")
+def reset_pair(envs):
+    """JAX reset(key) per env and the port's reset from the same draws."""
+    j_env, t_env = envs
+    keys = jax.random.split(jax.random.PRNGKey(11), 3)
+
+    def noise(key):  # the draw LocomotionEnv.reset makes inside initial_state
+        _, sub = jax.random.split(key)
+        return jax.random.uniform(sub, (j_env.action_dim,), minval=-j_env.reset_noise, maxval=j_env.reset_noise, dtype=jnp.float64)
+
+    j_state, j_obs = jax.jit(jax.vmap(j_env.reset))(keys)
+    t_state, t_obs = t_env.reset(noise=torch.from_numpy(np.array(jax.vmap(noise)(keys))))
+    return j_state, j_obs, t_state, t_obs
+
+
+def test_reset_from_the_same_noise(reset_pair):
+    j_state, j_obs, t_state, t_obs = reset_pair
+    for got, expected in ((t_state.q, j_state.q), (t_state.qd, j_state.qd), (t_obs, j_obs)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(t_state.t.numpy(), np.asarray(j_state.t))
+
+
+def test_step_observation_reward_done(envs, reset_pair):
+    j_env, t_env = envs
+    j_state, _, t_state, _ = reset_pair
+    action = np.random.default_rng(3).uniform(-0.3, 0.3, size=(3, j_env.action_dim))
+    j_out = jax.jit(jax.vmap(j_env.step))(j_state, jnp.asarray(action))
+    t_out = t_env.step(t_state, torch.from_numpy(action))
+    for got, expected in zip((t_out[0].q, t_out[0].qd, t_out[1], t_out[2]), (j_out[0].q, j_out[0].qd, j_out[1], j_out[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(t_out[3].numpy(), np.asarray(j_out[3]))
+    np.testing.assert_array_equal(t_out[0].t.numpy(), np.asarray(j_out[0].t))
+
+
+def test_reward_done_on_fallen_and_tilted_states(envs, reset_pair):
+    j_env, t_env = envs
+    q = np.asarray(reset_pair[0].q).copy()
+    q[1, 2] = 0.1  # base too low
+    q[2, 3] = 1.2  # rolled over: up.z < 0.6
+    qd = np.asarray(reset_pair[0].qd)
+    j_reward, j_done = jax.vmap(j_env.reward_done)(*(jnp.asarray(x) for x in (q, qd, q, qd)))
+    t_reward, t_done = t_env.reward_done(*(torch.from_numpy(x) for x in (q, qd, q, qd)))
+    np.testing.assert_array_equal(t_done.numpy(), np.asarray(j_done))
+    assert t_done.tolist() == [False, True, True]
+    np.testing.assert_allclose(t_reward.numpy(), np.asarray(j_reward), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(t_env.observation(*(torch.from_numpy(x) for x in (q, qd))).numpy(), np.asarray(j_env.observation(jnp.asarray(q), jnp.asarray(qd))))
+
+
+def test_initial_state_from_a_generator(envs):
+    _, t_env = envs
+    q1, _ = t_env.initial_state(torch.Generator().manual_seed(5), batch_size=6)
+    q2, qd2 = t_env.initial_state(torch.Generator().manual_seed(5), batch_size=6)
+    torch.testing.assert_close(q1, q2, rtol=0, atol=0)
+    assert q1.shape == (6, 18) and qd2.abs().max() == 0
+    offsets = q1[:, 6:] - torch.tensor((0.2, 0.0, -0.7) * 4, dtype=torch.float64)
+    assert offsets.abs().max() <= t_env.reset_noise and offsets.std() > 0
+    torch.testing.assert_close(q1[:, :3], torch.tensor([[0.0, 0.0, 0.48]] * 6, dtype=torch.float64))
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert LaikagoEnv().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LaikagoEnv()
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(is_floating=True),
+        dict(terrain=Sphere(1.0)),
+        dict(height_scan=((0.0, 0.0),)),
+        dict(reset_pool=(np.zeros((1, 18)), np.zeros((1, 18)))),
+        dict(contact_model="spring"),
+    ],
+    ids=["floating", "terrain", "height_scan", "reset_pool", "spring"],
+)
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        LaikagoEnv(dtype=torch.float64, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize(
+    "solver",
+    [ContactSolverParams(minv_method="crba"), ContactSolverParams(top_k=2), ContactSolverParams(delassus_dtype="bf16")],
+    ids=["crba", "top_k", "bf16"],
+)
+def test_unported_solver_options_raise(solver):
+    env = LaikagoEnv(dtype=torch.float64, device="cpu", solver=solver)
+    q, qd = env.initial_state(noise=torch.zeros(1, env.action_dim, dtype=torch.float64))
+    with pytest.raises(NotImplementedError):
+        env.sim_step(q, qd, torch.zeros(1, env.action_dim, dtype=torch.float64))
