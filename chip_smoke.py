@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 It builds the port's kernels from the sources in this checkout and drives
-the laikago contact rollout through them. Phases, each of which raises on
-failure, so that the run exits non-zero and prints no final line:
+the laikago contact rollout, the fused step and the probes through them.
+Phases, each of which raises on failure, so that the run exits non-zero and
+prints no final line:
 
 1. device: a CUDA device, its name and power limit, TF32 off;
-2. build: the PGS kernel ``tds_tpu_torch/csrc/pgs.cu`` with nvcc for sm_90a;
+2. build: the kernels of ``tds_tpu_torch/csrc/`` with nvcc for sm_90a, one
+   nvcc per source, all started together: K1 ``pgs.cu``, K2
+   ``megastep.cu``, K3 and K4 ``probes.cu``;
 3. kernel: the PGS kernel against its plain PyTorch version on the card, on
    random problems and on the operands of one laikago step at batch 4096,
    and both versions' times at the main path's shape;
@@ -19,17 +22,32 @@ failure, so that the run exits non-zero and prints no final line:
    ``bench.py`` times), with the kernel's launches counted;
 6. trained policy: ``logs/laikago_ars/policy_r2b.pkl`` replayed in float32
    for 2000 steps at batch 8, held to the thresholds of
-   ``tests/test_trained_policy.py``, with the kernel's launches counted.
+   ``tests/test_trained_policy.py``, with the kernel's launches counted;
+7. mega step: the fused step kernel K2 (``tds_tpu_torch/envs/fused_step.py``)
+   against its plain version, 50 float64 steps at batch 8 on the card
+   against the CPU and one float32 step at batch 16384 against the plain
+   version and the eager ``sim_step`` on the card, all from states with
+   active contact rows, with the margin left under each tolerance and both
+   float32 steps' distance from the float64 plain step; then the loop of
+   ``python -m tds_tpu_torch.tools.megastep`` at batch 16384 for 100
+   float32 steps, with K2's launches counted, and K2's device time, wall
+   time and bound beside the eager step's;
+8. probes: the probe kernels K3 and K4 (``tds_tpu_torch/tools/kernel_probe.py``)
+   through the probe command's path, with their launches counted, then
+   timed against their plain versions and the one PyTorch call each
+   replaces.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -39,6 +57,7 @@ CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy_r2b.pkl"
 MAIN_BATCH = 4096
 ROLLOUT_STEPS = 100
 REPLAY_BATCH, REPLAY_STEPS, REPLAY_SEED = 8, 2000, 0
+MEGA_BATCH, MEGA_STEPS = 16384, 100  # the experiment's defaults
 # (memory bytes/s, float32 FLOP/s, float64 FLOP/s outside the tensor cores),
 # NVIDIA's data sheets; the first key found in the device name applies
 PEAKS = {
@@ -49,6 +68,12 @@ PEAKS = {
 # |kernel - plain| <= atol + rtol * |plain|, as tests/test_pallas_pgs.py
 # holds its kernel in float32; float64 differs only by summation order
 PGS_TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (0.0, 1e-12)}
+# |K2 - plain| <= tol * (1 + |plain|) in float32 after one contact step:
+# the size of float32 rounding there (tests/test_torch_megastep.py holds
+# the float32 plain step to the float64 one at this tolerance, and phase 7
+# prints both float32 steps' distance from the float64 one); q moves by
+# qd dt
+MEGA_TOL = {"q": 1e-6, "qd": 1e-4}
 
 
 def log(msg):
@@ -120,13 +145,20 @@ def phase_device():
 # -- phase 2 ---------------------------------------------------------------
 def phase_build():
     from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.tools import kernel_probe
 
+    kernels = {"K1 pgs.cu": pgs.build, "K2 megastep.cu": fused_step.build, "K3/K4 probes.cu": kernel_probe.build}
     t0 = time.perf_counter()
-    lib = pgs.build()
-    log(f"build: K1 pgs.cu -> {lib.relative_to(REPO) if lib.is_relative_to(REPO) else lib} in {time.perf_counter() - t0:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        futures = {label: pool.submit(build) for label, build in kernels.items()}
+        libs = {label: future.result() for label, future in futures.items()}
+    log(f"build: {len(libs)} nvcc builds in parallel in {time.perf_counter() - t0:.1f} s")
+    for label, lib in libs.items():
+        log(f"build: {label} -> {lib.relative_to(REPO) if lib.is_relative_to(REPO) else lib}")
+        for line in (lib.parent / "build.log").read_text().splitlines():
+            if "nvcc took" in line or "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -459,6 +491,222 @@ def phase_trained_policy(env):
         f"PGS kernel launches {launches}")
 
 
+# -- phase 7 ---------------------------------------------------------------
+def device_profile(fn, calls):
+    """(device operations, device-busy ms) per call of ``fn``, from
+    torch.profiler over ``calls`` calls; None when it saw no device
+    activity. Unlike device_ms, this allows ``fn`` to synchronise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device_events:
+        return None
+    return len(device_events) / calls, sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / calls
+
+
+def excess(got, expected, tol):
+    """max(|got - expected| - tol (1 + |expected|)): > 0 fails; below 0,
+    minus the margin left under the tolerance."""
+    return ((got - expected).abs() - tol * (1 + expected.abs())).max().item()
+
+
+def phase_mega_step(card):
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.tools import megastep
+    from tds_tpu_torch.utils import op_count
+
+    # float64, card against CPU, from phase 4's lowered start and actions
+    batch, steps, tol = 8, 50, 1e-9
+    start = (0.0, 0.0, 0.45)
+    cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu", start_base_position=start)
+    cpu_params = fused_step.pack_step_params(cpu_env)
+    gpu_params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, start_base_position=start))
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    noise = (torch.rand(batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.1
+    actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qc, qdc = cpu_env.initial_state(noise=noise)
+    qg, qdg = qc.cuda(), qdc.cuda()
+    before = fused_step.launches
+    worst, worst_excess = 0.0, -float("inf")
+    active = []
+    for t in range(steps):
+        active.append(int((fused_step.sphere_distances(cpu_params, qc) < 0).sum()))
+        qc, qdc = fused_step.mega_step(cpu_params, qc, qdc, actions[t])
+        qg, qdg = fused_step.mega_step(gpu_params, qg, qdg, actions[t].cuda())
+        for got, expected in ((qg.cpu(), qc), (qdg.cpu(), qdc)):
+            worst = max(worst, (got - expected).abs().max().item())
+            worst_excess = max(worst_excess, excess(got, expected, tol))
+            if worst_excess > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"K2 on the card and the plain step on the CPU differ beyond {tol} at step {t + 1}")
+    if fused_step.launches - before != steps:
+        raise AssertionError(f"{steps} float64 steps on the card launched K2 {fused_step.launches - before} times")
+    if min(active) == 0:
+        raise AssertionError("a step of the float64 run had no active contact row")
+    log(f"mega step: {steps} float64 steps at batch {batch}, K2 on the card against the plain step on the CPU: "
+        f"max |cuda - cpu| = {worst:.3e} (tolerance {tol} abs + rel, margin left {-worst_excess:.3e}); {min(active)} to {max(active)} of "
+        f"{batch * 4} contacts active per step")
+
+    # float32 at the experiment's batch, one step from a state where every
+    # env touches the ground: the toes land about 65 steps after the start
+    env = LaikagoEnv(dtype=torch.float32)
+    params = fused_step.pack_step_params(env)
+    fused = functools.partial(fused_step.mega_step, params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, qd = env.initial_state(gen, batch_size=MEGA_BATCH)
+    zero = torch.zeros(MEGA_BATCH, env.action_dim, device=env.device)
+    q, qd, _ = megastep.timed_steps(fused, q, qd, zero, 100)
+    contacts = (fused_step.sphere_distances(params, q) < 0).sum(-1)
+    if not bool((contacts > 0).all()) or not bool(torch.isfinite(qd).all()):
+        raise AssertionError(f"after 100 steps {int((contacts == 0).sum())} of {MEGA_BATCH} envs have no contact")
+    action = (torch.rand(MEGA_BATCH, env.action_dim, generator=gen, device=env.device) - 0.5) * 0.8
+    got = fused_step.mega_step(params, q, qd, action)
+    plain = fused_step.mega_step_reference(params, q, qd, action)
+    eager = env.sim_step(q, qd, action)
+    errors = {}
+    for other_name, other in (("plain", plain), ("eager sim_step", eager)):
+        for name, g, e in (("q", got[0], other[0]), ("qd", got[1], other[1])):
+            err = (g - e).abs().max().item()
+            errors[(other_name, name)] = err
+            over = excess(g, e, MEGA_TOL[name])
+            log(f"mega step: float32 B={MEGA_BATCH}: max |K2 - {other_name}| on {name} = {err:.3e} "
+                f"(|{name}| <= {e.abs().max().item():.3g}; tolerance {MEGA_TOL[name]} abs + rel, margin left {-over:.3e})")
+            if over > 0 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"K2 and the {other_name} step differ beyond {MEGA_TOL[name]} on {name}")
+    # a reading, not a check: how far each float32 step lies from the
+    # float64 plain step on the same states, against the same tolerance
+    params64 = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64))
+    exact = fused_step.mega_step_reference(params64, q.double(), qd.double(), action.double())
+    for label, step in (("K2", got), ("float32 plain", plain)):
+        for name, g, e in (("q", step[0], exact[0]), ("qd", step[1], exact[1])):
+            log(f"mega step: float32 B={MEGA_BATCH}: max |{label} - float64 plain| on {name} = "
+                f"{(g.double() - e).abs().max().item():.3e} (margin left under {MEGA_TOL[name]} abs + rel: "
+                f"{-excess(g.double(), e, MEGA_TOL[name]):.3e})")
+    log(f"mega step: {int(contacts.sum())} of {4 * MEGA_BATCH} contacts active, {int(contacts.min())} to "
+        f"{int(contacts.max())} per env")
+
+    # the experiment's loop: the tiled standing start, zero action
+    q0, qd0 = env.initial_state(torch.Generator(device=env.device).manual_seed(0))
+    qs, qds = q0.expand(MEGA_BATCH, -1).contiguous(), qd0.expand(MEGA_BATCH, -1).contiguous()
+    megastep.timed_steps(fused, qs, qds, zero, 1)
+    fused_step.launches = 0
+    _, _, mega_s = megastep.timed_steps(fused, qs, qds, zero, MEGA_STEPS)
+    launches = fused_step.launches
+    if launches != MEGA_STEPS:
+        raise AssertionError(f"{MEGA_STEPS} fused steps launched K2 {launches} times")
+    _, _, eager_s = megastep.timed_steps(env.sim_step, qs, qds, zero, MEGA_STEPS)
+    mega_rate, eager_rate = MEGA_BATCH * MEGA_STEPS / mega_s, MEGA_BATCH * MEGA_STEPS / eager_s
+    log(f"mega step: experiment loop, {MEGA_STEPS} float32 steps at batch {MEGA_BATCH}: K2 {mega_s * 1e3 / MEGA_STEPS:.3f} ms/step "
+        f"= {mega_rate:.1f} env-steps/s, eager sim_step {eager_s * 1e3 / MEGA_STEPS:.3f} ms/step = {eager_rate:.1f} env-steps/s, "
+        f"ratio {mega_rate / eager_rate:.2f}x; K2 launches {launches}")
+
+    ms = device_ms(lambda: fused(q, qd, action), rounds=5, per_round=20)
+    wall = wall_ms(lambda: fused(q, qd, action), reps=100)
+    eager_profile = device_profile(lambda: env.sim_step(q, qd, action), calls=2)
+    plain_profile = device_profile(lambda: fused_step.mega_step_reference(params, q, qd, action), calls=1)
+    elt = q.element_size()
+    n_pd = params.pd_q.numel()
+    n_bytes = MEGA_BATCH * elt * (4 * q.shape[1] + n_pd) + sum(
+        getattr(params, f).numel() * getattr(params, f).element_size() for f in fused_step.POINTER_FIELDS
+    )
+    # the operations the step needs on these states (utils/op_count.py)
+    n_ops = op_count.needed_flops(fused_step.mega_step_reference, params, q, qd, action)
+    bandwidth, f32_rate, _ = card
+    t_bytes, t_ops = n_bytes / bandwidth * 1e3, n_ops / f32_rate * 1e3
+    if eager_profile is None or plain_profile is None:
+        log("mega step: device operations of the eager and plain steps not measured (the profiler saw no device activity)")
+        eager_ops = eager_busy = plain_ms = None
+    else:
+        (eager_ops, eager_busy), (_, plain_ms) = eager_profile, plain_profile
+        log(f"mega step: eager sim_step at batch {MEGA_BATCH}: {eager_ops:.0f} device operations per step, device busy "
+            f"{eager_busy:.3f} ms/step (torch.profiler); plain fused step {plain_ms:.3f} ms of device time per call")
+    log(f"mega step: K2 at B={MEGA_BATCH} float32: {ms * 1e3:.2f} us on the device per launch ({wall * 1e3:.2f} us wall per call), "
+        f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_ops} flops needed = {n_ops / MEGA_BATCH:.1f} per env, {n_bytes} bytes)")
+    return {
+        "name": "megastep",
+        "route": "cuda",
+        "source": "tds_tpu_torch/csrc/megastep.cu",
+        "replaces": "tools/pallas_megastep_experiment.py:76 (main.<locals>.kernel)",
+        "launches": launches,
+        "max_abs_err": max(errors.values()),
+        "ms": ms,
+        "wall_ms": wall,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"B={MEGA_BATCH} links=22 dof=18 spheres=4 float32",
+        "flops_needed_per_env": n_ops / MEGA_BATCH,
+        "max_abs_err_float64_50_steps": worst,
+        "mega_env_steps_per_s": mega_rate,
+        "eager_env_steps_per_s": eager_rate,
+        "eager_device_ops_per_step": eager_ops,
+        "eager_device_busy_ms_per_step": eager_busy,
+    }
+
+
+# -- phase 8 ---------------------------------------------------------------
+def phase_probes(card):
+    from tds_tpu_torch.tools import kernel_probe
+
+    for name in kernel_probe.launches:
+        kernel_probe.launches[name] = 0
+    errors = kernel_probe.run_probes(seed=0)  # the path of ``python -m tds_tpu_torch.tools.kernel_probe``
+    launches = dict(kernel_probe.launches)
+    for name, err in errors.items():
+        if launches[name] < 1 or err != 0:
+            raise AssertionError(f"probe {name}: {launches[name]} launches, max |kernel - plain| = {err}")
+    library = {
+        "reshape_sum": lambda x: x.reshape(256, 4, 2).sum(-1),
+        "transpose_minor": lambda x: x.transpose(-1, -2).contiguous(),
+    }
+    replaces = {
+        "reshape_sum": "tools/mosaic_probe.py:26 (minor_dim_reshape)",
+        "transpose_minor": "tools/mosaic_probe.py:36 (minor_dim_transpose)",
+    }
+    bandwidth, f32_rate, _ = card
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    entries = []
+    for name, (fn, plain) in kernel_probe.PROBES.items():
+        x = torch.randn(kernel_probe.PROBE_SHAPES[name], generator=gen, device="cuda")
+        out = fn(x)
+        if not torch.equal(out, library[name](x)):
+            raise AssertionError(f"probe {name} differs from the PyTorch call it replaces")
+        ms = device_ms(lambda: fn(x), rounds=5, per_round=50)
+        plain_ms = device_ms(lambda: plain(x), rounds=5, per_round=50)
+        library_ms = device_ms(lambda: library[name](x), rounds=5, per_round=50)
+        wall = wall_ms(lambda: fn(x), reps=200)
+        n_bytes = 4 * (x.numel() + out.numel())
+        n_ops = out.numel() if name == "reshape_sum" else 0
+        t_bytes, t_ops = n_bytes / bandwidth * 1e3, n_ops / f32_rate * 1e3
+        log(f"probes: {name} {tuple(x.shape)} -> {tuple(out.shape)}: kernel {ms * 1e3:.2f} us on the device "
+            f"({wall * 1e3:.2f} us wall), plain {plain_ms * 1e3:.2f} us, PyTorch call {library_ms * 1e3:.2f} us, "
+            f"bound {max(t_bytes, t_ops) * 1e3:.4f} us ({n_bytes} bytes); launches on the probe path {launches[name]}")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tds_tpu_torch/csrc/probes.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": errors[name],
+            "ms": ms,
+            "wall_ms": wall,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "shape": f"{tuple(x.shape)} float32",
+        })
+    return entries
+
+
 def main():
     name = phase_device()
     card = card_peaks(name)
@@ -470,7 +718,9 @@ def main():
     phase_device_vs_cpu()
     kernel["launches"] = phase_main_path(env)
     phase_trained_policy(env)
-    print(json.dumps({"kernels": [kernel]}))
+    mega = phase_mega_step(card)
+    probes = phase_probes(card)
+    print(json.dumps({"kernels": [kernel, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

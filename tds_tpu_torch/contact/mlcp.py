@@ -71,7 +71,9 @@ class ContactBatch(NamedTuple):
     restitution: torch.Tensor
 
 
-def _check_params(params: ContactSolverParams, n_c: int):
+def check_params(params: ContactSolverParams, n_c: int):
+    """Raises NotImplementedError on the solver options the port does not
+    handle for ``n_c`` candidate contacts."""
     if params.minv_method != "aba":
         raise NotImplementedError("minv_method='crba' is not ported to tds_tpu_torch yet")
     if 0 < params.top_k < n_c:
@@ -103,7 +105,7 @@ def resolve_collision(
     n_c = cp.count
     if n_c == 0 or (n_a == 0 and n_b == 0):
         return qd_a, qd_b, None
-    _check_params(params, n_c)
+    check_params(params, n_c)
     dtype = cp.distance.dtype
     collision = (cp.distance < 0.0).to(dtype)  # (B, k)
     col3 = collision[..., None]

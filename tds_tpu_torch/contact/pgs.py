@@ -8,32 +8,23 @@
 - anything else raises. No switch sends a CUDA tensor to the plain version.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first launch
-(or by :func:`build`) into ``build/kernels/pgs-<hash>/`` at the root of the
-checkout (``TDS_TPU_TORCH_BUILD_DIR`` overrides the root), keyed by a hash
-of the source and flags, and loaded with ctypes. Importing this module
-builds nothing.
+(or by :func:`build`) into ``build/kernels/pgs-<hash>/`` through
+:func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
+Importing this module builds nothing.
 
 ``launches`` counts the kernel launches; a caller may reset it to 0.
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Sequence
 
 import torch
 
+from tds_tpu_torch.utils import cuda_build
 from tds_tpu_torch.utils.tensors import constant
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pgs.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
 SUPPORTED_ROWS = (12, 24)  # template instantiations in csrc/pgs.cu
 
 launches = 0
@@ -108,37 +99,10 @@ def _solve_pgs_cuda(a_mat, b, lo, hi, dep, iterations):
     return x
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the PGS kernel cannot be built")
-    return found
-
-
 def build() -> Path:
-    """Compile ``csrc/pgs.cu`` unless a build of this source and these
-    flags exists; returns the shared library's path. The compiler's output
-    (with ``-Xptxas -v``: registers and spills) lands in ``build.log``
-    beside it."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    root = Path(os.environ.get("TDS_TPU_TORCH_BUILD_DIR") or Path(__file__).resolve().parents[2] / "build")
-    out_dir = root / "kernels" / f"pgs-{digest}"
-    lib = out_dir / "libtds_pgs.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libtds_pgs.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/pgs.cu`` unless a build of these sources exists;
+    returns the shared library's path (``build.log`` beside it)."""
+    return cuda_build.build("pgs.cu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,15 +1,13 @@
 // Batched projected Gauss-Seidel (PGS) solve of the contact MLCP, one
 // thread per environment. Built by tds_tpu_torch/contact/pgs.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libtds_pgs.so pgs.cu
+//        -Xcompiler -fPIC -o libpgs.so pgs.cu
 // and called through the plain C functions at the bottom (ctypes).
 //
 // Replaces the TPU kernel tds_tpu/contact/pallas_pgs.py::_pgs_kernel
 // (launched by solve_pgs_pallas). Same arithmetic: `iterations` sweeps
-// over the n rows of A x = b starting from x = 0; rows are visited in
-// order and each uses the already-updated x[j < i]; row i is clipped to
-// [lo_i * s, hi_i * s] with s = max(x[dep_i], 0) when dep_i >= 0 (the
-// Coulomb coupling of a friction row to its normal row), else s = 1.
+// over the n rows of A x = b starting from x = 0, in pgs_sweep.cuh, which
+// the fused step kernel (megastep.cu) shares.
 //
 // What bounds it on an H100: memory. Each env reads A (n*n values) and
 // b, lo, hi (3n) and writes x (n), against about 2*n*n*iterations flops.
@@ -23,16 +21,33 @@
 // Design (first version: simple and right). One thread per env; n is a
 // template parameter (12 and 24 are instantiated) so the row loops unroll
 // fully and x[] lives in registers. dep[] is a small int32 device array;
-// x[dep_i] is picked with an unrolled select, because a dynamic index
-// into x would move it to local memory. A is read in its (B, n, n)
-// row-major layout, so neighbouring threads read addresses n*n apart and
-// the loads do not coalesce; the TPU kernel's batch-minor (n*n, B) layout
-// would coalesce them, which is later work. The ragged edge of the batch
-// is a bounds check; nothing is padded.
+// x[dep_i] is picked with an unrolled select (pgs_sweep.cuh). A is read
+// in its (B, n, n) row-major layout, so neighbouring threads read
+// addresses n*n apart and the loads do not coalesce; the TPU kernel's
+// batch-minor (n*n, B) layout would coalesce them, which is later work.
+// The ragged edge of the batch is a bounds check; nothing is padded.
 
 #include <cuda_runtime.h>
 
+#include "pgs_sweep.cuh"
+
 namespace {
+
+// One env's operands in global memory, in the (B, n, n) / (B, n) layout;
+// the pointers come from the kernel's const __restrict__ parameters.
+template <typename T, int N>
+struct GlobalProblem {
+  const T* a_e;
+  const T* b_e;
+  const T* lo_e;
+  const T* hi_e;
+  const int* dep_;
+  __device__ T a(int i, int j) const { return a_e[i * N + j]; }
+  __device__ T b(int i) const { return b_e[i]; }
+  __device__ T lo(int i) const { return lo_e[i]; }
+  __device__ T hi(int i) const { return hi_e[i]; }
+  __device__ int dep(int i) const { return dep_[i]; }
+};
 
 template <typename T, int N>
 __global__ void pgs_kernel(const T* __restrict__ a, const T* __restrict__ b,
@@ -41,41 +56,12 @@ __global__ void pgs_kernel(const T* __restrict__ a, const T* __restrict__ b,
                            int batch, int iterations) {
   const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= batch) return;
-  const T* a_e = a + env * N * N;
-  const T* b_e = b + env * N;
-  const T* lo_e = lo + env * N;
-  const T* hi_e = hi + env * N;
-
+  const GlobalProblem<T, N> problem{a + env * N * N, b + env * N,
+                                    lo + env * N, hi + env * N, dep};
   T x[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = T(0);
-
-  for (int it = 0; it < iterations; ++it) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      T delta = T(0);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        if (j != i) delta += a_e[i * N + j] * x[j];
-      }
-      T xi = (b_e[i] - delta) / a_e[i * N + i];
-      const int d = dep[i];
-      T s = T(1);
-      if (d >= 0) {
-        T xd = T(0);
-#pragma unroll
-        for (int k = 0; k < N; ++k) xd = (k == d) ? x[k] : xd;
-        s = xd > T(0) ? xd : T(0);
-      }
-      // clip(xi, lo*s, hi*s) = min(max(xi, lo*s), hi*s), as jnp.clip
-      const T l = lo_e[i] * s;
-      const T h = hi_e[i] * s;
-      xi = xi < l ? l : xi;
-      xi = xi > h ? h : xi;
-      x[i] = xi;
-    }
-  }
-
+  pgs_sweeps<T, N>(x, problem, iterations);
 #pragma unroll
   for (int i = 0; i < N; ++i) x_out[env * N + i] = x[i];
 }

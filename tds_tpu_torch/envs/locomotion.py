@@ -101,7 +101,7 @@ class LocomotionEnv(Env):
         return torch.cat([q, qd], dim=-1)
 
     # -- env API -----------------------------------------------------------
-    def _pd_q_indices(self):
+    def pd_q_indices(self):
         """q slots of the PD-controlled 1-DoF joints, in pose-vector order."""
         out = []
         for i in range(self.skip_links, self.model.num_links):
@@ -115,7 +115,7 @@ class LocomotionEnv(Env):
 
     def _set_joint_poses(self, q, poses):
         """Scatter the compact pose vector (B, action_dim) into q."""
-        return q.index_copy(-1, constant(self._pd_q_indices(), torch.long, q.device), poses)
+        return q.index_copy(-1, constant(self.pd_q_indices(), torch.long, q.device), poses)
 
     def initial_state(self, generator: Optional[torch.Generator] = None, batch_size: int = 1, noise=None):
         """Standing start with uniform joint noise in +-reset_noise.
@@ -130,7 +130,7 @@ class LocomotionEnv(Env):
             noise = -self.reset_noise + 2.0 * self.reset_noise * u
         noise = noise.to(self.device, self.dtype)
         q = self.model.zero_q(noise.shape[:-1])
-        n_base = min(3, self._pd_q_indices()[0])
+        n_base = min(3, self.pd_q_indices()[0])
         q[..., :n_base] = constant(self.start_base_position[:n_base], self.dtype, self.device)
         q = self._set_joint_poses(q, self.initial_poses + noise)
         return q, self.model.zero_qd(noise.shape[:-1])
