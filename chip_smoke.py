@@ -14,7 +14,10 @@ prints no final line:
    ``megastep.cu``, K3 and K4 ``probes.cu``;
 3. kernel: the PGS kernel against its plain PyTorch version on the card, on
    random problems and on the operands of one laikago step at batch 4096,
-   and both versions' times at the main path's shape;
+   and both versions' times at the main path's shape (the kernel's also
+   with 0 sweeps: the launch, the loads and the stores), with its launch shape
+   there (lanes per env, envs per block, shared memory per block, resident
+   warps per SM from the CUDA occupancy calculator, waves);
 4. device against CPU: 50 float64 ``sim_step``s at batch 8 on the card
    (through the kernel) against the same on the CPU (plain version);
 5. main path: ``LaikagoEnv`` in float32 on the card, ``reset`` at batch 4096
@@ -31,7 +34,7 @@ prints no final line:
    float32 steps' distance from the float64 plain step; then the loop of
    ``python -m tds_tpu_torch.tools.megastep`` at batch 16384 for 100
    float32 steps, with K2's launches counted, and K2's device time, wall
-   time and bound beside the eager step's;
+   time, bound and launch shape beside the eager step's;
 8. probes: the probe kernels K3 and K4 (``tds_tpu_torch/tools/kernel_probe.py``)
    through the probe command's path, with their launches counted, then
    timed against their plain versions and the one PyTorch call each
@@ -44,13 +47,14 @@ The line before the last is the ``kernels`` JSON object; the last line is
 import contextlib
 import functools
 import json
-import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from tds_tpu_torch.utils.timing import device_ms, wall_ms
 
 REPO = Path(__file__).resolve().parent
 CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy_r2b.pkl"
@@ -85,44 +89,6 @@ def card_peaks(name):
         if key in name:
             return peaks
     raise ValueError(f"no peak rates known for {name!r}; add them to PEAKS")
-
-
-def device_ms(fn, rounds, per_round, backlog_ms=20):
-    """Median device time (ms) of one call of ``fn``, from CUDA events
-    around each of ``rounds * per_round`` calls. In each round a sleep
-    kernel queued first keeps the stream busy while the host enqueues, so
-    the host's own time per call is not counted. A round must stay under
-    the launch queue's depth (about a thousand operations), or the host
-    blocks until the device drains it; the check below finds that too."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(per_round)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(per_round)]
-        slept = torch.cuda.Event()
-        torch.cuda._sleep(int(backlog_ms * 2e6))  # cycles; at most 2 GHz, so >= backlog_ms
-        slept.record()
-        for start, end in zip(starts, ends):
-            start.record()
-            fn()
-            end.record()
-        if slept.query():
-            raise RuntimeError("the device went idle while the host enqueued; no device time measured")
-        torch.cuda.synchronize()
-        times += [s.elapsed_time(e) for s, e in zip(starts, ends)]
-    return statistics.median(times)
-
-
-def wall_ms(fn, reps):
-    """Host wall time (ms) of one call, enqueue and run, over ``reps`` calls."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 # -- phase 1 ---------------------------------------------------------------
@@ -194,6 +160,27 @@ def recorded_pgs_calls():
         pgs.solve_pgs = solve
 
 
+def log_launch_shape(label, shape):
+    log(f"{label}: {shape['lanes_per_env']} lanes per env, {shape['envs_per_block']} envs per block of "
+        f"{shape['threads_per_block']} threads, {shape['smem_per_block']} B shared memory per block, "
+        f"{shape['registers']} registers and {shape['local_bytes']} B local memory per thread; "
+        f"{shape['resident_warps_per_sm']} resident warps per SM ({shape['blocks_per_sm']} blocks), "
+        f"{shape['blocks']} blocks = {shape['waves']:.2f} waves")
+
+
+def launch_fields(shape):
+    """The launch-shape keys of a kernel's entry in the ``kernels`` line."""
+    return {
+        "lanes_per_env": shape["lanes_per_env"],
+        "resident_warps_per_sm": shape["resident_warps_per_sm"],
+        "stack_bytes": shape["local_bytes"],
+        "envs_per_block": shape["envs_per_block"],
+        "smem_per_block": shape["smem_per_block"],
+        "registers": shape["registers"],
+        "waves": shape["waves"],
+    }
+
+
 def phase_kernel(env, card):
     from tds_tpu_torch.contact import pgs
 
@@ -240,6 +227,8 @@ def phase_kernel(env, card):
     # in the step, where the previous op just wrote it)
     a, b, lo, hi, dep, it = main_args
     ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), rounds=5, per_round=20)
+    # the same launch with no sweep: the launch, the loads and the stores
+    sweepless_ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, 0), rounds=5, per_round=20)
     plain_ms = device_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), rounds=10, per_round=4, backlog_ms=50)
     kernel_wall = wall_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), reps=200)
     plain_wall = wall_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), reps=20)
@@ -253,6 +242,9 @@ def phase_kernel(env, card):
     log(f"kernel: main-path shape B={bsz} n={n} it={it} {b.dtype}: kernel {ms * 1e3:.2f} us on the device "
         f"({kernel_wall * 1e3:.2f} us wall per call), plain {plain_ms * 1e3:.1f} us on the device ({plain_wall * 1e3:.1f} us wall), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
         f"({n_bytes} bytes, {n_ops} flops)")
+    log(f"kernel: the same launch with 0 sweeps (launch, loads and stores): {sweepless_ms * 1e3:.2f} us on the device")
+    shape = pgs.launch_shape(b.dtype, n, bsz)
+    log_launch_shape(f"kernel: B={bsz} n={n} {b.dtype}", shape)
     return {
         "name": "pgs",
         "route": "cuda",
@@ -269,6 +261,8 @@ def phase_kernel(env, card):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
+        "ms_0_sweeps": sweepless_ms,
+        **launch_fields(shape),
         "cases": results,
     }
 
@@ -609,6 +603,7 @@ def phase_mega_step(card):
 
     ms = device_ms(lambda: fused(q, qd, action), rounds=5, per_round=20)
     wall = wall_ms(lambda: fused(q, qd, action), reps=100)
+    shape = fused_step.launch_shape(params, MEGA_BATCH)
     eager_profile = device_profile(lambda: env.sim_step(q, qd, action), calls=2)
     plain_profile = device_profile(lambda: fused_step.mega_step_reference(params, q, qd, action), calls=1)
     elt = q.element_size()
@@ -629,6 +624,7 @@ def phase_mega_step(card):
             f"{eager_busy:.3f} ms/step (torch.profiler); plain fused step {plain_ms:.3f} ms of device time per call")
     log(f"mega step: K2 at B={MEGA_BATCH} float32: {ms * 1e3:.2f} us on the device per launch ({wall * 1e3:.2f} us wall per call), "
         f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_ops} flops needed = {n_ops / MEGA_BATCH:.1f} per env, {n_bytes} bytes)")
+    log_launch_shape(f"mega step: K2 B={MEGA_BATCH} float32", shape)
     return {
         "name": "megastep",
         "route": "cuda",
@@ -649,6 +645,7 @@ def phase_mega_step(card):
         "eager_env_steps_per_s": eager_rate,
         "eager_device_ops_per_step": eager_ops,
         "eager_device_busy_ms_per_step": eager_busy,
+        **launch_fields(shape),
     }
 
 
@@ -707,19 +704,27 @@ def phase_probes(card):
     return entries
 
 
+def timed(phase, *args):
+    """``phase(*args)``, with a line of the seconds it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     name = phase_device()
     card = card_peaks(name)
-    phase_build()
+    timed(phase_build)
     from tds_tpu_torch.envs.laikago import LaikagoEnv
 
     env = LaikagoEnv(dtype=torch.float32)
-    kernel = phase_kernel(env, card)
-    phase_device_vs_cpu()
-    kernel["launches"] = phase_main_path(env)
-    phase_trained_policy(env)
-    mega = phase_mega_step(card)
-    probes = phase_probes(card)
+    kernel = timed(phase_kernel, env, card)
+    timed(phase_device_vs_cpu)
+    kernel["launches"] = timed(phase_main_path, env)
+    timed(phase_trained_policy, env)
+    mega = timed(phase_mega_step, card)
+    probes = timed(phase_probes, card)
     print(json.dumps({"kernels": [kernel, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

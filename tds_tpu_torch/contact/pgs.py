@@ -10,7 +10,9 @@
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first launch
 (or by :func:`build`) into ``build/kernels/pgs-<hash>/`` through
 :func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
-Importing this module builds nothing.
+Importing this module builds nothing. :func:`launch_shape` reports the
+kernel's lanes per env, envs per block and resident warps per SM on the
+card.
 
 ``launches`` counts the kernel launches; a caller may reset it to 0.
 """
@@ -99,6 +101,15 @@ def _solve_pgs_cuda(a_mat, b, lo, hi, dep, iterations):
     return x
 
 
+def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda") -> dict:
+    """How the kernel launches for n rows in ``dtype`` at ``batch`` envs on
+    ``device``: ``cuda_build.launch_shape``'s fields, resident warps per SM
+    and waves among them."""
+    if n not in SUPPORTED_ROWS or dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no PGS kernel instance for n = {n} in {dtype}")
+    return cuda_build.launch_shape(_library().tds_pgs_launch_shape, (int(dtype == torch.float64), n), batch, device)
+
+
 def build() -> Path:
     """Compile ``csrc/pgs.cu`` unless a build of these sources exists;
     returns the shared library's path (``build.log`` beside it)."""
@@ -107,8 +118,14 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build()))
+    return bind(ctypes.CDLL(str(build())))
+
+
+def bind(lib):
+    """Declares the C functions of a library built from csrc/pgs.cu."""
     for fn in (lib.tds_pgs_solve_f32, lib.tds_pgs_solve_f64):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.tds_pgs_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.tds_pgs_launch_shape.restype = ctypes.c_int
     return lib

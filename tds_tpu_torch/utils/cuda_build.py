@@ -9,15 +9,19 @@ sources in ``csrc/`` (so that a change to a shared header rebuilds every
 library) and of the flags. nvcc's output (with ``-Xptxas -v``: each
 kernel's registers, stack frame and spills) lands in ``build.log`` beside
 the library. A wrapper builds at its first launch; importing this module
-builds nothing.
+builds nothing. :func:`launch_shape` reads a kernel's launch shape and
+occupancy on the card through its library's ``*_launch_shape`` function.
 """
 
+import ctypes
 import os
 import shutil
 import subprocess
 import time
 from hashlib import sha256
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = (
@@ -62,3 +66,31 @@ def build(source: str) -> Path:
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+# what a library's *_launch_shape C function writes, in order
+SHAPE_FIELDS = (
+    "lanes_per_env", "envs_per_block", "threads_per_block", "smem_per_block",
+    "blocks_per_sm", "registers", "local_bytes",
+)
+
+
+def launch_shape(fn, args, batch: int, device) -> dict:
+    """The launch shape that ``fn`` (a library's ``*_launch_shape``) reports
+    for the instance ``args`` names, on ``device``, with what follows for
+    ``batch`` envs: ``resident_warps_per_sm`` (from the CUDA occupancy
+    calculator), ``blocks`` and ``waves`` (blocks over the blocks resident
+    on all SMs at once). ``local_bytes`` is local memory per thread: the
+    stack frame and spills."""
+    out = (ctypes.c_int * len(SHAPE_FIELDS))()
+    with torch.cuda.device(device):
+        rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"launch shape query failed with CUDA error {rc}")
+    shape = dict(zip(SHAPE_FIELDS, out))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = -(-batch // shape["envs_per_block"])
+    shape["resident_warps_per_sm"] = shape["blocks_per_sm"] * shape["threads_per_block"] // 32
+    shape["blocks"] = blocks
+    shape["waves"] = blocks / (shape["blocks_per_sm"] * sms) if shape["blocks_per_sm"] else float("inf")
+    return shape

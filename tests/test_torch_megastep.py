@@ -1,8 +1,8 @@
 """The fused laikago step (tds_tpu_torch.envs.fused_step, driven by
 tds_tpu_torch.tools.megastep) on the CPU: its plain version against the JAX
 package's step, the C++ golden trajectory and the JAX package's own
-fused-step kernel, the packing's refusals, the count of the operations it
-needs, and the device dispatch. Inputs are made from numpy seeds. The laikago toes
+fused-step kernel, the packing's schedule tables and refusals, the count of
+the operations it needs, and the device dispatch. Inputs are made from numpy seeds. The laikago toes
 reach the ground about 65 steps after a standing start at z = 0.48, so the
 checks start 3 cm lower or after 100 steps, where the contact rows are
 active."""
@@ -10,6 +10,7 @@ active."""
 import dataclasses
 import json
 import os
+import re
 
 import pytest
 
@@ -20,13 +21,15 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
+from tds_tpu.dynamics.jacobian import point_jacobian  # noqa: E402
 from tds_tpu.envs.laikago import LaikagoEnv as JaxLaikago  # noqa: E402
 from tds_tpu_torch.contact.mlcp import ContactSolverParams  # noqa: E402
 from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
 from tds_tpu_torch.model.geometry import GeomAttachment, Plane, Sphere  # noqa: E402
 from tds_tpu_torch.model.joints import JointType  # noqa: E402
 from tds_tpu_torch.envs import fused_step  # noqa: E402
-from tds_tpu_torch.tools import megastep  # noqa: E402
+from tds_tpu_torch.tools import megastep, megastep_phases  # noqa: E402
+from tds_tpu_torch.utils import cuda_build  # noqa: E402
 from tds_tpu_torch.utils import op_count  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "laikago_pd_contact_trajectory.json")
@@ -197,6 +200,71 @@ def test_pack_writes_out_the_env(env64, params64):
     assert (p.pgs_iterations, p.num_friction_dir) == (1, 2)
     assert all(getattr(p, f).is_contiguous() and getattr(p, f).device.type == "cpu" for f in fused_step.POINTER_FIELDS)
     assert {getattr(p, f).dtype for f in fused_step.POINTER_FIELDS} == {torch.int32, torch.float64}
+
+
+def test_schedule_covers_every_link_once_parents_first(env64, params64):
+    """The chain and the subtrees hanging from its last link cover the 22
+    links once, each subtree a chain, and walking them in order visits every
+    parent before its children (the order of the kernel's forward sweeps)."""
+    parents = list(env64.model.parents)
+    chain, subtrees = params64.chain.tolist(), params64.subtrees.tolist()
+    assert chain == [0, 1, 2, 3, 4, 5] and subtrees == [[6, 10], [10, 14], [14, 18], [18, 22]]
+    order = chain + [i for start, end in subtrees for i in range(start, end)]
+    assert sorted(order) == list(range(len(parents)))
+    seen = set()
+    for i in order:
+        assert parents[i] < 0 or parents[i] in seen
+        seen.add(i)
+    assert all(parents[start] == chain[-1] for start, _ in subtrees)
+    assert all(parents[i] == i - 1 for start, end in subtrees for i in range(start + 1, end))
+    assert all(parents[b] == a for a, b in zip(chain, chain[1:]))
+
+
+def test_sphere_paths_hold_the_point_jacobian_columns(env64, params64):
+    """Each sphere's path runs from its link through its parents to the
+    root, and its non-fixed links are exactly the columns that the JAX
+    package's point Jacobian fills, at a random pose."""
+    model = JaxLaikago(dtype=jnp.float64).model
+    q = jnp.asarray(np.random.default_rng(3).uniform(-0.5, 0.5, model.dof_q))
+    parents, joint_types = list(env64.model.parents), list(env64.model.joint_types)
+    qd_offsets = list(env64.model.qd_offsets)
+    for link, padded in zip(params64.sphere_links.tolist(), params64.sphere_paths.tolist()):
+        path = [i for i in padded if i >= 0]
+        assert padded == path + [-1] * (len(padded) - len(path))
+        assert path[0] == link and parents[path[-1]] == -1
+        assert all(parents[a] == b for a, b in zip(path, path[1:]))
+        jac = np.asarray(point_jacobian(model, q, link, jnp.asarray([0.3, -0.2, 0.1])))
+        filled = set(np.flatnonzero(np.abs(jac).sum(0) > 1e-12).tolist())
+        assert filled == {qd_offsets[i] for i in path if joint_types[i] != int(JointType.FIXED)}
+
+
+@pytest.mark.parametrize(
+    "parents",
+    [[-1, 0, 1, 1, 3, 3], [-1, 0, 0, 2, 1], [-1, -1, 0], [-1, 2, 0]],
+    ids=["subtree-branches", "subtrees-not-contiguous", "two-roots", "child-before-parent"],
+)
+def test_schedule_refuses_trees_the_lanes_cannot_walk(parents):
+    with pytest.raises(NotImplementedError):
+        fused_step.link_schedule(parents)
+
+
+def test_schedule_of_a_pure_chain_has_no_subtrees():
+    assert fused_step.link_schedule([-1, 0, 1, 2]) == ([0, 1, 2, 3], [])
+    assert fused_step.sphere_paths([-1, 0, 1, 2], [3, 1]) == [[3, 2, 1, 0], [1, 0, -1, -1]]
+
+
+def test_phase_cuts_follow_the_kernel_phases():
+    """tools/megastep_phases.py cuts the kernel after each phase but the
+    last: csrc/megastep.cu marks them PHASE_END(1) ... in order, one for
+    each of the tool's phases but the last, and csrc/megastep_phases.cu
+    turns the marks into cuts."""
+    text = (cuda_build.CSRC / "megastep.cu").read_text()
+    kernel = text[text.index("megastep_kernel(const Model<T> m") :]
+    marks = re.findall(r"^  PHASE_END\((\d+)\);$", kernel, flags=re.M)
+    assert marks == [str(k) for k in range(1, len(megastep_phases.PHASES))]
+    assert len(re.findall(r"PHASE_END\(\d+\)", kernel)) == len(marks)
+    cuts = (cuda_build.CSRC / "megastep_phases.cu").read_text()
+    assert "#define MEGASTEP_PHASE_CUTS" in cuts and '#include "megastep.cu"' in cuts
 
 
 def test_needed_flops_follow_the_active_contacts(env64, params64):

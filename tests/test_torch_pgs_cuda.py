@@ -1,6 +1,7 @@
 """The PGS kernel (csrc/pgs.cu) on a CUDA device against the port's plain
 version: float32 at rtol 1e-5 / atol 1e-6 (tests/test_pallas_pgs.py's
-tolerance), float64 at atol 1e-12. Every test here needs the card and skips
+tolerance), float64 at atol 1e-12, at batches that fill no whole block of
+groups; and its launch shape on the card. Every test here needs the card and skips
 without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -38,7 +39,7 @@ def _problem(bsz, n_c, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("bsz,n_c,iterations", [(300, 4, 3), (21, 2 * 2, 2), (130, 8, 1)])
+@pytest.mark.parametrize("bsz,n_c,iterations", [(300, 4, 3), (21, 2 * 2, 2), (130, 8, 1), (130, 4, 1), (21, 8, 2)])
 def test_cuda_tensor_never_reaches_the_plain_path(cuda_device, monkeypatch, dtype, bsz, n_c, iterations):
     a, b, lo, hi, dep = _problem(bsz, n_c, seed=bsz)
     expected = pgs.solve_pgs_reference(*(torch.from_numpy(x) for x in (a, b, lo, hi)), dep, iterations).to(dtype)
@@ -53,6 +54,14 @@ def test_cuda_tensor_never_reaches_the_plain_path(cuda_device, monkeypatch, dtyp
     assert pgs.launches == before + 1
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=0, atol=1e-12)
     torch.testing.assert_close(got.cpu(), expected, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", pgs.SUPPORTED_ROWS)
+def test_every_instance_has_a_block_resident_per_sm(cuda_device, dtype, n):
+    shape = pgs.launch_shape(dtype, n, 4096)
+    assert shape["blocks_per_sm"] >= 1 and shape["lanes_per_env"] >= n
+    assert shape["envs_per_block"] * shape["lanes_per_env"] == shape["threads_per_block"]
 
 
 def test_cuda_kernel_refuses_unbuilt_row_counts(cuda_device):
