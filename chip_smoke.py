@@ -38,7 +38,21 @@ prints no final line:
 8. probes: the probe kernels K3 and K4 (``tds_tpu_torch/tools/kernel_probe.py``)
    through the probe command's path, with their launches counted, then
    timed against their plain versions and the one PyTorch call each
-   replaces.
+   replaces;
+9. ARS (``tds_tpu_torch/learn/ars.py`` on ``LaikagoEnv(fused_step=True)``,
+   every step one K2 launch for the 2 x num_directions rollouts): (a) one
+   float64 iteration, 8 directions x 100 steps from ``policy.pkl``, on the
+   card against the CPU from the same draws; (b) ``policy_r2b.pkl`` in
+   float32, evaluated (16 rollouts x 2000 steps, held to the replay's
+   reward threshold), K2 against its plain version on the batch-256
+   operands of a recipe rollout (after the reset and at step 1500), then
+   1 warm-up and 3 timed iterations at ``bench.py``'s recipe (128
+   directions x 3000 steps, top 32) with K2's launches counted per
+   iteration, then evaluated again; (c) one iteration of 100 steps under
+   ``torch.profiler``: device operations per step, idle share, K2's time
+   per launch and its launch shape at batch 256; (d) the trainer
+   ``python -m tds_tpu_torch.tools.ars_train`` resumed from the policy for
+   2 iterations, its checkpoint read back.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
@@ -47,6 +61,7 @@ The line before the last is the ``kernels`` JSON object; the last line is
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -58,6 +73,9 @@ from tds_tpu_torch.utils.timing import device_ms, wall_ms
 
 REPO = Path(__file__).resolve().parent
 CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy_r2b.pkl"
+# a laikago policy whose obs_stat has a finite m2 (policy_r2b.pkl's is NaN,
+# read as std 1): phase 9 (a) starts from it
+STAT_CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy.pkl"
 MAIN_BATCH = 4096
 ROLLOUT_STEPS = 100
 REPLAY_BATCH, REPLAY_STEPS, REPLAY_SEED = 8, 2000, 0
@@ -78,6 +96,14 @@ PGS_TOL = {torch.float32: (1e-5, 1e-6), torch.float64: (0.0, 1e-12)}
 # prints both float32 steps' distance from the float64 one); q moves by
 # qd dt
 MEGA_TOL = {"q": 1e-6, "qd": 1e-4}
+# bench.py's ARS recipe: 128 directions x 3000 steps, top 32, 768,000
+# env-steps per iteration
+ARS_RECIPE = {"num_directions": 128, "rollout_length": 3000, "top_directions": 32}
+ARS_EVAL_ROLLOUTS, ARS_EVAL_STEPS = 16, 2000
+ARS_MID_STEP = 1500  # halfway through a recipe rollout
+# float64, card against CPU after one iteration, abs + rel: K2 float64
+# agrees with the CPU to 3.9e-13 over 50 steps (phase 7)
+ARS_TOL = 1e-9
 
 
 def log(msg):
@@ -704,6 +730,291 @@ def phase_probes(card):
     return entries
 
 
+# -- phase 9 ---------------------------------------------------------------
+def ars_card_against_cpu():
+    """(a): one float64 iteration, 8 directions x 100 steps, top 4, from
+    the params and observation statistics of ``policy.pkl`` (finite stds,
+    so the normalisation divides by them), on the card (K2) and on the CPU
+    (its plain version) from the same draws; returns the largest
+    difference."""
+    from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.learn.nn import MLPSpec
+
+    config = ars.ARSConfig(num_directions=8, rollout_length=100, top_directions=4)
+    policy = MLPSpec(36, [12])
+    cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu", fused_step=True)
+    gpu_env = LaikagoEnv(dtype=torch.float64, fused_step=True)
+    saved, _ = load_checkpoint(str(STAT_CHECKPOINT))
+    cpu_start, gpu_start = (
+        ars_state_from_numpy(saved["params"], saved["obs_stat"], dtype=torch.float64, device=d) for d in ("cpu", "cuda")
+    )
+    if not bool((cpu_start.obs_stat.scale() != 1).all()):
+        raise AssertionError(f"{STAT_CHECKPOINT.name}'s statistics leave the normalisation dividing by 1")
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    deltas = torch.randn(config.num_directions, policy.num_parameters, generator=gen, dtype=torch.float64)
+    noise = cpu_env.draw_reset_noise(gen, config.num_directions)
+    cpu = ars.ars_iteration(cpu_env, policy, config, cpu_start, deltas, noise)
+    before = fused_step.launches
+    gpu = ars.ars_iteration(gpu_env, policy, config, gpu_start, deltas.cuda(), noise.cuda())
+    torch.cuda.synchronize()
+    launches = fused_step.launches - before
+    if launches != gpu_env.settle_steps + config.rollout_length:
+        raise AssertionError(f"the float64 iteration launched K2 {launches} times")
+    pairs = [("params", gpu[0].params, cpu[0].params), ("total_timesteps", gpu[0].total_timesteps, cpu[0].total_timesteps)]
+    pairs += [(f"obs_stat.{f}", getattr(gpu[0].obs_stat, f), getattr(cpu[0].obs_stat, f)) for f in ("count", "mean", "m2")]
+    pairs += [(k, gpu[1][k], cpu[1][k]) for k in cpu[1]]
+    worst, worst_scaled, worst_name = 0.0, 0.0, None
+    for name, got, expected in pairs:
+        got, expected = got.cpu().double(), expected.double()
+        diff = (got - expected).abs()
+        if diff.max().item() > worst:
+            worst, worst_name = diff.max().item(), name
+        worst_scaled = max(worst_scaled, (diff / (1 + expected.abs())).max().item())
+        if not bool(torch.isfinite(got).all()) or excess(got, expected, ARS_TOL) > 0:
+            raise AssertionError(f"ARS on the card and on the CPU differ beyond {ARS_TOL} in {name}")
+    log(f"ARS (a): one float64 iteration from {STAT_CHECKPOINT.name}, {config.num_directions} directions x "
+        f"{config.rollout_length} steps, top {config.top_directions}, card (K2, {launches} launches) against CPU, over "
+        f"params, obs_stat and metrics: "
+        f"max |cuda - cpu| = {worst:.3e} (in {worst_name}), max |cuda - cpu| / (1 + |cpu|) = {worst_scaled:.3e} "
+        f"(tolerance {ARS_TOL}); reward_max {cpu[1]['reward_max'].item():.4f}")
+    return worst_scaled
+
+
+@contextlib.contextmanager
+def recorded_k2_calls(wanted):
+    """Records the operands and results of the K2 calls that a
+    ``LocomotionEnv(fused_step=True)`` makes inside the block, for the calls
+    whose index, counted from 0, is in ``wanted``."""
+    from tds_tpu_torch.envs import locomotion
+
+    calls, seen = {}, [0]
+    step = locomotion.mega_step
+
+    def recording_step(params, q, qd, action):
+        out = step(params, q, qd, action)
+        if seen[0] in wanted:
+            calls[seen[0]] = (q.clone(), qd.clone(), action.clone(), out)
+        seen[0] += 1
+        return out
+
+    locomotion.mega_step = recording_step
+    try:
+        yield calls
+    finally:
+        locomotion.mega_step = step
+
+
+def ars_k2_against_plain(env, policy, state):
+    """(b): K2 against its plain version on the float32 batch-256 operands
+    that a recipe rollout from ``state`` hands it: the first step after the
+    reset and step ARS_MID_STEP, mid-gait with contact rows active. K2's
+    results are the rollout's own; the plain version runs on the CPU on the
+    same operands, held at MEGA_TOL over the envs whose operands are
+    finite. Returns the largest |K2 - plain|."""
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import ars
+
+    first, mid = env.settle_steps, env.settle_steps + ARS_MID_STEP - 1
+    with recorded_k2_calls({first, mid}) as calls:
+        ars.make_train_step(env, policy, ars.ARSConfig(**{**ARS_RECIPE, "rollout_length": ARS_MID_STEP}))(state)
+    cpu_params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float32, device="cpu"))
+    exact_params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, device="cpu"))
+    worst = 0.0
+    for label, index in (("after the reset", first), (f"at step {ARS_MID_STEP}", mid)):
+        q, qd, action = (t.cpu() for t in calls[index][:3])
+        ok = torch.isfinite(torch.cat([q, qd, action], -1)).all(-1)
+        if not bool(ok.any()):
+            raise AssertionError(f"no rollout's K2 operands are finite {label}")
+        q, qd, action, got = q[ok], qd[ok], action[ok], [t.cpu()[ok] for t in calls[index][3]]
+        plain = fused_step.mega_step_reference(cpu_params, q, qd, action)
+        exact = fused_step.mega_step_reference(exact_params, q.double(), qd.double(), action.double())
+        contacts = int((fused_step.sphere_distances(cpu_params, q) < 0).sum())
+        if index == mid and contacts == 0:
+            raise AssertionError(f"no contact row was active at step {ARS_MID_STEP} of the recipe rollout")
+        for name, g, e, x in (("q", got[0], plain[0], exact[0]), ("qd", got[1], plain[1], exact[1])):
+            err = (g - e).abs().max().item()
+            over = excess(g, e, MEGA_TOL[name])
+            worst = max(worst, err)
+            log(f"ARS (b): K2 float32 B={q.shape[0]} ({len(ok)} rollouts, {q.shape[0]} with finite operands) {label}, "
+                f"{contacts} contacts active: max |K2 - plain on the CPU| on {name} = {err:.3e} (tolerance {MEGA_TOL[name]} "
+                f"abs + rel, margin left {-over:.3e}); max |K2 - float64 plain| {(g.double() - x).abs().max().item():.3e}")
+            if over > 0 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"K2 at batch {len(ok)} {label} differs from its plain version beyond {MEGA_TOL[name]} on {name}")
+    return worst
+
+
+def ars_eval(eval_fn, state, label):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = {k: v.item() for k, v in eval_fn(state, torch.Generator(device="cuda").manual_seed(123)).items()}
+    seconds = time.perf_counter() - t0
+    log(f"ARS (b): eval {label}: {ARS_EVAL_ROLLOUTS} rollouts x {ARS_EVAL_STEPS} steps in {seconds:.2f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in metrics.items()))
+    if not metrics["eval_reward_min"] > 1100.0:
+        raise AssertionError(f"the policy {label} fails eval_reward_min > 1100")
+    return metrics
+
+
+def stat_finite(stat, start):
+    """Whether the statistics ``stat`` grown from ``start`` are finite:
+    count and mean everywhere, m2 wherever start's was. (policy_r2b.pkl's
+    m2 is NaN in every entry, and a merge keeps it so; the std guard then
+    reads its std as 1.)"""
+    count, mean, m2 = (torch.as_tensor(x) for x in stat)
+    m2_ok = torch.isfinite(m2) | ~torch.isfinite(torch.as_tensor(start[2]))
+    return bool(m2_ok.all() and torch.isfinite(count).all() and torch.isfinite(mean).all())
+
+
+def ars_recipe(env, policy, state):
+    """(b): the recipe's iterations from ``state``: 1 warm-up, 3 timed;
+    returns (the last state, seconds and K2 launches of each timed
+    iteration)."""
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.learn import ars
+
+    config = ars.ARSConfig(**ARS_RECIPE)
+    step_fn = ars.make_train_step(env, policy, config)
+    env_steps = 2 * config.num_directions * config.rollout_length
+    seconds, launches = [], []
+    for it in range(4):
+        torch.cuda.synchronize()
+        fused_step.launches = 0
+        t0 = time.perf_counter()
+        new_state, metrics = step_fn(state)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(fused_step.launches)
+        steps = (new_state.total_timesteps - state.total_timesteps).item()
+        finite = stat_finite(new_state.obs_stat, state.obs_stat) and all(
+            bool(torch.isfinite(t).all()) for t in (new_state.params, metrics["g_hat_norm"])
+        )
+        log(f"ARS (b): recipe iteration {it} ({'warm-up' if it == 0 else 'timed'}): {seconds[-1]:.3f} s, K2 launches "
+            f"{launches[-1]}, {steps} env-steps alive of {env_steps}, "
+            + ", ".join(f"{k} {v.item():.4f}" for k, v in metrics.items()))
+        if launches[-1] != env.settle_steps + config.rollout_length:
+            raise AssertionError(f"a recipe iteration launched K2 {launches[-1]} times")
+        if not finite or not 0 < steps <= env_steps:
+            raise AssertionError(f"recipe iteration {it}: finite {finite}, {steps} env-steps")
+        state = new_state
+    return state, seconds[1:], launches[1:]
+
+
+def ars_profile(env, policy, state, steps):
+    """(c): one iteration of the recipe at ``steps`` steps: wall ms
+    without the profiler, then device operations, device-busy ms and K2's
+    time per launch from torch.profiler (None when it saw no device
+    activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tds_tpu_torch.learn import ars
+
+    step_fn = ars.make_train_step(env, policy, ars.ARSConfig(**{**ARS_RECIPE, "rollout_length": steps}))
+    step_fn(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state)
+        torch.cuda.synchronize()
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device_events:
+        return wall_ms, None
+    k2 = [e.time_range.elapsed_us() for e in device_events if "megastep_kernel" in e.name]
+    return wall_ms, {
+        "device_ops": len(device_events),
+        "device_ms": sum(e.time_range.elapsed_us() for e in device_events) / 1e3,
+        "k2_launches": len(k2),
+        "k2_us": sum(k2) / max(len(k2), 1),
+    }
+
+
+def phase_ars(card, mega):
+    import tempfile
+
+    from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.learn.nn import MLPSpec
+    from tds_tpu_torch.tools import ars_train
+
+    worst = ars_card_against_cpu()
+
+    # (b) the recipe in float32 from the trained policy
+    env = LaikagoEnv(dtype=torch.float32, fused_step=True)
+    policy = MLPSpec(env.observation_dim, [env.action_dim])
+    saved, _ = load_checkpoint(str(CHECKPOINT))
+    state = ars_state_from_numpy(saved["params"], saved["obs_stat"], seed=0, dtype=env.dtype)
+    eval_config = ars.ARSConfig(**{**ARS_RECIPE, "rollout_length": ARS_EVAL_STEPS})
+    eval_fn = ars.make_eval(env, policy, eval_config, num_rollouts=ARS_EVAL_ROLLOUTS)
+    before = ars_eval(eval_fn, state, "of policy_r2b.pkl")
+    k2_err = ars_k2_against_plain(env, policy, state)
+    trained, seconds, launches = ars_recipe(env, policy, state)
+    after = ars_eval(eval_fn, trained, "after the 4 recipe iterations")
+    s_per_it = sum(seconds) / len(seconds)
+    env_steps = 2 * ARS_RECIPE["num_directions"] * ARS_RECIPE["rollout_length"]
+    log(f"ARS (b): recipe {ARS_RECIPE}, float32, batch {2 * ARS_RECIPE['num_directions']}: {s_per_it:.3f} s/iteration "
+        f"(timed {', '.join(f'{s:.3f}' for s in seconds)}) = {1 / s_per_it:.4f} iterations/s = "
+        f"{env_steps / s_per_it:.1f} env-steps/s; K2 launches per iteration {launches}")
+
+    # (c) where the time goes
+    steps = 100
+    wall_ms, prof = ars_profile(env, policy, trained, steps)
+    batch = 2 * ARS_RECIPE["num_directions"]
+    shape = fused_step.launch_shape(env.step_params, batch)
+    _, f32_rate, _ = card
+    bound_us = mega["flops_needed_per_env"] * batch / f32_rate * 1e6
+    per_step = env.settle_steps + steps
+    if prof is None:
+        log("ARS (c): device operations and device time not measured (the profiler saw no device activity)")
+        k2_us = None
+    else:
+        k2_us = prof["k2_us"]
+        log(f"ARS (c): one recipe iteration at {steps} steps ({per_step} env steps with the reset's settle steps): "
+            f"{wall_ms:.1f} ms wall without the profiler; {prof['device_ops']} device operations = "
+            f"{prof['device_ops'] / per_step:.1f} per step (torch.profiler), device busy {prof['device_ms']:.2f} ms of "
+            f"{wall_ms:.1f} ms ({100 * (1 - prof['device_ms'] / wall_ms):.1f}% idle); K2 {prof['k2_launches']} launches at "
+            f"{k2_us:.2f} us each on the device ({prof['k2_launches'] * k2_us / 1e3:.2f} ms), bound {bound_us:.4f} us "
+            f"({mega['flops_needed_per_env']:.0f} flops per env x {batch})")
+    log_launch_shape(f"ARS (c): K2 B={batch} float32", shape)
+
+    # (d) the trainer as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "policy.pkl")
+        t0 = time.perf_counter()
+        ars_train.main(["--resume", str(CHECKPOINT), "--iterations", "2", "--eval_interval", "2", "--rollout_length", "400",
+                        "--checkpoint", path])
+        trainer_s = time.perf_counter() - t0
+        written, meta = load_checkpoint(path)
+        params = torch.as_tensor(written["params"])
+        moved = (params.double() - torch.as_tensor(saved["params"]).double()).abs().max().item()
+        finite = bool(torch.isfinite(params).all()) and stat_finite(written["obs_stat"], saved["obs_stat"])
+        if not finite or moved == 0.0 or meta.get("iteration") != 2 or not os.path.exists(path + ".best"):
+            raise AssertionError(f"the trainer's checkpoint: finite {finite}, moved {moved}, metadata {meta}")
+    log(f"ARS (d): python -m tds_tpu_torch.tools.ars_train --resume policy_r2b.pkl --iterations 2 --eval_interval 2 "
+        f"--rollout_length 400 in {trainer_s:.1f} s; its checkpoint reads back finite, params moved by up to {moved:.3e}")
+    return {
+        "ars_launches_per_iteration": launches[0],
+        "ars_device_us_per_launch": k2_us,
+        "ars_bound_us_per_launch": bound_us,
+        "ars_s_per_iteration": s_per_it,
+        "ars_env_steps_per_s": env_steps / s_per_it,
+        "ars_device_ops_per_step": None if prof is None else prof["device_ops"] / per_step,
+        "ars_idle_share": None if prof is None else 1 - prof["device_ms"] / wall_ms,
+        "ars_launch_shape_batch_256": launch_fields(shape),
+        "ars_float64_card_against_cpu": worst,
+        "ars_max_abs_err_batch_256": k2_err,
+        "ars_eval_reward_min": [before["eval_reward_min"], after["eval_reward_min"]],
+    }
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -725,6 +1036,7 @@ def main():
     timed(phase_trained_policy, env)
     mega = timed(phase_mega_step, card)
     probes = timed(phase_probes, card)
+    mega.update(timed(phase_ars, card, mega))
     print(json.dumps({"kernels": [kernel, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

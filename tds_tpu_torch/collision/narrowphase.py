@@ -5,8 +5,8 @@ points; the ``distance`` field decides activity downstream by masking.
 
 Contacts are ``Contact`` tuples with fields shaped (B, k, 3) / (B, k). The
 other shape pairs of the JAX package are not ported yet; the port's
-geometry has only planes and spheres, and sphere-sphere raises
-NotImplementedError in :func:`compute_contacts`.
+geometry has planes, spheres and boxes, and sphere-sphere and every box
+pair raise NotImplementedError in :func:`compute_contacts`.
 """
 
 from typing import NamedTuple
@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from tds_tpu_torch.algebra.transform import Transform
-from tds_tpu_torch.model.geometry import Plane, Sphere
+from tds_tpu_torch.model.geometry import Box, Plane, Sphere
 from tds_tpu_torch.utils.tensors import constant
 
 
@@ -74,7 +74,7 @@ _PAIR_TABLE = {
 
 # pairs of ported shapes that the JAX package collides and the port does
 # not yet: compute_contacts raises for them rather than skipping the pair
-_UNPORTED_PAIRS = {(Sphere, Sphere)}
+_UNPORTED_PAIRS = {(Sphere, Sphere), (Plane, Box), (Box, Plane), (Sphere, Box), (Box, Sphere)}
 
 
 def supported(shape_a, shape_b) -> bool:

@@ -17,7 +17,7 @@ import torch
 
 from tds_tpu_torch.algebra import spatial
 from tds_tpu_torch.algebra.inertia import ArticulatedBodyInertia
-from tds_tpu_torch.dynamics.kinematics import KinLinks
+from tds_tpu_torch.dynamics.kinematics import KinLinks, fk_links
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
 
@@ -54,6 +54,18 @@ def aba_factor(model: MultiBodyModel, kin: KinLinks) -> AbaFactor:
         if parent >= 0:
             abi[parent] = abi[parent] + kin.x_parent[i].abi_to_parent(ia)
     return AbaFactor(u=tuple(u_terms), d_inv=tuple(d_inv), ia=tuple(ia_list))
+
+
+def forward_dynamics(model: MultiBodyModel, q, qd, tau, gravity):
+    """Generalized accelerations qdd (B, dof_qd): FK, the articulated
+    factor and the ABA sweeps. ``tau`` holds the actuated DoF only."""
+    if q.shape[-1] != model.dof_q:
+        raise ValueError(f"q has {q.shape[-1]} coords, model needs {model.dof_q}")
+    if qd.shape[-1] != model.dof_qd:
+        raise ValueError(f"qd has {qd.shape[-1]} coords, model needs {model.dof_qd}")
+    if tau.shape[-1] != model.dof_actuated:
+        raise ValueError(f"tau has {tau.shape[-1]} entries, model has {model.dof_actuated} actuated DoF")
+    return forward_dynamics_from_kin(model, fk_links(model, q, qd), q, qd, tau, gravity)
 
 
 def forward_dynamics_from_kin(

@@ -13,6 +13,11 @@ def integrate_euler_qdd(model: MultiBodyModel, q, qd, qdd, dt):
     return qd + qdd * dt
 
 
+def integrate_euler(model: MultiBodyModel, q, qd, qdd, dt):
+    """The full semi-implicit Euler step; returns (q, qd)."""
+    return integrate_q(model, q, integrate_euler_qdd(model, q, qd, qdd, dt), dt)
+
+
 def integrate_q(model: MultiBodyModel, q, qd, dt):
     """Position update from the (already updated) velocities; returns
     (q, qd). With fixed and 1-DoF joints only, q and qd share one layout."""

@@ -2,11 +2,14 @@
 
 Each env is a static description object with
 
-    reset(generator, batch_size) -> (EnvState, obs)
-    step(state, action)          -> (EnvState, obs, reward, done)
+    reset(generator, batch_size, noise) -> (EnvState, obs)
+    step(state, action)                 -> (EnvState, obs, reward, done)
 
 on tensors with a leading batch dimension. Randomness comes from a
-``torch.Generator`` passed to ``reset``, so the state carries no key.
+``torch.Generator`` passed to ``reset``, so the state carries no key; or a
+caller draws the reset noise itself with ``draw_reset_noise`` (or makes it
+elsewhere, as a test feeding another implementation's draws does) and
+hands it to ``reset``.
 """
 
 from typing import NamedTuple
@@ -26,7 +29,11 @@ class Env:
     observation_dim: int
     action_dim: int
 
-    def reset(self, generator=None, batch_size: int = 1):
+    def reset(self, generator=None, batch_size: int = 1, noise=None):
+        raise NotImplementedError
+
+    def draw_reset_noise(self, generator=None, batch_size: int = 1):
+        """The (batch_size, n) uniform draws that ``reset`` starts from."""
         raise NotImplementedError
 
     def step(self, state: EnvState, action):

@@ -47,7 +47,7 @@ LANES_PER_ENV = 16
 launches = 0
 
 
-class StepParams(NamedTuple):
+class _StepFields(NamedTuple):
     """K2's operands: contiguous tensors on the env's device, in its dtype
     (the tables in int32), then two loop counts. The field order is the
     order of ``StepOperands`` in csrc/megastep.cu."""
@@ -93,6 +93,20 @@ class StepParams(NamedTuple):
     cfm: torch.Tensor  # ()
     pgs_iterations: int
     num_friction_dir: int
+
+
+class StepParams(_StepFields):
+    @functools.cached_property
+    def operands(self) -> "_Operands":
+        """The kernel's ``StepOperands``, built once per StepParams (its
+        ``_replace`` makes a new one): the addresses of the tensors, which
+        the StepParams keeps alive, its loop counts and the sizes of its
+        schedule tables."""
+        return _Operands(
+            *(getattr(self, f).data_ptr() for f in POINTER_FIELDS),
+            self.pgs_iterations, self.num_friction_dir, self.chain.numel(), self.subtrees.shape[0],
+            self.sphere_paths.shape[1],
+        )
 
 
 POINTER_FIELDS = StepParams._fields[:-2]
@@ -421,16 +435,6 @@ class _Operands(ctypes.Structure):
     ]
 
 
-def operands(params: StepParams) -> _Operands:
-    """The kernel's ``StepOperands``: the addresses of ``params``' tensors,
-    its loop counts and the sizes of its schedule tables."""
-    return _Operands(
-        *(getattr(params, f).data_ptr() for f in POINTER_FIELDS),
-        params.pgs_iterations, params.num_friction_dir, params.chain.numel(), params.subtrees.shape[0],
-        params.sphere_paths.shape[1],
-    )
-
-
 def mega_step(params: StepParams, q, qd, action):
     """One control step on a batch: q, qd (B, dof), action (B, n_pd) ->
     (q, qd). The kernel on a CUDA device, the plain version on the CPU."""
@@ -445,7 +449,9 @@ def mega_step(params: StepParams, q, qd, action):
     return _mega_step_cuda(params, q, qd, action)
 
 
-def _check_instance(params, dof):
+def check_instance(params: StepParams, dof: int):
+    """(dtype, (links, dof, spheres)) of the kernel instance that runs
+    ``params``; raises when csrc/megastep.cu has none."""
     dtype = params.x_t_pos.dtype
     if dtype not in DTYPES:
         raise TypeError(f"the fused step kernel takes float32 or float64, got {dtype}")
@@ -474,7 +480,7 @@ def launch(lib, params: StepParams, q, qd, action):
     if q.dim() != 2:
         raise ValueError(f"q must be (B, dof), got {tuple(q.shape)}")
     bsz, dof = q.shape
-    dtype, shape = _check_instance(params, dof)
+    dtype, shape = check_instance(params, dof)
     n_pd = params.pd_q.numel()
     for name, t, expected in (("q", q, (bsz, dof)), ("qd", qd, (bsz, dof)), ("action", action, (bsz, n_pd))):
         if t.dtype != dtype:
@@ -486,12 +492,11 @@ def launch(lib, params: StepParams, q, qd, action):
     q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
     if bsz == 0:
         return q_out, qd_out
-    ops = operands(params)
     fn = lib.tds_megastep_f32 if dtype == torch.float32 else lib.tds_megastep_f64
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
-            ctypes.byref(ops), q.data_ptr(), qd.data_ptr(), action.data_ptr(), q_out.data_ptr(),
+            ctypes.byref(params.operands), q.data_ptr(), qd.data_ptr(), action.data_ptr(), q_out.data_ptr(),
             qd_out.data_ptr(), bsz, *shape, n_pd, stream,
         )
     if rc != 0:
@@ -504,7 +509,7 @@ def launch_shape(params: StepParams, batch: int) -> dict:
     envs: ``cuda_build.launch_shape``'s fields, resident warps per SM and
     waves among them."""
     dof = params.qd_offsets.max().item() + 1
-    dtype, shape = _check_instance(params, dof)
+    dtype, shape = check_instance(params, dof)
     args = (int(dtype == torch.float64), *shape, params.subtrees.shape[0])
     return cuda_build.launch_shape(_library().tds_megastep_launch_shape, args, batch, params.x_t_pos.device)
 

@@ -6,6 +6,13 @@ half-step -> contact impulses -> position update, with observation
 [q, qd]. Fixed-base variants emulate the floating base with 3 prismatic +
 3 revolute passive joints (the *_xyz_xyzrot URDFs) that the PD loop skips.
 
+``fused_step=True`` picks the fused step kernel K2 for the whole control
+step (``envs/fused_step.py``), as ``ContactSolverParams(pgs_impl=
+"pallas")`` picks the JAX package's kernel path: the constructor packs the
+kernel's operands once, and every ``sim_step`` (reset's settle steps too)
+launches K2 on the card and runs its plain version on the CPU. An env the
+kernel does not handle raises at construction.
+
 Not ported yet (they raise NotImplementedError): floating bases, the
 spring contact model, terrain, ``height_scan`` and ``reset_pool``.
 """
@@ -20,6 +27,7 @@ from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, forward_dynamics
 from tds_tpu_torch.dynamics.integrator import integrate_euler_qdd, integrate_q
 from tds_tpu_torch.dynamics.kinematics import fk_links
 from tds_tpu_torch.envs.base import Env, EnvState
+from tds_tpu_torch.envs.fused_step import check_instance, mega_step, pack_step_params
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
 from tds_tpu_torch.utils.tensors import constant, resolve_device
@@ -28,7 +36,8 @@ from tds_tpu_torch.world import build_world, make_ground_plane, resolve_contacts
 
 class LocomotionEnv(Env):
     """``model`` is moved to ``device`` (None: the CUDA device, raising when
-    there is none) in ``dtype`` (None: the model's own)."""
+    there is none) in ``dtype`` (None: the model's own); ``fused_step``
+    picks K2 for the control step."""
 
     def __init__(
         self,
@@ -52,6 +61,7 @@ class LocomotionEnv(Env):
         reset_pool=None,
         device=None,
         dtype: Optional[torch.dtype] = None,
+        fused_step: bool = False,
     ):
         for name, value in (("terrain", terrain), ("height_scan", height_scan), ("reset_pool", reset_pool)):
             if value is not None:
@@ -80,10 +90,17 @@ class LocomotionEnv(Env):
             solver=solver,
             contact_model=contact_model,
         )
+        self.step_params = None
+        if fused_step:
+            params = pack_step_params(self)
+            check_instance(params, self.model.dof_qd)
+            self.step_params = params
 
     # -- dynamics ----------------------------------------------------------
     def sim_step(self, q, qd, action):
         """One control step on (B, dof_q), (B, dof_qd), (B, action_dim)."""
+        if self.step_params is not None:
+            return mega_step(self.step_params, q, qd, action.contiguous())
         clipped = action.clamp(-self.action_limit, self.action_limit)
         targets = self.initial_poses + clipped
         tau = pd_tau(self.model, q, qd, targets, self.kp, self.kd, self.max_force, skip_links=self.skip_links)
@@ -117,17 +134,21 @@ class LocomotionEnv(Env):
         """Scatter the compact pose vector (B, action_dim) into q."""
         return q.index_copy(-1, constant(self.pd_q_indices(), torch.long, q.device), poses)
 
+    def draw_reset_noise(self, generator: Optional[torch.Generator] = None, batch_size: int = 1):
+        """(B, action_dim) joint noise, uniform in +-reset_noise, drawn from
+        ``generator`` on the generator's device and moved to the env's."""
+        gen_device = generator.device if generator is not None else self.device
+        u = torch.rand((batch_size, self.action_dim), generator=generator, dtype=self.dtype, device=gen_device)
+        return (-self.reset_noise + 2.0 * self.reset_noise * u).to(self.device)
+
     def initial_state(self, generator: Optional[torch.Generator] = None, batch_size: int = 1, noise=None):
         """Standing start with uniform joint noise in +-reset_noise.
 
-        The noise is drawn from ``generator`` (on the generator's device,
-        then moved to the env's), or given as an explicit (B, action_dim)
-        ``noise`` tensor, so a test can feed the draws of another
-        implementation."""
+        The noise is drawn from ``generator`` (:meth:`draw_reset_noise`), or
+        given as an explicit (B, action_dim) ``noise`` tensor, so a test can
+        feed the draws of another implementation."""
         if noise is None:
-            gen_device = generator.device if generator is not None else self.device
-            u = torch.rand((batch_size, self.action_dim), generator=generator, dtype=self.dtype, device=gen_device)
-            noise = -self.reset_noise + 2.0 * self.reset_noise * u
+            noise = self.draw_reset_noise(generator, batch_size)
         noise = noise.to(self.device, self.dtype)
         q = self.model.zero_q(noise.shape[:-1])
         n_base = min(3, self.pd_q_indices()[0])

@@ -25,6 +25,11 @@ class MLPSpec:
         self.input_dim = input_dim
         self.layer_dims = tuple(layer_dims)
 
+    @property
+    def num_parameters(self) -> int:
+        dims = (self.input_dim,) + self.layer_dims
+        return sum(a * b + b for a, b in zip(dims, dims[1:]))
+
     def unflatten(self, params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         layers, prev, off = [], self.input_dim, 0
         for d in self.layer_dims:

@@ -1,7 +1,8 @@
 """Collision geometry descriptors (counterpart of
-tds_tpu/model/geometry.py: the plane and the sphere, which the laikago
-slice collides). Descriptors are hashable plain Python; the other shapes
-of the JAX package are not ported yet.
+tds_tpu/model/geometry.py): the plane and the sphere, which the laikago
+slice collides, and the box, which the cartpole URDF declares and nothing
+collides yet. Descriptors are hashable plain Python; the other shapes of
+the JAX package are not ported yet.
 """
 
 import dataclasses
@@ -19,6 +20,13 @@ class Plane:
 
     normal: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     constant: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """Axis-aligned box with full extents."""
+
+    extents: Tuple[float, float, float]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,8 @@ quirks:
 - each geom carries its link's ``<contact>`` lateral friction and
   restitution, which ``world.gather_pair_contacts`` reads.
 
-Only plane and sphere collision shapes are ported; boxes, capsules,
+Plane, sphere and box collision shapes are ported (the box as a
+descriptor only: ``collision.narrowphase`` raises on its pairs); capsules,
 cylinders and opted-in meshes raise NotImplementedError.
 """
 
@@ -20,7 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tds_tpu_torch.model.geometry import GeomAttachment, Plane, Sphere
+from tds_tpu_torch.model.geometry import Box, GeomAttachment, Plane, Sphere
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_rpy
 from tds_tpu_torch.urdf.structures import UrdfStructures
@@ -57,6 +58,8 @@ def _shape(geom):
         return Sphere(geom.radius)
     if geom.geom_type == "plane":
         return Plane(tuple(geom.normal), geom.constant)
+    if geom.geom_type == "box":
+        return Box(tuple(geom.extents))
     raise NotImplementedError(
         f"{geom.geom_type!r} collision shapes are not ported to tds_tpu_torch yet"
     )

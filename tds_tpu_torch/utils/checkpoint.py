@@ -1,16 +1,26 @@
-"""Loading training checkpoints written by the JAX package
-(counterpart of tds_tpu/utils/checkpoint.load_checkpoint).
+"""Training checkpoints in the JAX package's format (counterpart of
+tds_tpu/utils/checkpoint.{save_checkpoint, load_checkpoint}).
 
-A checkpoint is a pickle of ``{"state": ..., "metadata": ...}`` whose
-state may hold a ``tds_tpu.learn.running_stat.RunningStat``. Unpickling
-that with plain ``pickle`` would import ``tds_tpu`` and with it JAX, so
-the unpickler here maps that one class to the port's own
+A checkpoint is a pickle of ``{"state": ..., "metadata": ...}``. The JAX
+package's state may hold a ``tds_tpu.learn.running_stat.RunningStat``.
+Unpickling that with plain ``pickle`` would import ``tds_tpu`` and with it
+JAX, so the unpickler here maps that one class to the port's own
 :class:`~tds_tpu_torch.learn.running_stat.RunningStat` (same fields) and
 refuses every other ``tds_tpu`` global. Arrays come back as numpy arrays.
+
+:func:`save_checkpoint` writes tensors as numpy arrays and every tuple,
+the port's ``RunningStat`` among them, as a plain tuple, so the file
+unpickles without ``tds_tpu_torch`` or ``tds_tpu``: the JAX package's
+trainer reads its ``obs_stat`` as ``RunningStat(*obs_stat)``.
 """
 
 import importlib
+import os
 import pickle
+import tempfile
+from typing import Any, Optional
+
+import torch
 
 from tds_tpu_torch.learn.running_stat import RunningStat
 
@@ -37,3 +47,32 @@ def load_checkpoint(path: str):
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()
     return payload["state"], payload["metadata"]
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_to_host(v) for v in x)
+    if isinstance(x, list):
+        return [_to_host(v) for v in x]
+    return x
+
+
+def save_checkpoint(path: str, state: Any, metadata: Optional[dict] = None):
+    """Atomic pickle of ``state`` (tensors -> numpy, tuples -> plain
+    tuples) and ``metadata``: written to a temporary file beside ``path``,
+    then renamed over it."""
+    payload = {"state": _to_host(state), "metadata": metadata or {}}
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(payload, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
