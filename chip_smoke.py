@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 It builds the port's kernels from the sources in this checkout and drives
-the laikago contact rollout, the fused step and the probes through them.
+the laikago contact rollout, the fused step, the probes, ARS and the ant
+and hopper rollouts through them.
 Phases, each of which raises on failure, so that the run exits non-zero and
 prints no final line:
 
@@ -52,7 +53,23 @@ prints no final line:
    ``torch.profiler``: device operations per step, idle share, K2's time
    per launch and its launch shape at batch 256; (d) the trainer
    ``python -m tds_tpu_torch.tools.ars_train`` resumed from the policy for
-   2 iterations, its checkpoint read back.
+   2 iterations, its checkpoint read back;
+10. ant and hopper (``tds_tpu_torch/envs/{ant,hopper}.py``: capsule
+   contacts, and the ant's ``top_k=8`` compaction, so that K1 solves 24
+   rows for both): (a) K1 on the float32 batch-4096 PGS operands of an ant
+   step and of a hopper step with contacts active, against its plain
+   version, timed against its bound, and an ant without compaction (51
+   rows) refused on the card; (b) the ant's main path, ``reset`` and a
+   100-step ``rollout`` of the zero linear policy at batch 4096 in
+   float32, with K1's launches counted and ``torch.profiler``'s device
+   operations and idle share, then a 50-step hopper rollout; (c) 50
+   float64 ant steps at batch 16 on the card against the CPU, half the
+   envs started with the torso on the ground, where the compaction drops
+   candidates; (d) ``logs/ant_ars/policy.pkl`` replayed in float32 for
+   1000 steps at batch 4, held to the thresholds of
+   ``tests/test_ant_policy.py``; (e) ``python -m
+   tds_tpu_torch.tools.ars_train --env ant`` resumed from that policy for
+   2 iterations.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
@@ -80,6 +97,11 @@ MAIN_BATCH = 4096
 ROLLOUT_STEPS = 100
 REPLAY_BATCH, REPLAY_STEPS, REPLAY_SEED = 8, 2000, 0
 MEGA_BATCH, MEGA_STEPS = 16384, 100  # the experiment's defaults
+ANT_CHECKPOINT = REPO / "logs" / "ant_ars" / "policy.pkl"
+# tests/test_ant_policy.py's replay: 4 envs, 1000 steps, each alive for at
+# least 900 of them and more than 9.0 m forward
+ANT_REPLAY_BATCH, ANT_REPLAY_STEPS = 4, 1000
+HOPPER_STEPS = 50
 # (memory bytes/s, float32 FLOP/s, float64 FLOP/s outside the tensor cores),
 # NVIDIA's data sheets; the first key found in the device name applies
 PEAKS = {
@@ -207,28 +229,47 @@ def launch_fields(shape):
     }
 
 
-def phase_kernel(env, card):
-    from tds_tpu_torch.contact import pgs
+def pgs_bound(b, iterations, card):
+    """(ms for K1's bytes, ms for its flops, bytes, flops) on the PGS
+    operands whose b is ``b``: A, b, lo, hi and dep read once, x written
+    once; per row and sweep n - 1 products and sums, b - delta, a divide
+    and two bound scales."""
+    bsz, n = b.shape
+    n_bytes = b.element_size() * (bsz * n * n + 4 * bsz * n) + 4 * n
+    n_ops = iterations * bsz * n * (2 * n + 3)
+    bandwidth, f32_rate, f64_rate = card
+    rate = f32_rate if b.dtype == torch.float32 else f64_rate
+    return n_bytes / bandwidth * 1e3, n_ops / rate * 1e3, n_bytes, n_ops
 
+
+def harvest_pgs_operands(env, gen, warm_steps, label, prefix):
+    """The PGS operands of one step at MAIN_BATCH, after ``reset`` from
+    ``gen`` and ``warm_steps`` zero-policy steps, with contact rows active."""
     from tds_tpu_torch.learn.nn import linear_policy
     from tds_tpu_torch.rollout import rollout
+
+    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    state = rollout(env, policy, None, state, obs, warm_steps)[0]
+    with recorded_pgs_calls() as calls:
+        env.step(state, torch.zeros(MAIN_BATCH, env.action_dim, dtype=env.dtype, device=env.device))
+    if len(calls) != 1:
+        raise AssertionError(f"expected one PGS call in a {label} step, saw {len(calls)}")
+    active = int((calls[0][1] != 0).sum())
+    if active == 0:
+        raise AssertionError(f"no contact row is active in the harvested {label} step")
+    log(f"{prefix}: harvested the PGS operands of {label} step {env.settle_steps + warm_steps + 1} at batch "
+        f"{MAIN_BATCH}: {active} of {calls[0][1].numel()} rows active")
+    return calls[0]
+
+
+def phase_kernel(env, card):
+    from tds_tpu_torch.contact import pgs
 
     # the toes reach the ground about 65 steps after the reset: harvest the
     # operands of a step with the contacts active
     gen = torch.Generator(device="cuda").manual_seed(0)
-    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
-    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
-    state = rollout(env, policy, None, state, obs, ROLLOUT_STEPS)[0]
-    with recorded_pgs_calls() as calls:
-        env.step(state, torch.zeros(MAIN_BATCH, env.action_dim, dtype=env.dtype, device=env.device))
-    if len(calls) != 1:
-        raise AssertionError(f"expected one PGS call in a laikago step, saw {len(calls)}")
-    main_args = calls[0]
-    active = int((main_args[1] != 0).sum())
-    if active == 0:
-        raise AssertionError("no contact row is active in the harvested laikago step")
-    log(f"kernel: harvested the PGS operands of laikago step {ROLLOUT_STEPS + env.settle_steps + 1} "
-        f"at batch {MAIN_BATCH}: {active} of {main_args[1].numel()} rows active")
+    main_args = harvest_pgs_operands(env, gen, ROLLOUT_STEPS, "laikago", "kernel")
     cases = [
         (f"random B={b} n={3 * nc} it={it} {str(dt)[6:]}", *random_pgs_problem(b, nc, dt, gen), it)
         for b, nc, it in ((4096, 4, 1), (4096, 8, 1), (1000, 4, 3))
@@ -259,12 +300,7 @@ def phase_kernel(env, card):
     kernel_wall = wall_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), reps=200)
     plain_wall = wall_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), reps=20)
     bsz, n = b.shape
-    elt = b.element_size()
-    n_bytes = elt * (bsz * n * n + 4 * bsz * n) + 4 * n  # A, b, lo, hi, x, dep
-    n_ops = it * bsz * n * (2 * n + 3)  # per row: n-1 products and sums, b - delta, a divide, two bound scales
-    bandwidth, f32_rate, f64_rate = card
-    t_bytes = n_bytes / bandwidth * 1e3
-    t_ops = n_ops / (f32_rate if b.dtype == torch.float32 else f64_rate) * 1e3
+    t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
     log(f"kernel: main-path shape B={bsz} n={n} it={it} {b.dtype}: kernel {ms * 1e3:.2f} us on the device "
         f"({kernel_wall * 1e3:.2f} us wall per call), plain {plain_ms * 1e3:.1f} us on the device ({plain_wall * 1e3:.1f} us wall), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
         f"({n_bytes} bytes, {n_ops} flops)")
@@ -345,6 +381,7 @@ STAGES = (
     ("tds_tpu_torch.world", "resolve_collision"),
     ("tds_tpu_torch.contact.mlcp", "point_jacobian_kin"),
     ("tds_tpu_torch.contact.mlcp", "minv_mul"),
+    ("tds_tpu_torch.contact.mlcp", "top_k_indices"),
     ("tds_tpu_torch.contact.pgs", "solve_pgs"),
     ("tds_tpu_torch.envs.locomotion", "integrate_q"),
 )
@@ -431,7 +468,13 @@ def stage_breakdown(env, policy, state, obs, steps):
     }
 
 
-def phase_main_path(env):
+def drive_main_path(env, label, steps, z_index, z_range):
+    """``reset`` at MAIN_BATCH and a ``steps``-step rollout of the zero
+    linear policy, with K1's launches counted from 0 just before and read
+    just after; every env must be alive with q[:, z_index] in ``z_range``.
+    Then 5 steps' stage breakdown. Returns (K1 launches, ms/step, device
+    operations per step, idle share); the last two None when the profiler
+    saw no device activity."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.learn.nn import linear_policy
     from tds_tpu_torch.rollout import rollout
@@ -444,36 +487,42 @@ def phase_main_path(env):
     state, obs = env.reset(gen, batch_size=MAIN_BATCH)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    state, obs, total, alive = rollout(env, policy, None, state, obs, ROLLOUT_STEPS)
+    state, obs, total, alive = rollout(env, policy, None, state, obs, steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = pgs.launches
-    expected = ROLLOUT_STEPS + env.settle_steps
+    expected = steps + env.settle_steps
     if launches != expected:
-        raise AssertionError(f"the main path launched the PGS kernel {launches} times, expected {expected}")
+        raise AssertionError(f"the {label} launched the PGS kernel {launches} times, expected {expected}")
     for name, t in (("q", state.q), ("qd", state.qd), ("obs", obs), ("total reward", total)):
         if t.shape[0] != MAIN_BATCH or not torch.isfinite(t).all():
-            raise AssertionError(f"{name} is not finite or has shape {tuple(t.shape)}")
-    z = state.q[:, 2]
-    if not bool(alive.all()) or not bool(((z > 0.3) & (z < 0.6)).all()):
-        raise AssertionError(f"the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, z in [{z.min():.3f}, {z.max():.3f}]")
-    step_ms = (t2 - t1) * 1e3 / ROLLOUT_STEPS
-    log(f"main path: reset (10 settle steps) at batch {MAIN_BATCH} in {(t1 - t0) * 1e3:.1f} ms; "
-        f"{ROLLOUT_STEPS}-step rollout {step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; "
-        f"PGS kernel launches {launches}; z in [{z.min():.3f}, {z.max():.3f}]")
+            raise AssertionError(f"{label}: {name} is not finite or has shape {tuple(t.shape)}")
+    z = state.q[:, z_index]
+    if not bool(alive.all()) or not bool(((z > z_range[0]) & (z < z_range[1])).all()):
+        raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, "
+                             f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
+    step_ms = (t2 - t1) * 1e3 / steps
+    log(f"{label}: reset ({env.settle_steps} settle steps) at batch {MAIN_BATCH} in {(t1 - t0) * 1e3:.1f} ms; "
+        f"{steps}-step rollout {step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; "
+        f"PGS kernel launches {launches}; q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
     breakdown = stage_breakdown(env, policy, state, obs, steps=5)
     if breakdown is None:
-        log("main path: device operations per step not measured (the profiler saw no device activity)")
-    else:
-        log(f"main path: {breakdown['device_ops']:.0f} device operations per step (torch.profiler), device busy "
-            f"{breakdown['device_ms']:.3f} ms/step of {step_ms:.3f} ms ({100 * (1 - breakdown['device_ms'] / step_ms):.1f}% idle), "
-            f"PGS kernel {breakdown['pgs_kernel_ms'] * 1e3:.2f} us/step")
-        log(f"main path: stages per step (host ms timed without the profiler, {breakdown['step_ms_with_stage_timers']:.3f} ms/step "
-            "with the stage timers; device operations and ms from the profiler; gather_pair_contacts to "
-            "solve_pgs are parts of resolve_contacts):")
-        for name, row in breakdown["stages"].items():
-            log(f"  {name:26s} host {row['host_ms']:8.3f} ms  device ops {row['device_ops']:6.0f}  device {row['device_ms']:7.3f} ms")
-    return launches
+        log(f"{label}: device operations per step not measured (the profiler saw no device activity)")
+        return launches, step_ms, None, None
+    idle = 1 - breakdown["device_ms"] / step_ms
+    log(f"{label}: {breakdown['device_ops']:.0f} device operations per step (torch.profiler), device busy "
+        f"{breakdown['device_ms']:.3f} ms/step of {step_ms:.3f} ms ({100 * idle:.1f}% idle), "
+        f"PGS kernel {breakdown['pgs_kernel_ms'] * 1e3:.2f} us/step")
+    log(f"{label}: stages per step (host ms timed without the profiler, {breakdown['step_ms_with_stage_timers']:.3f} ms/step "
+        "with the stage timers; device operations and ms from the profiler; gather_pair_contacts to "
+        "solve_pgs are parts of resolve_contacts):")
+    for name, row in breakdown["stages"].items():
+        log(f"  {name:26s} host {row['host_ms']:8.3f} ms  device ops {row['device_ops']:6.0f}  device {row['device_ms']:7.3f} ms")
+    return launches, step_ms, breakdown["device_ops"], idle
+
+
+def phase_main_path(env):
+    return drive_main_path(env, "main path", ROLLOUT_STEPS, 2, (0.3, 0.6))[0]
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -1015,6 +1064,235 @@ def phase_ars(card, mega):
     }
 
 
+# -- phase 10 --------------------------------------------------------------
+def ant_kernel(card, ant, hopper):
+    """(a): K1 on the ant's and the hopper's own operands (24 rows each)
+    against its plain version, and timed; the ant without compaction (51
+    rows) must raise on the card without running the plain version."""
+    from tds_tpu_torch.contact import mlcp, pgs
+    from tds_tpu_torch.envs.ant import AntEnv
+
+    fields = {}
+    # the ant stands on its feet 20 steps after its reset; the hopper
+    # lands about 36 steps after its reset
+    for label, env, warm_steps in (("ant", ant, 20), ("hopper", hopper, 50)):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        a, b, lo, hi, dep, it = harvest_pgs_operands(env, gen, warm_steps, label, "ant (a)")
+        if tuple(b.shape) != (MAIN_BATCH, 24):
+            raise AssertionError(f"the {label}'s MLCP has shape {tuple(b.shape)}, expected ({MAIN_BATCH}, 24)")
+        x = pgs.solve_pgs(a, b, lo, hi, dep, it)
+        ref = pgs.solve_pgs_reference(a, b, lo, hi, dep, it)
+        torch.cuda.synchronize()
+        rtol, atol = PGS_TOL[x.dtype]
+        err = (x - ref).abs()
+        over = (err - (atol + rtol * ref.abs())).max().item()
+        log(f"ant (a): K1 on the {label} step B={MAIN_BATCH} n=24: max |kernel - plain| = {err.max().item():.3e} "
+            f"(|plain| <= {ref.abs().max().item():.3g}; rtol {rtol}, atol {atol}, margin left {-over:.3e})")
+        if not bool(torch.isfinite(x).all()) or over > 0:
+            raise AssertionError(f"the PGS kernel disagrees with its plain version on the {label} step")
+        ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), rounds=5, per_round=20)
+        plain_ms = device_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, it), rounds=10, per_round=2, backlog_ms=50)
+        t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
+        log(f"ant (a): K1 at the {label}'s shape B={MAIN_BATCH} n=24 it={it} {b.dtype}: {ms * 1e3:.2f} us on the device "
+            f"(median of 100 launches), plain {plain_ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+            f"({n_bytes} bytes, {n_ops} flops)")
+        fields[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err.max().item()}
+    log_launch_shape(f"ant (a): K1 B={MAIN_BATCH} n=24 float32", pgs.launch_shape(torch.float32, 24, MAIN_BATCH))
+
+    # without compaction the ant's MLCP has 51 rows, which K1 is not built for
+    full = AntEnv(dtype=torch.float32, solver=mlcp.ContactSolverParams(top_k=0))
+    q, qd = full.initial_state(torch.Generator(device="cuda").manual_seed(3), batch_size=8)
+    q[:, 2] = 0.3
+    plain, before = pgs.solve_pgs_reference, pgs.launches
+
+    def refuse(*args):
+        raise AssertionError("the plain PGS ran on the card")
+
+    pgs.solve_pgs_reference = refuse
+    try:
+        full.sim_step(q, qd, torch.zeros(8, full.action_dim, device="cuda"))
+    except ValueError as e:
+        log(f"ant (a): the ant with top_k=0 (51 rows) is refused on the card: {e}")
+    else:
+        raise AssertionError("the ant with top_k=0 (51 rows) ran on the card")
+    finally:
+        pgs.solve_pgs_reference = plain
+    if pgs.launches != before:
+        raise AssertionError("the refused 51-row solve counted a K1 launch")
+    return fields
+
+
+def penetrating(env, q):
+    """(B,) count of the env's plane candidates with distance < 0."""
+    from tds_tpu_torch import world
+    from tds_tpu_torch.dynamics.kinematics import fk_links
+
+    zero = q.new_zeros(q.shape[0], 0)
+    kins = [fk_links(env.world.bodies[0], zero, zero), fk_links(env.model, q, torch.zeros_like(q))]
+    return (world.gather_pair_contacts(env.world, kins, 0, 1, q).contact.distance < 0).sum(-1)
+
+
+def ant_device_vs_cpu():
+    """(c): 50 float64 ant steps at batch 16, K1 on the card against the
+    plain PGS on the CPU, within 1e-9 abs + rel. Half the envs start with
+    the torso on the ground, where all 17 candidates penetrate and the
+    compaction drops 9; the other half stand on their feet. The joint
+    noise keeps exact ties of distance out (across devices a tie could
+    flip on the last bit). Returns the largest difference."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.ant import AntEnv
+
+    batch, steps, tol = 16, 50, 1e-9
+    cpu_env = AntEnv(dtype=torch.float64, device="cpu")
+    gpu_env = AntEnv(dtype=torch.float64)
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    noise = cpu_env.draw_reset_noise(gen, batch)
+    actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qc, qdc = cpu_env.initial_state(noise=noise)
+    qc[: batch // 2, 2] = 0.05
+    qc[batch // 2 :, 2] = 0.35
+    qg, qdg = qc.cuda(), qdc.cuda()
+    before = pgs.launches
+    worst, worst_excess = 0.0, -float("inf")
+    counts = []
+    for t in range(steps):
+        counts.append(penetrating(cpu_env, qc))
+        qc, qdc = cpu_env.sim_step(qc, qdc, actions[t])
+        qg, qdg = gpu_env.sim_step(qg, qdg, actions[t].cuda())
+        for got, expected in ((qg.cpu(), qc), (qdg.cpu(), qdc)):
+            worst = max(worst, (got - expected).abs().max().item())
+            worst_excess = max(worst_excess, excess(got, expected, tol))
+            if worst_excess > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"the ant on the card and on the CPU differ beyond {tol} at step {t + 1}")
+    if pgs.launches - before != steps:
+        raise AssertionError(f"{steps} ant steps on the card launched K1 {pgs.launches - before} times")
+    counts = torch.stack(counts)
+    dropping = int((counts > 8).sum())
+    if dropping == 0 or not bool((counts > 0).any(-1).all()):
+        raise AssertionError(f"the ant's card-against-CPU run needs steps where the compaction drops candidates "
+                             f"({dropping} env-steps) and a contact in every step")
+    log(f"ant (c): {steps} float64 steps at batch {batch}, card against CPU: max |cuda - cpu| = {worst:.3e} (tolerance "
+        f"{tol} abs + rel, margin left {-worst_excess:.3e}); {dropping} env-steps with more than 8 of 17 candidates "
+        f"penetrating (the compaction dropped some), {int((counts > 0).sum())} of {batch * steps} env-steps in contact, "
+        f"{steps} K1 launches")
+    return worst
+
+
+def ant_replay():
+    """(d): logs/ant_ars/policy.pkl in float32 on the card, held to
+    tests/test_ant_policy.py's thresholds; returns K1's launches."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
+    from tds_tpu_torch.envs.ant import AntEnv
+
+    saved, _ = load_checkpoint(str(ANT_CHECKPOINT))
+    env = AntEnv(dtype=torch.float32)
+    policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype)
+    noise = env.draw_reset_noise(torch.Generator(device="cpu").manual_seed(REPLAY_SEED), ANT_REPLAY_BATCH)
+    torch.cuda.synchronize()
+    pgs.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state, obs = env.reset(noise=noise)
+        x0 = state.q[:, 0].clone()
+        x, alive = x0.clone(), torch.ones_like(x0)
+        steps = torch.zeros_like(x0)
+        for _ in range(ANT_REPLAY_STEPS):
+            state, obs, _, done = env.step(state, env.action_transform(policy(stat.normalize(obs))))
+            steps += alive
+            x = torch.where(alive > 0, state.q[:, 0], x)
+            alive = alive * (1.0 - done.to(alive.dtype))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = pgs.launches
+    if launches != ANT_REPLAY_STEPS + env.settle_steps:
+        raise AssertionError(f"the ant replay launched K1 {launches} times, expected {ANT_REPLAY_STEPS + env.settle_steps}")
+    steps, forward = steps.cpu(), (x - x0).cpu()
+    failed = []
+    for i in range(ANT_REPLAY_BATCH):
+        ok = bool(torch.isfinite(state.q[i]).all()) and steps[i] >= 900 and forward[i] > 9.0
+        log(f"ant (d): env {i}: alive {steps[i]:.0f} of {ANT_REPLAY_STEPS} steps, {forward[i]:.3f} m forward {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(i)
+    if failed:
+        raise AssertionError(f"the trained ant policy failed the thresholds in envs {failed}")
+    log(f"ant (d): {ANT_CHECKPOINT.name} replayed for {ANT_REPLAY_STEPS} steps at batch {ANT_REPLAY_BATCH} in "
+        f"{seconds:.1f} s; every env walks; K1 launches {launches}")
+    return launches
+
+
+def ant_trainer():
+    """(e): the trainer on the ant as a user runs it, resumed from
+    logs/ant_ars/policy.pkl; returns the last eval's eval_reward_min."""
+    import tempfile
+
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint
+    from tds_tpu_torch.tools import ars_train
+
+    iterations, rollout_length = 2, 200
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ant.pkl")
+        pgs.launches = 0
+        t0 = time.perf_counter()
+        _, history = ars_train.main(
+            ["--env", "ant", "--resume", str(ANT_CHECKPOINT), "--iterations", str(iterations), "--eval_interval", "2",
+             "--rollout_length", str(rollout_length), "--num_directions", "8", "--checkpoint", path]
+        )
+        seconds = time.perf_counter() - t0
+        launches = pgs.launches
+        written, meta = load_checkpoint(path)
+    finite = all(bool(torch.isfinite(v)) for metrics in history for v in metrics.values())
+    finite = finite and bool(torch.isfinite(torch.as_tensor(written["params"])).all())
+    expected = (iterations + 1) * (10 + rollout_length)  # each iteration and the eval: 10 settle steps + rollout
+    if not finite or "eval_reward_min" not in history[-1] or meta.get("iteration") != iterations or launches != expected:
+        raise AssertionError(f"the ant trainer: finite {finite}, last metrics {history[-1]}, metadata {meta}, "
+                             f"K1 launches {launches} (expected {expected})")
+    reward_min = history[-1]["eval_reward_min"].item()
+    log(f"ant (e): python -m tds_tpu_torch.tools.ars_train --env ant --resume {ANT_CHECKPOINT.name} --iterations "
+        f"{iterations} --eval_interval 2 --rollout_length {rollout_length} --num_directions 8 in {seconds:.1f} s: metrics "
+        f"finite, eval_reward_min {reward_min:.2f}, K1 launches {launches}")
+    return reward_min
+
+
+def phase_ant(card):
+    from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.envs.hopper import HopperEnv
+
+    ant, hopper = AntEnv(dtype=torch.float32), HopperEnv(dtype=torch.float32)
+    kernel = ant_kernel(card, ant, hopper)
+    launches, step_ms, ops, idle = drive_main_path(ant, "ant (b)", ROLLOUT_STEPS, 2, (0.26, 0.48))
+    hopper_launches, hopper_ms, hopper_ops, hopper_idle = drive_main_path(hopper, "hopper (b)", HOPPER_STEPS, 1, (-0.35, 0.1))
+    worst = ant_device_vs_cpu()
+    replay_launches = ant_replay()
+    reward_min = ant_trainer()
+    return {
+        "ant_shape": f"B={MAIN_BATCH} n=24 iterations=1 float32",
+        "ant_ms": kernel["ant"]["ms"],
+        "ant_plain_ms": kernel["ant"]["plain_ms"],
+        "ant_bound_ms": kernel["ant"]["bound_ms"],
+        "ant_bound_by": kernel["ant"]["bound_by"],
+        "ant_max_abs_err": kernel["ant"]["max_abs_err"],
+        "ant_launches": launches,
+        "ant_launches_per_step": launches / (ROLLOUT_STEPS + ant.settle_steps),
+        "ant_ms_per_step": step_ms,
+        "ant_env_steps_per_s": MAIN_BATCH / step_ms * 1e3,
+        "ant_device_ops_per_step": ops,
+        "ant_idle_share": idle,
+        "ant_float64_card_against_cpu": worst,
+        "ant_replay_launches": replay_launches,
+        "ant_trainer_eval_reward_min": reward_min,
+        "hopper_ms": kernel["hopper"]["ms"],
+        "hopper_plain_ms": kernel["hopper"]["plain_ms"],
+        "hopper_max_abs_err": kernel["hopper"]["max_abs_err"],
+        "hopper_launches": hopper_launches,
+        "hopper_ms_per_step": hopper_ms,
+        "hopper_device_ops_per_step": hopper_ops,
+        "hopper_idle_share": hopper_idle,
+    }
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -1037,6 +1315,7 @@ def main():
     mega = timed(phase_mega_step, card)
     probes = timed(phase_probes, card)
     mega.update(timed(phase_ars, card, mega))
+    kernel.update(timed(phase_ant, card))
     print(json.dumps({"kernels": [kernel, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

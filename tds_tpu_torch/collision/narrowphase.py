@@ -1,12 +1,15 @@
 """Analytic narrowphase with static contact counts (counterpart of
 tds_tpu/collision/narrowphase.py: the plane-sphere pair, which the laikago
-slice collides). Every pair function emits its fixed number of candidate
-points; the ``distance`` field decides activity downstream by masking.
+slice collides, and the plane-capsule pair, which the ant and the hopper
+collide). Every pair function emits its fixed number of candidate points
+(1 for plane-sphere, 2 for plane-capsule); the ``distance`` field decides
+activity downstream by masking.
 
 Contacts are ``Contact`` tuples with fields shaped (B, k, 3) / (B, k). The
 other shape pairs of the JAX package are not ported yet; the port's
-geometry has planes, spheres and boxes, and sphere-sphere and every box
-pair raise NotImplementedError in :func:`compute_contacts`.
+geometry has planes, spheres, capsules and boxes, and sphere-sphere,
+capsule-sphere and every box pair raise NotImplementedError in
+:func:`compute_contacts`.
 """
 
 from typing import NamedTuple
@@ -14,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from tds_tpu_torch.algebra.transform import Transform
-from tds_tpu_torch.model.geometry import Box, Plane, Sphere
+from tds_tpu_torch.model.geometry import Box, Capsule, Plane, Sphere
 from tds_tpu_torch.utils.tensors import constant
 
 
@@ -56,6 +59,18 @@ def plane_sphere(pa: Plane, xa: Transform, sb: Sphere, xb: Transform) -> Contact
     )
 
 
+def plane_capsule(pa: Plane, xa: Transform, cb: Capsule, xb: Transform) -> Contact:
+    """Two sphere probes at the capsule's axis endpoints, +length/2 first
+    (the capsule's axis is its local Z)."""
+    half = 0.5 * cb.length
+    sphere = Sphere(cb.radius)
+    probes = []
+    for sz in (half, -half):
+        center = xb.apply_point(constant((0.0, 0.0, sz), xb.pos.dtype, xb.pos.device))
+        probes.append(plane_sphere(pa, xa, sphere, Transform(pos=center, rot=xb.rot)))
+    return Contact.concatenate(probes)
+
+
 def flip(contact: Contact) -> Contact:
     """Swap the roles of a and b."""
     return Contact(
@@ -69,12 +84,17 @@ def flip(contact: Contact) -> Contact:
 _PAIR_TABLE = {
     (Plane, Sphere): (plane_sphere, False),
     (Sphere, Plane): (plane_sphere, True),
+    (Plane, Capsule): (plane_capsule, False),
+    (Capsule, Plane): (plane_capsule, True),
 }
 
 
 # pairs of ported shapes that the JAX package collides and the port does
 # not yet: compute_contacts raises for them rather than skipping the pair
-_UNPORTED_PAIRS = {(Sphere, Sphere), (Plane, Box), (Box, Plane), (Sphere, Box), (Box, Sphere)}
+_UNPORTED_PAIRS = {
+    (Sphere, Sphere), (Capsule, Sphere), (Sphere, Capsule),
+    (Plane, Box), (Box, Plane), (Sphere, Box), (Box, Sphere),
+}
 
 
 def supported(shape_a, shape_b) -> bool:

@@ -5,6 +5,9 @@ Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
 - b_i = -(1+restitution)*vn - erp*d/dt, rows masked by collision = (d < 0);
 - A = J M^-1 J^T + cfm*I, with M^-1 J^T from the O(n) ABA factor
   (``minv_method="aba"``);
+- ``top_k`` compaction: only the top_k deepest candidates of each env go
+  into the MLCP, back in candidate order (ties go to the lower index, as
+  ``jax.lax.top_k`` breaks them);
 - PGS with friction bounds scaled by the current normal impulse, through
   :func:`tds_tpu_torch.contact.pgs.solve_pgs` (the CUDA kernel on the card,
   the plain version on the CPU);
@@ -12,8 +15,8 @@ Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
 
 The friction plane-space vectors are normalized, as in the JAX package.
 The JAX package's ``pgs_impl`` switch is dropped: the device of the
-operands picks the PGS path. ``minv_method="crba"``, ``top_k`` compaction
-and ``delassus_dtype="bf16"`` are not ported yet and raise.
+operands picks the PGS path. ``minv_method="crba"`` and
+``delassus_dtype="bf16"`` are not ported yet and raise.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -71,15 +74,21 @@ class ContactBatch(NamedTuple):
     restitution: torch.Tensor
 
 
-def check_params(params: ContactSolverParams, n_c: int):
+def check_params(params: ContactSolverParams):
     """Raises NotImplementedError on the solver options the port does not
-    handle for ``n_c`` candidate contacts."""
+    handle."""
     if params.minv_method != "aba":
         raise NotImplementedError("minv_method='crba' is not ported to tds_tpu_torch yet")
-    if 0 < params.top_k < n_c:
-        raise NotImplementedError("top_k candidate compaction is not ported to tds_tpu_torch yet")
     if params.delassus_dtype != "f32":
         raise NotImplementedError("delassus_dtype='bf16' is not ported to tds_tpu_torch yet")
+
+
+def top_k_indices(distance, k: int):
+    """(B, k) indices of the k deepest candidates of each env (least
+    ``distance``), in candidate order. A stable sort keeps the lower index
+    among equal distances, as ``jax.lax.top_k`` does (``torch.topk`` does
+    not), on the CPU and the card alike."""
+    return torch.argsort(distance, dim=-1, stable=True)[..., :k].sort(dim=-1).values
 
 
 def resolve_collision(
@@ -105,7 +114,7 @@ def resolve_collision(
     n_c = cp.count
     if n_c == 0 or (n_a == 0 and n_b == 0):
         return qd_a, qd_b, None
-    check_params(params, n_c)
+    check_params(params)
     dtype = cp.distance.dtype
     collision = (cp.distance < 0.0).to(dtype)  # (B, k)
     col3 = collision[..., None]
@@ -142,7 +151,23 @@ def resolve_collision(
     b_n = (-(1.0 + batch.restitution) * vn - baumgarte) * collision
     fr1, fr2 = plane_space(cp.normal_on_b)
     dirs = [cp.normal_on_b * col3, fr1 * col3, fr2 * col3][: 1 + params.num_friction_dir]
-    rhs = torch.cat([b_n] + [-(d * rel_vel).sum(-1) for d in dirs[1:]], dim=-1)  # (B, R)
+    rhs_blocks = [b_n] + [-(d * rel_vel).sum(-1) for d in dirs[1:]]  # each (B, k)
+    bshape = cp.distance.shape[:-1]
+    fric = batch.friction.expand(bshape + (n_c,))
+
+    if 0 < params.top_k < n_c:
+        # the Jacobians of every candidate were computed above: the
+        # selection differs per env
+        idx = top_k_indices(cp.distance, params.top_k)
+        dirs = [d.take_along_dim(idx[..., None], dim=-2) for d in dirs]
+        rhs_blocks = [r.gather(-1, idx) for r in rhs_blocks]
+        fric = fric.gather(-1, idx)
+        if n_a:
+            jac_a = jac_a.take_along_dim(idx[..., None, None], dim=-3)
+        if n_b:
+            jac_b = jac_b.take_along_dim(idx[..., None, None], dim=-3)
+        n_c = params.top_k
+    rhs = torch.cat(rhs_blocks, dim=-1)  # (B, R)
     n_rows = rhs.shape[-1]
 
     def rows(jac):  # J^T d per candidate and direction -> (B, R, n)
@@ -159,8 +184,6 @@ def resolve_collision(
         delassus.append(j_b @ jminv_b.transpose(-1, -2))
     a_mat = sum(delassus[1:], delassus[0]) + params.cfm * torch.eye(n_rows, dtype=dtype, device=rhs.device)
 
-    bshape = rhs.shape[:-1]
-    fric = batch.friction.expand(bshape + (n_c,))
     nfd = params.num_friction_dir
     lo = torch.cat([torch.zeros_like(fric)] + [-fric] * nfd, dim=-1)
     hi = torch.cat([torch.full_like(fric, 1e5)] + [fric] * nfd, dim=-1)

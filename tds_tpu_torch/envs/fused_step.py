@@ -163,10 +163,10 @@ def pack_step_params(env) -> StepParams:
     experiment's closure conversion of the step's constants, written out).
     Raises NotImplementedError on what the kernel does not handle: floating
     bases, spherical joints, trees that :func:`link_schedule` refuses, geoms
-    other than a ground plane against spheres on the robot's links, and the
-    solver options that ``resolve_collision`` refuses (``top_k`` among
-    them). A sphere's
-    attachment rotation does not move its centre and is not packed."""
+    other than a ground plane against spheres on the robot's links, the
+    solver options that ``resolve_collision`` refuses, and ``top_k``
+    compaction, which the kernel does not do. A sphere's attachment
+    rotation does not move its centre and is not packed."""
     model, world = env.model, env.world
     if model.is_floating:
         raise NotImplementedError("the fused step handles fixed bases only")
@@ -177,7 +177,9 @@ def pack_step_params(env) -> StepParams:
         raise NotImplementedError("the fused step takes one static ground plane and one robot")
     if not robot or not all(isinstance(g.shape, Sphere) and g.link_index >= 0 for g in robot):
         raise NotImplementedError("the fused step collides spheres on the robot's links only")
-    check_params(world.solver, len(robot))
+    check_params(world.solver)
+    if 0 < world.solver.top_k < len(robot):
+        raise NotImplementedError("the fused step solves every candidate contact: it has no top_k compaction")
     (plane,) = ground
     device, dtype = env.device, env.dtype
     chain, subtrees = link_schedule(model.parents)

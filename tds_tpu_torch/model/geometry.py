@@ -1,8 +1,9 @@
 """Collision geometry descriptors (counterpart of
 tds_tpu/model/geometry.py): the plane and the sphere, which the laikago
-slice collides, and the box, which the cartpole URDF declares and nothing
-collides yet. Descriptors are hashable plain Python; the other shapes of
-the JAX package are not ported yet.
+slice collides, the capsule, which the ant and the hopper collide with the
+plane, and the box, which the cartpole URDF declares and nothing collides
+yet. Descriptors are hashable plain Python; the other shapes of the JAX
+package are not ported yet.
 """
 
 import dataclasses
@@ -12,6 +13,14 @@ from typing import Tuple
 @dataclasses.dataclass(frozen=True)
 class Sphere:
     radius: float
+
+
+@dataclasses.dataclass(frozen=True)
+class Capsule:
+    """Capsule along local Z with cylindrical section ``length``."""
+
+    radius: float
+    length: float
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,20 +1,25 @@
-"""ARS training on the laikago env, the port's counterpart of the JAX
-package's ``examples/laikago_ars_train.py``.
+"""ARS training on the laikago, ant or hopper env, the port's counterpart
+of the JAX package's ``examples/laikago_ars_train.py``.
 
-    python -m tds_tpu_torch.tools.ars_train [--num_directions 64] [--rollout_length 400] \\
-        [--iterations 50] [--eval_interval 10] [--checkpoint PATH] [--resume PATH] [--device cpu]
+    python -m tds_tpu_torch.tools.ars_train [--env laikago|ant|hopper] [--num_directions 64] \\
+        [--rollout_length 400] [--iterations 50] [--eval_interval 10] [--checkpoint PATH] \\
+        [--resume PATH] [--device cpu]
 
-Laikago steps in float32 through the fused step kernel K2
-(``LaikagoEnv(fused_step=True)``), on the card unless ``--device`` names
-another. Metrics stay on the device between evals; every
+Every env steps in float32, on the card unless ``--device`` names another.
+Laikago steps through the fused step kernel K2
+(``LaikagoEnv(fused_step=True)``); the ant and the hopper step eagerly,
+their contact solve through the PGS kernel K1 (K2 is laikago's: it
+collides spheres only and has no ``top_k`` compaction). The checkpoint
+defaults to ``./logs/<env>_ars/policy_torch.pkl``, as the JAX trainer's
+goes to ``./logs/<env>_ars/``. Metrics stay on the device between evals; every
 ``--eval_interval`` iterations an eval of 8 rollouts runs, the checkpoint
 is written, and ``<checkpoint>.best`` too when the eval's
 ``eval_reward_min`` beats the best so far (an existing ``.best`` file's
 included). ``--resume`` starts from the params and obs_stat of a
 checkpoint of either package. Checkpoints are the JAX package's format.
 
-Not ported: the other envs (humanoid, ant, hopper, halfcheetah: their
-envs are not in the port yet), and the terrain (``--terrain_bump``,
+Not ported: the humanoid and halfcheetah envs (not in the port yet), and
+the terrain (``--terrain_bump``,
 ``--terrain_scan``), reset-pool (``--reset_pool``, ``--reset_pool_prob``)
 and humanoid-shaping flags (``--height_bonus``, ``--crouch_penalty``,
 ``--crouch_ref``, ``--z_damping``, ``--alive_bonus``).
@@ -25,12 +30,29 @@ import os
 
 import torch
 
-UNPORTED_ENVS = ("humanoid", "ant", "hopper", "halfcheetah")
+UNPORTED_ENVS = ("humanoid", "halfcheetah")
+
+
+def make_env(name: str, device=None):
+    """The float32 training env ``name`` on ``device``."""
+    from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.envs.hopper import HopperEnv
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    if name == "laikago":
+        return LaikagoEnv(dtype=torch.float32, device=device, fused_step=True)
+    if name == "ant":
+        return AntEnv(dtype=torch.float32, device=device)
+    if name == "hopper":
+        return HopperEnv(dtype=torch.float32, device=device)
+    raise NotImplementedError(
+        f"--env {name}: the {', '.join(UNPORTED_ENVS)} envs are not ported to tds_tpu_torch yet; laikago, ant and hopper are"
+    )
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--env", default="laikago", choices=("laikago",) + UNPORTED_ENVS)
+    parser.add_argument("--env", default="laikago", choices=("laikago", "ant", "hopper") + UNPORTED_ENVS)
     parser.add_argument("--num_directions", type=int, default=64)
     parser.add_argument("--rollout_length", type=int, default=400)
     parser.add_argument("--delta_std", type=float, default=0.03)
@@ -38,25 +60,23 @@ def parse_args(argv=None):
     parser.add_argument("--top_directions", type=int, default=0)
     parser.add_argument("--iterations", type=int, default=50)
     parser.add_argument("--eval_interval", type=int, default=10)
-    parser.add_argument("--checkpoint", default="./logs/laikago_ars/policy_torch.pkl")
+    parser.add_argument("--checkpoint", default=None, help="default: ./logs/<env>_ars/policy_torch.pkl")
     parser.add_argument("--resume", default="", help="checkpoint to warm-start params and obs_stat from")
     parser.add_argument("--seed", type=int, default=0, help="exploration and eval seed")
     parser.add_argument("--device", default=None, help="default: the CUDA device")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.checkpoint is None:
+        args.checkpoint = f"./logs/{args.env}_ars/policy_torch.pkl"
+    return args
 
 
 def main(argv=None):
     from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint, save_checkpoint
-    from tds_tpu_torch.envs.laikago import LaikagoEnv
     from tds_tpu_torch.learn.ars import ARSConfig, train
     from tds_tpu_torch.learn.nn import MLPSpec
 
     args = parse_args(argv)
-    if args.env != "laikago":
-        raise NotImplementedError(
-            f"--env {args.env}: the {', '.join(UNPORTED_ENVS)} envs are not ported to tds_tpu_torch yet; laikago is"
-        )
-    env = LaikagoEnv(dtype=torch.float32, device=args.device, fused_step=True)
+    env = make_env(args.env, args.device)
     policy = MLPSpec(env.observation_dim, [env.action_dim])
     config = ARSConfig(
         num_directions=args.num_directions,
@@ -103,9 +123,9 @@ def main(argv=None):
                 save_checkpoint(best_path, saved, metadata={"iteration": it + 1, "eval_reward_min": score})
             flush()
 
-    state, _ = train(env, policy, config, args.iterations, args.seed, log, eval_fn_num_rollouts=8, state=state)
+    state, history = train(env, policy, config, args.iterations, args.seed, log, eval_fn_num_rollouts=8, state=state)
     flush()
-    return state
+    return state, history
 
 
 if __name__ == "__main__":

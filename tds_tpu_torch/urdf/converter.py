@@ -11,9 +11,9 @@ quirks:
 - each geom carries its link's ``<contact>`` lateral friction and
   restitution, which ``world.gather_pair_contacts`` reads.
 
-Plane, sphere and box collision shapes are ported (the box as a
-descriptor only: ``collision.narrowphase`` raises on its pairs); capsules,
-cylinders and opted-in meshes raise NotImplementedError.
+Plane, sphere, capsule and box collision shapes are ported (the box as a
+descriptor only: ``collision.narrowphase`` raises on its pairs); cylinders
+and opted-in meshes raise NotImplementedError.
 """
 
 from typing import List, Tuple
@@ -21,7 +21,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tds_tpu_torch.model.geometry import Box, GeomAttachment, Plane, Sphere
+from tds_tpu_torch.model.geometry import Box, Capsule, GeomAttachment, Plane, Sphere
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_rpy
 from tds_tpu_torch.urdf.structures import UrdfStructures
@@ -60,6 +60,8 @@ def _shape(geom):
         return Plane(tuple(geom.normal), geom.constant)
     if geom.geom_type == "box":
         return Box(tuple(geom.extents))
+    if geom.geom_type == "capsule":
+        return Capsule(geom.radius, geom.length)
     raise NotImplementedError(
         f"{geom.geom_type!r} collision shapes are not ported to tds_tpu_torch yet"
     )

@@ -20,6 +20,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from tds_tpu.contact.mlcp import ContactSolverParams as JaxSolverParams  # noqa: E402
 from tds_tpu.envs.laikago import LaikagoEnv as JaxLaikago  # noqa: E402
 from tds_tpu_torch.contact.mlcp import ContactSolverParams  # noqa: E402
 from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
@@ -163,6 +164,25 @@ def test_unported_options_raise(kwargs):
     ids=["crba", "top_k", "bf16"],
 )
 def test_unported_solver_options_raise(solver):
+    """crba and bf16 raise. top_k compaction is ported: its case holds the
+    port against the JAX package, 50 float64 steps at 1e-10 from a lowered
+    start, where the toes touch from the first step and the compaction
+    drops the shallower 2 of 4."""
+    if solver.top_k:
+        start = (0.0, 0.0, 0.45)
+        j_env = JaxLaikago(dtype=jnp.float64, solver=JaxSolverParams(top_k=solver.top_k), start_base_position=start)
+        env = LaikagoEnv(dtype=torch.float64, device="cpu", solver=solver, start_base_position=start)
+        rng = np.random.default_rng(12)
+        q, qd = env.initial_state(noise=torch.from_numpy(rng.uniform(-0.05, 0.05, (3, env.action_dim))))
+        jq, jqd = jnp.asarray(q.numpy()), jnp.asarray(qd.numpy())
+        j_step = jax.jit(jax.vmap(j_env.sim_step))
+        for t in range(1, 51):
+            action = rng.uniform(-0.4, 0.4, size=(3, env.action_dim))
+            jq, jqd = j_step(jq, jqd, jnp.asarray(action))
+            q, qd = env.sim_step(q, qd, torch.from_numpy(action))
+            np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=TOL, atol=TOL, err_msg=f"q at step {t}")
+            np.testing.assert_allclose(qd.numpy(), np.asarray(jqd), rtol=TOL, atol=TOL, err_msg=f"qd at step {t}")
+        return
     env = LaikagoEnv(dtype=torch.float64, device="cpu", solver=solver)
     q, qd = env.initial_state(noise=torch.zeros(1, env.action_dim, dtype=torch.float64))
     with pytest.raises(NotImplementedError):
