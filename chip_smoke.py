@@ -5,7 +5,15 @@
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS and the ant
-and hopper rollouts through them.
+and hopper rollouts through them. On the card the rollouts, the resets'
+settle steps and ARS's rollouts replay CUDA graphs
+(``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
+the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
+loop, on the card. A kernel wrapper counts its launches where it makes
+them: in a graph's warm-up and capture, not in a replay, which calls no
+Python. So a phase that runs through graphs checks the wrapper's count
+against the graphs it captured, and phases 5, 9 (c) and 10 (b) count the
+kernels of replayed steps in a torch.profiler trace: one a step.
 Phases, each of which raises on failure, so that the run exits non-zero and
 prints no final line:
 
@@ -15,24 +23,33 @@ prints no final line:
    ``megastep.cu``, K3 and K4 ``probes.cu``;
 3. kernel: the PGS kernel against its plain PyTorch version on the card, on
    random problems and on the operands of one laikago step at batch 4096,
-   and both versions' times at the main path's shape (the kernel's also
-   with 0 sweeps: the launch, the loads and the stores), with its launch shape
-   there (lanes per env, envs per block, shared memory per block, resident
-   warps per SM from the CUDA occupancy calculator, waves);
+   its refusal of an operand that requires grad (and the same result under
+   ``torch.no_grad()``), and both versions' times at the main path's shape
+   (the kernel's also with 0 sweeps: the launch, the loads and the
+   stores), with its launch shape there (lanes per env, envs per block,
+   shared memory per block, resident warps per SM from the CUDA occupancy
+   calculator, waves);
 4. device against CPU: 50 float64 ``sim_step``s at batch 8 on the card
    (through the kernel) against the same on the CPU (plain version);
 5. main path: ``LaikagoEnv`` in float32 on the card, ``reset`` at batch 4096
-   and a 100-step ``rollout`` of the zero linear policy (the shape that
-   ``bench.py`` times), with the kernel's launches counted;
+   and a 100-step ``rollout`` of the zero linear policy through graphs,
+   with the kernel's wrapper launches counted; the same rollout eager
+   beside it, equal bit for bit, the graphs' nodes and capture seconds,
+   the replays' device operations, K1 kernels (one a step) and idle share
+   (``torch.profiler``), ``bench.py``'s
+   ``laikago_scan_rollout_env_steps_per_s`` (1000 steps, best of 3) and an
+   eager stage breakdown;
 6. trained policy: ``logs/laikago_ars/policy_r2b.pkl`` replayed in float32
-   for 2000 steps at batch 8, held to the thresholds of
-   ``tests/test_trained_policy.py``, with the kernel's launches counted;
+   for 2000 steps at batch 8 through graphs, held to the thresholds of
+   ``tests/test_trained_policy.py``, with the kernel's wrapper launches
+   counted;
 7. mega step: the fused step kernel K2 (``tds_tpu_torch/envs/fused_step.py``)
    against its plain version, 50 float64 steps at batch 8 on the card
    against the CPU and one float32 step at batch 16384 against the plain
    version and the eager ``sim_step`` on the card, all from states with
    active contact rows, with the margin left under each tolerance and both
-   float32 steps' distance from the float64 plain step; then the loop of
+   float32 steps' distance from the float64 plain step, and K2's refusal of
+   an operand that requires grad; then the loop of
    ``python -m tds_tpu_torch.tools.megastep`` at batch 16384 for 100
    float32 steps, with K2's launches counted, and K2's device time, wall
    time, bound and launch shape beside the eager step's;
@@ -41,17 +58,23 @@ prints no final line:
    timed against their plain versions and the one PyTorch call each
    replaces;
 9. ARS (``tds_tpu_torch/learn/ars.py`` on ``LaikagoEnv(fused_step=True)``,
-   every step one K2 launch for the 2 x num_directions rollouts): (a) one
-   float64 iteration, 8 directions x 100 steps from ``policy.pkl``, on the
-   card against the CPU from the same draws; (b) ``policy_r2b.pkl`` in
-   float32, evaluated (16 rollouts x 2000 steps, held to the replay's
-   reward threshold), K2 against its plain version on the batch-256
-   operands of a recipe rollout (after the reset and at step 1500), then
-   1 warm-up and 3 timed iterations at ``bench.py``'s recipe (128
-   directions x 3000 steps, top 32) with K2's launches counted per
-   iteration, then evaluated again; (c) one iteration of 100 steps under
-   ``torch.profiler``: device operations per step, idle share, K2's time
-   per launch and its launch shape at batch 256; (d) the trainer
+   every step one K2 launch for the 2 x num_directions rollouts, through
+   graphs): (a) one float64 iteration, 8 directions x 100 steps from
+   ``policy.pkl``, on the card against the CPU from the same draws; (b)
+   ``policy_r2b.pkl`` in float32, evaluated (16 rollouts x 2000 steps, held
+   to the replay's reward threshold), K2 against its plain version on the
+   batch-256 operands of an eager recipe rollout (after the reset and at
+   step 1500), then 1 warm-up and 3 timed iterations at ``bench.py``'s
+   recipe (128 directions x 3000 steps, top 32) with K2's wrapper launches
+   counted per iteration (the warm-up's captures, then none) and
+   ``bench.py``'s ``ars_laikago_iterations_per_s`` and
+   ``ars_laikago_env_steps_per_s``, then evaluated again; (c) one
+   iteration of 100 steps through graphs and eager from the same draws,
+   equal bit for bit, and under ``torch.profiler``: device operations per
+   step, idle share, K2's kernels (one a step), its time per launch and
+   its launch shape at batch 256; the recipe's rollout through graphs of
+   one step and of ``ars.FUSED_CHUNK`` steps, 10 alternating timed runs
+   each; (d) the trainer
    ``python -m tds_tpu_torch.tools.ars_train`` resumed from the policy for
    2 iterations, its checkpoint read back;
 10. ant and hopper (``tds_tpu_torch/envs/{ant,hopper}.py``: capsule
@@ -59,17 +82,20 @@ prints no final line:
    rows for both): (a) K1 on the float32 batch-4096 PGS operands of an ant
    step and of a hopper step with contacts active, against its plain
    version, timed against its bound, and an ant without compaction (51
-   rows) refused on the card; (b) the ant's main path, ``reset`` and a
-   100-step ``rollout`` of the zero linear policy at batch 4096 in
-   float32, with K1's launches counted and ``torch.profiler``'s device
-   operations and idle share, then a 50-step hopper rollout; (c) 50
-   float64 ant steps at batch 16 on the card against the CPU, half the
-   envs started with the torso on the ground, where the compaction drops
-   candidates; (d) ``logs/ant_ars/policy.pkl`` replayed in float32 for
-   1000 steps at batch 4, held to the thresholds of
-   ``tests/test_ant_policy.py``; (e) ``python -m
+   rows) refused on the card; (b) the ant's main path as phase 5's, with
+   ``bench.py``'s ``ant_scan_rollout_env_steps_per_s`` (500 steps), then a
+   50-step hopper rollout; (c) 50 float64 ant steps at batch 16 on the
+   card against the CPU, half the envs started with the torso on the
+   ground, where the compaction drops candidates; (d)
+   ``logs/ant_ars/policy.pkl`` replayed in float32 through ``rollout``
+   for 1000 steps at batch 4, held to the thresholds of
+   ``tests/test_ant_policy.py`` (alive at the last step, so for all of
+   them, and more than 9.0 m forward); (e) ``python -m
    tds_tpu_torch.tools.ars_train --env ant`` resumed from that policy for
-   2 iterations.
+   2 iterations;
+11. graphs: every graph left alive by the run (nodes, capture and
+   instantiate seconds), the card's peak and reserved memory with all of
+   them, and the script's seconds against its 1200 s limit.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
@@ -126,10 +152,69 @@ ARS_MID_STEP = 1500  # halfway through a recipe rollout
 # float64, card against CPU after one iteration, abs + rel: K2 float64
 # agrees with the CPU to 3.9e-13 over 50 steps (phase 7)
 ARS_TOL = 1e-9
+# bench.py's rollout metrics: laikago's 1000-step and the ant's 500-step
+# rollout of the zero linear policy at batch 4096, env-steps over the best
+# of BENCH_REPEATS timed calls; vs_baseline over the reference's 2.0e5
+# laikago env-steps/s (BASELINE.md)
+LAIKAGO_BENCH_STEPS, ANT_BENCH_STEPS, BENCH_REPEATS, BASELINE = 1000, 500, 3, 2.0e5
+PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
+CHUNK_RUNS = 10  # alternating timed runs of each graph length of ARS's rollout
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def captured_launches(before):
+    """What a kernel wrapper counts while ``scan`` builds the graphs that are
+    new since ``before`` (``utils.graphs.stats()`` then), for bodies that
+    launch the kernel once a step: a warm-up step for each new (key, batch)
+    and every step a capture records. A replay calls no wrapper; what it ran
+    is read from a trace (``device_profile``)."""
+    from tds_tpu_torch.utils import graphs
+
+    new = [g for g in graphs.stats() if g not in before]
+    return sum(g.steps for g in new) + len({(g.key, g.batch) for g in new} - {(g.key, g.batch) for g in before})
+
+
+def check_wrapper_launches(label, kernel, launches, before):
+    """Raises unless the run launched ``kernel`` through its wrapper, as
+    many times as the graphs it captured account for."""
+    expected = captured_launches(before)
+    if launches == 0 or launches != expected:
+        raise AssertionError(f"{label}: the {kernel} wrapper launched {launches} times, expected {expected} (the warm-ups "
+                             "and the steps captured in this run)")
+
+
+def bench_line(metric, value, unit, card_line, **extra):
+    """A metric line in bench.py's format (its metric names), with the
+    card's name and power limit as nvidia-smi gives them beside the number."""
+    log(json.dumps({"metric": metric, "value": value, "unit": unit, **extra, "card": card_line}))
+
+
+def grad_guard(label, fn, args, mark, launches):
+    """A kernel without a backward: ``fn(*args)`` with ``args[mark]``
+    requiring grad must raise under grad, without a launch, and return under
+    torch.no_grad() what it returns without one; ``launches()`` reads the
+    kernel's counter."""
+    expected = fn(*args)
+    marked = list(args)
+    marked[mark] = args[mark].clone().requires_grad_()
+    before = launches()
+    try:
+        fn(*marked)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError(f"{label} ran under grad on an operand that requires grad")
+    with torch.no_grad():
+        got = fn(*marked)
+    torch.cuda.synchronize()
+    pairs = zip(got, expected) if isinstance(got, tuple) else [(got, expected)]
+    if launches() != before + 1 or not all(torch.equal(g, e) for g, e in pairs):
+        raise AssertionError(f"{label} under torch.no_grad(): {launches() - before} launches, or another result")
+    log(f"{label}: refused under grad an operand that requires grad ({message.split(' (')[0]}); under "
+        "torch.no_grad() the same call launched once and returned the same result bit for bit")
 
 
 def card_peaks(name):
@@ -153,7 +238,7 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}, {torch.cuda.device_count()} visible; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log("TF32 is off for matmul and cuDNN: float32 products run in full float32")
-    return name
+    return name, smi
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -290,9 +375,11 @@ def phase_kernel(env, card):
             raise AssertionError(f"PGS kernel disagrees with its plain version on {label}")
         results.append({"case": label, "max_abs_err": err.max().item()})
 
+    a, b, lo, hi, dep, it = main_args
+    grad_guard("kernel: K1", lambda *t: pgs.solve_pgs(*t, dep, it), (a, b, lo, hi), 1, lambda: pgs.launches)
+
     # time both versions on the main path's own operands (A stays in L2, as
     # in the step, where the previous op just wrote it)
-    a, b, lo, hi, dep, it = main_args
     ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, it), rounds=5, per_round=20)
     # the same launch with no sweep: the launch, the loads and the stores
     sweepless_ms = device_ms(lambda: pgs.solve_pgs(a, b, lo, hi, dep, 0), rounds=5, per_round=20)
@@ -431,10 +518,12 @@ def stage_breakdown(env, policy, state, obs, steps):
     from torch.profiler import ProfilerActivity, profile
 
     from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
 
-    rollout(env, policy, None, state, obs, 1)
-    torch.cuda.synchronize()
-    with timed_stages() as host_s:
+    with graphs.eager(), timed_stages() as host_s:
+        rollout(env, policy, None, state, obs, 1)
+        torch.cuda.synchronize()
+        host_s.update(dict.fromkeys(host_s, 0.0))
         t0 = time.perf_counter()
         rollout(env, policy, None, state, obs, steps)
         torch.cuda.synchronize()
@@ -468,32 +557,54 @@ def stage_breakdown(env, policy, state, obs, steps):
     }
 
 
-def drive_main_path(env, label, steps, z_index, z_range):
+def graph_lines(prefix, *key_parts):
+    """Logs every cached graph whose scan key holds all of ``key_parts``:
+    steps per replay, nodes, capture and instantiate seconds."""
+    from tds_tpu_torch.utils import graphs
+
+    found = [g for g in graphs.stats() if isinstance(g.key, tuple) and all(any(p is k or p == k for k in g.key) for p in key_parts)]
+    for g in found:
+        log(f"{prefix}: graph {g.key[0]} at batch {g.batch}: {g.steps} step(s) per replay, {g.nodes} nodes, captured in "
+            f"{g.capture_s:.3f} s, instantiated in {g.instantiate_s:.3f} s")
+    return found
+
+
+def timed_call(fn):
+    """(result, seconds) of ``fn()``, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
     """``reset`` at MAIN_BATCH and a ``steps``-step rollout of the zero
-    linear policy, with K1's launches counted from 0 just before and read
-    just after; every env must be alive with q[:, z_index] in ``z_range``.
-    Then 5 steps' stage breakdown. Returns (K1 launches, ms/step, device
-    operations per step, idle share); the last two None when the profiler
-    saw no device activity."""
+    linear policy through graphs, the first use of ``env``, with K1's
+    wrapper launches counted from 0 just before and read just after (the
+    warm-ups and the captures); every env must be alive with q[:, z_index]
+    in ``z_range``. Then: the same rollout replayed again (graph ms/step)
+    and run eagerly (``graphs.eager()``, eager ms/step), which must agree
+    bit for bit; PROFILE_STEPS replayed steps under torch.profiler (device
+    operations, busy ms, and K1 kernels, exactly one a step); the graphs'
+    statistics; 5 eager steps' stage breakdown; and with ``bench =
+    (metric, steps)`` bench.py's rollout metric: the best of BENCH_REPEATS
+    rollouts of that many steps. Returns a dict of the numbers; device
+    numbers None when the profiler saw no device activity."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.learn.nn import linear_policy
     from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
 
     policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
     gen = torch.Generator(device=env.device).manual_seed(1)
     torch.cuda.synchronize()
+    cached = graphs.stats()
     pgs.launches = 0
-    t0 = time.perf_counter()
-    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    state, obs, total, alive = rollout(env, policy, None, state, obs, steps)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    (state0, obs0), reset_s = timed_call(lambda: env.reset(gen, batch_size=MAIN_BATCH))
+    (state, obs, total, alive), first_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
     launches = pgs.launches
-    expected = steps + env.settle_steps
-    if launches != expected:
-        raise AssertionError(f"the {label} launched the PGS kernel {launches} times, expected {expected}")
+    check_wrapper_launches(label, "PGS", launches, cached)
     for name, t in (("q", state.q), ("qd", state.qd), ("obs", obs), ("total reward", total)):
         if t.shape[0] != MAIN_BATCH or not torch.isfinite(t).all():
             raise AssertionError(f"{label}: {name} is not finite or has shape {tuple(t.shape)}")
@@ -501,28 +612,65 @@ def drive_main_path(env, label, steps, z_index, z_range):
     if not bool(alive.all()) or not bool(((z > z_range[0]) & (z < z_range[1])).all()):
         raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, "
                              f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
-    step_ms = (t2 - t1) * 1e3 / steps
-    log(f"{label}: reset ({env.settle_steps} settle steps) at batch {MAIN_BATCH} in {(t1 - t0) * 1e3:.1f} ms; "
-        f"{steps}-step rollout {step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; "
-        f"PGS kernel launches {launches}; q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
+    again, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
+    with graphs.eager():
+        eager, eager_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
+    # the same kernels on the same inputs in the same order: bit for bit
+    worst = max((g.double() - e.double()).abs().max().item() for g, e in zip((*again[0], *again[1:]), (*eager[0], *eager[1:])))
+    if worst != 0:
+        raise AssertionError(f"{label}: the graph rollout differs from the eager one by up to {worst:.3e}")
+    step_ms, eager_ms = graph_s * 1e3 / steps, eager_s * 1e3 / steps
+    log(f"{label}: reset ({env.settle_steps} settle steps, graphs) at batch {MAIN_BATCH} in {reset_s * 1e3:.1f} ms; "
+        f"{steps}-step rollout through graphs: first call {first_s:.3f} s (with the captures), then "
+        f"{step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; eager (graphs.eager()) "
+        f"{eager_ms:.3f} ms/step = {MAIN_BATCH / eager_ms * 1e3:.1f} env-steps/s, graph {eager_ms / step_ms:.2f}x; "
+        f"|graph - eager| = 0 over every output; PGS wrapper launches {launches} (warm-ups and captures); "
+        f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
+    found = graph_lines(label, env, "rollout")
+    profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1, kernel="pgs_kernel")
+    out = {"launches": launches, "ms_per_step": step_ms, "eager_ms_per_step": eager_ms, "first_call_s": first_s,
+           "graph_nodes": [g.nodes for g in found], "graph_vs_eager_max_abs": worst,
+           "device_ops": None, "device_ms": None, "idle": None, "replayed_launches_per_step": None}
+    if profile is None:
+        log(f"{label}: device operations per step not measured (the profiler saw no device activity)")
+    else:
+        # the idle share within the profiled window itself: under the
+        # profiler each replayed kernel's span grows, so the busy time can
+        # exceed the unprofiled wall time
+        ops, busy, profiled_ms, k1 = profile
+        if k1 != PROFILE_STEPS:
+            raise AssertionError(f"{label}: {PROFILE_STEPS} replayed steps ran the PGS kernel {k1} times in the trace")
+        ops, busy, profiled_ms = (x / PROFILE_STEPS for x in (ops, busy, profiled_ms))
+        out.update(device_ops=ops, device_ms=busy, idle=1 - busy / profiled_ms, replayed_launches_per_step=k1 / PROFILE_STEPS)
+        log(f"{label}: graph replays: {ops:.0f} device operations per step, {k1} PGS kernels in {PROFILE_STEPS} replayed "
+            f"steps (torch.profiler), device busy {busy:.3f} ms/step of {profiled_ms:.3f} ms wall under the profiler "
+            f"({100 * (1 - busy / profiled_ms):.1f}% idle; {step_ms:.3f} ms/step without it)")
+    if bench is not None:
+        metric, bench_steps = bench
+        best = min(timed_call(lambda: rollout(env, policy, None, state0, obs0, bench_steps))[1] for _ in range(BENCH_REPEATS))
+        rate = MAIN_BATCH * bench_steps / best
+        out[metric] = rate
+        bench_line(metric, rate, "steps/s", card_line, vs_baseline=rate / BASELINE, batch=MAIN_BATCH, steps=bench_steps,
+                   best_s=best, eager_env_steps_per_s=MAIN_BATCH / eager_ms * 1e3)
     breakdown = stage_breakdown(env, policy, state, obs, steps=5)
     if breakdown is None:
-        log(f"{label}: device operations per step not measured (the profiler saw no device activity)")
-        return launches, step_ms, None, None
-    idle = 1 - breakdown["device_ms"] / step_ms
-    log(f"{label}: {breakdown['device_ops']:.0f} device operations per step (torch.profiler), device busy "
-        f"{breakdown['device_ms']:.3f} ms/step of {step_ms:.3f} ms ({100 * idle:.1f}% idle), "
+        log(f"{label}: stage breakdown not measured (the profiler saw no device activity)")
+        return out
+    log(f"{label}: eager: {breakdown['device_ops']:.0f} device operations per step (torch.profiler), device busy "
+        f"{breakdown['device_ms']:.3f} ms/step of {eager_ms:.3f} ms ({100 * (1 - breakdown['device_ms'] / eager_ms):.1f}% idle), "
         f"PGS kernel {breakdown['pgs_kernel_ms'] * 1e3:.2f} us/step")
-    log(f"{label}: stages per step (host ms timed without the profiler, {breakdown['step_ms_with_stage_timers']:.3f} ms/step "
+    out.update(eager_device_ops=breakdown["device_ops"], eager_idle=1 - breakdown["device_ms"] / eager_ms)
+    log(f"{label}: eager stages per step (host ms timed without the profiler, {breakdown['step_ms_with_stage_timers']:.3f} ms/step "
         "with the stage timers; device operations and ms from the profiler; gather_pair_contacts to "
         "solve_pgs are parts of resolve_contacts):")
     for name, row in breakdown["stages"].items():
         log(f"  {name:26s} host {row['host_ms']:8.3f} ms  device ops {row['device_ops']:6.0f}  device {row['device_ms']:7.3f} ms")
-    return launches, step_ms, breakdown["device_ops"], idle
+    return out
 
 
-def phase_main_path(env):
-    return drive_main_path(env, "main path", ROLLOUT_STEPS, 2, (0.3, 0.6))[0]
+def phase_main_path(env, card_line):
+    bench = ("laikago_scan_rollout_env_steps_per_s", LAIKAGO_BENCH_STEPS)
+    return drive_main_path(env, "main path", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line, bench)
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -530,12 +678,14 @@ def phase_trained_policy(env):
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
     from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
 
     saved, _ = load_checkpoint(str(CHECKPOINT))
     policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype)
     gen = torch.Generator(device="cpu").manual_seed(REPLAY_SEED)
     u = torch.rand((REPLAY_BATCH, env.action_dim), generator=gen, dtype=env.dtype)
     torch.cuda.synchronize()
+    cached = graphs.stats()
     pgs.launches = 0
     state, obs = env.reset(noise=-env.reset_noise + 2.0 * env.reset_noise * u)
     t0 = time.perf_counter()
@@ -543,9 +693,7 @@ def phase_trained_policy(env):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = pgs.launches
-    expected = REPLAY_STEPS + env.settle_steps
-    if launches != expected:
-        raise AssertionError(f"the trained-policy replay launched the PGS kernel {launches} times, expected {expected}")
+    check_wrapper_launches("trained policy", "PGS", launches, cached)
     x, z = state.q[:, 0].cpu(), state.q[:, 2].cpu()
     total, alive = total.cpu(), alive.cpu()
     failed = []
@@ -556,28 +704,34 @@ def phase_trained_policy(env):
             failed.append(i)
     if failed:
         raise AssertionError(f"the trained policy failed the thresholds in envs {failed}")
-    log(f"trained policy: {REPLAY_STEPS} steps at batch {REPLAY_BATCH} in {seconds:.1f} s; all envs walk; "
-        f"PGS kernel launches {launches}")
+    log(f"trained policy: {REPLAY_STEPS} steps at batch {REPLAY_BATCH} through graphs in {seconds:.1f} s (capture "
+        f"included); all envs walk; PGS wrapper launches {launches} (warm-ups and captures)")
+    graph_lines("trained policy", env, "rollout")
 
 
 # -- phase 7 ---------------------------------------------------------------
-def device_profile(fn, calls):
-    """(device operations, device-busy ms) per call of ``fn``, from
-    torch.profiler over ``calls`` calls; None when it saw no device
-    activity. Unlike device_ms, this allows ``fn`` to synchronise."""
+def device_profile(fn, calls, kernel=None):
+    """(device operations, device-busy ms, wall ms, kernels whose name holds
+    ``kernel``) per call of ``fn``, from torch.profiler over ``calls``
+    calls, the wall time taken around the profiled calls themselves; None
+    when it saw no device activity. Unlike device_ms, this allows ``fn`` to
+    synchronise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device_events:
         return None
-    return len(device_events) / calls, sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / calls
+    named = sum(1 for e in device_events if kernel is not None and kernel in e.name)
+    return len(device_events) / calls, sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / calls, wall_ms, named / calls
 
 
 def excess(got, expected, tol):
@@ -638,6 +792,7 @@ def phase_mega_step(card):
     action = (torch.rand(MEGA_BATCH, env.action_dim, generator=gen, device=env.device) - 0.5) * 0.8
     got = fused_step.mega_step(params, q, qd, action)
     plain = fused_step.mega_step_reference(params, q, qd, action)
+    grad_guard("mega step: K2", fused, (q, qd, action), 2, lambda: fused_step.launches)
     eager = env.sim_step(q, qd, action)
     errors = {}
     for other_name, other in (("plain", plain), ("eager sim_step", eager)):
@@ -694,7 +849,7 @@ def phase_mega_step(card):
         log("mega step: device operations of the eager and plain steps not measured (the profiler saw no device activity)")
         eager_ops = eager_busy = plain_ms = None
     else:
-        (eager_ops, eager_busy), (_, plain_ms) = eager_profile, plain_profile
+        (eager_ops, eager_busy, _, _), (_, plain_ms, _, _) = eager_profile, plain_profile
         log(f"mega step: eager sim_step at batch {MEGA_BATCH}: {eager_ops:.0f} device operations per step, device busy "
             f"{eager_busy:.3f} ms/step (torch.profiler); plain fused step {plain_ms:.3f} ms of device time per call")
     log(f"mega step: K2 at B={MEGA_BATCH} float32: {ms * 1e3:.2f} us on the device per launch ({wall * 1e3:.2f} us wall per call), "
@@ -791,6 +946,7 @@ def ars_card_against_cpu():
     from tds_tpu_torch.envs.laikago import LaikagoEnv
     from tds_tpu_torch.learn import ars
     from tds_tpu_torch.learn.nn import MLPSpec
+    from tds_tpu_torch.utils import graphs
 
     config = ars.ARSConfig(num_directions=8, rollout_length=100, top_directions=4)
     policy = MLPSpec(36, [12])
@@ -806,12 +962,12 @@ def ars_card_against_cpu():
     deltas = torch.randn(config.num_directions, policy.num_parameters, generator=gen, dtype=torch.float64)
     noise = cpu_env.draw_reset_noise(gen, config.num_directions)
     cpu = ars.ars_iteration(cpu_env, policy, config, cpu_start, deltas, noise)
+    cached = graphs.stats()
     before = fused_step.launches
     gpu = ars.ars_iteration(gpu_env, policy, config, gpu_start, deltas.cuda(), noise.cuda())
     torch.cuda.synchronize()
     launches = fused_step.launches - before
-    if launches != gpu_env.settle_steps + config.rollout_length:
-        raise AssertionError(f"the float64 iteration launched K2 {launches} times")
+    check_wrapper_launches("ARS (a)", "K2", launches, cached)
     pairs = [("params", gpu[0].params, cpu[0].params), ("total_timesteps", gpu[0].total_timesteps, cpu[0].total_timesteps)]
     pairs += [(f"obs_stat.{f}", getattr(gpu[0].obs_stat, f), getattr(cpu[0].obs_stat, f)) for f in ("count", "mean", "m2")]
     pairs += [(k, gpu[1][k], cpu[1][k]) for k in cpu[1]]
@@ -825,7 +981,7 @@ def ars_card_against_cpu():
         if not bool(torch.isfinite(got).all()) or excess(got, expected, ARS_TOL) > 0:
             raise AssertionError(f"ARS on the card and on the CPU differ beyond {ARS_TOL} in {name}")
     log(f"ARS (a): one float64 iteration from {STAT_CHECKPOINT.name}, {config.num_directions} directions x "
-        f"{config.rollout_length} steps, top {config.top_directions}, card (K2, {launches} launches) against CPU, over "
+        f"{config.rollout_length} steps, top {config.top_directions}, card (K2 through graphs, {launches} wrapper launches in the warm-ups and captures) against CPU, over "
         f"params, obs_stat and metrics: "
         f"max |cuda - cpu| = {worst:.3e} (in {worst_name}), max |cuda - cpu| / (1 + |cpu|) = {worst_scaled:.3e} "
         f"(tolerance {ARS_TOL}); reward_max {cpu[1]['reward_max'].item():.4f}")
@@ -866,9 +1022,10 @@ def ars_k2_against_plain(env, policy, state):
     from tds_tpu_torch.envs import fused_step
     from tds_tpu_torch.envs.laikago import LaikagoEnv
     from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.utils import graphs
 
     first, mid = env.settle_steps, env.settle_steps + ARS_MID_STEP - 1
-    with recorded_k2_calls({first, mid}) as calls:
+    with graphs.eager(), recorded_k2_calls({first, mid}) as calls:
         ars.make_train_step(env, policy, ars.ARSConfig(**{**ARS_RECIPE, "rollout_length": ARS_MID_STEP}))(state)
     cpu_params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float32, device="cpu"))
     exact_params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, device="cpu"))
@@ -919,11 +1076,14 @@ def stat_finite(stat, start):
 
 
 def ars_recipe(env, policy, state):
-    """(b): the recipe's iterations from ``state``: 1 warm-up, 3 timed;
-    returns (the last state, seconds and K2 launches of each timed
-    iteration)."""
+    """(b): the recipe's iterations from ``state``: 1 warm-up, which
+    captures the graphs (K2's wrapper counts its warm-ups and captures), and
+    3 timed, which only replay them (the wrapper counts nothing); returns
+    (the last state, seconds of each timed iteration, K2 wrapper launches
+    of each iteration)."""
     from tds_tpu_torch.envs import fused_step
     from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.utils import graphs
 
     config = ars.ARSConfig(**ARS_RECIPE)
     step_fn = ars.make_train_step(env, policy, config)
@@ -931,6 +1091,7 @@ def ars_recipe(env, policy, state):
     seconds, launches = [], []
     for it in range(4):
         torch.cuda.synchronize()
+        cached = graphs.stats()
         fused_step.launches = 0
         t0 = time.perf_counter()
         new_state, metrics = step_fn(state)
@@ -941,50 +1102,101 @@ def ars_recipe(env, policy, state):
         finite = stat_finite(new_state.obs_stat, state.obs_stat) and all(
             bool(torch.isfinite(t).all()) for t in (new_state.params, metrics["g_hat_norm"])
         )
-        log(f"ARS (b): recipe iteration {it} ({'warm-up' if it == 0 else 'timed'}): {seconds[-1]:.3f} s, K2 launches "
-            f"{launches[-1]}, {steps} env-steps alive of {env_steps}, "
+        log(f"ARS (b): recipe iteration {it} ({'warm-up' if it == 0 else 'timed'}): {seconds[-1]:.3f} s, K2 wrapper "
+            f"launches {launches[-1]}, {steps} env-steps alive of {env_steps}, "
             + ", ".join(f"{k} {v.item():.4f}" for k, v in metrics.items()))
-        if launches[-1] != env.settle_steps + config.rollout_length:
-            raise AssertionError(f"a recipe iteration launched K2 {launches[-1]} times")
+        if it == 0:
+            check_wrapper_launches("ARS (b) warm-up iteration", "K2", launches[-1], cached)
+        elif launches[-1] != 0:
+            raise AssertionError(f"timed recipe iteration {it} called the K2 wrapper {launches[-1]} times: it should only replay graphs")
         if not finite or not 0 < steps <= env_steps:
             raise AssertionError(f"recipe iteration {it}: finite {finite}, {steps} env-steps")
         state = new_state
-    return state, seconds[1:], launches[1:]
+    return state, seconds[1:], launches
 
 
 def ars_profile(env, policy, state, steps):
-    """(c): one iteration of the recipe at ``steps`` steps: wall ms
-    without the profiler, then device operations, device-busy ms and K2's
-    time per launch from torch.profiler (None when it saw no device
-    activity)."""
+    """(c): one iteration of the recipe at ``steps`` steps: wall ms through
+    graphs and eagerly (``graphs.eager()``) without the profiler, from the
+    same draws, whose new states and metrics must agree bit for bit; then,
+    through graphs, device operations, device-busy ms, K2's kernels (one a
+    step) and its time per launch from torch.profiler (None when it saw no
+    device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.utils import graphs
 
     step_fn = ars.make_train_step(env, policy, ars.ARSConfig(**{**ARS_RECIPE, "rollout_length": steps}))
-    step_fn(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step_fn(state)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    draws = state.generator.get_state()
+
+    def iteration():
+        state.generator.set_state(draws)
+        return step_fn(state)
+
+    iteration()
+    graph_out, wall_s = timed_call(iteration)
+    with graphs.eager():
+        iteration()
+        eager_out, eager_s = timed_call(iteration)
+    pairs = [("params", graph_out[0].params, eager_out[0].params)]
+    pairs += [(f"obs_stat.{f}", getattr(graph_out[0].obs_stat, f), getattr(eager_out[0].obs_stat, f)) for f in ("count", "mean", "m2")]
+    pairs += [(k, graph_out[1][k], eager_out[1][k]) for k in eager_out[1]]
+    for name, g, e in pairs:
+        # policy_r2b.pkl's m2 is NaN, and a merge keeps it so
+        if g.shape != e.shape or not bool(((g == e) | (g.isnan() & e.isnan())).all()):
+            raise AssertionError(f"ARS (c): the graph iteration and the eager one differ in {name}")
+    log(f"ARS (c): one recipe iteration at {steps} steps through graphs and eagerly from the same draws: params, obs_stat "
+        "and metrics agree bit for bit")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn(state)
-        torch.cuda.synchronize()
+        _, profiled_s = timed_call(iteration)
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device_events:
-        return wall_ms, None
+        return wall_s * 1e3, eager_s * 1e3, None
     k2 = [e.time_range.elapsed_us() for e in device_events if "megastep_kernel" in e.name]
-    return wall_ms, {
+    if len(k2) != env.settle_steps + steps:
+        raise AssertionError(f"ARS (c): {env.settle_steps + steps} replayed steps ran K2 {len(k2)} times in the trace")
+    return wall_s * 1e3, eager_s * 1e3, {
         "device_ops": len(device_events),
         "device_ms": sum(e.time_range.elapsed_us() for e in device_events) / 1e3,
+        "profiled_ms": profiled_s * 1e3,
         "k2_launches": len(k2),
-        "k2_us": sum(k2) / max(len(k2), 1),
+        "k2_us": sum(k2) / len(k2),
     }
 
 
-def phase_ars(card, mega):
+def ars_chunks(env, policy, state):
+    """(c): the recipe's rollout (2 x 128 directions x 3000 steps) from
+    ``state``'s params, through graphs of one step and of ``ars.FUSED_CHUNK``
+    steps, CHUNK_RUNS timed runs of each, alternating, after a first call of
+    each that captures; returns {chunk: [seconds of each run]}."""
+    from tds_tpu_torch.learn import ars
+
+    config = ars.ARSConfig(**ARS_RECIPE)
+    batch = 2 * config.num_directions
+    params = state.params[None].repeat(batch, 1)
+    noise = env.draw_reset_noise(torch.Generator(device=env.device).manual_seed(11), batch)
+    chunks = (1, ars.FUSED_CHUNK)
+    runs = {c: [] for c in chunks}
+    for c in chunks:
+        ars._rollout_with_stats(env, policy, params, state.obs_stat, noise, config, chunk=c)
+    for _ in range(CHUNK_RUNS):
+        for c in chunks:
+            runs[c].append(timed_call(lambda: ars._rollout_with_stats(env, policy, params, state.obs_stat, noise, config, chunk=c))[1])
+    for c in chunks:
+        t = sorted(runs[c])
+        log(f"ARS (c): recipe rollout at batch {batch}, {config.rollout_length} steps, {c} step(s) a graph: median "
+            f"{t[len(t) // 2] * 1e3 / config.rollout_length:.4f} ms/step, min {t[0] * 1e3 / config.rollout_length:.4f}, "
+            f"max {t[-1] * 1e3 / config.rollout_length:.4f} over {CHUNK_RUNS} runs, alternating (s: "
+            + ", ".join(f"{x:.4f}" for x in runs[c]) + ")")
+    one, chunked = (sorted(runs[c]) for c in chunks)
+    log(f"ARS (c): chunks of {ars.FUSED_CHUNK} steps against one step a graph: median {one[len(one) // 2] / chunked[len(chunked) // 2]:.3f}x; "
+        f"slowest chunked run {chunked[-1]:.4f} s against fastest one-step run {one[0]:.4f} s")
+    return runs
+
+
+def phase_ars(card, mega, card_line):
     import tempfile
 
     from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint
@@ -1011,11 +1223,19 @@ def phase_ars(card, mega):
     env_steps = 2 * ARS_RECIPE["num_directions"] * ARS_RECIPE["rollout_length"]
     log(f"ARS (b): recipe {ARS_RECIPE}, float32, batch {2 * ARS_RECIPE['num_directions']}: {s_per_it:.3f} s/iteration "
         f"(timed {', '.join(f'{s:.3f}' for s in seconds)}) = {1 / s_per_it:.4f} iterations/s = "
-        f"{env_steps / s_per_it:.1f} env-steps/s; K2 launches per iteration {launches}")
+        f"{env_steps / s_per_it:.1f} env-steps/s; K2 wrapper launches per iteration {launches} (the warm-up's captures, "
+        "then replays only)")
+
+    bench_line("ars_laikago_iterations_per_s", 1 / s_per_it, "iterations/s", card_line, config=ARS_RECIPE,
+               s_per_iteration=seconds)
+    bench_line("ars_laikago_env_steps_per_s", env_steps / s_per_it, "steps/s", card_line, config=ARS_RECIPE)
+    graph_lines("ARS (b)", env, "ars_rollout")
+    graph_lines("ARS (b)", env, "settle")
 
     # (c) where the time goes
     steps = 100
-    wall_ms, prof = ars_profile(env, policy, trained, steps)
+    wall_ms, eager_ms, prof = ars_profile(env, policy, trained, steps)
+    chunk_runs = ars_chunks(env, policy, trained)
     batch = 2 * ARS_RECIPE["num_directions"]
     shape = fused_step.launch_shape(env.step_params, batch)
     _, f32_rate, _ = card
@@ -1027,9 +1247,11 @@ def phase_ars(card, mega):
     else:
         k2_us = prof["k2_us"]
         log(f"ARS (c): one recipe iteration at {steps} steps ({per_step} env steps with the reset's settle steps): "
-            f"{wall_ms:.1f} ms wall without the profiler; {prof['device_ops']} device operations = "
+            f"{wall_ms:.1f} ms wall through graphs without the profiler (eager: {eager_ms:.1f} ms, graph "
+            f"{eager_ms / wall_ms:.2f}x); {prof['device_ops']} device operations = "
             f"{prof['device_ops'] / per_step:.1f} per step (torch.profiler), device busy {prof['device_ms']:.2f} ms of "
-            f"{wall_ms:.1f} ms ({100 * (1 - prof['device_ms'] / wall_ms):.1f}% idle); K2 {prof['k2_launches']} launches at "
+            f"{prof['profiled_ms']:.1f} ms wall under the profiler ({100 * (1 - prof['device_ms'] / prof['profiled_ms']):.1f}% "
+            f"idle); K2 {prof['k2_launches']} kernels in the trace, one a step, at "
             f"{k2_us:.2f} us each on the device ({prof['k2_launches'] * k2_us / 1e3:.2f} ms), bound {bound_us:.4f} us "
             f"({mega['flops_needed_per_env']:.0f} flops per env x {batch})")
     log_launch_shape(f"ARS (c): K2 B={batch} float32", shape)
@@ -1050,13 +1272,17 @@ def phase_ars(card, mega):
     log(f"ARS (d): python -m tds_tpu_torch.tools.ars_train --resume policy_r2b.pkl --iterations 2 --eval_interval 2 "
         f"--rollout_length 400 in {trainer_s:.1f} s; its checkpoint reads back finite, params moved by up to {moved:.3e}")
     return {
-        "ars_launches_per_iteration": launches[0],
+        "ars_wrapper_launches_per_iteration": launches,
+        "ars_replayed_launches_100_step_iteration": None if prof is None else prof["k2_launches"],
+        "ars_rollout_s_by_steps_per_graph": {str(c): t for c, t in chunk_runs.items()},
         "ars_device_us_per_launch": k2_us,
         "ars_bound_us_per_launch": bound_us,
         "ars_s_per_iteration": s_per_it,
         "ars_env_steps_per_s": env_steps / s_per_it,
         "ars_device_ops_per_step": None if prof is None else prof["device_ops"] / per_step,
-        "ars_idle_share": None if prof is None else 1 - prof["device_ms"] / wall_ms,
+        "ars_idle_share": None if prof is None else 1 - prof["device_ms"] / prof["profiled_ms"],
+        "ars_100_step_iteration_ms": wall_ms,
+        "ars_100_step_iteration_eager_ms": eager_ms,
         "ars_launch_shape_batch_256": launch_fields(shape),
         "ars_float64_card_against_cpu": worst,
         "ars_max_abs_err_batch_256": k2_err,
@@ -1180,45 +1406,44 @@ def ant_device_vs_cpu():
 
 
 def ant_replay():
-    """(d): logs/ant_ars/policy.pkl in float32 on the card, held to
-    tests/test_ant_policy.py's thresholds; returns K1's launches."""
+    """(d): logs/ant_ars/policy.pkl in float32 on the card through
+    ``rollout`` (graphs), held to tests/test_ant_policy.py's thresholds in a
+    form that implies them: alive at the last of the 1000 steps (so for all
+    of them, >= 900) and more than 9.0 m forward there. Returns K1's
+    wrapper launches (the warm-ups and the captures)."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
     from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
 
     saved, _ = load_checkpoint(str(ANT_CHECKPOINT))
     env = AntEnv(dtype=torch.float32)
     policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype)
     noise = env.draw_reset_noise(torch.Generator(device="cpu").manual_seed(REPLAY_SEED), ANT_REPLAY_BATCH)
     torch.cuda.synchronize()
+    cached = graphs.stats()
     pgs.launches = 0
     t0 = time.perf_counter()
-    with torch.no_grad():
-        state, obs = env.reset(noise=noise)
-        x0 = state.q[:, 0].clone()
-        x, alive = x0.clone(), torch.ones_like(x0)
-        steps = torch.zeros_like(x0)
-        for _ in range(ANT_REPLAY_STEPS):
-            state, obs, _, done = env.step(state, env.action_transform(policy(stat.normalize(obs))))
-            steps += alive
-            x = torch.where(alive > 0, state.q[:, 0], x)
-            alive = alive * (1.0 - done.to(alive.dtype))
+    state, obs = env.reset(noise=noise)
+    x0 = state.q[:, 0].clone()
+    state, obs, _, alive = rollout(env, policy, stat, state, obs, ANT_REPLAY_STEPS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = pgs.launches
-    if launches != ANT_REPLAY_STEPS + env.settle_steps:
-        raise AssertionError(f"the ant replay launched K1 {launches} times, expected {ANT_REPLAY_STEPS + env.settle_steps}")
-    steps, forward = steps.cpu(), (x - x0).cpu()
+    check_wrapper_launches("ant (d)", "PGS", launches, cached)
+    alive, forward = alive.cpu(), (state.q[:, 0] - x0).cpu()
     failed = []
     for i in range(ANT_REPLAY_BATCH):
-        ok = bool(torch.isfinite(state.q[i]).all()) and steps[i] >= 900 and forward[i] > 9.0
-        log(f"ant (d): env {i}: alive {steps[i]:.0f} of {ANT_REPLAY_STEPS} steps, {forward[i]:.3f} m forward {'ok' if ok else 'FAILED'}")
+        ok = bool(torch.isfinite(state.q[i]).all()) and alive[i] == 1.0 and forward[i] > 9.0
+        log(f"ant (d): env {i}: alive at step {ANT_REPLAY_STEPS} {alive[i]:.0f}, {forward[i]:.3f} m forward {'ok' if ok else 'FAILED'}")
         if not ok:
             failed.append(i)
     if failed:
         raise AssertionError(f"the trained ant policy failed the thresholds in envs {failed}")
-    log(f"ant (d): {ANT_CHECKPOINT.name} replayed for {ANT_REPLAY_STEPS} steps at batch {ANT_REPLAY_BATCH} in "
-        f"{seconds:.1f} s; every env walks; K1 launches {launches}")
+    log(f"ant (d): {ANT_CHECKPOINT.name} replayed through graphs for {ANT_REPLAY_STEPS} steps at batch {ANT_REPLAY_BATCH} "
+        f"in {seconds:.1f} s (capture included); every env walks; K1 wrapper launches {launches} (warm-ups and captures)")
+    graph_lines("ant (d)", env, "rollout")
     return launches
 
 
@@ -1230,10 +1455,12 @@ def ant_trainer():
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.convert import load_checkpoint
     from tds_tpu_torch.tools import ars_train
+    from tds_tpu_torch.utils import graphs
 
     iterations, rollout_length = 2, 200
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "ant.pkl")
+        cached = graphs.stats()
         pgs.launches = 0
         t0 = time.perf_counter()
         _, history = ars_train.main(
@@ -1245,25 +1472,27 @@ def ant_trainer():
         written, meta = load_checkpoint(path)
     finite = all(bool(torch.isfinite(v)) for metrics in history for v in metrics.values())
     finite = finite and bool(torch.isfinite(torch.as_tensor(written["params"])).all())
-    expected = (iterations + 1) * (10 + rollout_length)  # each iteration and the eval: 10 settle steps + rollout
-    if not finite or "eval_reward_min" not in history[-1] or meta.get("iteration") != iterations or launches != expected:
-        raise AssertionError(f"the ant trainer: finite {finite}, last metrics {history[-1]}, metadata {meta}, "
-                             f"K1 launches {launches} (expected {expected})")
+    if not finite or "eval_reward_min" not in history[-1] or meta.get("iteration") != iterations:
+        raise AssertionError(f"the ant trainer: finite {finite}, last metrics {history[-1]}, metadata {meta}")
+    check_wrapper_launches("ant (e)", "PGS", launches, cached)
     reward_min = history[-1]["eval_reward_min"].item()
     log(f"ant (e): python -m tds_tpu_torch.tools.ars_train --env ant --resume {ANT_CHECKPOINT.name} --iterations "
         f"{iterations} --eval_interval 2 --rollout_length {rollout_length} --num_directions 8 in {seconds:.1f} s: metrics "
-        f"finite, eval_reward_min {reward_min:.2f}, K1 launches {launches}")
+        f"finite, eval_reward_min {reward_min:.2f}, K1 wrapper launches {launches} (warm-ups and captures)")
     return reward_min
 
 
-def phase_ant(card):
+def phase_ant(card, card_line):
     from tds_tpu_torch.envs.ant import AntEnv
     from tds_tpu_torch.envs.hopper import HopperEnv
 
     ant, hopper = AntEnv(dtype=torch.float32), HopperEnv(dtype=torch.float32)
     kernel = ant_kernel(card, ant, hopper)
-    launches, step_ms, ops, idle = drive_main_path(ant, "ant (b)", ROLLOUT_STEPS, 2, (0.26, 0.48))
-    hopper_launches, hopper_ms, hopper_ops, hopper_idle = drive_main_path(hopper, "hopper (b)", HOPPER_STEPS, 1, (-0.35, 0.1))
+    # new envs, so that the main paths capture graphs of their own
+    ant_path = drive_main_path(AntEnv(dtype=torch.float32), "ant (b)", ROLLOUT_STEPS, 2, (0.26, 0.48), card_line,
+                               ("ant_scan_rollout_env_steps_per_s", ANT_BENCH_STEPS))
+    hop = drive_main_path(HopperEnv(dtype=torch.float32), "hopper (b)", HOPPER_STEPS, 1, (-0.35, 0.1), card_line)
+    launches, step_ms = ant_path["launches"], ant_path["ms_per_step"]
     worst = ant_device_vs_cpu()
     replay_launches = ant_replay()
     reward_min = ant_trainer()
@@ -1275,21 +1504,27 @@ def phase_ant(card):
         "ant_bound_by": kernel["ant"]["bound_by"],
         "ant_max_abs_err": kernel["ant"]["max_abs_err"],
         "ant_launches": launches,
-        "ant_launches_per_step": launches / (ROLLOUT_STEPS + ant.settle_steps),
+        "ant_replayed_launches_per_step": ant_path["replayed_launches_per_step"],
         "ant_ms_per_step": step_ms,
         "ant_env_steps_per_s": MAIN_BATCH / step_ms * 1e3,
-        "ant_device_ops_per_step": ops,
-        "ant_idle_share": idle,
+        "ant_eager_ms_per_step": ant_path["eager_ms_per_step"],
+        "ant_scan_rollout_env_steps_per_s": ant_path["ant_scan_rollout_env_steps_per_s"],
+        "ant_graph_nodes": ant_path["graph_nodes"],
+        "ant_device_ops_per_step": ant_path["device_ops"],
+        "ant_idle_share": ant_path["idle"],
+        "ant_eager_device_ops_per_step": ant_path.get("eager_device_ops"),
+        "ant_eager_idle_share": ant_path.get("eager_idle"),
         "ant_float64_card_against_cpu": worst,
         "ant_replay_launches": replay_launches,
         "ant_trainer_eval_reward_min": reward_min,
         "hopper_ms": kernel["hopper"]["ms"],
         "hopper_plain_ms": kernel["hopper"]["plain_ms"],
         "hopper_max_abs_err": kernel["hopper"]["max_abs_err"],
-        "hopper_launches": hopper_launches,
-        "hopper_ms_per_step": hopper_ms,
-        "hopper_device_ops_per_step": hopper_ops,
-        "hopper_idle_share": hopper_idle,
+        "hopper_launches": hop["launches"],
+        "hopper_ms_per_step": hop["ms_per_step"],
+        "hopper_eager_ms_per_step": hop["eager_ms_per_step"],
+        "hopper_device_ops_per_step": hop["device_ops"],
+        "hopper_idle_share": hop["idle"],
     }
 
 
@@ -1301,8 +1536,29 @@ def timed(phase, *args):
     return out
 
 
+def phase_graphs(start_s):
+    """Every graph the run left in the cache (they all stay alive), the
+    card's memory with all of them, and the script's seconds so far."""
+    from tds_tpu_torch.utils import graphs
+
+    cached = graphs.stats()
+    for g in cached:
+        key = g.key if isinstance(g.key, str) else (g.key[0], type(g.key[1]).__name__, *g.key[2:])
+        log(f"graphs: {key} at batch {g.batch}: {g.steps} step(s) per replay, {g.nodes} nodes, capture "
+            f"{g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s")
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    log(f"graphs: {len(cached)} graphs alive, {sum(g.nodes for g in cached)} nodes, captured in "
+        f"{sum(g.capture_s for g in cached):.1f} s and instantiated in {sum(g.instantiate_s for g in cached):.1f} s; "
+        f"torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB over the run, memory_reserved {reserved / 2**20:.1f} MiB "
+        f"with every graph's pool alive")
+    log(f"chip_smoke.py: {time.perf_counter() - start_s:.1f} s of its 1200 s limit")
+    return {"graphs": len(cached), "graph_nodes": sum(g.nodes for g in cached), "max_memory_allocated": peak,
+            "memory_reserved": reserved}
+
+
 def main():
-    name = phase_device()
+    start_s = time.perf_counter()
+    name, card_line = phase_device()
     card = card_peaks(name)
     timed(phase_build)
     from tds_tpu_torch.envs.laikago import LaikagoEnv
@@ -1310,12 +1566,16 @@ def main():
     env = LaikagoEnv(dtype=torch.float32)
     kernel = timed(phase_kernel, env, card)
     timed(phase_device_vs_cpu)
-    kernel["launches"] = timed(phase_main_path, env)
+    # a new env, so that the main path captures graphs of its own
+    main_path = timed(phase_main_path, LaikagoEnv(dtype=torch.float32), card_line)
+    kernel["launches"] = main_path["launches"]
     timed(phase_trained_policy, env)
     mega = timed(phase_mega_step, card)
     probes = timed(phase_probes, card)
-    mega.update(timed(phase_ars, card, mega))
-    kernel.update(timed(phase_ant, card))
+    mega.update(timed(phase_ars, card, mega, card_line))
+    kernel.update(timed(phase_ant, card, card_line))
+    kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
+    kernel.update(timed(phase_graphs, start_s))
     print(json.dumps({"kernels": [kernel, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -7,6 +7,10 @@
 - on CPU tensors it runs :func:`solve_pgs_reference`, the plain version;
 - anything else raises. No switch sends a CUDA tensor to the plain version.
 
+The kernel has no backward yet: on the card it raises when grad is enabled
+and an operand requires grad (``utils.tensors.refuse_grad``), and runs
+under ``torch.no_grad()``.
+
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first launch
 (or by :func:`build`) into ``build/kernels/pgs-<hash>/`` through
 :func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
@@ -25,7 +29,7 @@ from typing import Sequence
 import torch
 
 from tds_tpu_torch.utils import cuda_build
-from tds_tpu_torch.utils.tensors import constant
+from tds_tpu_torch.utils.tensors import constant, refuse_grad
 
 SUPPORTED_ROWS = (12, 24)  # template instantiations in csrc/pgs.cu
 
@@ -84,6 +88,7 @@ def _solve_pgs_cuda(a_mat, b, lo, hi, dep, iterations):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    refuse_grad("PGS", (a_mat, b, lo, hi))
     x = torch.empty_like(b)
     if bsz == 0:
         return x

@@ -93,6 +93,10 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 #include "pgs_sweep.cuh"
 
 #ifdef MEGASTEP_PHASE_CUTS
@@ -1030,6 +1034,26 @@ size_t smem_bytes(int num_subtrees, size_t elt) {
   return static_cast<size_t>(kThreads / kLanes) * Region<22, 18, 4>::stride(num_subtrees) * elt;
 }
 
+// Raises a kernel's dynamic shared memory limit to `most` bytes, once per
+// kernel and device. The first launch sets it, outside any graph capture
+// when the launch is a graph's warm-up, so that no captured launch calls
+// cudaFuncSetAttribute.
+cudaError_t allow_smem(const void* fn, size_t most) {
+  static std::mutex mutex;
+  static std::set<std::pair<const void*, int>> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  if (done.count({fn, device})) return cudaSuccess;
+  if (most > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+    if (err != cudaSuccess) return err;
+  }
+  done.insert({fn, device});
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const StepOperands* ops, const void* q, const void* qd, const void* action, void* q_out,
            void* qd_out, int batch, int num_links, int dof, int num_contacts, int num_pd,
@@ -1041,11 +1065,9 @@ int launch(const StepOperands* ops, const void* q, const void* qd, const void* a
       ops->num_chain < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(ops->num_subtrees, sizeof(T));
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // what the widest tree needs: the stride grows with the subtrees
+  const cudaError_t err = allow_smem(fn, smem_bytes(kLanes, sizeof(T)));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Model<T> m = typed<T>(*ops, num_pd);
   const int envs = kThreads / kLanes;
   const int blocks = (batch + envs - 1) / envs;
@@ -1092,11 +1114,8 @@ extern "C" int tds_megastep_launch_shape(int f64, int num_links, int dof, int nu
                        : kernel_for<float>(num_links, dof, num_contacts);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(num_subtrees, f64 ? sizeof(double) : sizeof(float));
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = allow_smem(fn, smem_bytes(kLanes, f64 ? sizeof(double) : sizeof(float)));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -10,7 +10,9 @@ operands, its plain version and its wrapper.
   batched over envs, that reads only those operands;
 - :func:`mega_step` launches the hand-written kernel ``csrc/megastep.cu`` on
   CUDA tensors and runs the plain version on CPU tensors; anything else
-  raises, and no switch sends a CUDA tensor to the plain version;
+  raises, and no switch sends a CUDA tensor to the plain version; the
+  kernel has no backward yet, so on the card it raises when grad is enabled
+  and an operand requires grad (``utils.tensors.refuse_grad``);
 - :func:`launch_shape` reports the kernel's lanes per env, envs per block,
   shared memory and resident warps per SM on the card.
 
@@ -37,6 +39,7 @@ from tds_tpu_torch.contact.mlcp import check_params, plane_space
 from tds_tpu_torch.model.geometry import Plane, Sphere
 from tds_tpu_torch.model.joints import JointType, jcalc_transform, jcalc_velocity
 from tds_tpu_torch.utils import cuda_build
+from tds_tpu_torch.utils.tensors import refuse_grad
 
 # (links, DoF, contact spheres) of the template instances in csrc/megastep.cu,
 # each in float32 and float64 with 16 lanes per env
@@ -491,6 +494,7 @@ def launch(lib, params: StepParams, q, qd, action):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    refuse_grad("fused step", (q, qd, action) + tuple(getattr(params, f) for f in POINTER_FIELDS))
     q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
     if bsz == 0:
         return q_out, qd_out

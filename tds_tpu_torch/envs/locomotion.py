@@ -30,6 +30,7 @@ from tds_tpu_torch.envs.base import Env, EnvState
 from tds_tpu_torch.envs.fused_step import check_instance, mega_step, pack_step_params
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
+from tds_tpu_torch.utils.graphs import scan
 from tds_tpu_torch.utils.tensors import constant, resolve_device
 from tds_tpu_torch.world import build_world, make_ground_plane, resolve_contacts
 
@@ -157,11 +158,17 @@ class LocomotionEnv(Env):
         return q, self.model.zero_qd(noise.shape[:-1])
 
     def reset(self, generator: Optional[torch.Generator] = None, batch_size: int = 1, noise=None):
-        """initial_state followed by the settle steps with zero action."""
+        """initial_state followed by the settle steps with zero action, one
+        :func:`~tds_tpu_torch.utils.graphs.scan` (replayed CUDA graphs on
+        the card). The noise is drawn before the scan, so a graph holds no
+        random op."""
         q, qd = self.initial_state(generator, batch_size, noise)
+
+        def settle(carry, consts):
+            return self.sim_step(*carry, *consts)
+
         zero_action = q.new_zeros(q.shape[:-1] + (self.action_dim,))
-        for _ in range(self.settle_steps):
-            q, qd = self.sim_step(q, qd, zero_action)
+        q, qd = scan(settle, (q, qd), (zero_action,), self.settle_steps, key=("settle", self))
         t = torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device)
         return EnvState(q=q, qd=qd, t=t), self.observation(q, qd)
 

@@ -1,7 +1,8 @@
 """Augmented Random Search (counterpart of tds_tpu/learn/ars.py).
 
 - The + and - rollouts of an iteration run as one batch of
-  2 * num_directions envs, a Python loop over the horizon: with
+  2 * num_directions envs, one ``utils.graphs.scan`` over the horizon
+  (replayed CUDA graphs on the card, a Python loop on the CPU): with
   ``LocomotionEnv(fused_step=True)`` each step launches the fused step
   kernel K2 once for the whole batch. Direction i's two rollouts start from
   the same reset noise.
@@ -23,9 +24,17 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from tds_tpu_torch.envs.base import EnvState
 from tds_tpu_torch.learn.nn import MLPSpec
 from tds_tpu_torch.learn.running_stat import RunningStat
+from tds_tpu_torch.utils.graphs import scan
 
+# steps per CUDA graph of a rollout through the fused step (K2 and ~33
+# small operations a step, so ~3,300 nodes a replay); a rollout through the
+# eager contact step (~3,600 nodes a step) takes one step a graph. On the
+# H100, ten alternating runs of the recipe's rollout at each (chip_smoke.py
+# phase 9 (c)) set it (PERF.md)
+FUSED_CHUNK = 100
 
 class ARSConfig(NamedTuple):
     """The JAX package's fields and defaults."""
@@ -62,21 +71,19 @@ def init_ars(env, policy: MLPSpec, seed: int = 0, dtype: Optional[torch.dtype] =
 
 
 @torch.no_grad()
-def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noise, config: ARSConfig):
-    """Rollouts of (B, p) or (p,) parameters from the reset noise (B, ...);
-    returns (total reward, steps alive, (obs sum, obs sum of squares)),
-    each per env."""
+def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noise, config: ARSConfig, chunk=None):
+    """Rollouts of (B, p) or (p,) parameters from the reset noise (B, ...),
+    one :func:`~tds_tpu_torch.utils.graphs.scan` over the horizon (replayed
+    CUDA graphs of ``chunk`` steps on the card; None: FUSED_CHUNK through
+    the fused step, else 1); returns (total reward, steps alive, (obs sum,
+    obs sum of squares)), each per env."""
     state, obs = env.reset(noise=noise)
     dtype = obs.dtype
-    batch, dim = obs.shape
-    total = obs.new_zeros(batch)
-    alive = obs.new_ones(batch)
-    steps = obs.new_zeros(batch)
-    s1 = obs.new_zeros(batch, dim)
-    s2 = obs.new_zeros(batch, dim)
-    # RunningStat.normalize's terms, frozen for the rollout
-    mean, scale = obs_stat.mean, obs_stat.scale()
-    for _ in range(config.rollout_length):
+    shift = config.shift
+
+    def body(carry, consts):
+        q, qd, t, obs, total, alive, steps, s1, s2 = carry
+        params, mean, scale = consts
         # a diverged simulation (NaN/Inf state) must not poison the update:
         # gate the rollout as terminated and keep the statistics finite
         finite = torch.isfinite(obs)
@@ -86,13 +93,24 @@ def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noi
         s1 = s1 + weighted
         s2 = s2 + obs_safe * weighted
         action = env.action_transform(policy.apply(params, (obs_safe - mean) / scale))
-        state, obs, reward, done = env.step(state, action)
+        state, obs, reward, done = env.step(EnvState(q, qd, t), action)
         reward = torch.nan_to_num(reward, nan=0.0, posinf=0.0, neginf=0.0)
-        if config.shift:
-            reward = reward - config.shift
+        if shift:
+            reward = reward - shift
         total = total + reward * alive
         steps = steps + alive
         alive = alive * (1.0 - done.to(dtype))
+        return state.q, state.qd, state.t, obs, total, alive, steps, s1, s2
+
+    batch = obs.shape[:-1]
+    carry = (state.q, state.qd, state.t, obs, obs.new_zeros(batch), obs.new_ones(batch), obs.new_zeros(batch))
+    carry += (torch.zeros_like(obs), torch.zeros_like(obs))
+    # RunningStat.normalize's terms, frozen for the rollout
+    consts = (params, obs_stat.mean, obs_stat.scale())
+    key = ("ars_rollout", env, policy.input_dim, policy.layer_dims, shift)
+    if chunk is None:
+        chunk = FUSED_CHUNK if getattr(env, "step_params", None) is not None else 1
+    _, _, _, _, total, _, steps, s1, s2 = scan(body, carry, consts, config.rollout_length, key=key, chunk=chunk)
     return total, steps, (s1, s2)
 
 

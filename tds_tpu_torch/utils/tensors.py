@@ -1,4 +1,5 @@
-"""Device selection and cached constant tensors."""
+"""Device selection, cached constant tensors, and the hand-written kernels'
+refusal of gradients they cannot carry."""
 
 import functools
 
@@ -24,3 +25,16 @@ def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     (values, dtype, device). Building it anew inside a step would copy from
     the host and synchronise the stream on every call. Never write to it."""
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+def refuse_grad(kernel: str, tensors) -> None:
+    """Raise when autograd would record a graph through ``kernel``: grad is
+    enabled and one of ``tensors`` requires grad. The kernels write their
+    outputs through raw pointers and have no backward yet (ROADMAP Queue 1
+    item 5), so their results would carry no gradient; under
+    ``torch.no_grad()`` they run."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward yet (ROADMAP Queue 1 item 5) and would drop the gradient of its "
+            "operands: call it under torch.no_grad(), or differentiate its plain version on CPU tensors"
+        )

@@ -4,7 +4,9 @@
 card against the same on the CPU from the same draws,
 within 1e-9 abs + rel (K2 float64 agrees with the CPU to ~4e-13 over 50
 steps, chip_smoke.py phase 7), with K2 launched once per step for the + and
-- rollouts together: settle_steps + rollout_length times. Every test here
+- rollouts together: settle_steps + rollout_length K2 kernels in a
+torch.profiler trace of a call that replays the rollouts' CUDA graphs (a
+replay calls no Python, so the wrapper's counter stays). Every test here
 needs the card and skips without one. The file imports neither JAX nor the
 JAX package, so on a machine with a card and no JAX it runs as
 
@@ -37,6 +39,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _k2_in_trace(fn):
+    """(``fn()``, K2 kernels in a torch.profiler trace of the call, K2
+    wrapper launches during it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = fused_step.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    traced = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "megastep_kernel" in e.name)
+    return out, traced, fused_step.launches - before
+
+
 @pytest.mark.parametrize("top_directions", [0, 2])
 def test_iteration_on_the_card_matches_the_cpu(cuda_device, top_directions):
     config = ars.ARSConfig(num_directions=4, rollout_length=100, top_directions=top_directions)
@@ -49,10 +65,13 @@ def test_iteration_on_the_card_matches_the_cpu(cuda_device, top_directions):
     saved, _ = load_checkpoint(START_CKPT)
     start = [ars_state_from_numpy(saved["params"], saved["obs_stat"], dtype=torch.float64, device=d) for d in ("cpu", cuda_device)]
     expected, expected_metrics = ars.ars_iteration(cpu_env, policy, config, start[0], deltas, noise)
-    before = fused_step.launches
-    got, metrics = ars.ars_iteration(gpu_env, policy, config, start[1], deltas.to(cuda_device), noise.to(cuda_device))
-    torch.cuda.synchronize()
-    assert fused_step.launches - before == gpu_env.settle_steps + config.rollout_length
+    def iteration():
+        return ars.ars_iteration(gpu_env, policy, config, start[1], deltas.to(cuda_device), noise.to(cuda_device))
+
+    first, _ = iteration()  # captures the graphs
+    (got, metrics), traced, wrapper = _k2_in_trace(iteration)
+    assert traced == gpu_env.settle_steps + config.rollout_length and wrapper == 0
+    assert torch.equal(got.params, first.params)
     pairs = [(got.params, expected.params), (got.total_timesteps, expected.total_timesteps)]
     pairs += list(zip(got.obs_stat, expected.obs_stat)) + [(metrics[k], expected_metrics[k]) for k in expected_metrics]
     for g, e in pairs:
@@ -65,9 +84,9 @@ def test_train_step_draws_on_the_card_and_launches_k2_once_per_step(cuda_device)
     config = ars.ARSConfig(num_directions=8, rollout_length=30, top_directions=4)
     state = ars.init_ars(env, policy, seed=1)
     assert state.generator.device.type == "cuda"
-    before = fused_step.launches
-    state, metrics = ars.make_train_step(env, policy, config)(state)
-    torch.cuda.synchronize()
-    assert fused_step.launches - before == env.settle_steps + config.rollout_length
+    step_fn = ars.make_train_step(env, policy, config)
+    state, _ = step_fn(state)  # captures the graphs
+    (state, metrics), traced, wrapper = _k2_in_trace(lambda: step_fn(state))
+    assert traced == env.settle_steps + config.rollout_length and wrapper == 0
     assert state.params.device.type == "cuda" and bool(torch.isfinite(state.params).all())
     assert all(v.device.type == "cuda" for v in metrics.values())

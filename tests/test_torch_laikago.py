@@ -6,7 +6,8 @@ golden trajectory, float64 on the CPU.
 - tests/golden/laikago_pd_contact_trajectory.json for 500 steps at the
   tolerances of tests/test_golden_reference.py;
 - reset from the same noise (10 settle steps), then observation, step and
-  reward_done on the same states, at 1e-10.
+  reward_done on the same states, at 1e-10; the reset's settle steps run as
+  one ``graphs.scan`` and match the JAX package's scanned reset at 1e-12.
 """
 
 import json
@@ -76,17 +77,26 @@ def test_golden_pd_contact_trajectory(envs):
 
 
 @pytest.fixture(scope="module")
-def reset_pair(envs):
-    """JAX reset(key) per env and the port's reset from the same draws."""
-    j_env, t_env = envs
+def reset_noise(envs):
+    """JAX reset keys per env and the joint noise each key's reset draws
+    inside initial_state, as a (B, action_dim) numpy array."""
+    j_env, _ = envs
     keys = jax.random.split(jax.random.PRNGKey(11), 3)
 
-    def noise(key):  # the draw LocomotionEnv.reset makes inside initial_state
+    def noise(key):
         _, sub = jax.random.split(key)
         return jax.random.uniform(sub, (j_env.action_dim,), minval=-j_env.reset_noise, maxval=j_env.reset_noise, dtype=jnp.float64)
 
+    return keys, np.array(jax.vmap(noise)(keys))
+
+
+@pytest.fixture(scope="module")
+def reset_pair(envs, reset_noise):
+    """JAX reset(key) per env and the port's reset from the same draws."""
+    j_env, t_env = envs
+    keys, noise = reset_noise
     j_state, j_obs = jax.jit(jax.vmap(j_env.reset))(keys)
-    t_state, t_obs = t_env.reset(noise=torch.from_numpy(np.array(jax.vmap(noise)(keys))))
+    t_state, t_obs = t_env.reset(noise=torch.from_numpy(noise))
     return j_state, j_obs, t_state, t_obs
 
 
@@ -95,6 +105,27 @@ def test_reset_from_the_same_noise(reset_pair):
     for got, expected in ((t_state.q, j_state.q), (t_state.qd, j_state.qd), (t_obs, j_obs)):
         np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(t_state.t.numpy(), np.asarray(j_state.t))
+
+
+def test_reset_runs_its_settle_steps_as_one_scan_like_jax(envs, reset_noise, reset_pair, monkeypatch):
+    """The settle steps go through graphs.scan (its plain path on the CPU;
+    replayed graphs on the card), the counterpart of the JAX reset's
+    lax.scan, and land on the JAX package's scanned reset at 1e-12."""
+    from tds_tpu_torch.envs import locomotion
+
+    _, t_env = envs
+    calls, scan = [], locomotion.scan
+
+    def recording(body, carry, consts, length, key):
+        calls.append((length, key))
+        return scan(body, carry, consts, length, key)
+
+    monkeypatch.setattr(locomotion, "scan", recording)
+    t_state, t_obs = t_env.reset(noise=torch.from_numpy(reset_noise[1]))
+    assert calls == [(t_env.settle_steps, ("settle", t_env))]
+    j_state, j_obs = reset_pair[:2]
+    for got, expected in ((t_state.q, j_state.q), (t_state.qd, j_state.qd), (t_obs, j_obs)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-12, atol=1e-12)
 
 
 def test_step_observation_reward_done(envs, reset_pair):

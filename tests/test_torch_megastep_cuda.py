@@ -102,3 +102,23 @@ def test_cuda_kernel_refuses_shapes_without_an_instance(cuda_device, standing):
         fused_step.mega_step(params, q.float(), qd, action)
     with pytest.raises(ValueError):
         fused_step.mega_step(params, q[:, :12].contiguous(), qd, action)
+
+
+def test_cuda_kernel_refuses_gradients_it_would_drop(cuda_device, standing):
+    """K2 has no backward: under grad, an operand that requires grad is
+    refused; under torch.no_grad() the same call returns what it returns
+    without one."""
+    params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, device=cuda_device))
+    q, qd, action = (t.to(cuda_device) for t in standing)
+    expected = fused_step.mega_step(params, q, qd, action)
+    before = fused_step.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_step.mega_step(params, q, qd, action.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_step.mega_step(params._replace(kp=params.kp.clone().requires_grad_()), q, qd, action)
+    assert fused_step.launches == before
+    with torch.no_grad():
+        got = fused_step.mega_step(params, q.clone().requires_grad_(), qd, action.clone().requires_grad_())
+    torch.cuda.synchronize()
+    for g, e in zip(got, expected):
+        assert torch.equal(g, e) and not g.requires_grad

@@ -76,3 +76,20 @@ def test_cuda_kernel_refuses_mixed_dtypes_and_strides(cuda_device):
         pgs.solve_pgs(a.float(), b, lo, hi, dep, 1)
     with pytest.raises(ValueError):
         pgs.solve_pgs(a.transpose(-1, -2), b, lo, hi, dep, 1)
+
+
+def test_cuda_kernel_refuses_gradients_it_would_drop(cuda_device):
+    """K1 has no backward: under grad, an operand that requires grad is
+    refused; under torch.no_grad() the same call returns what it returns
+    without one."""
+    a, b, lo, hi = (torch.from_numpy(x).to(cuda_device) for x in _problem(21, 4, seed=2)[:4])
+    dep = _problem(21, 4, seed=2)[4]
+    expected = pgs.solve_pgs(a, b, lo, hi, dep, 2)
+    before = pgs.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        pgs.solve_pgs(a, b.clone().requires_grad_(), lo, hi, dep, 2)
+    assert pgs.launches == before
+    with torch.no_grad():
+        got = pgs.solve_pgs(a.clone().requires_grad_(), b.clone().requires_grad_(), lo, hi, dep, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, expected) and not got.requires_grad
