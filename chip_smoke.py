@@ -4,16 +4,17 @@
     python3 chip_smoke.py
 
 It builds the port's kernels from the sources in this checkout and drives
-the laikago contact rollout, the fused step, the probes, ARS and the ant
-and hopper rollouts through them. On the card the rollouts, the resets'
-settle steps and ARS's rollouts replay CUDA graphs
-(``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
+the laikago contact rollout, the fused step, the probes, ARS, the ant and
+hopper rollouts and the humanoid and half-cheetah rollouts through them.
+On the card the rollouts, the resets' settle steps and ARS's rollouts
+replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
 loop, on the card. A kernel wrapper counts its launches where it makes
 them: in a graph's warm-up and capture, not in a replay, which calls no
 Python. So a phase that runs through graphs checks the wrapper's count
-against the graphs it captured, and phases 5, 9 (c) and 10 (b) count the
-kernels of replayed steps in a torch.profiler trace: one a step.
+against the graphs it captured, and phases 5, 9 (c), 10 (b) and 12 (b),
+(f) count the kernels of replayed steps in a torch.profiler trace: one a
+step.
 Phases, each of which raises on failure, so that the run exits non-zero and
 prints no final line:
 
@@ -82,7 +83,9 @@ prints no final line:
    rows for both): (a) K1 on the float32 batch-4096 PGS operands of an ant
    step and of a hopper step with contacts active, against its plain
    version, timed against its bound, and an ant without compaction (51
-   rows) refused on the card; (b) the ant's main path as phase 5's, with
+   rows) stepping on the card through K1's warp per env, never reaching
+   the plain version there, K1 on its operands against the plain
+   version; (b) the ant's main path as phase 5's, with
    ``bench.py``'s ``ant_scan_rollout_env_steps_per_s`` (500 steps), then a
    50-step hopper rollout; (c) 50 float64 ant steps at batch 16 on the
    card against the CPU, half the envs started with the torso on the
@@ -93,11 +96,38 @@ prints no final line:
    them, and more than 9.0 m forward); (e) ``python -m
    tds_tpu_torch.tools.ars_train --env ant`` resumed from that policy for
    2 iterations;
+12. humanoid and half-cheetah (``tds_tpu_torch/envs/humanoid.py``: a
+   spherical base joint, 35 plane candidates and 105 MLCP rows, K1's warp
+   per env; ``HalfCheetahEnv``, 48 rows), run before phase 11 so that its
+   graphs count there: (a) K1 against its plain version at n = 3, 6, 8, 9,
+   12, 24, 48, 51, 105 and B = 1, 37, 4096 (and 1024 at n = 105), float32
+   and float64, two sweeps of random problems, and on the float32 operands
+   of a humanoid step (B = 1024) and a half-cheetah step (B = 4096) with
+   contacts active; each n's time (median of 100 CUDA-event-timed
+   launches), the plain version's, the bound and the launch shape; (b) the
+   humanoid's main path as phase 5's at batch 1024 for 200 steps, with
+   ``bench.py``'s ``humanoid_scan_rollout_env_steps_per_s`` (200 steps,
+   best of 3), and the same number at ``top_k=8`` (24 rows) as a
+   measurement; (c) 50 float64 humanoid steps at batch 8 on the card
+   against the CPU, the feet in the ground, within 1e-9 abs + rel; (d)
+   ``logs/humanoid_ars/policy_curr2.pkl`` replayed in float32 through
+   graphs for 3000 steps from the 4 starts of
+   ``tests/test_humanoid_policy.py`` (the JAX package's reset draws for its
+   seeds 0, 7, 123 and 42, recorded in
+   ``tests/golden/humanoid_policy_reset_noise.json``), each held to its
+   thresholds (:84-90: x > 0.65 m, at least 1100 steps alive, total reward
+   > 600), beside 4 envs reset from ``torch.Generator`` seeds of the same
+   numbers, whose outcome is printed as a measurement; (e) ``python -m
+   tds_tpu_torch.tools.ars_train --env humanoid`` resumed from that policy
+   for 2 iterations, its checkpoint read back; (f) a 50-step half-cheetah
+   rollout at batch 4096 as phase 5's, K1 at n = 48 one a replayed step;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the card's peak and reserved memory with all of
    them, and the script's seconds against its 1200 s limit.
 
-The line before the last is the ``kernels`` JSON object; the last line is
+The line before the last is the ``kernels`` JSON object (K1 once for each
+row count a main path runs, 12, 24, 48 and 105, the other row counts of
+phase 12 (a) inside the first; K2, K3, K4); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
 
@@ -112,7 +142,7 @@ from pathlib import Path
 
 import torch
 
-from tds_tpu_torch.utils.timing import device_ms, wall_ms
+from tds_tpu_torch.utils.timing import counted_trace, device_ms, device_trace, wall_ms
 
 REPO = Path(__file__).resolve().parent
 CHECKPOINT = REPO / "logs" / "laikago_ars" / "policy_r2b.pkl"
@@ -157,6 +187,18 @@ ARS_TOL = 1e-9
 # of BENCH_REPEATS timed calls; vs_baseline over the reference's 2.0e5
 # laikago env-steps/s (BASELINE.md)
 LAIKAGO_BENCH_STEPS, ANT_BENCH_STEPS, BENCH_REPEATS, BASELINE = 1000, 500, 3, 2.0e5
+HUMANOID_CHECKPOINT = REPO / "logs" / "humanoid_ars" / "policy_curr2.pkl"
+# bench.py's humanoid rollout: batch min(4096 // 4, 2048), 200 steps
+HUMANOID_BATCH, HUMANOID_STEPS = 1024, 200
+# tests/test_humanoid_policy.py's replay: its seeds, its starts (the JAX
+# package's reset draws for them, recorded in the JSON file), 3000 steps
+HUMANOID_SEEDS, HUMANOID_REPLAY_STEPS = (0, 7, 123, 42), 3000
+HUMANOID_RESET_NOISE = REPO / "tests" / "golden" / "humanoid_policy_reset_noise.json"
+CHEETAH_BATCH, CHEETAH_STEPS = 4096, 50
+# K1's row counts in phase 12 (a): laikago with top_k 1-3 or one friction
+# direction (3, 6, 8, 9), laikago (12), the ant and the hopper (24), the
+# half-cheetah (48), the ant without compaction (51), the humanoid (105)
+K1_ROWS, K1_BATCHES = (3, 6, 8, 9, 12, 24, 48, 51, 105), (1, 37, 4096)
 PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
 CHUNK_RUNS = 10  # alternating timed runs of each graph length of ARS's rollout
 
@@ -262,15 +304,24 @@ def phase_build():
 
 # -- phase 3 ---------------------------------------------------------------
 def random_pgs_problem(batch, n_c, dtype, generator):
-    """SPD A = J J^T + 1e-3 I with J (n, 8), as tests/test_pallas_pgs.py."""
-    n = 3 * n_c
+    """SPD A = J J^T + 1e-3 I with J (n, 8), as tests/test_pallas_pgs.py,
+    n = 3 n_c rows: n_c normal rows, then two friction rows per contact."""
+    return random_rows_problem(batch, 3 * n_c, dtype, generator)
+
+
+def random_rows_problem(batch, n, dtype, generator):
+    """random_pgs_problem's layout for any n rows: n / 3 contacts when 3
+    divides n, else n / 2 normal rows and one friction direction (n = 8:
+    laikago with num_friction_dir = 1); friction rows bounded by +-0.5 times
+    their normal row's impulse."""
+    n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
     dev = generator.device
     j = torch.randn(batch, n, 8, generator=generator, dtype=torch.float64, device=dev)
     a = j @ j.transpose(-1, -2) + 1e-3 * torch.eye(n, dtype=torch.float64, device=dev)
     b = torch.randn(batch, n, generator=generator, dtype=torch.float64, device=dev)
-    lo = torch.cat([torch.zeros(batch, n_c, device=dev)] + [torch.full((batch, n_c), -0.5, device=dev)] * 2, -1)
-    hi = torch.cat([torch.full((batch, n_c), 1e5, device=dev)] + [torch.full((batch, n_c), 0.5, device=dev)] * 2, -1)
-    dep = [-1] * n_c + list(range(n_c)) * 2
+    lo = torch.cat([torch.zeros(batch, n_c, device=dev), torch.full((batch, n - n_c), -0.5, device=dev)], -1)
+    hi = torch.cat([torch.full((batch, n_c), 1e5, device=dev), torch.full((batch, n - n_c), 0.5, device=dev)], -1)
+    dep = [-1] * n_c + [k % n_c for k in range(n - n_c)]
     return [t.to(dtype).contiguous() for t in (a, b, lo, hi)], dep
 
 
@@ -316,35 +367,40 @@ def launch_fields(shape):
 
 def pgs_bound(b, iterations, card):
     """(ms for K1's bytes, ms for its flops, bytes, flops) on the PGS
-    operands whose b is ``b``: A, b, lo, hi and dep read once, x written
-    once; per row and sweep n - 1 products and sums, b - delta, a divide
-    and two bound scales."""
+    operands whose b is ``b``: what the function needs of them read once, x
+    written once. From x = 0 the first sweep's row i reads only A_ij for
+    j <= i (x_j = 0 for j > i), so one sweep needs A's lower triangle and
+    later sweeps all of A; b, lo, hi and dep read once. Per row: 2 flops for
+    each off-diagonal product and sum it takes (i in the first sweep, n - 1
+    after), b - delta, a divide and two bound scales."""
     bsz, n = b.shape
-    n_bytes = b.element_size() * (bsz * n * n + 4 * bsz * n) + 4 * n
-    n_ops = iterations * bsz * n * (2 * n + 3)
+    a_values = n * (n + 1) // 2 if iterations <= 1 else n * n
+    n_bytes = b.element_size() * (bsz * a_values + 4 * bsz * n) + 4 * n
+    first = n * (n - 1) + 4 * n if iterations >= 1 else 0
+    n_ops = bsz * (first + max(iterations - 1, 0) * n * (2 * (n - 1) + 4))
     bandwidth, f32_rate, f64_rate = card
     rate = f32_rate if b.dtype == torch.float32 else f64_rate
     return n_bytes / bandwidth * 1e3, n_ops / rate * 1e3, n_bytes, n_ops
 
 
-def harvest_pgs_operands(env, gen, warm_steps, label, prefix):
-    """The PGS operands of one step at MAIN_BATCH, after ``reset`` from
+def harvest_pgs_operands(env, gen, warm_steps, label, prefix, batch=MAIN_BATCH):
+    """The PGS operands of one step at ``batch``, after ``reset`` from
     ``gen`` and ``warm_steps`` zero-policy steps, with contact rows active."""
     from tds_tpu_torch.learn.nn import linear_policy
     from tds_tpu_torch.rollout import rollout
 
-    state, obs = env.reset(gen, batch_size=MAIN_BATCH)
+    state, obs = env.reset(gen, batch_size=batch)
     policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
     state = rollout(env, policy, None, state, obs, warm_steps)[0]
     with recorded_pgs_calls() as calls:
-        env.step(state, torch.zeros(MAIN_BATCH, env.action_dim, dtype=env.dtype, device=env.device))
+        env.step(state, torch.zeros(batch, env.action_dim, dtype=env.dtype, device=env.device))
     if len(calls) != 1:
         raise AssertionError(f"expected one PGS call in a {label} step, saw {len(calls)}")
     active = int((calls[0][1] != 0).sum())
     if active == 0:
         raise AssertionError(f"no contact row is active in the harvested {label} step")
     log(f"{prefix}: harvested the PGS operands of {label} step {env.settle_steps + warm_steps + 1} at batch "
-        f"{MAIN_BATCH}: {active} of {calls[0][1].numel()} rows active")
+        f"{batch}: {active} of {calls[0][1].numel()} rows active")
     return calls[0]
 
 
@@ -578,8 +634,8 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
-    """``reset`` at MAIN_BATCH and a ``steps``-step rollout of the zero
+def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, batch=MAIN_BATCH):
+    """``reset`` at ``batch`` and a ``steps``-step rollout of the zero
     linear policy through graphs, the first use of ``env``, with K1's
     wrapper launches counted from 0 just before and read just after (the
     warm-ups and the captures); every env must be alive with q[:, z_index]
@@ -601,16 +657,16 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
     torch.cuda.synchronize()
     cached = graphs.stats()
     pgs.launches = 0
-    (state0, obs0), reset_s = timed_call(lambda: env.reset(gen, batch_size=MAIN_BATCH))
+    (state0, obs0), reset_s = timed_call(lambda: env.reset(gen, batch_size=batch))
     (state, obs, total, alive), first_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
     launches = pgs.launches
     check_wrapper_launches(label, "PGS", launches, cached)
     for name, t in (("q", state.q), ("qd", state.qd), ("obs", obs), ("total reward", total)):
-        if t.shape[0] != MAIN_BATCH or not torch.isfinite(t).all():
+        if t.shape[0] != batch or not torch.isfinite(t).all():
             raise AssertionError(f"{label}: {name} is not finite or has shape {tuple(t.shape)}")
     z = state.q[:, z_index]
     if not bool(alive.all()) or not bool(((z > z_range[0]) & (z < z_range[1])).all()):
-        raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, "
+        raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{batch} alive, "
                              f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
     again, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
     with graphs.eager():
@@ -620,14 +676,15 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
     if worst != 0:
         raise AssertionError(f"{label}: the graph rollout differs from the eager one by up to {worst:.3e}")
     step_ms, eager_ms = graph_s * 1e3 / steps, eager_s * 1e3 / steps
-    log(f"{label}: reset ({env.settle_steps} settle steps, graphs) at batch {MAIN_BATCH} in {reset_s * 1e3:.1f} ms; "
+    log(f"{label}: reset ({env.settle_steps} settle steps, graphs) at batch {batch} in {reset_s * 1e3:.1f} ms; "
         f"{steps}-step rollout through graphs: first call {first_s:.3f} s (with the captures), then "
-        f"{step_ms:.3f} ms/step = {MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s; eager (graphs.eager()) "
-        f"{eager_ms:.3f} ms/step = {MAIN_BATCH / eager_ms * 1e3:.1f} env-steps/s, graph {eager_ms / step_ms:.2f}x; "
+        f"{step_ms:.3f} ms/step = {batch / step_ms * 1e3:.1f} env-steps/s; eager (graphs.eager()) "
+        f"{eager_ms:.3f} ms/step = {batch / eager_ms * 1e3:.1f} env-steps/s, graph {eager_ms / step_ms:.2f}x; "
         f"|graph - eager| = 0 over every output; PGS wrapper launches {launches} (warm-ups and captures); "
         f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
     found = graph_lines(label, env, "rollout")
-    profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1, kernel="pgs_kernel")
+    profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1, kernel="pgs_kernel",
+                             expected=PROFILE_STEPS)
     out = {"launches": launches, "ms_per_step": step_ms, "eager_ms_per_step": eager_ms, "first_call_s": first_s,
            "graph_nodes": [g.nodes for g in found], "graph_vs_eager_max_abs": worst,
            "device_ops": None, "device_ms": None, "idle": None, "replayed_launches_per_step": None}
@@ -639,7 +696,8 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
         # exceed the unprofiled wall time
         ops, busy, profiled_ms, k1 = profile
         if k1 != PROFILE_STEPS:
-            raise AssertionError(f"{label}: {PROFILE_STEPS} replayed steps ran the PGS kernel {k1} times in the trace")
+            raise AssertionError(f"{label}: {PROFILE_STEPS} replayed steps ran the PGS kernel {k1} times in the fullest "
+                                 f"trace, of {ops:.0f} device operations")
         ops, busy, profiled_ms = (x / PROFILE_STEPS for x in (ops, busy, profiled_ms))
         out.update(device_ops=ops, device_ms=busy, idle=1 - busy / profiled_ms, replayed_launches_per_step=k1 / PROFILE_STEPS)
         log(f"{label}: graph replays: {ops:.0f} device operations per step, {k1} PGS kernels in {PROFILE_STEPS} replayed "
@@ -648,10 +706,10 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None):
     if bench is not None:
         metric, bench_steps = bench
         best = min(timed_call(lambda: rollout(env, policy, None, state0, obs0, bench_steps))[1] for _ in range(BENCH_REPEATS))
-        rate = MAIN_BATCH * bench_steps / best
+        rate = batch * bench_steps / best
         out[metric] = rate
-        bench_line(metric, rate, "steps/s", card_line, vs_baseline=rate / BASELINE, batch=MAIN_BATCH, steps=bench_steps,
-                   best_s=best, eager_env_steps_per_s=MAIN_BATCH / eager_ms * 1e3)
+        bench_line(metric, rate, "steps/s", card_line, vs_baseline=rate / BASELINE, batch=batch, steps=bench_steps,
+                   best_s=best, eager_env_steps_per_s=batch / eager_ms * 1e3)
     breakdown = stage_breakdown(env, policy, state, obs, steps=5)
     if breakdown is None:
         log(f"{label}: stage breakdown not measured (the profiler saw no device activity)")
@@ -710,27 +768,27 @@ def phase_trained_policy(env):
 
 
 # -- phase 7 ---------------------------------------------------------------
-def device_profile(fn, calls, kernel=None):
+def device_profile(fn, calls, kernel=None, expected=None):
     """(device operations, device-busy ms, wall ms, kernels whose name holds
     ``kernel``) per call of ``fn``, from torch.profiler over ``calls``
     calls, the wall time taken around the profiled calls themselves; None
-    when it saw no device activity. Unlike device_ms, this allows ``fn`` to
-    synchronise."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    when it saw no device activity. With ``kernel``, the trace is
+    counted_trace's for ``expected`` such kernels in all. Unlike device_ms,
+    this allows ``fn`` to synchronise."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    if kernel is None:
+        (device_events, _, seconds), named = device_trace(run), 0
+    else:
+        device_events, _, seconds, named = counted_trace(run, kernel, expected)
+    wall_ms = seconds * 1e3 / calls
     if not device_events:
         return None
-    named = sum(1 for e in device_events if kernel is not None and kernel in e.name)
     return len(device_events) / calls, sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / calls, wall_ms, named / calls
 
 
@@ -1122,9 +1180,6 @@ def ars_profile(env, policy, state, steps):
     through graphs, device operations, device-busy ms, K2's kernels (one a
     step) and its time per launch from torch.profiler (None when it saw no
     device activity)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tds_tpu_torch.learn import ars
     from tds_tpu_torch.utils import graphs
 
@@ -1149,9 +1204,7 @@ def ars_profile(env, policy, state, steps):
             raise AssertionError(f"ARS (c): the graph iteration and the eager one differ in {name}")
     log(f"ARS (c): one recipe iteration at {steps} steps through graphs and eagerly from the same draws: params, obs_stat "
         "and metrics agree bit for bit")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, profiled_s = timed_call(iteration)
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_events, _, profiled_s, _ = counted_trace(iteration, "megastep_kernel", env.settle_steps + steps)
     if not device_events:
         return wall_s * 1e3, eager_s * 1e3, None
     k2 = [e.time_range.elapsed_us() for e in device_events if "megastep_kernel" in e.name]
@@ -1294,7 +1347,8 @@ def phase_ars(card, mega, card_line):
 def ant_kernel(card, ant, hopper):
     """(a): K1 on the ant's and the hopper's own operands (24 rows each)
     against its plain version, and timed; the ant without compaction (51
-    rows) must raise on the card without running the plain version."""
+    rows) steps on the card through K1 without running the plain version,
+    and K1 on its operands matches the plain version."""
     from tds_tpu_torch.contact import mlcp, pgs
     from tds_tpu_torch.envs.ant import AntEnv
 
@@ -1326,7 +1380,8 @@ def ant_kernel(card, ant, hopper):
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations", "max_abs_err": err.max().item()}
     log_launch_shape(f"ant (a): K1 B={MAIN_BATCH} n=24 float32", pgs.launch_shape(torch.float32, 24, MAIN_BATCH))
 
-    # without compaction the ant's MLCP has 51 rows, which K1 is not built for
+    # without compaction the ant's MLCP has 51 rows: K1's warp per env, and
+    # the step must not reach the plain version on the card
     full = AntEnv(dtype=torch.float32, solver=mlcp.ContactSolverParams(top_k=0))
     q, qd = full.initial_state(torch.Generator(device="cuda").manual_seed(3), batch_size=8)
     q[:, 2] = 0.3
@@ -1337,15 +1392,22 @@ def ant_kernel(card, ant, hopper):
 
     pgs.solve_pgs_reference = refuse
     try:
-        full.sim_step(q, qd, torch.zeros(8, full.action_dim, device="cuda"))
-    except ValueError as e:
-        log(f"ant (a): the ant with top_k=0 (51 rows) is refused on the card: {e}")
-    else:
-        raise AssertionError("the ant with top_k=0 (51 rows) ran on the card")
+        with recorded_pgs_calls() as calls:
+            q_next, _ = full.sim_step(q, qd, torch.zeros(8, full.action_dim, device="cuda"))
     finally:
         pgs.solve_pgs_reference = plain
-    if pgs.launches != before:
-        raise AssertionError("the refused 51-row solve counted a K1 launch")
+    a, b, lo, hi, dep, it = calls[0]
+    x = pgs.solve_pgs(a, b, lo, hi, dep, it)
+    ref = pgs.solve_pgs_reference(a, b, lo, hi, dep, it)
+    torch.cuda.synchronize()
+    rtol, atol = PGS_TOL[x.dtype]
+    err = (x - ref).abs()
+    if (pgs.launches - before != 2 or tuple(b.shape) != (8, 51) or not bool(torch.isfinite(q_next).all())
+            or (err - (atol + rtol * ref.abs())).max().item() > 0):
+        raise AssertionError(f"the ant with top_k=0 on the card: {pgs.launches - before} K1 launches, MLCP "
+                             f"{tuple(b.shape)}, max |kernel - plain| {err.max().item():.3e}")
+    log(f"ant (a): the ant with top_k=0 (51 rows) steps on the card through K1 (no plain version there): "
+        f"{int((b != 0).sum())} of {b.numel()} rows active, max |kernel - plain| = {err.max().item():.3e}")
     return fields
 
 
@@ -1355,7 +1417,7 @@ def penetrating(env, q):
     from tds_tpu_torch.dynamics.kinematics import fk_links
 
     zero = q.new_zeros(q.shape[0], 0)
-    kins = [fk_links(env.world.bodies[0], zero, zero), fk_links(env.model, q, torch.zeros_like(q))]
+    kins = [fk_links(env.world.bodies[0], zero, zero), fk_links(env.model, q, q.new_zeros(q.shape[0], env.model.dof_qd))]
     return (world.gather_pair_contacts(env.world, kins, 0, 1, q).contact.distance < 0).sum(-1)
 
 
@@ -1528,6 +1590,330 @@ def phase_ant(card, card_line):
     }
 
 
+# -- phase 12 --------------------------------------------------------------
+def pgs_tol(dtype, n):
+    """(rtol, atol) of K1 against its plain version: PGS_TOL, and 1e-12
+    relative in float64 for the warp per env (n > 32), whose row sums run in
+    another order than the plain sweep's."""
+    if dtype == torch.float64 and n > 32:
+        return 1e-12, 1e-12
+    return PGS_TOL[dtype]
+
+
+def span_ms(fn, reps):
+    """Median of CUDA-event spans around single calls of ``fn``, each after
+    a synchronise: device time with the host's pace in it, for a plain
+    version whose call enqueues more operations than ``device_ms``'s rounds
+    may hold (about a thousand)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def k1_against_plain(label, operands, dep, it):
+    """K1 against its plain version on the same operands; returns the
+    largest difference, raising past pgs_tol."""
+    from tds_tpu_torch.contact import pgs
+
+    x = pgs.solve_pgs(*operands, dep, it)
+    ref = pgs.solve_pgs_reference(*operands, dep, it)
+    torch.cuda.synchronize()
+    rtol, atol = pgs_tol(x.dtype, x.shape[-1])
+    err = (x - ref).abs()
+    over = (err - (atol + rtol * ref.abs())).max().item()
+    if not bool(torch.isfinite(x).all()) or over > 0:
+        raise AssertionError(f"K1 disagrees with its plain version on {label}: max |kernel - plain| {err.max().item():.3e}")
+    return err.max().item(), -over
+
+
+def k1_timing(label, operands, dep, it, card):
+    """K1's device time (median of 100 CUDA-event-timed launches), the
+    plain version's, the bound and the launch shape on ``operands``."""
+    from tds_tpu_torch.contact import pgs
+
+    b = operands[1]
+    bsz, n = b.shape
+    ms = device_ms(lambda: pgs.solve_pgs(*operands, dep, it), rounds=5, per_round=20)
+    plain_ops = 12 * n * it  # operations the plain sweep enqueues, about
+    if plain_ops <= 400:
+        plain_ms = device_ms(lambda: pgs.solve_pgs_reference(*operands, dep, it), rounds=10, per_round=2, backlog_ms=50)
+        plain_how = "device time"
+    else:
+        plain_ms = span_ms(lambda: pgs.solve_pgs_reference(*operands, dep, it), reps=5)
+        plain_how = "event span, host-paced"
+    t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
+    shape = pgs.launch_shape(b.dtype, n, bsz)
+    design = "row per lane" if n <= 32 else "warp per env"
+    log(f"humanoid (a): K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({design}): {ms * 1e3:.2f} us on the device, "
+        f"plain {plain_ms * 1e3:.1f} us ({plain_how}), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, "
+        f"{n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")
+    log_launch_shape(f"humanoid (a): K1 B={bsz} n={n} {str(b.dtype)[6:]}", shape)
+    return {"ms": ms, "plain_ms": plain_ms, "plain_timing": plain_how, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
+            "design": design, **launch_fields(shape)}
+
+
+def humanoid_kernel(card):
+    """(a): K1 against its plain version at every n of K1_ROWS and B of
+    K1_BATCHES (and B = 1024 at n = 105), float32 and float64, two sweeps
+    of random problems; then on the float32 operands of a humanoid step at
+    B = 1024 (105 rows) and a half-cheetah step at B = 4096 (48 rows) with
+    contacts active; each n timed on its path's operands where it has a
+    path in this phase, else on a random float32 problem at B = 4096 with
+    one sweep. Returns {n: the kernel entry's numbers}."""
+    from tds_tpu_torch.envs.hopper import HalfCheetahEnv
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {}
+    cases = [(n, bsz) for n in K1_ROWS for bsz in K1_BATCHES] + [(105, HUMANOID_BATCH)]
+    for n, bsz in cases:
+        for dtype in (torch.float32, torch.float64):
+            operands, dep = random_rows_problem(bsz, n, dtype, gen)
+            err, margin = k1_against_plain(f"random B={bsz} n={n} {dtype}", operands, dep, 2)
+            worst[n] = max(worst.get(n, 0.0), err)
+            log(f"humanoid (a): K1 random B={bsz} n={n} it=2 {str(dtype)[6:]}: max |kernel - plain| = {err:.3e} "
+                f"(rtol, atol {pgs_tol(dtype, n)}; margin left {margin:.3e})")
+    # the humanoid's feet rest 7.45 cm above the ground at its start: start
+    # it 9 cm lower, so that the settle steps end in contact
+    humanoid = HumanoidEnv(dtype=torch.float32, start_base_position=(0.0, 0.0, 1.31))
+    real = {
+        105: ("humanoid step", harvest_pgs_operands(humanoid, gen, 0, "humanoid", "humanoid (a)", batch=HUMANOID_BATCH)),
+        # the half-cheetah lands about 60 steps after its reset
+        48: ("half-cheetah step", harvest_pgs_operands(HalfCheetahEnv(dtype=torch.float32), gen, 70, "half-cheetah",
+                                                        "humanoid (a)", batch=CHEETAH_BATCH)),
+    }
+    entries = {}
+    for n in K1_ROWS:
+        if n in real:
+            label, (a, b, lo, hi, dep, it) = real[n]
+            operands = [a, b, lo, hi]
+            if tuple(b.shape) != ((HUMANOID_BATCH if n == 105 else CHEETAH_BATCH), n):
+                raise AssertionError(f"the {label}'s MLCP has shape {tuple(b.shape)}")
+            err, margin = k1_against_plain(label, operands, dep, it)
+            worst[n] = max(worst[n], err)
+            log(f"humanoid (a): K1 on the {label} B={b.shape[0]} n={n}: max |kernel - plain| = {err:.3e} (margin left {margin:.3e})")
+        else:
+            label = "random"
+            operands, dep = random_rows_problem(MAIN_BATCH, n, torch.float32, gen)
+            it = 1
+        entries[n] = {**k1_timing(label, operands, dep, it, card), "max_abs_err": worst[n]}
+    return entries
+
+
+def humanoid_device_vs_cpu():
+    """(c): 50 float64 humanoid steps at batch 8, K1 (n = 105) on the card
+    against the plain PGS on the CPU, within 1e-9 abs + rel, from states 8 to
+    10 cm below the standing start (the feet in the ground) with seeded
+    actions. Returns the largest difference."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+
+    batch, steps, tol = 8, 50, 1e-9
+    cpu_env = HumanoidEnv(dtype=torch.float64, device="cpu")
+    gpu_env = HumanoidEnv(dtype=torch.float64)
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    qc, qdc = cpu_env.initial_state(noise=cpu_env.draw_reset_noise(gen, batch))
+    qc[:, 2] = 1.3 + 0.02 * torch.rand(batch, generator=gen, dtype=torch.float64)
+    actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qg, qdg = qc.cuda(), qdc.cuda()
+    before = pgs.launches
+    worst, worst_excess, in_contact = 0.0, -float("inf"), []
+    for t in range(steps):
+        in_contact.append(penetrating(cpu_env, qc))
+        qc, qdc = cpu_env.sim_step(qc, qdc, actions[t])
+        qg, qdg = gpu_env.sim_step(qg, qdg, actions[t].cuda())
+        for got, expected in ((qg.cpu(), qc), (qdg.cpu(), qdc)):
+            worst = max(worst, (got - expected).abs().max().item())
+            worst_excess = max(worst_excess, excess(got, expected, tol))
+            if worst_excess > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"the humanoid on the card and on the CPU differ beyond {tol} at step {t + 1}")
+    if pgs.launches - before != steps:
+        raise AssertionError(f"{steps} humanoid steps on the card launched K1 {pgs.launches - before} times")
+    counts = torch.stack(in_contact)
+    if not bool((counts[:10] > 0).all()):
+        raise AssertionError("the humanoid's card-against-CPU run needs contacts in every env over its first 10 steps")
+    log(f"humanoid (c): {steps} float64 steps at batch {batch}, card against CPU: max |cuda - cpu| = {worst:.3e} "
+        f"(tolerance {tol} abs + rel, margin left {-worst_excess:.3e}); {int((counts > 0).sum())} of {batch * steps} "
+        f"env-steps in contact, up to {int(counts.max())} of 35 candidates penetrating; {steps} K1 launches")
+    return worst
+
+
+def humanoid_replay():
+    """(d): logs/humanoid_ars/policy_curr2.pkl in float32 on the card for
+    HUMANOID_REPLAY_STEPS steps through graphs (``utils.graphs.scan``), 8
+    envs: 4 from the starts of tests/test_humanoid_policy.py (the JAX
+    package's reset draws for its seeds 0, 7, 123 and 42, read from
+    tests/golden/humanoid_policy_reset_noise.json), each held to its
+    thresholds (:84-90): x at its last live step > 0.65 m, at least 1100
+    steps alive, total reward > 600; and 4 from ``torch.Generator`` seeds of
+    the same numbers, whose outcome is printed as a measurement of the
+    policy from other starts. Returns K1's wrapper launches (the warm-ups
+    and the captures)."""
+    import torch.nn.functional as F
+
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
+    from tds_tpu_torch.envs.base import EnvState
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+    from tds_tpu_torch.utils import graphs
+
+    saved, _ = load_checkpoint(str(HUMANOID_CHECKPOINT))
+    env = HumanoidEnv(dtype=torch.float32)
+    policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype)
+    recorded = json.loads(HUMANOID_RESET_NOISE.read_text())
+    if tuple(recorded["seeds"]) != HUMANOID_SEEDS:
+        raise AssertionError(f"{HUMANOID_RESET_NOISE.name} holds seeds {recorded['seeds']}")
+    jax_starts = torch.tensor(recorded["noise"], dtype=env.dtype)
+    generator_starts = torch.cat([env.draw_reset_noise(torch.Generator(device="cuda").manual_seed(s), 1) for s in HUMANOID_SEEDS])
+    noise = torch.cat([jax_starts.to(env.device), generator_starts])
+
+    def body(carry, consts):
+        q, qd, t, obs, total, alive, steps, x = carry
+        weight, bias, mean, scale = consts
+        action = env.action_transform(F.linear((obs - mean) / scale, weight, bias))
+        state, obs, reward, done = env.step(EnvState(q, qd, t), action)
+        x = torch.where(alive > 0, state.q[:, 0], x)
+        return (state.q, state.qd, state.t, obs, total + reward * alive, alive * (1.0 - done.to(obs.dtype)),
+                steps + alive, x)
+
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    t0 = time.perf_counter()
+    state, obs = env.reset(noise=noise)
+    zero = obs.new_zeros(noise.shape[0])
+    with torch.no_grad():
+        carry = (state.q, state.qd, state.t, obs, zero, zero + 1.0, zero, zero)
+        consts = (policy.weight, policy.bias, stat.mean, stat.scale())
+        _, _, _, _, total, alive, steps, x = graphs.scan(body, carry, consts, HUMANOID_REPLAY_STEPS, key=("humanoid replay", env))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = pgs.launches
+    check_wrapper_launches("humanoid (d)", "PGS", launches, cached)
+    total, steps, x = total.cpu(), steps.cpu(), x.cpu()
+    failed = []
+    for i, seed in enumerate(HUMANOID_SEEDS * 2):
+        gated = i < len(HUMANOID_SEEDS)
+        ok = bool(torch.isfinite(total[i])) and x[i] > 0.65 and steps[i] >= 1100 and total[i] > 600.0
+        start = "the JAX test's start" if gated else "torch.Generator start"
+        log(f"humanoid (d): seed {seed}, {start}: x {x[i]:.3f} m, alive {steps[i]:.0f} steps, total reward "
+            f"{total[i]:.1f}: {'past' if ok else 'short of'} the thresholds{'' if gated else ' (a measurement)'}")
+        if gated and not ok:
+            failed.append(seed)
+    if failed or not bool(torch.isfinite(total).all()):
+        raise AssertionError(f"the trained humanoid policy failed tests/test_humanoid_policy.py's thresholds for seeds {failed}")
+    log(f"humanoid (d): {HUMANOID_CHECKPOINT.name} replayed through graphs for {HUMANOID_REPLAY_STEPS} steps at batch "
+        f"{noise.shape[0]} in {seconds:.1f} s (the reset and the captures included); the JAX test's 4 starts walk past all "
+        f"three thresholds; K1 wrapper launches {launches} (warm-ups and captures)")
+    graph_lines("humanoid (d)", env, "humanoid replay")
+    return launches
+
+
+def humanoid_trainer():
+    """(e): the trainer on the humanoid as a user runs it, resumed from
+    policy_curr2.pkl; returns the last eval's eval_reward_min."""
+    import tempfile
+
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint
+    from tds_tpu_torch.tools import ars_train
+    from tds_tpu_torch.utils import graphs
+
+    iterations, rollout_length = 2, 200
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "humanoid.pkl")
+        cached = graphs.stats()
+        pgs.launches = 0
+        t0 = time.perf_counter()
+        _, history = ars_train.main(
+            ["--env", "humanoid", "--resume", str(HUMANOID_CHECKPOINT), "--iterations", str(iterations), "--eval_interval",
+             "2", "--rollout_length", str(rollout_length), "--num_directions", "8", "--checkpoint", path]
+        )
+        seconds = time.perf_counter() - t0
+        launches = pgs.launches
+        written, meta = load_checkpoint(path)
+    finite = all(bool(torch.isfinite(v)) for metrics in history for v in metrics.values())
+    finite = finite and bool(torch.isfinite(torch.as_tensor(written["params"])).all())
+    if not finite or "eval_reward_min" not in history[-1] or meta.get("iteration") != iterations:
+        raise AssertionError(f"the humanoid trainer: finite {finite}, last metrics {history[-1]}, metadata {meta}")
+    check_wrapper_launches("humanoid (e)", "PGS", launches, cached)
+    reward_min = history[-1]["eval_reward_min"].item()
+    log(f"humanoid (e): python -m tds_tpu_torch.tools.ars_train --env humanoid --resume {HUMANOID_CHECKPOINT.name} "
+        f"--iterations {iterations} --eval_interval 2 --rollout_length {rollout_length} --num_directions 8 in {seconds:.1f} s: "
+        f"metrics finite, checkpoint read back, eval_reward_min {reward_min:.2f}, K1 wrapper launches {launches}")
+    return reward_min
+
+
+def humanoid_top_k(card_line):
+    """(b), a measurement only: humanoid_scan_rollout_env_steps_per_s with
+    the solver keeping the 8 deepest candidates (24 rows), the JAX package's
+    other choice (tds_tpu/envs/humanoid.py:79-88); the default stays
+    top_k = 0."""
+    from tds_tpu_torch.contact.mlcp import ContactSolverParams
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+
+    env = HumanoidEnv(dtype=torch.float32, solver=ContactSolverParams(top_k=8))
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    state, obs = env.reset(torch.Generator(device="cuda").manual_seed(1), batch_size=HUMANOID_BATCH)
+    (_, _, _, alive), first_s = timed_call(lambda: rollout(env, policy, None, state, obs, HUMANOID_STEPS))
+    best = min(timed_call(lambda: rollout(env, policy, None, state, obs, HUMANOID_STEPS))[1] for _ in range(BENCH_REPEATS))
+    rate = HUMANOID_BATCH * HUMANOID_STEPS / best
+    bench_line("humanoid_scan_rollout_env_steps_per_s", rate, "steps/s", card_line, batch=HUMANOID_BATCH,
+               steps=HUMANOID_STEPS, best_s=best, top_k=8, rows=24, alive=int(alive.sum()))
+    return rate
+
+
+def phase_humanoid(card, card_line):
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.hopper import HalfCheetahEnv
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+
+    entries = humanoid_kernel(card)
+    path = drive_main_path(HumanoidEnv(dtype=torch.float32), "humanoid (b)", HUMANOID_STEPS, 2, (0.8, 1.45), card_line,
+                           ("humanoid_scan_rollout_env_steps_per_s", HUMANOID_STEPS), batch=HUMANOID_BATCH)
+    top_k_rate = humanoid_top_k(card_line)
+    log(f"humanoid (b): humanoid_scan_rollout_env_steps_per_s {path['humanoid_scan_rollout_env_steps_per_s']:.1f} at "
+        f"top_k=0 (105 rows, the default) against {top_k_rate:.1f} at top_k=8 (24 rows)")
+    worst = humanoid_device_vs_cpu()
+    replay_launches = humanoid_replay()
+    reward_min = humanoid_trainer()
+    cheetah = drive_main_path(HalfCheetahEnv(dtype=torch.float32), "halfcheetah (f)", CHEETAH_STEPS, 1, (-0.3, 0.1), card_line,
+                              batch=CHEETAH_BATCH)
+    entries[105].update(launches=path["launches"], replayed_launches_per_step=path["replayed_launches_per_step"],
+                        main_path="humanoid (b)")
+    entries[48].update(launches=cheetah["launches"], replayed_launches_per_step=cheetah["replayed_launches_per_step"],
+                       main_path="halfcheetah (f)")
+    summary = {
+        "humanoid_ms_per_step": path["ms_per_step"],
+        "humanoid_eager_ms_per_step": path["eager_ms_per_step"],
+        "humanoid_scan_rollout_env_steps_per_s": path["humanoid_scan_rollout_env_steps_per_s"],
+        "humanoid_top_k8_env_steps_per_s": top_k_rate,
+        "humanoid_graph_nodes": path["graph_nodes"],
+        "humanoid_device_ops_per_step": path["device_ops"],
+        "humanoid_idle_share": path["idle"],
+        "humanoid_first_call_s": path["first_call_s"],
+        "humanoid_float64_card_against_cpu": worst,
+        "humanoid_replay_launches": replay_launches,
+        "humanoid_trainer_eval_reward_min": reward_min,
+        "halfcheetah_ms_per_step": cheetah["ms_per_step"],
+        "halfcheetah_idle_share": cheetah["idle"],
+        "halfcheetah_graph_nodes": cheetah["graph_nodes"],
+    }
+    log(f"humanoid: {json.dumps(summary)}")
+    return entries, summary
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -1556,6 +1942,30 @@ def phase_graphs(start_s):
             "memory_reserved": reserved}
 
 
+def k1_instances(kernel, rows):
+    """The ``kernels`` line's entries of K1 at the row counts of phase 12
+    (a) that a main path runs, beside laikago's 12, which is ``kernel``: 24
+    (the ant's path, timed on its operands in phase 10 (a)), 48 (the
+    half-cheetah's) and 105 (the humanoid's), each with the wrapper's
+    launches on that path. The row counts no main path runs (3, 6, 8, 9,
+    51) go into ``kernel["other_row_counts"]``, timed on random problems."""
+    out = []
+    kernel["other_row_counts"] = []
+    for n, entry in sorted(rows.items()):
+        if n == 12:
+            continue
+        if n == 24:
+            entry = {**entry, "ms": kernel["ant_ms"], "plain_ms": kernel["ant_plain_ms"], "bound_ms": kernel["ant_bound_ms"],
+                     "bound_by": kernel["ant_bound_by"], "shape": kernel["ant_shape"], "launches": kernel["ant_launches"],
+                     "replayed_launches_per_step": kernel["ant_replayed_launches_per_step"], "main_path": "ant (b)"}
+        if "main_path" not in entry:
+            kernel["other_row_counts"].append({"rows": n, **entry})
+            continue
+        out.append({"name": f"pgs n={n}", "route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu",
+                    "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", "library_ms": None, **entry})
+    return out
+
+
 def main():
     start_s = time.perf_counter()
     name, card_line = phase_device()
@@ -1574,9 +1984,11 @@ def main():
     probes = timed(phase_probes, card)
     mega.update(timed(phase_ars, card, mega, card_line))
     kernel.update(timed(phase_ant, card, card_line))
+    k1_rows, humanoid = timed(phase_humanoid, card, card_line)
     kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
+    kernel.update(humanoid)
     kernel.update(timed(phase_graphs, start_s))
-    print(json.dumps({"kernels": [kernel, mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

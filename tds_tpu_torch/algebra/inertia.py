@@ -1,5 +1,5 @@
 """Rigid-body and articulated-body inertias (counterpart of
-tds_tpu/algebra/inertia.py, plus ``inv3`` of tds_tpu/algebra/linalg.py).
+tds_tpu/algebra/inertia.py).
 
 ``RigidBodyInertia`` stores (mass m, first moment h = m*com, inertia about
 the body origin). ``ArticulatedBodyInertia`` is the 6x6 block matrix
@@ -12,25 +12,8 @@ from typing import NamedTuple
 import torch
 
 from tds_tpu_torch.algebra import spatial
+from tds_tpu_torch.algebra.linalg import inv3
 from tds_tpu_torch.algebra.spatial import cross, matTvec, matvec
-
-
-def inv3(m):
-    """Closed-form inverse of (..., 3, 3) via the adjugate."""
-    (a, b, c), (d, e, f), (g, h, i) = (row.unbind(-1) for row in m.unbind(-2))
-    co_a = e * i - f * h
-    co_b = f * g - d * i
-    co_c = d * h - e * g
-    det = a * co_a + b * co_b + c * co_c
-    adj = torch.stack(
-        [
-            torch.stack([co_a, c * h - b * i, b * f - c * e], dim=-1),
-            torch.stack([co_b, a * i - c * g, c * d - a * f], dim=-1),
-            torch.stack([co_c, b * g - a * h, a * e - b * d], dim=-1),
-        ],
-        dim=-2,
-    )
-    return adj * (1.0 / det)[..., None, None]
 
 
 class RigidBodyInertia(NamedTuple):
@@ -83,6 +66,11 @@ class ArticulatedBodyInertia(NamedTuple):
         f = matvec(self.M, lin) + matTvec(self.H, w)
         return spatial.fv(n, f)
 
+    def mul_matrix63(self, s):
+        """ABI @ S for a (..., 6, 3) motion-subspace matrix -> (..., 6, 3)."""
+        st, sb = s[..., :3, :], s[..., 3:, :]
+        return torch.cat([self.I @ st + self.H @ sb, self.H.transpose(-1, -2) @ st + self.M @ sb], dim=-2)
+
     def inverse(self):
         """Block (Schur-complement) inverse with the correct lower-left
         block C = H^T (the JAX package's ``inverse``, not its reference
@@ -105,4 +93,13 @@ class ArticulatedBodyInertia(NamedTuple):
             I=at[..., :, None] * bt[..., None, :],
             H=at[..., :, None] * bb[..., None, :],
             M=ab[..., :, None] * bb[..., None, :],
+        )
+
+    @staticmethod
+    def outer_63(a, b):
+        """a b^T for (..., 6, 3) matrices, as ABI blocks."""
+        at, ab = a[..., :3, :], a[..., 3:, :]
+        bt, bb = b[..., :3, :], b[..., 3:, :]
+        return ArticulatedBodyInertia(
+            I=at @ bt.transpose(-1, -2), H=at @ bb.transpose(-1, -2), M=ab @ bb.transpose(-1, -2)
         )

@@ -1,9 +1,33 @@
 """Quaternion operations, xyzw storage, broadcasting over leading dims
-(counterpart of tds_tpu/algebra/quaternion.py: the subset the laikago
-slice runs, for REVOLUTE_AXIS joints).
+(counterpart of tds_tpu/algebra/quaternion.py: what revolute-axis and
+spherical joints use).
 """
 
 import torch
+
+
+def identity(dtype=torch.float64, device=None):
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+
+def mul(a, b):
+    """Hamilton product a ⊗ b (both xyzw)."""
+    av, aw = a[..., :3], a[..., 3:4]
+    bv, bw = b[..., :3], b[..., 3:4]
+    if av.shape != bv.shape:
+        av, bv = torch.broadcast_tensors(av, bv)
+        aw, bw = torch.broadcast_tensors(aw, bw)
+    vec = aw * bv + bw * av + torch.linalg.cross(av, bv, dim=-1)
+    w = aw * bw - (av * bv).sum(-1, keepdim=True)
+    return torch.cat([vec, w], dim=-1)
+
+
+def conjugate(q):
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def normalize(q):
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
 def to_matrix(q):
@@ -34,3 +58,27 @@ def from_axis_angle(axis, angle):
     vec = axis * half.sin().unsqueeze(-1)
     w = half.cos().unsqueeze(-1).expand(vec.shape[:-1] + (1,))
     return torch.cat([vec, w], dim=-1)
+
+
+def to_axis_angle(q):
+    """Rotation vector theta * axis, theta = 2 atan2(|qv|, qw); the scale
+    theta / |qv| becomes its limit 2 / qw where |qv| <= 1e-12 (at the
+    identity, where the humanoid's base starts)."""
+    qv, qw = q[..., :3], q[..., 3]
+    n = torch.linalg.vector_norm(qv, dim=-1)
+    theta = 2.0 * torch.atan2(n, qw)
+    far = n > 1e-12
+    scale = torch.where(far, theta / torch.where(far, n, torch.ones_like(n)), 2.0 / qw)
+    return qv * scale[..., None]
+
+
+def velocity_local(q, omega_local, dt):
+    """Quaternion increment 0.5 dt (q ⊗ omega_local), the body-frame
+    derivative of a spherical joint."""
+    w = torch.cat([omega_local, torch.zeros_like(omega_local[..., :1])], dim=-1)
+    return mul(q, w) * (0.5 * dt)
+
+
+def integrate_local(q, omega_local, dt):
+    """q + 0.5 dt (q ⊗ omega), renormalized."""
+    return normalize(q + velocity_local(q, omega_local, dt))

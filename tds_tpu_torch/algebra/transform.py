@@ -50,6 +50,12 @@ class Transform(NamedTuple):
         wt = matvec(self.rot, w)
         return spatial.mv(wt, matvec(self.rot, v) + cross(self.pos, wt))
 
+    def motion_matrix_to_parent(self, s):
+        """Columnwise motion_to_parent of a (..., 6, 3) matrix; the columns
+        get an axis of their own, so a batched transform broadcasts."""
+        per_column = Transform(pos=self.pos[..., None, :], rot=self.rot[..., None, :, :])
+        return per_column.motion_to_parent(s.transpose(-1, -2)).transpose(-1, -2)
+
     def force_to_parent(self, f):
         """[n, f] -> [R n + r x (R f), R f]."""
         n, lin = f[..., :3], f[..., 3:]

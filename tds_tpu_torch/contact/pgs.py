@@ -3,7 +3,10 @@
 :func:`solve_pgs` is the only PGS entry point of the port:
 
 - on CUDA tensors it launches the hand-written kernel ``csrc/pgs.cu``,
-  which replaces the TPU kernel ``tds_tpu/contact/pallas_pgs.py::_pgs_kernel``;
+  which replaces the TPU kernel ``tds_tpu/contact/pallas_pgs.py::_pgs_kernel``,
+  for any number of rows n >= 1: a group of lanes per env, row i on lane
+  i, for n <= 32 (instances of N = 8, 12, 16, 24 and 32 rows, an n in
+  between padded to the next), one warp per env streaming A for n > 32;
 - on CPU tensors it runs :func:`solve_pgs_reference`, the plain version;
 - anything else raises. No switch sends a CUDA tensor to the plain version.
 
@@ -16,7 +19,7 @@ The kernel is compiled with ``nvcc`` for ``sm_90a`` at its first launch
 :func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
 Importing this module builds nothing. :func:`launch_shape` reports the
 kernel's lanes per env, envs per block and resident warps per SM on the
-card.
+card for any n.
 
 ``launches`` counts the kernel launches; a caller may reset it to 0.
 """
@@ -30,8 +33,6 @@ import torch
 
 from tds_tpu_torch.utils import cuda_build
 from tds_tpu_torch.utils.tensors import constant, refuse_grad
-
-SUPPORTED_ROWS = (12, 24)  # template instantiations in csrc/pgs.cu
 
 launches = 0
 
@@ -73,8 +74,8 @@ def _solve_pgs_cuda(a_mat, b, lo, hi, dep, iterations):
     if b.dim() != 2:
         raise ValueError(f"b must be (B, n), got {tuple(b.shape)}")
     bsz, n = b.shape
-    if n not in SUPPORTED_ROWS:
-        raise ValueError(f"the PGS kernel is built for n in {SUPPORTED_ROWS}, got n = {n}")
+    if n < 1:
+        raise ValueError("the PGS kernel needs at least one row")
     if len(dep) != n:
         raise ValueError(f"limit_dependency has {len(dep)} entries for {n} rows")
     if iterations < 0:
@@ -110,8 +111,8 @@ def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda") -> dict:
     """How the kernel launches for n rows in ``dtype`` at ``batch`` envs on
     ``device``: ``cuda_build.launch_shape``'s fields, resident warps per SM
     and waves among them."""
-    if n not in SUPPORTED_ROWS or dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"no PGS kernel instance for n = {n} in {dtype}")
+    if n < 1 or dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no PGS kernel for n = {n} in {dtype}")
     return cuda_build.launch_shape(_library().tds_pgs_launch_shape, (int(dtype == torch.float64), n), batch, device)
 
 

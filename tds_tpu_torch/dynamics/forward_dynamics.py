@@ -1,29 +1,34 @@
 """Articulated-Body Algorithm forward dynamics, O(n) (counterpart of
-tds_tpu/dynamics/forward_dynamics.py), for fixed-base models with fixed
-and 1-DoF joints.
+tds_tpu/dynamics/forward_dynamics.py), for fixed-base models with fixed,
+1-DoF and spherical joints.
 
 The backward sweep is split into a velocity-independent articulated factor
 (:class:`AbaFactor`) and a bias sweep. The factor doubles as an O(n)
 factorization of the joint-space mass matrix: :func:`minv_mul` applies
 M(q)^-1 to many generalized-force vectors at once, which the contact
 solver uses for M^-1 J^T. Gravity enters as a fictitious base acceleration
--g. Floating bases, spherical joints and the JAX package's
-``reference_base_abi_quirk`` are not ported yet.
+-g. A spherical joint's U is (6, 3) and its D^-1 the closed-form inverse
+of the 3x3 S^T U; its stiffness acts on the quaternion's rotation vector.
+Floating bases and the JAX package's ``reference_base_abi_quirk`` are not
+ported yet.
 """
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tds_tpu_torch.algebra import spatial
+from tds_tpu_torch.algebra import quaternion, spatial
 from tds_tpu_torch.algebra.inertia import ArticulatedBodyInertia
+from tds_tpu_torch.algebra.linalg import inv3
+from tds_tpu_torch.algebra.spatial import matTvec, matvec
 from tds_tpu_torch.dynamics.kinematics import KinLinks, fk_links
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
 
 
 class AbaFactor(NamedTuple):
-    """Per-link U = I^A S, 1/D (0 for fixed joints) and the post-update
+    """Per-link U = I^A S ((..., 6) or (..., 6, 3) for a spherical joint),
+    D^-1 (a scalar, 0 for fixed joints, or (..., 3, 3)) and the post-update
     articulated inertia I^a = I^A - U D^-1 U^T."""
 
     u: Tuple[torch.Tensor, ...]
@@ -41,13 +46,18 @@ def aba_factor(model: MultiBodyModel, kin: KinLinks) -> AbaFactor:
     for i in reversed(range(nl)):
         jt = JointType(model.joint_types[i])
         parent = model.parents[i]
-        s = model.subspaces[i]
-        u = abi[i].mul_motion(s)
-        if jt == JointType.FIXED:
+        s = model.subspace(i)
+        if jt == JointType.SPHERICAL:
+            u = abi[i].mul_matrix63(s)
+            invd = inv3(s.transpose(-1, -2) @ u)
+            ia = abi[i] - ArticulatedBodyInertia.outer_63(u, u @ invd)
+        elif jt == JointType.FIXED:
+            u = abi[i].mul_motion(s)
             # S = 0, so U = 0 and I^a = I^A
             invd = torch.zeros_like(u[..., 0])
             ia = abi[i]
         else:
+            u = abi[i].mul_motion(s)
             invd = 1.0 / spatial.dot(s, u)
             ia = abi[i] - ArticulatedBodyInertia.outer_ff(u, u * invd[..., None])
         u_terms[i], d_inv[i], ia_list[i] = u, invd, ia
@@ -83,7 +93,14 @@ def forward_dynamics_from_kin(
         jt = JointType(model.joint_types[i])
         parent = model.parents[i]
         pa = p_a[i] + factor.ia[i].mul_motion(kin.c[i])
-        if jt != JointType.FIXED:
+        if jt == JointType.SPHERICAL:
+            tau_l = model.tau_for_link(tau, i)
+            tau_l = tau_l - model.stiffness[i] * quaternion.to_axis_angle(model.q_for_link(q, i))
+            tau_l = tau_l - model.damping[i] * model.qd_for_link(qd, i)
+            u_b = tau_l - matTvec(model.subspace(i), p_a[i])
+            pa = pa + matvec(factor.u[i], matvec(factor.d_inv[i], u_b))
+            u_bias[i] = u_b
+        elif jt != JointType.FIXED:
             s = model.subspaces[i]
             tau_l = model.tau_for_link(tau, i)[..., 0]
             q_l = model.q_for_link(q, i)[..., 0]
@@ -112,6 +129,13 @@ def minv_mul(model: MultiBodyModel, kin: KinLinks, factor: AbaFactor, x):
         parent = model.parents[i]
         if jt == JointType.FIXED:
             pa = p_a[i]
+        elif jt == JointType.SPHERICAL:
+            off = model.qd_offsets[i]
+            x_l = x[..., off : off + 3]
+            u_b = x_l if p_a[i] is None else x_l - matTvec(model.subspace(i), p_a[i])
+            uud = matvec(factor.u[i], matvec(factor.d_inv[i], u_b))
+            pa = uud if p_a[i] is None else p_a[i] + uud
+            u_bias[i] = u_b
         else:
             x_l = x[..., model.qd_offsets[i]]
             u_b = x_l if p_a[i] is None else x_l - spatial.dot(model.subspaces[i], p_a[i])
@@ -139,7 +163,12 @@ def _forward_sweep(model, kin, factor, u_bias, base_acc, c):
         ai = kin.x_parent[i].motion_to_child(a_parent)
         if c is not None:
             ai = ai + c[i]
-        if jt != JointType.FIXED:
+        if jt == JointType.SPHERICAL:
+            qdd_val = matvec(factor.d_inv[i], u_bias[i] - matTvec(factor.u[i], ai))
+            for k in range(3):
+                cols[model.qd_offsets[i] + k] = qdd_val[..., k]
+            ai = ai + matvec(model.subspace(i), qdd_val)
+        elif jt != JointType.FIXED:
             qdd_val = factor.d_inv[i] * (u_bias[i] - spatial.dot(factor.u[i], ai))
             cols[model.qd_offsets[i]] = qdd_val
             ai = ai + model.subspaces[i] * qdd_val[..., None]

@@ -1,9 +1,10 @@
 """Point Jacobians, 3 x dof_qd (counterpart of
-tds_tpu/dynamics/jacobian.py) for fixed-base models with 1-DoF joints."""
+tds_tpu/dynamics/jacobian.py) for fixed-base models; a spherical joint
+gives 3 columns."""
 
 import torch
 
-from tds_tpu_torch.algebra.spatial import cross
+from tds_tpu_torch.algebra.spatial import cross, cross_matrix
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
 
@@ -29,10 +30,14 @@ def point_jacobian_kin(
     i = link_index if link_index is not None else -1
     while i >= 0:
         jt = JointType(model.joint_types[i])
+        x_frame = links_x_base[i] if is_local_point else links_x_world[i]
         if jt == JointType.SPHERICAL:
-            raise NotImplementedError("spherical joints are not ported to tds_tpu_torch yet")
-        if jt != JointType.FIXED:
-            x_frame = links_x_base[i] if is_local_point else links_x_world[i]
+            st = x_frame.motion_matrix_to_parent(model.subspace(i))
+            top = st[..., 0:3, :]
+            bottom = st[..., 3:6, :] - cross_matrix(point) @ top
+            for k in range(3):
+                cols[model.qd_offsets[i] + k] = bottom[..., :, k]
+        elif jt != JointType.FIXED:
             st = x_frame.motion_to_parent(model.subspaces[i])
             cols[model.qd_offsets[i]] = st[..., 3:6] - cross(point, st[..., 0:3])
         i = model.parents[i]

@@ -1,7 +1,8 @@
 """Forward kinematics, phase 1 of ABA (counterpart of
 tds_tpu/dynamics/kinematics.py): joint transforms, world poses, link
 spatial velocities, bias accelerations and bias forces, with the link loop
-unrolled in Python over the static topology.
+unrolled in Python over the static topology. A spherical joint's transform
+is its quaternion's rotation and its velocity [qd, 0].
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -41,7 +42,7 @@ def fk_links(model: MultiBodyModel, q, qd) -> KinLinks:
     for i in range(model.num_links):
         jt = JointType(model.joint_types[i])
         parent = model.parents[i]
-        s = model.subspaces[i]
+        s = model.subspace(i)
         x_parent = jcalc_transform(jt, model.x_t(i), s, model.q_for_link(q, i))
         if parent >= 0:
             x_world = xw_list[parent].compose(x_parent)

@@ -3,8 +3,10 @@ of tds_tpu/envs/locomotion.py), on batched tensors.
 
 Per control step: PD(initial poses + clipped action) -> ABA -> velocity
 half-step -> contact impulses -> position update, with observation
-[q, qd]. Fixed-base variants emulate the floating base with 3 prismatic +
-3 revolute passive joints (the *_xyz_xyzrot URDFs) that the PD loop skips.
+[q, qd]. Fixed-base variants emulate the floating base with passive joints
+that the PD loop skips: 3 prismatic + 3 revolute (the *_xyz_xyzrot URDFs)
+or 3 prismatic + 1 spherical (the humanoid's xyz_spherical URDF, whose
+q[3:7] is the base's xyzw quaternion, so q and qd differ in length).
 
 ``fused_step=True`` picks the fused step kernel K2 for the whole control
 step (``envs/fused_step.py``), as ``ContactSolverParams(pgs_impl=
@@ -120,13 +122,12 @@ class LocomotionEnv(Env):
 
     # -- env API -----------------------------------------------------------
     def pd_q_indices(self):
-        """q slots of the PD-controlled 1-DoF joints, in pose-vector order."""
+        """q slots of the PD-controlled 1-DoF joints, in pose-vector order
+        (a spherical joint keeps its quaternion and takes no pose entry)."""
         out = []
         for i in range(self.skip_links, self.model.num_links):
             jt = JointType(self.model.joint_types[i])
-            if jt == JointType.SPHERICAL:
-                raise NotImplementedError("spherical joints are not ported to tds_tpu_torch yet")
-            if jt != JointType.FIXED:
+            if jt not in (JointType.FIXED, JointType.SPHERICAL):
                 out.append(self.model.q_offsets[i])
         assert len(out) == self.action_dim, (len(out), self.action_dim)
         return tuple(out)
@@ -179,13 +180,18 @@ class LocomotionEnv(Env):
 
     # -- per-robot specialization -----------------------------------------
     def base_pose_xyz_rpy(self, q):
-        """(base position (B, 3), up.z (B,)) of the xyz_xyzrot emulation
-        chain, where q[3:6] holds roll, pitch, yaw."""
+        """(base position (B, 3), up.z (B,)) of the emulation chain: q[3:6]
+        holds roll, pitch, yaw on the xyz_xyzrot base, and q[3:7] the
+        base's xyzw quaternion on the xyz_spherical one."""
         jt = tuple(int(t) for t in self.model.joint_types[:4])
         if len(jt) == 4 and jt[3] == JointType.SPHERICAL and jt[:3] == (0, 1, 2):
-            raise NotImplementedError("the xyz_spherical emulated base is not ported to tds_tpu_torch yet")
-        # (Rz(yaw) Ry(pitch) Rx(roll))[2, 2] = cos(pitch) cos(roll)
-        up = q[..., 4].cos() * q[..., 3].cos()
+            # R[2, 2] of quaternion.to_matrix, in its order of operations
+            x, y, z, w = q[..., 3:7].unbind(-1)
+            s = 2.0 / (x * x + y * y + z * z + w * w)
+            up = 1.0 - (x * (x * s) + y * (y * s))
+        else:
+            # (Rz(yaw) Ry(pitch) Rx(roll))[2, 2] = cos(pitch) cos(roll)
+            up = q[..., 4].cos() * q[..., 3].cos()
         return q[..., 0:3], up
 
     def reward_done(self, q_prev, qd_prev, q, qd):

@@ -2,7 +2,9 @@
 tds_tpu/model/joints.py). Joint-type dispatch happens in Python over the
 static topology, as the JAX package resolves it at trace time.
 
-Spherical joints are not ported yet: they raise NotImplementedError.
+A spherical joint has 4 coordinates (an xyzw quaternion) and 3 rates (the
+body-frame angular velocity); its motion subspace is the (6, 3) matrix
+[I; 0].
 """
 
 import enum
@@ -47,10 +49,6 @@ _AXIS_OF = {
 _ROTFN = {0: rotation.rotation_x, 1: rotation.rotation_y, 2: rotation.rotation_z}
 
 
-def _no_spherical():
-    return NotImplementedError("spherical joints are not ported to tds_tpu_torch yet")
-
-
 def q_width(joint_type: JointType) -> int:
     if joint_type == JointType.FIXED:
         return 0
@@ -68,10 +66,13 @@ def qd_width(joint_type: JointType) -> int:
 
 
 def motion_subspace(joint_type: JointType, axis):
-    """Motion subspace S (6,) of a fixed or 1-DoF joint; ``axis`` is the
-    (3,) joint-axis tensor, which also sets dtype and device."""
+    """Motion subspace S: (6,) for a fixed or 1-DoF joint, (6, 3) for a
+    spherical one; ``axis`` is the (3,) joint-axis tensor, which also sets
+    dtype and device."""
     if joint_type == JointType.SPHERICAL:
-        raise _no_spherical()
+        s = torch.zeros(6, 3, dtype=axis.dtype, device=axis.device)
+        s[:3] = torch.eye(3, dtype=axis.dtype, device=axis.device)
+        return s
     s = torch.zeros(6, dtype=axis.dtype, device=axis.device)
     if joint_type == JointType.FIXED:
         return s
@@ -89,8 +90,6 @@ def jcalc_transform(joint_type: JointType, x_t: Transform, s, q_link):
     subspace (it carries the joint axis) and ``q_link`` is (..., q_width)."""
     if joint_type == JointType.FIXED:
         return x_t
-    if joint_type == JointType.SPHERICAL:
-        raise _no_spherical()
     if joint_type in PRISMATIC_TYPES:
         d = s[3:] * q_link[..., 0:1]
         return Transform(pos=x_t.pos + matvec(x_t.rot, d), rot=x_t.rot)
@@ -101,15 +100,17 @@ def jcalc_transform(joint_type: JointType, x_t: Transform, s, q_link):
         r = quaternion.to_matrix(
             quaternion.from_axis_angle(axis / torch.linalg.vector_norm(axis), q_link[..., 0])
         )
+    elif joint_type == JointType.SPHERICAL:
+        r = quaternion.to_matrix(q_link)
     else:
         r = _ROTFN[_AXIS_OF[joint_type]](q_link[..., 0])
     return Transform(pos=x_t.pos, rot=x_t.rot @ r)
 
 
 def jcalc_velocity(joint_type: JointType, s, qd_link):
-    """Local joint velocity vJ = S qd for fixed and 1-DoF joints."""
-    if joint_type == JointType.SPHERICAL:
-        raise _no_spherical()
+    """Local joint velocity vJ = S qd: [qd, 0] for a spherical joint."""
     if joint_type == JointType.FIXED:
         return torch.zeros(qd_link.shape[:-1] + (6,), dtype=qd_link.dtype, device=qd_link.device)
+    if joint_type == JointType.SPHERICAL:
+        return torch.cat([qd_link, torch.zeros_like(qd_link)], dim=-1)
     return s * qd_link[..., 0:1]

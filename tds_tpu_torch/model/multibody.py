@@ -7,7 +7,9 @@ parents, q/qd offsets) is plain Python, so every dynamics function unrolls
 its link loops in Python, as the JAX package does at trace time.
 
 State layout (fixed base): q = [joint coords...], qd = [joint vels...];
-tau covers the actuated DoF only. Floating bases are not ported yet.
+a spherical joint takes 4 q slots (an xyzw quaternion) and 3 qd slots, so
+with one, q and qd have different offsets. tau covers the actuated DoF
+only. Floating bases are not ported yet.
 """
 
 import dataclasses
@@ -44,7 +46,7 @@ class MultiBodyModel:
     base_inertia: torch.Tensor  # (3, 3)
     base_pos: torch.Tensor  # (3,) fixed-base world placement
     base_rot: torch.Tensor  # (3, 3)
-    joint_damping: torch.Tensor  # () spherical-joint velocity decay factor
+    joint_damping: torch.Tensor  # () spherical-joint velocity decay factor, pow(joint_damping, 1000 dt) a step
 
     # --- static topology ---
     joint_types: Tuple[int, ...]
@@ -80,13 +82,25 @@ class MultiBodyModel:
 
     @functools.cached_property
     def subspaces(self) -> torch.Tensor:
-        """(nl, 6) motion subspaces, derived once from joint types and axes."""
+        """(nl, 6) motion subspaces of the fixed and 1-DoF joints, derived
+        once from joint types and axes; a spherical joint's row is zero (its
+        (6, 3) subspace is :meth:`subspace`)."""
         return torch.stack(
             [
-                motion_subspace(JointType(jt), self.joint_axis[i])
+                self.joint_axis.new_zeros(6) if jt == JointType.SPHERICAL else motion_subspace(JointType(jt), self.joint_axis[i])
                 for i, jt in enumerate(self.joint_types)
             ]
         )
+
+    @functools.cached_property
+    def _spherical_subspace(self) -> torch.Tensor:
+        return motion_subspace(JointType.SPHERICAL, self.joint_axis.new_zeros(3))
+
+    def subspace(self, i: int) -> torch.Tensor:
+        """Link i's motion subspace: (6,), or (6, 3) for a spherical joint."""
+        if self.joint_types[i] == JointType.SPHERICAL:
+            return self._spherical_subspace
+        return self.subspaces[i]
 
     def x_t(self, i: int) -> Transform:
         return Transform(pos=self.x_t_pos[i], rot=self.x_t_rot[i])
@@ -111,11 +125,15 @@ class MultiBodyModel:
         return tau[..., off : off + qd_width(JointType(self.joint_types[i]))]
 
     def zero_q(self, batch_shape=()):
-        if self.is_floating or JointType.SPHERICAL in self.joint_types:
-            raise NotImplementedError(
-                "floating bases and spherical joints are not ported to tds_tpu_torch yet"
-            )
-        return torch.zeros(batch_shape + (self.dof_q,), dtype=self.dtype, device=self.device)
+        """The zero pose: every coordinate 0 but the identity quaternion of
+        each spherical joint."""
+        if self.is_floating:
+            raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
+        q = torch.zeros(batch_shape + (self.dof_q,), dtype=self.dtype, device=self.device)
+        for i, jt in enumerate(self.joint_types):
+            if jt == JointType.SPHERICAL:
+                q[..., self.q_offsets[i] + 3] = 1.0
+        return q
 
     def zero_qd(self, batch_shape=()):
         return torch.zeros(batch_shape + (self.dof_qd,), dtype=self.dtype, device=self.device)

@@ -41,13 +41,14 @@ def _nvcc() -> str:
     return found
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into ``lib<name>.so`` unless a build of
-    these sources and flags exists; returns the library's path. Raises when
-    nvcc is missing or fails."""
+def build(source: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<source>`` (``csrc`` the package's ``csrc/`` unless
+    a caller names another copy of it) into ``lib<name>.so`` unless a build
+    of these sources and flags exists; returns the library's path. Raises
+    when nvcc is missing or fails."""
     name = Path(source).stem
     digest = sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(Path(csrc).iterdir()):
         if path.suffix in (".cu", ".cuh"):
             digest.update(path.name.encode() + path.read_bytes())
     root = Path(os.environ.get("TDS_TPU_TORCH_BUILD_DIR") or Path(__file__).resolve().parents[2] / "build")
@@ -57,7 +58,7 @@ def build(source: str) -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(csrc) / source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -245,5 +245,7 @@ def test_trainer_writes_a_finite_checkpoint(tmp_path, capsys):
     assert np.abs(written["params"]).max() > 0
     assert load_checkpoint(path + ".best")[1]["iteration"] == 2
     assert "eval_reward_min" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ars_train.main(["--device", "cpu", "--env", "humanoid"])
+    # every env of the JAX trainer is ported but the terrain laikago, whose
+    # flags are not: a name the trainer does not know is refused
+    with pytest.raises(SystemExit):
+        ars_train.main(["--device", "cpu", "--env", "cartpole"])

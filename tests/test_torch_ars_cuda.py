@@ -24,6 +24,7 @@ from tds_tpu_torch.envs import fused_step  # noqa: E402
 from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
 from tds_tpu_torch.learn import ars  # noqa: E402
 from tds_tpu_torch.learn.nn import MLPSpec  # noqa: E402
+from tds_tpu_torch.utils.timing import counted_trace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-9
@@ -39,17 +40,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _k2_in_trace(fn):
-    """(``fn()``, K2 kernels in a torch.profiler trace of the call, K2
-    wrapper launches during it)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _k2_in_trace(fn, expected):
+    """(``fn()``, K2 kernels in the fullest of up to 4 torch.profiler traces
+    of the call (``timing.counted_trace``), K2 wrapper launches during
+    them)."""
     before = fused_step.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    traced = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "megastep_kernel" in e.name)
+    _, out, _, traced = counted_trace(fn, "megastep_kernel", expected)
     return out, traced, fused_step.launches - before
 
 
@@ -69,7 +65,7 @@ def test_iteration_on_the_card_matches_the_cpu(cuda_device, top_directions):
         return ars.ars_iteration(gpu_env, policy, config, start[1], deltas.to(cuda_device), noise.to(cuda_device))
 
     first, _ = iteration()  # captures the graphs
-    (got, metrics), traced, wrapper = _k2_in_trace(iteration)
+    (got, metrics), traced, wrapper = _k2_in_trace(iteration, gpu_env.settle_steps + config.rollout_length)
     assert traced == gpu_env.settle_steps + config.rollout_length and wrapper == 0
     assert torch.equal(got.params, first.params)
     pairs = [(got.params, expected.params), (got.total_timesteps, expected.total_timesteps)]
@@ -86,7 +82,7 @@ def test_train_step_draws_on_the_card_and_launches_k2_once_per_step(cuda_device)
     assert state.generator.device.type == "cuda"
     step_fn = ars.make_train_step(env, policy, config)
     state, _ = step_fn(state)  # captures the graphs
-    (state, metrics), traced, wrapper = _k2_in_trace(lambda: step_fn(state))
+    (state, metrics), traced, wrapper = _k2_in_trace(lambda: step_fn(state), env.settle_steps + config.rollout_length)
     assert traced == env.settle_steps + config.rollout_length and wrapper == 0
     assert state.params.device.type == "cuda" and bool(torch.isfinite(state.params).all())
     assert all(v.device.type == "cuda" for v in metrics.values())

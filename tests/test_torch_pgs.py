@@ -21,16 +21,9 @@ CASES = {"32x12x3": (32, 4, 3, 16), "21x6x2": (21, 2, 2, 8), "40x24x1": (40, 8, 
 
 
 def _problem(bsz, n_c, seed=0):
-    """Numpy (a, b, lo, hi, dep) as in tests/test_pallas_pgs.py."""
-    rng = np.random.default_rng(seed)
-    n = 3 * n_c
-    j = rng.normal(size=(bsz, n, 8))
-    a = j @ np.swapaxes(j, -1, -2) + 1e-3 * np.eye(n)
-    b = rng.normal(size=(bsz, n))
-    lo = np.concatenate([np.zeros((bsz, n_c))] + [np.full((bsz, n_c), -0.5)] * 2, axis=-1)
-    hi = np.concatenate([np.full((bsz, n_c), 1e5)] + [np.full((bsz, n_c), 0.5)] * 2, axis=-1)
-    dep = [-1] * n_c + list(range(n_c)) * 2
-    return a, b, lo, hi, dep
+    """Numpy (a, b, lo, hi, dep) as in tests/test_pallas_pgs.py: n = 3 n_c
+    rows, n_c normal rows, then two friction rows per contact."""
+    return _rows_problem(bsz, 3 * n_c, seed)
 
 
 def _port(a, b, lo, hi, dep, iterations, device="cpu"):
@@ -51,6 +44,34 @@ def test_reference_matches_pallas_kernel(case):
     bsz, n_c, iterations, block = CASES[case]
     a, b, lo, hi, dep = _problem(bsz, n_c, seed=bsz + 1)
     expected = solve_pgs_pallas(*(jnp.asarray(x) for x in (a, b, lo, hi)), dep, iterations=iterations, block_batch=block)
+    np.testing.assert_allclose(_port(a, b, lo, hi, dep, iterations).numpy(), np.asarray(expected), rtol=TOL, atol=TOL)
+
+
+def _rows_problem(bsz, n, seed):
+    """Numpy (a, b, lo, hi, dep) with n rows of any count: _problem's layout
+    with n / 3 contacts when 3 divides n, else n / 2 normal rows and one
+    friction direction (n = 8: laikago with num_friction_dir = 1)."""
+    rng = np.random.default_rng(seed)
+    n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
+    j = rng.normal(size=(bsz, n, 8))
+    a = j @ np.swapaxes(j, -1, -2) + 1e-3 * np.eye(n)
+    b = rng.normal(size=(bsz, n))
+    lo = np.concatenate([np.zeros((bsz, n_c)), np.full((bsz, n - n_c), -0.5)], axis=-1)
+    hi = np.concatenate([np.full((bsz, n_c), 1e5), np.full((bsz, n - n_c), 0.5)], axis=-1)
+    dep = [-1] * n_c + [k % n_c for k in range(n - n_c)]
+    return a, b, lo, hi, dep
+
+
+@pytest.mark.parametrize("n", [3, 8, 48, 105])
+def test_reference_matches_jax_at_any_row_count(n):
+    """The row counts the card's kernel now takes beyond 12 and 24: laikago
+    with top_k = 1 (3) or one friction direction (8), the half-cheetah (48)
+    and the humanoid (105), against the JAX package's unrolled solve_pgs
+    (run eagerly: a jit of 105 unrolled rows would cost more than it saves;
+    one sweep at n = 105, whose eager dispatch sets this test's time)."""
+    bsz, iterations = 5, 1 if n > 48 else 2
+    a, b, lo, hi, dep = _rows_problem(bsz, n, seed=n)
+    expected = j_solve_pgs(*(jnp.asarray(x) for x in (a, b, lo, hi)), dep, jnp.zeros((bsz, n)), iterations)
     np.testing.assert_allclose(_port(a, b, lo, hi, dep, iterations).numpy(), np.asarray(expected), rtol=TOL, atol=TOL)
 
 

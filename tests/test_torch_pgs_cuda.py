@@ -1,7 +1,9 @@
 """The PGS kernel (csrc/pgs.cu) on a CUDA device against the port's plain
 version: float32 at rtol 1e-5 / atol 1e-6 (tests/test_pallas_pgs.py's
-tolerance), float64 at atol 1e-12, at batches that fill no whole block of
-groups; and its launch shape on the card. Every test here needs the card and skips
+tolerance), float64 at atol 1e-12 for the row-per-lane kernel (n <= 32) and
+at 1e-12 relative for the warp per env (n > 32, whose sums run in another
+order), at batches that fill no whole block of groups and at every row
+count of chip_smoke.py's phase 12 (a); and its launch shape on the card. Every test here needs the card and skips
 without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -26,16 +28,26 @@ def cuda_device():
 
 
 def _problem(bsz, n_c, seed):
-    """Numpy (a, b, lo, hi, dep) as in tests/test_pallas_pgs.py."""
+    """Numpy (a, b, lo, hi, dep) as in tests/test_pallas_pgs.py: n = 3 n_c
+    rows, n_c normal rows, then two friction rows per contact."""
+    return _rows_problem(bsz, 3 * n_c, seed)
+
+
+def _rows_problem(bsz, n, seed, dtype=np.float64):
+    """Numpy (a, b, lo, hi, dep) with n rows of any count: the layout of
+    _problem (normal rows, then friction rows bounded by +-0.5 times their
+    normal row's impulse) with n / 3 contacts when 3 divides n, else n / 2
+    normal rows and one friction direction (n = 8: laikago with
+    num_friction_dir = 1), at least one normal row."""
     rng = np.random.default_rng(seed)
-    n = 3 * n_c
+    n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
     j = rng.normal(size=(bsz, n, 8))
     a = j @ np.swapaxes(j, -1, -2) + 1e-3 * np.eye(n)
     b = rng.normal(size=(bsz, n))
-    lo = np.concatenate([np.zeros((bsz, n_c))] + [np.full((bsz, n_c), -0.5)] * 2, axis=-1)
-    hi = np.concatenate([np.full((bsz, n_c), 1e5)] + [np.full((bsz, n_c), 0.5)] * 2, axis=-1)
-    dep = [-1] * n_c + list(range(n_c)) * 2
-    return a, b, lo, hi, dep
+    lo = np.concatenate([np.zeros((bsz, n_c)), np.full((bsz, n - n_c), -0.5)], axis=-1)
+    hi = np.concatenate([np.full((bsz, n_c), 1e5), np.full((bsz, n - n_c), 0.5)], axis=-1)
+    dep = [-1] * n_c + [k % n_c for k in range(n - n_c)]
+    return [x.astype(dtype) for x in (a, b, lo, hi)] + [dep]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -56,18 +68,51 @@ def test_cuda_tensor_never_reaches_the_plain_path(cuda_device, monkeypatch, dtyp
     torch.testing.assert_close(got.cpu(), expected, **tol)
 
 
+# the row counts of chip_smoke.py's phase 12 (a): laikago with top_k 1-3 or
+# one friction direction (3-9), laikago (12), the ant and the hopper (24),
+# the half-cheetah (48), the ant without compaction (51), the humanoid (105)
+ROWS = (3, 6, 8, 9, 12, 24, 48, 51, 105)
+
+
+def _tolerance(dtype, n):
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-6)
+    return dict(rtol=0, atol=1e-12) if n <= 32 else dict(rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", pgs.SUPPORTED_ROWS)
+@pytest.mark.parametrize("n", ROWS)
 def test_every_instance_has_a_block_resident_per_sm(cuda_device, dtype, n):
+    """A row per lane for n <= 32, a warp per env above; no local memory."""
     shape = pgs.launch_shape(dtype, n, 4096)
-    assert shape["blocks_per_sm"] >= 1 and shape["lanes_per_env"] >= n
+    assert shape["blocks_per_sm"] >= 1 and shape["local_bytes"] == 0
+    assert shape["lanes_per_env"] >= n if n <= 32 else shape["lanes_per_env"] == 32
     assert shape["envs_per_block"] * shape["lanes_per_env"] == shape["threads_per_block"]
 
 
 def test_cuda_kernel_refuses_unbuilt_row_counts(cuda_device):
-    a, b, lo, hi, dep = _problem(4, 3, seed=0)  # n = 9: no template instance
-    with pytest.raises(ValueError):
-        pgs.solve_pgs(*(torch.from_numpy(x).to(cuda_device) for x in (a, b, lo, hi)), dep, 1)
+    """Every row count runs on the card now (n = 9 had no instance before
+    the padded instances and the warp per env): n = 9, 1, 33 and 200, each
+    against the plain version."""
+    for n_rows in (9, 1, 33, 200):
+        a, b, lo, hi, dep = _rows_problem(5, n_rows, seed=n_rows)
+        expected = pgs.solve_pgs_reference(*(torch.from_numpy(x) for x in (a, b, lo, hi)), dep, 2)
+        got = pgs.solve_pgs(*(torch.from_numpy(x).to(cuda_device) for x in (a, b, lo, hi)), dep, 2)
+        torch.testing.assert_close(got.cpu(), expected, **_tolerance(torch.float64, n_rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,bsz", [(n, bsz) for n in ROWS for bsz in (1, 37, 4096)] + [(105, 1024)])
+def test_kernel_matches_plain_at_every_row_count(cuda_device, dtype, n, bsz):
+    """Two sweeps of a random problem of n rows in the kernel and the plain
+    version, on the same operands in ``dtype``."""
+    a, b, lo, hi, dep = _rows_problem(bsz, n, seed=n * bsz, dtype=np.float32 if dtype == torch.float32 else np.float64)
+    expected = pgs.solve_pgs_reference(*(torch.from_numpy(x) for x in (a, b, lo, hi)), dep, 2)
+    before = pgs.launches
+    got = pgs.solve_pgs(*(torch.from_numpy(x).to(cuda_device) for x in (a, b, lo, hi)), dep, 2)
+    torch.cuda.synchronize()
+    assert pgs.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.cpu(), expected, **_tolerance(dtype, n))
 
 
 def test_cuda_kernel_refuses_mixed_dtypes_and_strides(cuda_device):

@@ -42,6 +42,7 @@ from tds_tpu_torch.learn.nn import MLPSpec, linear_policy  # noqa: E402
 from tds_tpu_torch.learn.running_stat import RunningStat  # noqa: E402
 from tds_tpu_torch.rollout import rollout  # noqa: E402
 from tds_tpu_torch.utils import graphs  # noqa: E402
+from tds_tpu_torch.utils.timing import counted_trace  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 BATCH, STEPS, CHUNK = 37, 23, 10
@@ -80,16 +81,11 @@ def _run(env, policy, stat, noise, steps):
     return [state.q, state.qd, obs, out[0].q, out[0].qd, out[0].t, out[1], out[2], out[3]], pgs.launches - before
 
 
-def _traced(fn, kernel):
-    """(``fn()``, the kernels whose name holds ``kernel`` in a
-    torch.profiler trace of the call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name)
+def _traced(fn, kernel, expected):
+    """(``fn()``, the kernels whose name holds ``kernel`` in the fullest of
+    up to 4 torch.profiler traces of the call: ``timing.counted_trace``)."""
+    _, out, _, count = counted_trace(fn, kernel, expected)
+    return out, count
 
 
 def _assert_same(got, want):
@@ -104,7 +100,7 @@ def test_graph_rollout_equals_the_eager_loop(cuda_device, make_env):
     policy, stat = _policy(env, seed=1)
     noise = env.draw_reset_noise(torch.Generator().manual_seed(2), BATCH)
     got, captured = _run(env, policy, stat, noise, STEPS)
-    (again, replayed), traced = _traced(lambda: _run(env, policy, stat, noise, STEPS), "pgs_kernel")
+    (again, replayed), traced = _traced(lambda: _run(env, policy, stat, noise, STEPS), "pgs_kernel", env.settle_steps + STEPS)
     with graphs.eager():
         want, eager_launches = _run(env, policy, stat, noise, STEPS)
     _assert_same(got, want)
@@ -184,7 +180,7 @@ def test_fused_ars_rollout_equals_the_eager_loop(cuda_device):
 
     got = run()
     before = fused_step.launches
-    again, traced = _traced(run, "megastep_kernel")
+    again, traced = _traced(run, "megastep_kernel", env.settle_steps + config.rollout_length)
     replayed = fused_step.launches - before
     with graphs.eager():
         before = fused_step.launches
