@@ -5,16 +5,17 @@
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
-hopper rollouts and the humanoid and half-cheetah rollouts through them.
+hopper rollouts, the humanoid and half-cheetah rollouts and the terrain
+laikago's rollout, replays and trainer through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
 loop, on the card. A kernel wrapper counts its launches where it makes
 them: in a graph's warm-up and capture, not in a replay, which calls no
 Python. So a phase that runs through graphs checks the wrapper's count
-against the graphs it captured, and phases 5, 9 (c), 10 (b) and 12 (b),
-(f) count the kernels of replayed steps in a torch.profiler trace: one a
-step.
+against the graphs it captured, and phases 5, 9 (c), 10 (b), 12 (b),
+(f) and 13 (b) count the kernels of replayed steps in a torch.profiler
+trace: one a step.
 Phases, each of which raises on failure, so that the run exits non-zero and
 prints no final line:
 
@@ -121,13 +122,41 @@ prints no final line:
    tds_tpu_torch.tools.ars_train --env humanoid`` resumed from that policy
    for 2 iterations, its checkpoint read back; (f) a 50-step half-cheetah
    rollout at batch 4096 as phase 5's, K1 at n = 48 one a replayed step;
+13. terrain (``tools/ars_train.make_terrain_env``: laikago on bench.py's
+   heightfield, 13 x 7 vertices over x in [-1, 5], y in [-1.5, 1.5], 3
+   candidates a toe of which the solver keeps the 8 deepest of 12, so K1
+   at 24 rows, and 9 scan points in the observation), run before phase 11:
+   (a) K1 against its plain version on the float32 operands of a terrain
+   step at batch 4096 with the toes in contact, its time (median of 100
+   launches), the plain version's, the bound and the launch shape; (b) the
+   main path as phase 5's on the +-2 cm bump with ``bench.py``'s
+   ``laikago_terrain_scan_rollout_env_steps_per_s`` (500 steps, best of
+   3) and its eager counterpart, device operations, busy ms and idle share
+   per step, one K1 a replayed step, then 100 steps on the ``Mesh`` form of
+   the terrain as a measurement; (c) 50 float64 steps at batch 8 on the
+   card against the CPU on the heightfield and the mesh, q, qd and the
+   observation within 1e-9 abs + rel; (d) ``policy_b4c.pkl`` and
+   ``policy_r2b.pkl`` in float32 through graphs for 3000 steps on the +-4
+   cm heightfield from the 4 starts of ``tests/test_terrain_policy.py``
+   (the JAX package's reset draws, recorded in
+   ``tests/golden/laikago_terrain_policy_reset_noise.json``), held to its
+   thresholds (:92-100: policy_b4c's least distance over 4.4 m, its mean
+   more than 0.4 m past policy_r2b's), and ``policy_r2b.pkl`` on the +-2 cm
+   mesh for 1500 steps from ``tests/test_terrain.py``'s start, alive with
+   x > 1.0 m and 0.3 < z < 0.6 (:89-96), each beside 4 ``torch.Generator``
+   starts printed as a measurement; (e) ``python -m
+   tds_tpu_torch.tools.ars_train --env laikago --terrain_bump 0.04
+   --terrain_scan 0 --resume policy_b4c.pkl`` for 2 iterations and ``--env
+   humanoid --reset_pool logs/humanoid_ars/pool_r5.npz`` for 1, their
+   checkpoints read back;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the card's peak and reserved memory with all of
    them, and the script's seconds against its 1200 s limit.
 
 The line before the last is the ``kernels`` JSON object (K1 once for each
 row count a main path runs, 12, 24, 48 and 105, the other row counts of
-phase 12 (a) inside the first; K2, K3, K4); the last line is
+phase 12 (a) and the terrain's n = 24 (``terrain_*``) inside the first;
+K2, K3, K4); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
 
@@ -195,6 +224,17 @@ HUMANOID_BATCH, HUMANOID_STEPS = 1024, 200
 HUMANOID_SEEDS, HUMANOID_REPLAY_STEPS = (0, 7, 123, 42), 3000
 HUMANOID_RESET_NOISE = REPO / "tests" / "golden" / "humanoid_policy_reset_noise.json"
 CHEETAH_BATCH, CHEETAH_STEPS = 4096, 50
+# phase 13: bench.py's terrain rollout (500 steps at batch 4096), its +-2
+# cm bump; tests/test_terrain_policy.py's replay (3000 steps on +-4 cm,
+# policy_b4c.pkl against policy_r2b.pkl) and tests/test_terrain.py's
+# (policy_r2b.pkl, 1500 steps on the +-2 cm mesh), from the JAX package's
+# reset draws for their keys, recorded in the JSON file
+TERRAIN_BUMP, TERRAIN_BENCH_STEPS, MESH_STEPS = 0.02, 500, 100
+TERRAIN_CHECKPOINT = REPO / "logs" / "laikago_terrain" / "policy_b4c.pkl"
+TERRAIN_RESET_NOISE = REPO / "tests" / "golden" / "laikago_terrain_policy_reset_noise.json"
+TERRAIN_REPLAY_BUMP, TERRAIN_REPLAY_STEPS, MESH_REPLAY_STEPS = 0.04, 3000, 1500
+TERRAIN_SEEDS = (0, 1, 2, 3)  # the torch.Generator starts printed beside the JAX test's
+POOL = REPO / "logs" / "humanoid_ars" / "pool_r5.npz"
 # K1's row counts in phase 12 (a): laikago with top_k 1-3 or one friction
 # direction (3, 6, 8, 9), laikago (12), the ant and the hopper (24), the
 # half-cheetah (48), the ant without compaction (51), the humanoid (105)
@@ -527,6 +567,9 @@ STAGES = (
     ("tds_tpu_torch.contact.mlcp", "top_k_indices"),
     ("tds_tpu_torch.contact.pgs", "solve_pgs"),
     ("tds_tpu_torch.envs.locomotion", "integrate_q"),
+    # the terrain's height scan (phase 13; no call on a flat ground)
+    ("tds_tpu_torch.envs.locomotion", "heightfield_height"),
+    ("tds_tpu_torch.envs.locomotion", "ray_mesh"),
 )
 
 
@@ -1634,9 +1677,10 @@ def k1_against_plain(label, operands, dep, it):
     return err.max().item(), -over
 
 
-def k1_timing(label, operands, dep, it, card):
+def k1_timing(label, operands, dep, it, card, prefix="humanoid (a)"):
     """K1's device time (median of 100 CUDA-event-timed launches), the
-    plain version's, the bound and the launch shape on ``operands``."""
+    plain version's, the bound and the launch shape on ``operands``, logged
+    under ``prefix``."""
     from tds_tpu_torch.contact import pgs
 
     b = operands[1]
@@ -1652,10 +1696,10 @@ def k1_timing(label, operands, dep, it, card):
     t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
     shape = pgs.launch_shape(b.dtype, n, bsz)
     design = "row per lane" if n <= 32 else "warp per env"
-    log(f"humanoid (a): K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({design}): {ms * 1e3:.2f} us on the device, "
+    log(f"{prefix}: K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({design}): {ms * 1e3:.2f} us on the device, "
         f"plain {plain_ms * 1e3:.1f} us ({plain_how}), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, "
         f"{n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")
-    log_launch_shape(f"humanoid (a): K1 B={bsz} n={n} {str(b.dtype)[6:]}", shape)
+    log_launch_shape(f"{prefix}: K1 B={bsz} n={n} {str(b.dtype)[6:]}", shape)
     return {"ms": ms, "plain_ms": plain_ms, "plain_timing": plain_how, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
             "design": design, **launch_fields(shape)}
@@ -1914,6 +1958,275 @@ def phase_humanoid(card, card_line):
     return entries, summary
 
 
+# -- phase 13 --------------------------------------------------------------
+def terrain_env(bump, scan_points, kind="heightfield", obj_dir=None, dtype=torch.float32, device=None):
+    """``tools.ars_train.make_terrain_env``'s laikago; with ``kind="mesh"``
+    the same grid as a ``Mesh`` read from an OBJ file written in
+    ``obj_dir``."""
+    import math
+
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.model.geometry import Mesh
+    from tds_tpu_torch.tools.ars_train import SCAN_GRID, make_terrain_env
+    from tds_tpu_torch.utils.terrain import write_heightfield
+
+    if kind == "heightfield":
+        return make_terrain_env(bump, scan_points, dtype=dtype, device=device)
+    path = write_heightfield(os.path.join(obj_dir, f"terrain_{bump}.obj"), 13, 7, (-1.0, 5.0), (-1.5, 1.5),
+                             lambda x, y: bump * math.sin(math.pi * x) * math.cos(math.pi * y))
+    scan = SCAN_GRID[:scan_points] if scan_points else None
+    return LaikagoEnv(dtype=dtype, device=device, terrain=Mesh(file_name=path, max_contacts=3), height_scan=scan)
+
+
+def terrain_kernel(card):
+    """(a): K1 on the float32 PGS operands of a terrain step at batch 4096
+    with toes in contact (24 rows: 12 candidates, the 8 deepest kept),
+    against its plain version, and timed: median of 100 launches, the
+    plain version's time, the bound and the launch shape."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # the toes reach the ground about 65 steps after the reset
+    a, b, lo, hi, dep, it = harvest_pgs_operands(terrain_env(TERRAIN_BUMP, 9), gen, ROLLOUT_STEPS, "terrain", "terrain (a)")
+    if tuple(b.shape) != (MAIN_BATCH, 24):
+        raise AssertionError(f"the terrain's MLCP has shape {tuple(b.shape)}, expected ({MAIN_BATCH}, 24)")
+    err, margin = k1_against_plain("terrain step", [a, b, lo, hi], dep, it)
+    log(f"terrain (a): K1 on the terrain step B={MAIN_BATCH} n=24: max |kernel - plain| = {err:.3e} (rtol, atol "
+        f"{pgs_tol(b.dtype, 24)}; margin left {margin:.3e})")
+    return {**k1_timing("terrain step", [a, b, lo, hi], dep, it, card, prefix="terrain (a)"), "max_abs_err": err}
+
+
+def mesh_rollout(obj_dir):
+    """(b), a measurement: a MESH_STEPS-step rollout of the zero policy at
+    batch 4096 on the mesh form of the terrain through graphs; returns its
+    ms/step."""
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+
+    env = terrain_env(TERRAIN_BUMP, 9, "mesh", obj_dir)
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    state, obs = env.reset(torch.Generator(device="cuda").manual_seed(1), batch_size=MAIN_BATCH)
+    (_, _, _, alive), first_s = timed_call(lambda: rollout(env, policy, None, state, obs, MESH_STEPS))
+    _, seconds = timed_call(lambda: rollout(env, policy, None, state, obs, MESH_STEPS))
+    step_ms = seconds * 1e3 / MESH_STEPS
+    log(f"terrain (b): the mesh form (144 triangles against each toe), {MESH_STEPS} steps at batch {MAIN_BATCH} through "
+        f"graphs: first call {first_s:.3f} s (with the captures), then {step_ms:.3f} ms/step = "
+        f"{MAIN_BATCH / step_ms * 1e3:.1f} env-steps/s (a measurement); {int(alive.sum())} of {MAIN_BATCH} alive")
+    return step_ms
+
+
+def terrain_device_vs_cpu(obj_dir):
+    """(c): 50 float64 steps at batch 8 on the heightfield and on the mesh,
+    K1 on the card against the plain PGS on the CPU, within 1e-9 abs + rel
+    (q, qd and the observation with its 9 scan columns), from a base 5 cm
+    below the standing start (the toes in the ground). Returns the largest
+    difference."""
+    from tds_tpu_torch.contact import pgs
+
+    batch, steps, tol = 8, 50, 1e-9
+    worst = 0.0
+    for kind in ("heightfield", "mesh"):
+        cpu_env = terrain_env(TERRAIN_BUMP, 9, kind, obj_dir, torch.float64, "cpu")
+        gpu_env = terrain_env(TERRAIN_BUMP, 9, kind, obj_dir, torch.float64)
+        gen = torch.Generator(device="cpu").manual_seed(13)
+        qc, qdc = cpu_env.initial_state(noise=cpu_env.draw_reset_noise(gen, batch))
+        qc[:, 2] = 0.43
+        actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+        qg, qdg = qc.cuda(), qdc.cuda()
+        before, kind_worst, worst_excess, in_contact = pgs.launches, 0.0, -float("inf"), []
+        for t in range(steps):
+            in_contact.append(penetrating(cpu_env, qc))
+            qc, qdc = cpu_env.sim_step(qc, qdc, actions[t])
+            qg, qdg = gpu_env.sim_step(qg, qdg, actions[t].cuda())
+            pairs = ((qg.cpu(), qc), (qdg.cpu(), qdc), (gpu_env.observation(qg, qdg).cpu(), cpu_env.observation(qc, qdc)))
+            for got, expected in pairs:
+                kind_worst = max(kind_worst, (got - expected).abs().max().item())
+                worst_excess = max(worst_excess, excess(got, expected, tol))
+                if worst_excess > 0 or not torch.isfinite(got).all():
+                    raise AssertionError(f"the terrain ({kind}) on the card and on the CPU differ beyond {tol} at step {t + 1}")
+        if pgs.launches - before != steps:
+            raise AssertionError(f"{steps} terrain ({kind}) steps on the card launched K1 {pgs.launches - before} times")
+        counts = torch.stack(in_contact)
+        if not bool((counts[:10] > 0).all()):
+            raise AssertionError(f"the terrain ({kind}) card-against-CPU run needs contacts in every env over its first 10 steps")
+        log(f"terrain (c): {kind}, {steps} float64 steps at batch {batch}, card against CPU: max |cuda - cpu| = "
+            f"{kind_worst:.3e} over q, qd and the observation (tolerance {tol} abs + rel, margin left {-worst_excess:.3e}); "
+            f"{int((counts > 0).sum())} of {batch * steps} env-steps in contact, up to {int(counts.max())} of 12 candidates "
+            f"penetrating; {steps} K1 launches")
+        worst = max(worst, kind_worst)
+    return worst
+
+
+def terrain_policy_run(env, path, noise, steps, key):
+    """``path``'s policy replayed in float32 on ``env`` for ``steps`` steps
+    through graphs from the reset noise ``noise``; returns (distance: x at
+    the last live step less x after the reset, steps alive, the last q),
+    each per env, on the CPU, as tests/test_terrain_policy.py:68-83 counts
+    them."""
+    import torch.nn.functional as F
+
+    from tds_tpu_torch.convert import load_checkpoint, policy_from_numpy
+    from tds_tpu_torch.envs.base import EnvState
+    from tds_tpu_torch.utils import graphs
+
+    saved, _ = load_checkpoint(str(path))
+    policy, stat = policy_from_numpy(saved["params"], saved["obs_stat"], dtype=env.dtype, device=env.device)
+
+    def body(carry, consts):
+        q, qd, t, obs, alive, steps, x = carry
+        weight, bias, mean, scale = consts
+        action = env.action_transform(F.linear((obs - mean) / scale, weight, bias))
+        state, obs, _, done = env.step(EnvState(q, qd, t), action)
+        x = torch.where(alive > 0, state.q[:, 0], x)
+        return state.q, state.qd, state.t, obs, alive * (1.0 - done.to(obs.dtype)), steps + alive, x
+
+    state, obs = env.reset(noise=noise)
+    x0 = state.q[:, 0].clone()
+    zero = obs.new_zeros(noise.shape[0])
+    with torch.no_grad():
+        carry = (state.q, state.qd, state.t, obs, zero + 1.0, zero, x0)
+        q, _, _, _, alive, alive_steps, x = graphs.scan(body, carry, (policy.weight, policy.bias, stat.mean, stat.scale()),
+                                                         steps, key=key)
+    return (x - x0).cpu(), alive_steps.cpu(), q.cpu()
+
+
+def terrain_replay(obj_dir):
+    """(d): policy_b4c.pkl and policy_r2b.pkl in float32 through graphs for
+    3000 steps on the +-4 cm heightfield from the 4 starts of
+    tests/test_terrain_policy.py (the JAX package's reset draws for
+    split(PRNGKey(0), 4)), held to its thresholds (:92-100): policy_b4c's
+    least distance above 4.4 m and its mean more than 0.4 m past
+    policy_r2b's; then policy_r2b.pkl on the +-2 cm mesh for 1500 steps
+    from tests/test_terrain.py's start (PRNGKey(0)), held to :89-96: alive,
+    x > 1.0 m, 0.3 < z < 0.6. Beside each, the same from 4 torch.Generator
+    starts (seeds TERRAIN_SEEDS), printed as a measurement. Returns the
+    numbers and K1's wrapper launches (the warm-ups and the captures)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.utils import graphs
+
+    recorded = json.loads(TERRAIN_RESET_NOISE.read_text())
+    env = terrain_env(TERRAIN_REPLAY_BUMP, 0)
+    generator_noise = torch.cat([env.draw_reset_noise(torch.Generator(device="cuda").manual_seed(s), 1) for s in TERRAIN_SEEDS])
+    noise = torch.cat([torch.tensor(recorded["policy"], dtype=env.dtype, device=env.device), generator_noise])
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, path in (("policy_b4c.pkl", TERRAIN_CHECKPOINT), ("policy_r2b.pkl", CHECKPOINT)):
+        runs[name] = terrain_policy_run(env, path, noise, TERRAIN_REPLAY_STEPS, ("terrain replay", env))
+        distance, alive_steps, _ = runs[name]
+        for i, d in enumerate(distance.tolist()):
+            start = "the JAX test's start" if i < 4 else f"torch.Generator seed {TERRAIN_SEEDS[i - 4]} (a measurement)"
+            log(f"terrain (d): {name} on +-4 cm, {start}: {d:.3f} m in {alive_steps[i]:.0f} live steps of {TERRAIN_REPLAY_STEPS}")
+    b4c, r2b = runs["policy_b4c.pkl"][0], runs["policy_r2b.pkl"][0]
+    out = {"b4c_min_m": b4c[:4].min().item(), "b4c_mean_m": b4c[:4].mean().item(), "r2b_mean_m": r2b[:4].mean().item(),
+           "b4c_generator_min_m": b4c[4:].min().item(), "b4c_generator_mean_m": b4c[4:].mean().item(),
+           "r2b_generator_mean_m": r2b[4:].mean().item()}
+    log(f"terrain (d): from the JAX test's starts policy_b4c.pkl min {out['b4c_min_m']:.3f} m (threshold 4.4), mean "
+        f"{out['b4c_mean_m']:.3f} m against policy_r2b.pkl's {out['r2b_mean_m']:.3f} m (threshold: 0.4 m past); from the "
+        f"generator starts min {out['b4c_generator_min_m']:.3f}, mean {out['b4c_generator_mean_m']:.3f} against "
+        f"{out['r2b_generator_mean_m']:.3f} m (a measurement)")
+    if not (out["b4c_min_m"] > 4.4 and out["b4c_mean_m"] > out["r2b_mean_m"] + 0.4) or not bool(torch.isfinite(b4c).all()):
+        raise AssertionError("the terrain-trained policy failed tests/test_terrain_policy.py's thresholds: "
+                             f"min {out['b4c_min_m']:.3f} m, mean {out['b4c_mean_m']:.3f} against {out['r2b_mean_m']:.3f} m")
+
+    mesh = terrain_env(TERRAIN_BUMP, 0, "mesh", obj_dir)
+    mesh_noise = torch.cat([torch.tensor(recorded["mesh"], dtype=mesh.dtype, device=mesh.device), generator_noise])
+    _, alive_steps, q = terrain_policy_run(mesh, CHECKPOINT, mesh_noise, MESH_REPLAY_STEPS, ("mesh replay", mesh))
+    for i in range(mesh_noise.shape[0]):
+        ok = bool(torch.isfinite(q[i]).all()) and alive_steps[i] == MESH_REPLAY_STEPS and q[i, 0] > 1.0 and 0.3 < q[i, 2] < 0.6
+        start = "the JAX test's start" if i == 0 else f"torch.Generator seed {TERRAIN_SEEDS[i - 1]} (a measurement)"
+        log(f"terrain (d): policy_r2b.pkl on the +-2 cm mesh, {start}: alive {alive_steps[i]:.0f} of {MESH_REPLAY_STEPS} "
+            f"steps, x {q[i, 0]:.3f} m, z {q[i, 2]:.3f} m: {'past' if ok else 'short of'} tests/test_terrain.py's thresholds")
+        if i == 0 and not ok:
+            raise AssertionError("policy_r2b.pkl failed tests/test_terrain.py's mesh-terrain thresholds")
+    seconds = time.perf_counter() - t0
+    launches = pgs.launches
+    check_wrapper_launches("terrain (d)", "PGS", launches, cached)
+    log(f"terrain (d): 2 x {TERRAIN_REPLAY_STEPS} heightfield steps and {MESH_REPLAY_STEPS} mesh steps at batch "
+        f"{noise.shape[0]} through graphs in {seconds:.1f} s (resets and captures included); K1 wrapper launches {launches}")
+    out.update(mesh_x_m=q[0, 0].item(), mesh_z_m=q[0, 2].item(), replay_launches=launches)
+    return out
+
+
+def terrain_trainer():
+    """(e): the trainer as a user runs it: laikago on the +-4 cm heightfield
+    resumed from policy_b4c.pkl for 2 iterations, its checkpoint read back;
+    the humanoid with the reset pool logs/humanoid_ars/pool_r5.npz for 1
+    iteration. Returns the laikago run's last eval_reward_min."""
+    import tempfile
+
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.convert import load_checkpoint
+    from tds_tpu_torch.tools import ars_train
+    from tds_tpu_torch.utils import graphs
+
+    runs = (
+        ("laikago", ["--env", "laikago", "--terrain_bump", "0.04", "--terrain_scan", "0", "--resume", str(TERRAIN_CHECKPOINT),
+                     "--iterations", "2", "--eval_interval", "2", "--rollout_length", "200", "--num_directions", "8"]),
+        ("humanoid", ["--env", "humanoid", "--reset_pool", str(POOL), "--iterations", "1", "--eval_interval", "1",
+                      "--rollout_length", "100", "--num_directions", "8"]),
+    )
+    out = {}
+    for name, argv in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}.pkl")
+            cached = graphs.stats()
+            pgs.launches = 0
+            t0 = time.perf_counter()
+            _, history = ars_train.main([*argv, "--checkpoint", path])
+            seconds = time.perf_counter() - t0
+            launches = pgs.launches
+            written, meta = load_checkpoint(path)
+        iterations = int(argv[argv.index("--iterations") + 1])
+        finite = all(bool(torch.isfinite(v)) for metrics in history for v in metrics.values())
+        finite = finite and bool(torch.isfinite(torch.as_tensor(written["params"])).all())
+        if not finite or "eval_reward_min" not in history[-1] or meta.get("iteration") != iterations:
+            raise AssertionError(f"the {name} trainer: finite {finite}, last metrics {history[-1]}, metadata {meta}")
+        check_wrapper_launches(f"terrain (e) {name}", "PGS", launches, cached)
+        out[name] = history[-1]["eval_reward_min"].item()
+        command = " ".join(os.path.basename(a) if os.sep in a else a for a in argv)
+        log(f"terrain (e): python -m tds_tpu_torch.tools.ars_train {command} in {seconds:.1f} s: metrics finite, checkpoint read back, eval_reward_min {out[name]:.2f}, K1 wrapper launches {launches}")
+    return out["laikago"]
+
+
+def phase_terrain(card, card_line):
+    import tempfile
+
+    entry = terrain_kernel(card)
+    with tempfile.TemporaryDirectory() as obj_dir:
+        path = drive_main_path(terrain_env(TERRAIN_BUMP, 9), "terrain (b)", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line,
+                               ("laikago_terrain_scan_rollout_env_steps_per_s", TERRAIN_BENCH_STEPS))
+        mesh_ms = mesh_rollout(obj_dir)
+        worst = terrain_device_vs_cpu(obj_dir)
+        replay = terrain_replay(obj_dir)
+    reward_min = terrain_trainer()
+    summary = {
+        "terrain_shape": entry["shape"],
+        "terrain_ms": entry["ms"],
+        "terrain_plain_ms": entry["plain_ms"],
+        "terrain_bound_ms": entry["bound_ms"],
+        "terrain_bound_by": entry["bound_by"],
+        "terrain_max_abs_err": entry["max_abs_err"],
+        "terrain_launches": path["launches"],
+        "terrain_replayed_launches_per_step": path["replayed_launches_per_step"],
+        "terrain_ms_per_step": path["ms_per_step"],
+        "terrain_eager_ms_per_step": path["eager_ms_per_step"],
+        "laikago_terrain_scan_rollout_env_steps_per_s": path["laikago_terrain_scan_rollout_env_steps_per_s"],
+        "terrain_graph_nodes": path["graph_nodes"],
+        "terrain_device_ops_per_step": path["device_ops"],
+        "terrain_device_ms_per_step": path["device_ms"],
+        "terrain_idle_share": path["idle"],
+        "terrain_eager_device_ops_per_step": path.get("eager_device_ops"),
+        "terrain_eager_idle_share": path.get("eager_idle"),
+        "terrain_mesh_ms_per_step": mesh_ms,
+        "terrain_float64_card_against_cpu": worst,
+        **{f"terrain_replay_{k}": v for k, v in replay.items()},
+        "terrain_trainer_eval_reward_min": reward_min,
+    }
+    log(f"terrain: {json.dumps(summary)}")
+    return summary
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -1985,8 +2298,10 @@ def main():
     mega.update(timed(phase_ars, card, mega, card_line))
     kernel.update(timed(phase_ant, card, card_line))
     k1_rows, humanoid = timed(phase_humanoid, card, card_line)
+    terrain = timed(phase_terrain, card, card_line)
     kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
     kernel.update(humanoid)
+    kernel.update(terrain)
     kernel.update(timed(phase_graphs, start_s))
     print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

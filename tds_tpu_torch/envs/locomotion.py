@@ -13,16 +13,22 @@ step (``envs/fused_step.py``), as ``ContactSolverParams(pgs_impl=
 "pallas")`` picks the JAX package's kernel path: the constructor packs the
 kernel's operands once, and every ``sim_step`` (reset's settle steps too)
 launches K2 on the card and runs its plain version on the CPU. An env the
-kernel does not handle raises at construction.
+kernel does not handle (a terrain among them) raises at construction.
 
-Not ported yet (they raise NotImplementedError): floating bases, the
-spring contact model, terrain, ``height_scan`` and ``reset_pool``.
+``terrain`` puts a ``Heightfield`` or a ``Mesh`` on the ground in place of
+the plane; ``height_scan`` adds the terrain's height under egocentric scan
+points to the observation; ``reset_pool`` makes ``reset`` start from pool
+states with probability ``reset_pool_prob``. Not ported yet (they raise
+NotImplementedError): floating bases and the spring contact model.
 """
 
 from typing import Optional, Sequence
 
 import torch
 
+from tds_tpu_torch.algebra.transform import Transform
+from tds_tpu_torch.collision.narrowphase import heightfield_height
+from tds_tpu_torch.collision.raycast import ray_mesh
 from tds_tpu_torch.contact.mlcp import ContactSolverParams
 from tds_tpu_torch.control.pd import pd_tau
 from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, forward_dynamics_from_kin
@@ -30,6 +36,7 @@ from tds_tpu_torch.dynamics.integrator import integrate_euler_qdd, integrate_q
 from tds_tpu_torch.dynamics.kinematics import fk_links
 from tds_tpu_torch.envs.base import Env, EnvState
 from tds_tpu_torch.envs.fused_step import check_instance, mega_step, pack_step_params
+from tds_tpu_torch.model.geometry import GeomAttachment, Heightfield
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
 from tds_tpu_torch.utils.graphs import scan
@@ -37,10 +44,22 @@ from tds_tpu_torch.utils.tensors import constant, resolve_device
 from tds_tpu_torch.world import build_world, make_ground_plane, resolve_contacts
 
 
+_EYE = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
+
+
 class LocomotionEnv(Env):
     """``model`` is moved to ``device`` (None: the CUDA device, raising when
     there is none) in ``dtype`` (None: the model's own); ``fused_step``
-    picks K2 for the control step."""
+    picks K2 for the control step.
+
+    ``terrain``: a ``Heightfield`` or a ``Mesh`` with ``max_contacts > 0``
+    on the ground in place of the plane. ``height_scan``: (x, y) offsets in
+    the base's yawed frame; the terrain's height under each, less the
+    base's height, joins the observation (needs a terrain). ``reset_pool``:
+    (q (P, dof_q), qd (P, dof_qd)) states; with probability
+    ``reset_pool_prob`` ``reset`` replaces the settled state of an env by a
+    pool state with its base x set to 0 (a training-only start: an eval
+    env takes none)."""
 
     def __init__(
         self,
@@ -62,13 +81,11 @@ class LocomotionEnv(Env):
         terrain=None,
         height_scan=None,
         reset_pool=None,
+        reset_pool_prob: float = 0.5,
         device=None,
         dtype: Optional[torch.dtype] = None,
         fused_step: bool = False,
     ):
-        for name, value in (("terrain", terrain), ("height_scan", height_scan), ("reset_pool", reset_pool)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported to tds_tpu_torch yet")
         if model.is_floating:
             raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
         self.device = resolve_device(device)
@@ -87,12 +104,33 @@ class LocomotionEnv(Env):
         self.action_dim = len(initial_poses)
         self.observation_dim = model.dof_q + model.dof_qd
         self.skip_links = 6 if skip_links is None else skip_links
+        # the ground in the env's dtype and on its device: a terrain's
+        # narrowphase works in the dtype of the ground's transform
         plane_model, plane_geoms = make_ground_plane(dtype=self.dtype, device=self.device)
+        if terrain is not None:
+            plane_geoms = (GeomAttachment(link_index=-1, shape=terrain),)
+        self.terrain = terrain
         self.world = build_world(
             [(plane_model, plane_geoms), (self.model, tuple(geoms))],
             solver=solver,
             contact_model=contact_model,
         )
+        self.height_scan = None
+        if height_scan is not None:
+            if terrain is None:
+                raise ValueError("height_scan requires terrain=Mesh(...)")
+            self.height_scan = constant(tuple((float(x), float(y)) for x, y in height_scan), self.dtype, self.device)
+            self.observation_dim += len(height_scan)
+        self.reset_pool = None
+        self.reset_pool_prob = float(reset_pool_prob)
+        if reset_pool is not None:
+            pool_q, pool_qd = (torch.as_tensor(p, dtype=self.dtype, device=self.device) for p in reset_pool)
+            if pool_q.ndim != 2 or pool_q.shape[1] != model.dof_q or pool_qd.shape != (pool_q.shape[0], model.dof_qd):
+                raise ValueError(
+                    f"reset_pool holds q {tuple(pool_q.shape)} and qd {tuple(pool_qd.shape)}, expected (P, {model.dof_q}) "
+                    f"and (P, {model.dof_qd})"
+                )
+            self.reset_pool = (pool_q, pool_qd)
         self.step_params = None
         if fused_step:
             params = pack_step_params(self)
@@ -118,7 +156,36 @@ class LocomotionEnv(Env):
         return integrate_q(self.model, q, qd, self.dt)
 
     def observation(self, q, qd):
-        return torch.cat([q, qd], dim=-1)
+        """[q, qd], and the scan heights with a ``height_scan``."""
+        if self.height_scan is None:
+            return torch.cat([q, qd], dim=-1)
+        return torch.cat([q, qd, self._scan_heights(q)], dim=-1)
+
+    def _base_yaw(self, q):
+        """q[..., 5], the yaw of the xyz_xyzrot emulation chain, whatever the
+        base chain is (as the JAX package reads it on a fixed base)."""
+        return q[..., 5]
+
+    def _scan_heights(self, q):
+        """(B, S) terrain height under each scan point less the base's
+        height, clipped to +-10: the exact surface of a ``Heightfield``;
+        for a ``Mesh`` vertical rays from z = 100 down 200, whose misses
+        (fraction BIG) read as -10."""
+        pos, _ = self.base_pose_xyz_rpy(q)
+        ox, oy = self.height_scan[:, 0], self.height_scan[:, 1]
+        yaw = self._base_yaw(q)
+        c, s = yaw.cos()[..., None], yaw.sin()[..., None]
+        xy = pos[..., None, :2] + torch.stack([c * ox - s * oy, s * ox + c * oy], dim=-1)  # (B, S, 2)
+        if isinstance(self.terrain, Heightfield):
+            height = heightfield_height(self.terrain, xy[..., 0], xy[..., 1])
+        else:
+            top, span = 100.0, 200.0
+            origins = torch.cat([xy, torch.full_like(xy[..., :1], top)], dim=-1)
+            targets = torch.cat([xy, torch.full_like(xy[..., :1], top - span)], dim=-1)
+            identity = Transform(pos=constant((0.0,) * 3, q.dtype, q.device), rot=constant(_EYE, q.dtype, q.device))
+            frac, _ = ray_mesh(origins, targets, self.terrain, identity)
+            height = top - frac * span
+        return (height - pos[..., None, 2]).clamp(-10.0, 10.0)
 
     # -- env API -----------------------------------------------------------
     def pd_q_indices(self):
@@ -158,11 +225,24 @@ class LocomotionEnv(Env):
         q = self._set_joint_poses(q, self.initial_poses + noise)
         return q, self.model.zero_qd(noise.shape[:-1])
 
-    def reset(self, generator: Optional[torch.Generator] = None, batch_size: int = 1, noise=None):
+    def draw_reset_pool(self, generator: Optional[torch.Generator] = None, batch_size: int = 1):
+        """(use (B,) bool, index (B,) int64): whether each env's reset starts
+        from the pool (probability ``reset_pool_prob``) and from which
+        state, drawn from ``generator`` on its device and moved to the
+        env's."""
+        gen_device = generator.device if generator is not None else self.device
+        use = torch.rand(batch_size, generator=generator, dtype=torch.float64, device=gen_device) < self.reset_pool_prob
+        idx = torch.randint(self.reset_pool[0].shape[0], (batch_size,), generator=generator, device=gen_device)
+        return use.to(self.device), idx.to(self.device)
+
+    def reset(self, generator: Optional[torch.Generator] = None, batch_size: int = 1, noise=None, pool_draws=None):
         """initial_state followed by the settle steps with zero action, one
         :func:`~tds_tpu_torch.utils.graphs.scan` (replayed CUDA graphs on
-        the card). The noise is drawn before the scan, so a graph holds no
-        random op."""
+        the card); then, with a ``reset_pool``, the pool states where
+        ``pool_draws`` = (use, index) says so, drawn from ``generator``
+        when not given (:meth:`draw_reset_pool`; a test feeds another
+        implementation's). Every draw is made outside the scan, so a graph
+        holds no random op."""
         q, qd = self.initial_state(generator, batch_size, noise)
 
         def settle(carry, consts):
@@ -170,6 +250,12 @@ class LocomotionEnv(Env):
 
         zero_action = q.new_zeros(q.shape[:-1] + (self.action_dim,))
         q, qd = scan(settle, (q, qd), (zero_action,), self.settle_steps, key=("settle", self))
+        if self.reset_pool is not None:
+            use, idx = self.draw_reset_pool(generator, q.shape[0]) if pool_draws is None else pool_draws
+            use = use.to(self.device)[:, None]
+            pool_q, pool_qd = (p.index_select(0, idx.to(self.device)) for p in self.reset_pool)
+            pool_q[:, 0] = 0.0  # translated back to the origin in x
+            q, qd = torch.where(use, pool_q, q), torch.where(use, pool_qd, qd)
         t = torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device)
         return EnvState(q=q, qd=qd, t=t), self.observation(q, qd)
 

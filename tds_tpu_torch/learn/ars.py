@@ -7,9 +7,13 @@
   kernel K2 once for the whole batch. Direction i's two rollouts start from
   the same reset noise.
 - The iteration takes its draws as arguments (:func:`ars_iteration`: the
-  deltas and the reset noise), so a test can hand it another
-  implementation's; :func:`make_train_step` draws them from the state's
-  ``torch.Generator`` on the env's device.
+  deltas, the reset noise and, for an env with a reset pool, the pool
+  draws), so a test can hand it another implementation's;
+  :func:`make_train_step` draws them from the state's ``torch.Generator``
+  on the env's device.
+- Evaluation may run on another env than training (``train``'s
+  ``eval_env``): an env whose resets start from a pool trains, and the
+  same env without the pool evaluates.
 - Reward accumulation freezes at done; a rollout whose state turns
   non-finite is gated as terminated and its statistics stay finite.
 - Observations push into the statistics during the rollouts, while the
@@ -71,13 +75,18 @@ def init_ars(env, policy: MLPSpec, seed: int = 0, dtype: Optional[torch.dtype] =
 
 
 @torch.no_grad()
-def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noise, config: ARSConfig, chunk=None):
-    """Rollouts of (B, p) or (p,) parameters from the reset noise (B, ...),
-    one :func:`~tds_tpu_torch.utils.graphs.scan` over the horizon (replayed
+def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noise, config: ARSConfig, chunk=None,
+                        pool_draws=None):
+    """Rollouts of (B, p) or (p,) parameters from the reset noise (B, ...)
+    (and the reset pool's draws, for an env with a pool), one
+    :func:`~tds_tpu_torch.utils.graphs.scan` over the horizon (replayed
     CUDA graphs of ``chunk`` steps on the card; None: FUSED_CHUNK through
     the fused step, else 1); returns (total reward, steps alive, (obs sum,
     obs sum of squares)), each per env."""
-    state, obs = env.reset(noise=noise)
+    if pool_draws is None:
+        state, obs = env.reset(noise=noise)
+    else:
+        state, obs = env.reset(noise=noise, pool_draws=pool_draws)
     dtype = obs.dtype
     shift = config.shift
 
@@ -124,16 +133,22 @@ def _batch_stat(s1, s2, steps, count_dtype) -> RunningStat:
 
 
 @torch.no_grad()
-def ars_iteration(env, policy: MLPSpec, config: ARSConfig, state: ARSState, deltas, noise):
+def ars_iteration(env, policy: MLPSpec, config: ARSConfig, state: ARSState, deltas, noise, pool_draws=None):
     """One ARS iteration from given draws: ``deltas`` (n, p), the unit
-    perturbations, and ``noise`` (n, ...), the reset noise of direction i's
-    two rollouts. Returns (new state, metrics), the metrics 0-dim tensors
-    on the env's device; the state's generator is passed on untouched."""
+    perturbations, ``noise`` (n, ...), the reset noise of direction i's
+    two rollouts, and for an env with a reset pool ``pool_draws`` (use
+    (n,), index (n,)), their pool draws. Returns (new state, metrics), the
+    metrics 0-dim tensors on the env's device; the state's generator is
+    passed on untouched."""
     n = config.num_directions
     if deltas.shape != (n, state.params.shape[0]) or noise.shape[0] != n:
         raise ValueError(f"deltas {tuple(deltas.shape)} and noise {tuple(noise.shape)} do not fit {n} directions")
     w = torch.cat([state.params + config.delta_std * deltas, state.params - config.delta_std * deltas])
-    rewards, steps, (s1, s2) = _rollout_with_stats(env, policy, w, state.obs_stat, torch.cat([noise, noise]), config)
+    if pool_draws is not None:
+        pool_draws = tuple(torch.cat([d, d]) for d in pool_draws)
+    rewards, steps, (s1, s2) = _rollout_with_stats(
+        env, policy, w, state.obs_stat, torch.cat([noise, noise]), config, pool_draws=pool_draws
+    )
     r_pos, r_neg = rewards[:n], rewards[n:]
 
     weights = r_pos - r_neg
@@ -173,13 +188,16 @@ def ars_iteration(env, policy: MLPSpec, config: ARSConfig, state: ARSState, delt
 
 
 def draw_directions(env, state: ARSState, num_directions: int):
-    """(deltas (n, p), reset noise (n, ...)) from the state's generator,
-    on the env's device."""
+    """(deltas (n, p), reset noise (n, ...), pool draws: (use (n,), index
+    (n,)) for an env with a reset pool, else None) from the state's
+    generator, on the env's device."""
     gen = state.generator
     deltas = torch.randn(
         (num_directions, state.params.shape[0]), generator=gen, dtype=state.params.dtype, device=gen.device
     )
-    return deltas.to(env.device), env.draw_reset_noise(gen, num_directions)
+    noise = env.draw_reset_noise(gen, num_directions)
+    pool = env.draw_reset_pool(gen, num_directions) if getattr(env, "reset_pool", None) is not None else None
+    return deltas.to(env.device), noise, pool
 
 
 def make_train_step(env, policy: MLPSpec, config: ARSConfig) -> Callable:
@@ -187,8 +205,7 @@ def make_train_step(env, policy: MLPSpec, config: ARSConfig) -> Callable:
     taken from the state's generator."""
 
     def step(state: ARSState):
-        deltas, noise = draw_directions(env, state, config.num_directions)
-        return ars_iteration(env, policy, config, state, deltas, noise)
+        return ars_iteration(env, policy, config, state, *draw_directions(env, state, config.num_directions))
 
     return step
 
@@ -221,23 +238,25 @@ def train(
     log_fn=None,
     eval_fn_num_rollouts: int = 16,
     state: Optional[ARSState] = None,
+    eval_env=None,
 ):
     """The training loop: ``num_iterations`` iterations from ``state`` (None:
     :func:`init_ars` with ``seed``), and after every ``config.eval_interval``-th
-    an eval whose reset noise comes from a generator seeded
-    ``1000 + 100000 * seed + it``, as the JAX package's laikago trainer
-    seeds its evals. ``log_fn(it, state, metrics)`` runs after each
+    an eval on ``eval_env`` (None: ``env``) whose reset noise comes from a
+    generator seeded ``1000 + 100000 * seed + it``, as the JAX package's
+    laikago trainer seeds its evals. ``log_fn(it, state, metrics)`` runs after each
     iteration. The metrics stay 0-dim tensors on the env's device: nothing
     here waits for the device, so the iterations queue back to back.
     Returns (state, history: the metrics of every iteration)."""
     state = init_ars(env, policy, seed) if state is None else state
     step_fn = make_train_step(env, policy, config)
-    eval_fn = make_eval(env, policy, config, eval_fn_num_rollouts)
+    eval_env = env if eval_env is None else eval_env
+    eval_fn = make_eval(eval_env, policy, config, eval_fn_num_rollouts)
     history = []
     for it in range(num_iterations):
         state, metrics = step_fn(state)
         if (it + 1) % config.eval_interval == 0:
-            eval_generator = torch.Generator(device=env.device).manual_seed(1000 + 100000 * seed + it)
+            eval_generator = torch.Generator(device=eval_env.device).manual_seed(1000 + 100000 * seed + it)
             metrics.update(eval_fn(state, eval_generator))
         history.append(metrics)
         if log_fn:

@@ -72,7 +72,7 @@ def _attachments(link_index, link, mesh_contacts) -> List[GeomAttachment]:
     for col in link.collisions:
         if col.geometry.geom_type == "mesh":
             if mesh_contacts > 0:
-                raise NotImplementedError("the mesh narrowphase is not ported to tds_tpu_torch yet")
+                raise NotImplementedError("URDF mesh contacts are not ported to tds_tpu_torch yet (ROADMAP Queue 1 item 9)")
             continue  # visual-only, as in the reference
         out.append(
             GeomAttachment(

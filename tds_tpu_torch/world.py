@@ -3,8 +3,9 @@ tds_tpu/world.py, MLCP contact only).
 
 The world is a static description; :func:`resolve_contacts` is a function
 over the tuple of body states. Pairs are enumerated in Python from the
-static geometry lists, producing fixed-size masked contact batches. The
-spring contact model is not ported yet and raises.
+static geometry lists, producing fixed-size masked contact batches. A
+terrain (``Heightfield`` or ``Mesh``) hangs on the zero-DoF ground body
+like the plane. The spring contact model is not ported yet and raises.
 """
 
 import dataclasses
@@ -47,8 +48,22 @@ def build_world(
     solver: ContactSolverParams = ContactSolverParams(),
     contact_model: str = "mlcp",
 ) -> World:
+    """The world of the given bodies. Raises NotImplementedError on a pair of
+    geoms that :func:`resolve_contacts` would collide and the port cannot
+    yet, here rather than at the first step."""
     if contact_model != "mlcp":
         raise NotImplementedError(f"contact_model={contact_model!r} is not ported to tds_tpu_torch yet")
+    for i, (body_a, geoms_a) in enumerate(bodies_and_geoms):
+        for body_b, geoms_b in bodies_and_geoms[i + 1 :]:
+            if body_a.dof_qd == 0 and body_b.dof_qd == 0:
+                continue
+            for ga in geoms_a:
+                for gb in geoms_b:
+                    if narrowphase.supported(ga.shape, gb.shape) and not narrowphase.ported(ga.shape, gb.shape):
+                        raise NotImplementedError(
+                            f"collision pair {type(ga.shape).__name__}-{type(gb.shape).__name__} is not ported to "
+                            "tds_tpu_torch yet"
+                        )
     return World(
         bodies=tuple(b for b, _ in bodies_and_geoms),
         geoms=tuple(tuple(g) for _, g in bodies_and_geoms),

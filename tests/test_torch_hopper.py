@@ -89,8 +89,8 @@ def test_reward_done(envs):
 def test_trainer_on_the_hopper(tmp_path):
     check_trainer("hopper", tmp_path)
     assert ars_train.parse_args(["--env", "hopper"]).checkpoint == "./logs/hopper_ars/policy_torch.pkl"
-    # every env of the JAX trainer but the terrain laikago is ported: an
-    # unknown name is refused by the argument parser
+    # every env of the JAX trainer is ported: an unknown name is refused by
+    # the argument parser
     with pytest.raises(SystemExit):
         ars_train.parse_args(["--env", "cartpole"])
 

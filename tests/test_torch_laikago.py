@@ -174,18 +174,23 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs, error",
     [
-        dict(is_floating=True),
-        dict(terrain=Sphere(1.0)),
-        dict(height_scan=((0.0, 0.0),)),
-        dict(reset_pool=(np.zeros((1, 18)), np.zeros((1, 18)))),
-        dict(contact_model="spring"),
+        (dict(is_floating=True), NotImplementedError),
+        # a terrain whose pair with the toes is not ported (sphere-sphere)
+        (dict(terrain=Sphere(1.0)), NotImplementedError),
+        # terrain, height_scan and reset_pool are ported: what they refuse
+        (dict(height_scan=((0.0, 0.0),)), ValueError),
+        (dict(reset_pool=(np.zeros((1, 17)), np.zeros((1, 18)))), ValueError),
+        (dict(contact_model="spring"), NotImplementedError),
     ],
     ids=["floating", "terrain", "height_scan", "reset_pool", "spring"],
 )
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(kwargs, error):
+    """Unported options raise NotImplementedError at construction; the
+    ported terrain options raise ValueError on what the JAX package
+    refuses (a height scan without a terrain, a pool of the wrong width)."""
+    with pytest.raises(error):
         LaikagoEnv(dtype=torch.float64, device="cpu", **kwargs)
 
 

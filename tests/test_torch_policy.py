@@ -148,6 +148,7 @@ assert "tds_tpu_torch.contact.pgs" in names and len(names) > 25, names
 assert set(("tds_tpu_torch.envs.fused_step", "tds_tpu_torch.tools.megastep", "tds_tpu_torch.tools.kernel_probe", "tds_tpu_torch.utils.op_count")) <= set(names), names
 assert set(("tds_tpu_torch.learn.ars", "tds_tpu_torch.envs.cartpole", "tds_tpu_torch.tools.ars_train")) <= set(names), names
 assert set(("tds_tpu_torch.envs.ant", "tds_tpu_torch.envs.hopper")) <= set(names), names
+assert set(("tds_tpu_torch.utils.obj", "tds_tpu_torch.utils.terrain", "tds_tpu_torch.collision.raycast")) <= set(names), names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
