@@ -5,8 +5,9 @@
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
-hopper rollouts, the humanoid and half-cheetah rollouts and the terrain
-laikago's rollout, replays and trainer through them.
+hopper rollouts, the humanoid and half-cheetah rollouts, the terrain
+laikago's rollout, replays and trainer, and gradients (the contact loss
+and APG through K1's backward kernel) through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -25,8 +26,9 @@ prints no final line:
    ``megastep.cu``, K3 and K4 ``probes.cu``;
 3. kernel: the PGS kernel against its plain PyTorch version on the card, on
    random problems and on the operands of one laikago step at batch 4096,
-   its refusal of an operand that requires grad (and the same result under
-   ``torch.no_grad()``), and both versions' times at the main path's shape
+   the gradient it carries to an operand that requires grad (its backward
+   kernel against the plain version's autograd; the same x with and
+   without grad), and both versions' times at the main path's shape
    (the kernel's also with 0 sweeps: the launch, the loads and the
    stores), with its launch shape there (lanes per env, envs per block,
    shared memory per block, resident warps per SM from the CUDA occupancy
@@ -149,20 +151,44 @@ prints no final line:
    --terrain_scan 0 --resume policy_b4c.pkl`` for 2 iterations and ``--env
    humanoid --reset_pool logs/humanoid_ars/pool_r5.npz`` for 1, their
    checkpoints read back;
+14. gradients, run before phase 11: (a) K1's backward kernel
+   (``csrc/pgs.cu``, through ``contact.pgs.PGSFunction``) against the
+   plain version's autograd at n = 12, 24, 48 (B = 4096) and 105 (B =
+   1024), float32 and float64, one and two sweeps, ties included, and on
+   the operands of a laikago step; its time (median of 100 launches), the
+   plain backward's, the bound and the launch shape; (b)
+   ``tests/test_contact_gradients.py``'s loss (``tools/contact_loss.py``)
+   over 500 float64 steps through graphs against central differences on
+   the card (rtol 2e-4), and over 100 steps within 1e-9 of the CPU's
+   gradient, with one backward kernel a replayed VJP step in a trace; (c)
+   APG (``learn/apg.py``): one float64 laikago train_step through graphs
+   equal bit for bit to ``graphs.eager()``'s, then the scaled recipe
+   (horizon 100, truncation 20, float32) at batch 4 and 4096 with K1's
+   forward and backward launches counted, ``apg_laikago_iterations_per_s``
+   and ``apg_laikago_env_steps_per_s``, the VJP graph's nodes, capture
+   seconds and memory, and one backward kernel a replayed step in a trace;
+   (d) ``logs/laikago_apg/policy_h100.pkl`` replayed for 500 steps from the
+   JAX package's reset (``tests/golden/laikago_apg_reset.json``) at
+   ``test_committed_apg_policy_walks``'s thresholds; (e) 25 APG
+   iterations of ``test_apg_through_laikago_contact``'s setup: finite
+   grad norms, the last 5 returns' mean above the first;
 11. graphs: every graph left alive by the run (nodes, capture and
-   instantiate seconds), the card's peak and reserved memory with all of
-   them, and the script's seconds against its 1200 s limit.
+   instantiate seconds), the VJP graphs, the card's peak and reserved
+   memory with all of them, and the script's seconds against its 1200 s
+   limit.
 
 The line before the last is the ``kernels`` JSON object (K1 once for each
 row count a main path runs, 12, 24, 48 and 105, the other row counts of
 phase 12 (a) and the terrain's n = 24 (``terrain_*``) inside the first;
-K2, K3, K4); the last line is
+K1's backward at n = 12, the other row counts inside it; K2, K3, K4); the
+last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
 
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import time
@@ -239,6 +265,21 @@ POOL = REPO / "logs" / "humanoid_ars" / "pool_r5.npz"
 # direction (3, 6, 8, 9), laikago (12), the ant and the hopper (24), the
 # half-cheetah (48), the ant without compaction (51), the humanoid (105)
 K1_ROWS, K1_BATCHES = (3, 6, 8, 9, 12, 24, 48, 51, 105), (1, 37, 4096)
+# phase 14: K1's backward at the paths' row counts and batches (laikago 12,
+# the ant, hopper and terrain 24, the half-cheetah 48, the humanoid 105 at
+# its batch 1024); tests/test_contact_gradients.py's 500-step loss and the
+# CPU test's 100 steps; examples/laikago_apg.py's scaled recipe (horizon
+# 100, truncation 20) at batch 4 and 4096, test_learn.py's laikago setup
+# (horizon 30, batch 2, truncation 10), and test_committed_apg_policy_walks's
+# replay of policy_h100.pkl (500 steps from the JAX package's reset)
+GRAD_ROWS = ((12, 4096), (24, 4096), (48, 4096), (105, 1024))
+CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 100
+APG_RECIPE = {"horizon": 100, "truncation": 20}
+APG_BATCHES, APG_TIMED_ITERATIONS = (4, 4096), 3
+APG_TEST = {"horizon": 30, "batch": 2, "truncation": 10}
+APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 25, 500
+APG_CHECKPOINT = REPO / "logs" / "laikago_apg" / "policy_h100.pkl"
+APG_RESET = REPO / "tests" / "golden" / "laikago_apg_reset.json"
 PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
 CHUNK_RUNS = 10  # alternating timed runs of each graph length of ARS's rollout
 
@@ -297,6 +338,37 @@ def grad_guard(label, fn, args, mark, launches):
         raise AssertionError(f"{label} under torch.no_grad(): {launches() - before} launches, or another result")
     log(f"{label}: refused under grad an operand that requires grad ({message.split(' (')[0]}); under "
         "torch.no_grad() the same call launched once and returned the same result bit for bit")
+
+
+def k1_grad_check(label, a, b, lo, hi, dep, it):
+    """K1 under grad with b requiring grad: the same x as without grad, one
+    forward and one backward launch, and b's gradient (for a cotangent of
+    ones) within rtol 1e-4 and atol 1e-5 max|grad| of the plain version's
+    autograd on the same tensors in float32 (1e-12 relative in float64);
+    under torch.no_grad() the same x again, carrying no grad."""
+    from tds_tpu_torch.contact import pgs
+
+    with torch.no_grad():
+        expected = pgs.solve_pgs(a, b, lo, hi, dep, it)
+    b_grad, b_ref = b.clone().requires_grad_(), b.clone().requires_grad_()
+    before = (pgs.launches, pgs.backward_launches)
+    x = pgs.solve_pgs(a, b_grad, lo, hi, dep, it)
+    (got,) = torch.autograd.grad(x.sum(), b_grad)
+    after = (pgs.launches, pgs.backward_launches)
+    (want,) = torch.autograd.grad(pgs.solve_pgs_reference(a, b_ref, lo, hi, dep, it).sum(), b_ref)
+    with torch.no_grad():
+        again = pgs.solve_pgs(a, b_grad, lo, hi, dep, it)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    rtol, atol = (1e-4, 1e-5 * scale) if b.dtype == torch.float32 else (1e-12, 1e-12 * scale)
+    err = (got - want).abs()
+    if after != (before[0] + 1, before[1] + 1) or not torch.equal(x.detach(), expected) or not torch.equal(again, expected) \
+            or again.requires_grad or (err - (atol + rtol * want.abs())).max().item() > 0:
+        raise AssertionError(f"{label} under grad: launches {before} -> {after}, or another x, or a gradient "
+                             f"{err.max().item():.3e} from the plain version's autograd")
+    log(f"{label}: carried the gradient of an operand that requires grad through its backward kernel (one forward and one "
+        f"backward launch): max |kernel - plain autograd| {err.max().item():.3e} (max |grad| {scale:.3g}); the same x "
+        "with and without grad, bit for bit")
 
 
 def card_peaks(name):
@@ -472,7 +544,7 @@ def phase_kernel(env, card):
         results.append({"case": label, "max_abs_err": err.max().item()})
 
     a, b, lo, hi, dep, it = main_args
-    grad_guard("kernel: K1", lambda *t: pgs.solve_pgs(*t, dep, it), (a, b, lo, hi), 1, lambda: pgs.launches)
+    k1_grad_check("kernel: K1", a, b, lo, hi, dep, it)
 
     # time both versions on the main path's own operands (A stays in L2, as
     # in the step, where the previous op just wrote it)
@@ -2227,6 +2299,348 @@ def phase_terrain(card, card_line):
     return summary
 
 
+# -- phase 14 --------------------------------------------------------------
+def k1_backward_bound(b, iterations, card):
+    """(ms for the bytes, ms for the flops, bytes, flops) of K1's backward
+    on operands whose b is ``b``: A's lower triangle read (all of A after
+    the first sweep), b, lo, hi, x after each sweep and x-bar read, A-bar
+    written whole (n * n), b-bar, lo-bar and hi-bar written, dep read once.
+    Per row of a sweep: 2 flops for each product and sum of p's row sum,
+    one for each A-bar entry and 2 for each x-bar update over the columns
+    it reads (i in the first sweep, n - 1 after), and about 20 for p, the
+    clip's adjoints and the bound and dependency terms."""
+    bsz, n = b.shape
+    a_values = n * (n + 1) // 2 if iterations <= 1 else n * n
+    size = b.element_size()
+    n_bytes = size * bsz * (a_values + n * n + 7 * n + (iterations - 1) * n) + 4 * n
+    first = sum(5 * i + 20 for i in range(n))
+    n_ops = bsz * (first + max(iterations - 1, 0) * n * (5 * (n - 1) + 20))
+    bandwidth, f32_rate, f64_rate = card
+    rate = f32_rate if b.dtype == torch.float32 else f64_rate
+    return n_bytes / bandwidth * 1e3, n_ops / rate * 1e3, n_bytes, n_ops
+
+
+def k1_backward_case(label, operands, dep, it, card, gen, timing=True):
+    """K1's backward kernel against the plain version's autograd on the
+    same operands and cotangent: the largest difference (raising past
+    rtol 1e-4 and atol 1e-5 max|grad| in float32, 1e-12 relative in
+    float64), and with ``timing`` the kernel's device time (median of 100
+    launches), the plain backward's (event spans around single calls, the
+    host's pace in them), the bound and the launch shape."""
+    from tds_tpu_torch.contact import pgs
+
+    a, b, lo, hi = operands
+    bsz, n = b.shape
+    dep = tuple(dep)
+    with torch.no_grad():
+        x = pgs.solve_pgs(a, b, lo, hi, dep, it)
+    x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar)
+    inputs = [t.clone().requires_grad_() for t in operands]
+    with torch.enable_grad():
+        ref_x = pgs.solve_pgs_reference(*inputs, dep, it)
+        want = torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True)
+    torch.cuda.synchronize()
+    worst, margin = 0.0, float("inf")
+    for name, g, w in zip(("A", "b", "lo", "hi"), got, want):
+        scale = w.abs().max().item()
+        rtol, atol = (1e-4, 1e-5 * scale) if b.dtype == torch.float32 else (1e-12, 1e-12 * scale)
+        err = (g - w).abs()
+        over = (err - (atol + rtol * w.abs())).max().item()
+        if not bool(torch.isfinite(g).all()) or over > 0:
+            raise AssertionError(f"K1's backward disagrees with the plain version's autograd on {label} in {name}: "
+                                 f"max |kernel - plain| {err.max().item():.3e} (max |grad| {scale:.3e})")
+        worst, margin = max(worst, err.max().item()), min(margin, -over)
+    out = {"max_abs_err": worst, "margin": margin}
+    if not timing:
+        return out
+    ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar), rounds=5, per_round=20)
+    plain_ms = span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=5)
+    t_bytes, t_ops, n_bytes, n_ops = k1_backward_bound(b, it, card)
+    shape = pgs.launch_shape(b.dtype, n, bsz, backward=True)
+    log(f"gradients (a): K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]}: {ms * 1e3:.2f} us on the device, "
+        f"plain backward {plain_ms * 1e3:.1f} us (event span, host-paced), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+        f"({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound; max |kernel - plain| {worst:.3e}")
+    log_launch_shape(f"gradients (a): K1 backward B={bsz} n={n} {str(b.dtype)[6:]}", shape)
+    out.update(ms=ms, plain_ms=plain_ms, plain_timing="event span, host-paced", bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", shape=f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
+               **launch_fields(shape))
+    return out
+
+
+def gradients_kernel(card):
+    """(a): K1's backward against the plain version's autograd at the row
+    counts and batches of the paths (12 and 24 at B = 4096, 48 at 4096, 105
+    at 1024), float32 and float64, one sweep and two, on random problems
+    with the ties of tests/test_torch_pgs_grad.py in them; then on the
+    float32 operands of a laikago step at B = 4096 with contacts active;
+    timed in float32 at one sweep."""
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = {}
+    for n, batch in GRAD_ROWS:
+        for dtype in (torch.float64, torch.float32):
+            for it in (2, 1):
+                operands, dep = random_rows_problem(batch, n, dtype, gen)
+                n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
+                a, b = operands[0], operands[1]
+                # env 1 with every normal impulse at 0, env 2 with b = 0
+                b[1, :n_c] = -10.0 * b[1, :n_c].abs() - 50.0 * a[1, :n_c, :n_c].abs().sum(-1) - 1.0
+                b[2] = 0.0
+                timing = dtype == torch.float32 and it == 1
+                case = k1_backward_case(f"random {'(timed)' if timing else ''}".strip(), operands, dep, it, card, gen, timing)
+                if timing:
+                    rows[n] = case
+                else:
+                    log(f"gradients (a): K1 backward random B={batch} n={n} it={it} {str(dtype)[6:]}: max |kernel - plain| "
+                        f"{case['max_abs_err']:.3e}, margin {case['margin']:.3e} under the tolerance")
+    env = LaikagoEnv(dtype=torch.float32)
+    a, b, lo, hi, dep, it = harvest_pgs_operands(env, gen, ROLLOUT_STEPS, "laikago", "gradients (a)")
+    rows[12].update({f"laikago_{k}": v for k, v in k1_backward_case("laikago step", [a, b, lo, hi], dep, it, card, gen).items()
+                     if k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    return rows
+
+
+def gradients_contact_loss(card_line):
+    """(b): tools/contact_loss.py's loss, tests/test_contact_gradients.py's,
+    over 500 float64 steps on the card through graphs: its gradient against
+    central differences on the card (rtol 2e-4, the test's eps); then over
+    the CPU test's 100 steps, the card's gradient within 1e-9 relative of
+    the CPU's; K1's backward kernels in a trace of a replayed 20-step
+    gradient (one a step)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.tools import contact_loss
+
+    out = {}
+    env = LaikagoEnv(dtype=torch.float64)
+    q0, qd0, link = contact_loss.sliding_start(env)
+    loss = contact_loss.make_loss(env, q0, qd0, link, CONTACT_LOSS_STEPS)
+    contact_loss.gradient(loss, contact_loss.POINT, torch.float64, "cuda")  # the captures
+    (value, grad), grad_s = timed_call(lambda: contact_loss.gradient(loss, contact_loss.POINT, torch.float64, "cuda"))
+    fd, fd_s = timed_call(lambda: contact_loss.central_differences(loss, contact_loss.POINT, contact_loss.FD_EPS, torch.float64, "cuda"))
+    rel = ((grad - fd).abs() / fd.abs()).max().item()
+    log(f"gradients (b): the {CONTACT_LOSS_STEPS}-step contact loss {value.item():.12g} on the card (float64): gradient "
+        f"(kp, mass scale, friction) {[f'{v:.10e}' for v in grad.tolist()]} in {grad_s:.2f} s wall, central differences "
+        f"{[f'{v:.10e}' for v in fd.tolist()]} in {fd_s:.2f} s; largest relative difference {rel:.2e} (rtol 2e-4)")
+    if not bool(torch.isfinite(grad).all()) or rel > 2e-4 or grad.abs().min().item() == 0:
+        raise AssertionError(f"gradients (b): the card's gradient {grad.tolist()} disagrees with central differences {fd.tolist()}")
+    out.update(contact_loss_grad_s=grad_s, contact_loss_fd_s=fd_s, contact_loss_fd_rel=rel)
+    # the CPU test's horizon: the card against the CPU
+    short = contact_loss.make_loss(env, q0, qd0, link, CONTACT_LOSS_CPU_STEPS)
+    card = contact_loss.gradient(short, contact_loss.POINT, torch.float64, "cuda")[1].cpu()
+    cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu")
+    cq0, cqd0, _ = contact_loss.sliding_start(cpu_env)
+    (_, cpu), cpu_s = timed_call(lambda: contact_loss.gradient(contact_loss.make_loss(cpu_env, cq0, cqd0, link, CONTACT_LOSS_CPU_STEPS),
+                                                               contact_loss.POINT, torch.float64, "cpu"))
+    rel_cpu = ((card - cpu).abs() / cpu.abs()).max().item()
+    log(f"gradients (b): over {CONTACT_LOSS_CPU_STEPS} steps the card's gradient {[f'{v:.12e}' for v in card.tolist()]} against "
+        f"the CPU's {[f'{v:.12e}' for v in cpu.tolist()]} ({cpu_s:.1f} s): largest relative difference {rel_cpu:.2e} (1e-9)")
+    if rel_cpu > 1e-9:
+        raise AssertionError(f"gradients (b): the card's gradient differs from the CPU's by {rel_cpu:.2e} relative")
+    out["contact_loss_card_vs_cpu_rel"] = rel_cpu
+    traced = contact_loss.make_loss(env, q0, qd0, link, PROFILE_STEPS)
+    contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda")
+    _, _, _, count = counted_trace(lambda: contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda"),
+                                   "pgs_backward", PROFILE_STEPS)
+    log(f"gradients (b): a replayed {PROFILE_STEPS}-step gradient ran K1's backward kernel {count} times (torch.profiler)")
+    if count != PROFILE_STEPS:
+        raise AssertionError(f"gradients (b): {count} backward kernels in {PROFILE_STEPS} replayed VJP steps")
+    return out
+
+
+def apg_setup(dtype, batch, horizon, truncation, learning_rate=5e-3):
+    """(env, policy, reward, config, train_step) of examples/laikago_apg.py's
+    APG: an MLP [32, 12] with tanh, the forward-progress reward, on a new
+    env (so that its graphs are captured in the caller's count)."""
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import apg
+    from tds_tpu_torch.tools.apg_train import forward_reward, make_policy
+
+    env = LaikagoEnv(dtype=dtype)
+    policy, reward = make_policy(env), forward_reward(env)
+    cfg = apg.APGConfig(horizon=horizon, batch=batch, learning_rate=learning_rate, truncation=truncation)
+    return env, policy, reward, cfg, apg.make_apg_train_step(env, policy, cfg, reward_fn=reward)
+
+
+def apg_recipe(batch, card_line):
+    """The scaled recipe (horizon 100, truncation 20, float32) at ``batch``:
+    one iteration (the captures), then APG_TIMED_ITERATIONS timed ones,
+    K1's forward and backward wrapper launches counted from 0 just before
+    them and read just after; the VJP graph's nodes, capture seconds and
+    memory; the bench lines."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.learn import apg
+    from tds_tpu_torch.utils import graphs
+
+    env, policy, reward, cfg, train = apg_setup(torch.float32, batch, APG_RECIPE["horizon"], APG_RECIPE["truncation"])
+    state = apg.init_apg(env, policy, 0, cfg)
+    cached = graphs.stats()
+    pgs.launches = pgs.backward_launches = 0
+    (state, metrics), first_s = timed_call(lambda: train(state))
+    launches, backward_launches = pgs.launches, pgs.backward_launches
+    timed = []
+    for _ in range(APG_TIMED_ITERATIONS):
+        (state, metrics), s = timed_call(lambda: train(state))
+        timed.append(s)
+    if (pgs.launches, pgs.backward_launches) != (launches, backward_launches) or backward_launches != 2:
+        raise AssertionError(f"APG at batch {batch}: K1 launched {pgs.launches} and its backward {pgs.backward_launches} "
+                             f"times, {launches} and {backward_launches} in the first iteration; the VJP graph's warm-up "
+                             "and capture launch the backward twice, a replay never")
+    # the VJP graph's warm-up and capture run the step, and K1, too
+    check_wrapper_launches(f"APG at batch {batch}", "PGS", launches - backward_launches, cached)
+    best = min(timed)
+    its = 1 / best
+    steps = its * batch * cfg.horizon
+    # the forward alone: the rollout's return through the one-step graph, no grad
+    starts = apg.draw_starts(env, state.generator, batch)
+    with torch.no_grad():
+        forward_s = min(timed_call(lambda: apg.rollout_return(env, policy, cfg, state.params, *starts, reward))[1] for _ in range(3))
+    vjp = [s for s in graphs.vjp_stats() if s.key[0] == "apg" and s.key[1] is env]
+    if len(vjp) != 1 or not bool(torch.isfinite(state.params).all()) or not bool(torch.isfinite(metrics["grad_norm"])):
+        raise AssertionError(f"APG at batch {batch}: {len(vjp)} VJP graphs, or a non-finite result")
+    g = vjp[0]
+    log(f"gradients (c): APG scaled recipe (horizon {cfg.horizon}, truncation {cfg.truncation}, float32) at batch {batch}: "
+        f"first iteration {first_s:.2f} s (with the captures), then {[round(s, 4) for s in timed]} s; best {best:.4f} s = "
+        f"{its:.3f} iterations/s = {steps:.1f} env-steps/s; the forward alone (no grad) {forward_s:.4f} s = "
+        f"{forward_s * 1e3 / cfg.horizon:.3f} ms/step; return {metrics['mean_return'].item():.4f}, |g| "
+        f"{metrics['grad_norm'].item():.4g}; K1 launches {launches} and backward launches {backward_launches} (warm-ups and "
+        f"captures); VJP graph {g.nodes} nodes, captured in {g.capture_s:.3f} s, instantiated in {g.instantiate_s:.3f} s, "
+        f"{g.reserved_bytes / 2**20:.1f} MiB reserved for it")
+    bench_line("apg_laikago_iterations_per_s", its, "iterations/s", card_line, batch=batch, horizon=cfg.horizon,
+               truncation=cfg.truncation, best_s=best)
+    bench_line("apg_laikago_env_steps_per_s", steps, "steps/s", card_line, batch=batch, horizon=cfg.horizon,
+               truncation=cfg.truncation, best_s=best)
+    numbers = {"iterations_per_s": its, "env_steps_per_s": steps, "first_s": first_s, "timed_s": timed, "forward_s": forward_s,
+               "vjp_nodes": g.nodes, "vjp_capture_s": g.capture_s, "vjp_reserved_bytes": g.reserved_bytes,
+               "launches": launches, "backward_launches": backward_launches}
+    return {f"apg_b{batch}_{k}": v for k, v in numbers.items()}, (env, policy, reward, cfg, state)
+
+
+def gradients_apg(card_line):
+    """(c): one float64 laikago train_step (test_learn.py's setup) through
+    graphs against the same inside graphs.eager(), bit for bit; the scaled
+    recipe at batch 4 (the main path: its K1 launches feed the kernels
+    line) and 4096; K1's backward kernels in a trace of a replayed
+    PROFILE_STEPS-step train_step at batch 4 (one a step)."""
+    from tds_tpu_torch.learn import apg
+    from tds_tpu_torch.utils import graphs
+
+    env, policy, _, cfg, train = apg_setup(torch.float64, APG_TEST["batch"], APG_TEST["horizon"], APG_TEST["truncation"])
+    state = apg.init_apg(env, policy, 0, cfg)
+    starts = apg.draw_starts(env, torch.Generator(device="cuda").manual_seed(3), cfg.batch)
+    got, metrics = train(state, starts=starts)
+    with graphs.eager():
+        want, want_metrics = train(state, starts=starts)
+    pairs = [(got.params, want.params), (got.opt_state.mu, want.opt_state.mu), (got.opt_state.nu, want.opt_state.nu),
+             (metrics["mean_return"], want_metrics["mean_return"]), (metrics["grad_norm"], want_metrics["grad_norm"])]
+    worst = max((g - w).abs().max().item() for g, w in pairs)
+    log(f"gradients (c): one float64 laikago train_step (horizon {cfg.horizon}, batch {cfg.batch}, truncation "
+        f"{cfg.truncation}) through graphs against graphs.eager(): max |graph - eager| = {worst} over params, Adam moments, "
+        f"return and |g| (return {metrics['mean_return'].item():.12g}, |g| {metrics['grad_norm'].item():.12g})")
+    if worst != 0:
+        raise AssertionError(f"gradients (c): the graph train_step differs from the eager one by {worst:.3e}")
+    out = {"apg_graph_vs_eager_max_abs": worst}
+    main = None
+    for batch in APG_BATCHES:
+        numbers, objects = apg_recipe(batch, card_line)
+        out.update(numbers)
+        main = main or objects
+    env, policy, reward, cfg, state = main
+    short = apg.make_apg_train_step(env, policy, cfg._replace(horizon=PROFILE_STEPS), reward_fn=reward)
+    profile = device_profile(lambda: short(state), calls=1, kernel="pgs_backward", expected=PROFILE_STEPS)
+    if profile is None:
+        raise AssertionError("gradients (c): the profiler saw no device activity in a train_step")
+    ops, busy, wall, count = profile
+    log(f"gradients (c): a replayed {PROFILE_STEPS}-step train_step at batch {cfg.batch} (with its reset's "
+        f"{env.settle_steps} settle steps): {ops:.0f} device operations, device busy {busy:.3f} of {wall:.3f} ms wall under "
+        f"torch.profiler ({100 * (1 - busy / wall):.1f}% idle), K1's backward kernel {count:.0f} times")
+    if count != PROFILE_STEPS:
+        raise AssertionError(f"gradients (c): {count} backward kernels in {PROFILE_STEPS} replayed VJP steps")
+    out.update(backward_replayed_launches_per_step=count / PROFILE_STEPS, apg_train_step_device_ops=ops,
+               apg_train_step_idle=1 - busy / wall)
+    return out
+
+
+def gradients_apg_policy():
+    """(d): logs/laikago_apg/policy_h100.pkl replayed in float32 through
+    graphs for 500 steps from the JAX package's reset(PRNGKey(5))
+    (tests/golden/laikago_apg_reset.json), held to
+    test_committed_apg_policy_walks's thresholds: no done, dx > 0.25 m,
+    up.z above 0.8 throughout."""
+    import pickle
+
+    from tds_tpu_torch.convert import mlp_params_from_numpy
+    from tds_tpu_torch.envs.base import EnvState
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.tools.apg_train import make_policy, replay
+
+    env = LaikagoEnv(dtype=torch.float32)
+    with open(APG_CHECKPOINT, "rb") as f:
+        params = mlp_params_from_numpy(pickle.load(f)["params"], dtype=torch.float32)
+    golden = json.loads(APG_RESET.read_text())
+    q, qd = (torch.tensor([golden[k]], dtype=torch.float32, device="cuda") for k in ("q", "qd"))
+    start = EnvState(q, qd, torch.zeros(1, dtype=torch.int32, device="cuda"))
+    (dx, up_min, done), seconds = timed_call(lambda: replay(env, make_policy(env), params, start, APG_REPLAY_STEPS))
+    dx, up_min, done = float(dx[0]), float(up_min[0]), bool(done[0])
+    log(f"gradients (d): policy_h100.pkl, {APG_REPLAY_STEPS} steps from the JAX package's reset(PRNGKey(5)) through graphs "
+        f"in {seconds:.2f} s: dx {dx:.4f} m (> 0.25), up_min {up_min:.4f} (> 0.8), done {done}")
+    if done or not dx > 0.25 or not up_min > 0.8:
+        raise AssertionError(f"gradients (d): policy_h100.pkl fails its thresholds on the card: dx {dx}, up_min {up_min}, done {done}")
+    return {"apg_policy_dx": dx, "apg_policy_up_min": up_min}
+
+
+def gradients_apg_learning():
+    """(e): 25 APG iterations of test_learn.py's
+    test_apg_through_laikago_contact setup (float32, horizon 30, batch 2,
+    truncation 10, learning rate 5e-3) on the card: every grad norm
+    finite, the mean of the last 5 returns above the first."""
+    from tds_tpu_torch.learn import apg
+
+    env, policy, _, cfg, train = apg_setup(torch.float32, APG_TEST["batch"], APG_TEST["horizon"], APG_TEST["truncation"])
+    state = apg.init_apg(env, policy, 0, cfg)
+    returns, norms = [], []
+    t0 = time.perf_counter()
+    for _ in range(APG_LEARN_ITERATIONS):
+        state, metrics = train(state)
+        returns.append(metrics["mean_return"].item())
+        norms.append(metrics["grad_norm"].item())
+    seconds = time.perf_counter() - t0
+    late = sum(returns[-5:]) / 5
+    log(f"gradients (e): {APG_LEARN_ITERATIONS} APG iterations (horizon {cfg.horizon}, batch {cfg.batch}, truncation "
+        f"{cfg.truncation}) in {seconds:.2f} s: returns {[round(r, 4) for r in returns]}; last 5 mean {late:.4f} against the "
+        f"first {returns[0]:.4f}; |g| in [{min(norms):.4g}, {max(norms):.4g}]")
+    if not all(math.isfinite(g) for g in norms) or not late > returns[0]:
+        raise AssertionError("gradients (e): a grad norm is not finite, or the late returns do not beat the first")
+    return {"apg_learn_first_return": returns[0], "apg_learn_last5_mean": late, "apg_learn_s": seconds}
+
+
+def phase_gradients(card, card_line):
+    """Phase 14: gradients through the port on the card. Returns K1's
+    backward entry of the kernels line."""
+    rows = gradients_kernel(card)
+    out = gradients_contact_loss(card_line)
+    out.update(gradients_apg(card_line))
+    out.update(gradients_apg_policy())
+    out.update(gradients_apg_learning())
+    main = rows[12]
+    entry = {
+        "name": "pgs backward",
+        "route": "cuda",
+        "source": "tds_tpu_torch/csrc/pgs.cu",
+        "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel; its gradient is jax.grad of tds_tpu/contact/mlcp.py:94 solve_pgs)",
+        "launches": out[f"apg_b{APG_BATCHES[0]}_backward_launches"],
+        "library_ms": None,
+        "main_path": f"APG scaled recipe at batch {APG_BATCHES[0]} (c)",
+        **{k: v for k, v in main.items() if k != "margin"},
+        "row_counts": [{"rows": n, **{k: v for k, v in case.items() if k != "margin"}} for n, case in sorted(rows.items()) if n != 12],
+        **out,
+    }
+    log(f"gradients: {json.dumps({k: v for k, v in entry.items() if k != 'row_counts'})}")
+    return entry
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
     t0 = time.perf_counter()
@@ -2245,7 +2659,13 @@ def phase_graphs(start_s):
         key = g.key if isinstance(g.key, str) else (g.key[0], type(g.key[1]).__name__, *g.key[2:])
         log(f"graphs: {key} at batch {g.batch}: {g.steps} step(s) per replay, {g.nodes} nodes, capture "
             f"{g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s")
+    vjp = graphs.vjp_stats()
+    for g in vjp:
+        key = (g.key[0], type(g.key[1]).__name__)
+        log(f"graphs: VJP graph {key} at batch {g.batch}: {g.nodes} nodes, capture {g.capture_s:.3f} s, instantiate "
+            f"{g.instantiate_s:.3f} s, {g.reserved_bytes / 2**20:.1f} MiB reserved at its capture")
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
+    log(f"graphs: {len(vjp)} VJP graphs alive, {sum(g.nodes for g in vjp)} nodes")
     log(f"graphs: {len(cached)} graphs alive, {sum(g.nodes for g in cached)} nodes, captured in "
         f"{sum(g.capture_s for g in cached):.1f} s and instantiated in {sum(g.instantiate_s for g in cached):.1f} s; "
         f"torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB over the run, memory_reserved {reserved / 2**20:.1f} MiB "
@@ -2299,11 +2719,12 @@ def main():
     kernel.update(timed(phase_ant, card, card_line))
     k1_rows, humanoid = timed(phase_humanoid, card, card_line)
     terrain = timed(phase_terrain, card, card_line)
+    backward = timed(phase_gradients, card, card_line)
     kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
     kernel.update(humanoid)
     kernel.update(terrain)
     kernel.update(timed(phase_graphs, start_s))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -81,7 +81,9 @@ def motion_subspace(joint_type: JointType, axis):
     if joint_type in (JointType.PRISMATIC_AXIS, JointType.REVOLUTE_AXIS):
         s[half] = axis
     else:
-        s[half.start + _AXIS_OF[joint_type]] = 1.0
+        # fill_ on a view copies nothing from the host, so a model rebuilt
+        # inside a CUDA graph capture (a mass scale under grad) recomputes it
+        s[half.start + _AXIS_OF[joint_type]].fill_(1.0)
     return s
 
 

@@ -40,7 +40,7 @@ _FREE = {
     aten.squeeze, aten.unsqueeze, aten.select, aten.slice, aten.alias, aten.clone, aten.copy_,
     aten._to_copy, aten.cat, aten.stack, aten.unbind, aten.index, aten.index_copy,
     aten.zeros_like, aten.new_zeros, aten.ones_like, aten.full_like, aten.eye,
-    aten.neg, aten.clamp, aten.clamp_min, aten.where, aten.lt, aten.gt,
+    aten.neg, aten.clamp, aten.clamp_min, aten.maximum, aten.minimum, aten.where, aten.lt, aten.gt,
 }
 
 

@@ -1,5 +1,5 @@
-"""Device selection, cached constant tensors, and the hand-written kernels'
-refusal of gradients they cannot carry."""
+"""Device selection, cached constant tensors, and a hand-written kernel's
+refusal of gradients it cannot carry."""
 
 import functools
 
@@ -29,10 +29,10 @@ def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def refuse_grad(kernel: str, tensors) -> None:
     """Raise when autograd would record a graph through ``kernel``: grad is
-    enabled and one of ``tensors`` requires grad. The kernels write their
-    outputs through raw pointers and have no backward yet (ROADMAP Queue 1
-    item 5), so their results would carry no gradient; under
-    ``torch.no_grad()`` they run."""
+    enabled and one of ``tensors`` requires grad. K2 writes its outputs
+    through raw pointers and has no backward yet (ROADMAP Queue 1 item 5),
+    so its results would carry no gradient; under ``torch.no_grad()`` it
+    runs."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"the {kernel} kernel has no backward yet (ROADMAP Queue 1 item 5) and would drop the gradient of its "

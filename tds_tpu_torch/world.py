@@ -6,6 +6,13 @@ over the tuple of body states. Pairs are enumerated in Python from the
 static geometry lists, producing fixed-size masked contact batches. A
 terrain (``Heightfield`` or ``Mesh``) hangs on the zero-DoF ground body
 like the plane. The spring contact model is not ported yet and raises.
+
+``friction_mode`` picks each candidate's friction and restitution:
+``"geom_min"`` (the default) the lesser friction and the greater
+restitution of the pair's two geoms, ``"world_default"`` the solver's
+``friction`` and ``restitution`` (the reference's semantics), which may be
+tensors that require grad: friction system identification differentiates
+through them.
 """
 
 import dataclasses
@@ -24,12 +31,20 @@ from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_r
 from tds_tpu_torch.utils.tensors import constant
 
 
+FRICTION_MODES = ("geom_min", "world_default")
+
+
 @dataclasses.dataclass(frozen=True)
 class World:
     bodies: Tuple[MultiBodyModel, ...]
     geoms: Tuple[Tuple[GeomAttachment, ...], ...]
     solver: ContactSolverParams = ContactSolverParams()
     contact_model: str = "mlcp"
+    friction_mode: str = "geom_min"
+
+    def __post_init__(self):
+        if self.friction_mode not in FRICTION_MODES:
+            raise ValueError(f"friction_mode must be one of {FRICTION_MODES}, got {self.friction_mode!r}")
 
     @property
     def num_bodies(self):
@@ -47,6 +62,7 @@ def build_world(
     bodies_and_geoms: Sequence[Tuple[MultiBodyModel, Sequence[GeomAttachment]]],
     solver: ContactSolverParams = ContactSolverParams(),
     contact_model: str = "mlcp",
+    friction_mode: str = "geom_min",
 ) -> World:
     """The world of the given bodies. Raises NotImplementedError on a pair of
     geoms that :func:`resolve_contacts` would collide and the port cannot
@@ -69,6 +85,7 @@ def build_world(
         geoms=tuple(tuple(g) for _, g in bodies_and_geoms),
         solver=solver,
         contact_model=contact_model,
+        friction_mode=friction_mode,
     )
 
 
@@ -88,7 +105,8 @@ def gather_pair_contacts(world: World, kin_list, pair_a: int, pair_b: int, like:
     """All candidate contacts between every geom of body a and of body b,
     concatenated with static link ids; ``like`` sets dtype and device. A
     pair's friction is the lesser of its two geoms' and its restitution the
-    greater (the JAX package's default ``friction_mode="geom_min"``)."""
+    greater under ``friction_mode="geom_min"``, the solver's under
+    ``"world_default"``."""
     contacts: List[Contact] = []
     link_a: List[int] = []
     link_b: List[int] = []
@@ -108,13 +126,27 @@ def gather_pair_contacts(world: World, kin_list, pair_a: int, pair_b: int, like:
             restitutions += [max(ga.restitution, gb.restitution)] * c.count
     if not contacts:
         return None
+    if world.friction_mode == "world_default":
+        friction = _broadcast(world.solver.friction, len(link_a), like)
+        restitution = _broadcast(world.solver.restitution, len(link_a), like)
+    else:
+        friction = constant(tuple(frictions), like.dtype, like.device)
+        restitution = constant(tuple(restitutions), like.dtype, like.device)
     return ContactBatch(
         contact=Contact.concatenate(contacts),
         link_a=tuple(link_a),
         link_b=tuple(link_b),
-        friction=constant(tuple(frictions), like.dtype, like.device),
-        restitution=constant(tuple(restitutions), like.dtype, like.device),
+        friction=friction,
+        restitution=restitution,
     )
+
+
+def _broadcast(value, count: int, like: torch.Tensor) -> torch.Tensor:
+    """A solver coefficient for ``count`` candidates: a tensor (which may
+    require grad) broadcast as it is, a number as a cached constant."""
+    if isinstance(value, torch.Tensor):
+        return value.to(like.device, like.dtype).expand(count)
+    return constant((float(value),) * count, like.dtype, like.device)
 
 
 def resolve_contacts(world: World, qs, qds, dt, kins=None, factors=None):

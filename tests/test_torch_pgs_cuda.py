@@ -3,8 +3,12 @@ version: float32 at rtol 1e-5 / atol 1e-6 (tests/test_pallas_pgs.py's
 tolerance), float64 at atol 1e-12 for the row-per-lane kernel (n <= 32) and
 at 1e-12 relative for the warp per env (n > 32, whose sums run in another
 order), at batches that fill no whole block of groups and at every row
-count of chip_smoke.py's phase 12 (a); and its launch shape on the card. Every test here needs the card and skips
-without one. The file imports neither JAX nor the JAX package, so on a
+count of chip_smoke.py's phase 12 (a); and its launch shape on the card.
+K1's backward kernel against the plain version's autograd on the same CUDA
+tensors at the row counts of the paths and of both forms, one and two
+sweeps, ties included: float64 within 1e-12 relative, float32 within rtol
+1e-4 and atol 1e-5 max|grad|; a double backward and forward mode raise.
+Every test here needs the card and skips without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_pgs_cuda.py -q
@@ -124,17 +128,97 @@ def test_cuda_kernel_refuses_mixed_dtypes_and_strides(cuda_device):
 
 
 def test_cuda_kernel_refuses_gradients_it_would_drop(cuda_device):
-    """K1 has no backward: under grad, an operand that requires grad is
-    refused; under torch.no_grad() the same call returns what it returns
-    without one."""
+    """K1 drops no gradient now: under grad, an operand that requires grad
+    gets its gradient from the backward kernel (one launch), equal to the
+    plain version's autograd on the same CUDA tensors; under
+    torch.no_grad() the same call returns what it returns without grad."""
     a, b, lo, hi = (torch.from_numpy(x).to(cuda_device) for x in _problem(21, 4, seed=2)[:4])
     dep = _problem(21, 4, seed=2)[4]
     expected = pgs.solve_pgs(a, b, lo, hi, dep, 2)
-    before = pgs.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        pgs.solve_pgs(a, b.clone().requires_grad_(), lo, hi, dep, 2)
-    assert pgs.launches == before
+    b_grad = b.clone().requires_grad_()
+    before = pgs.backward_launches
+    x = pgs.solve_pgs(a, b_grad, lo, hi, dep, 2)
+    assert torch.equal(x.detach(), expected) and x.requires_grad
+    (got,) = torch.autograd.grad(x.sum(), b_grad)
+    assert pgs.backward_launches == before + 1
+    b_ref = b.clone().requires_grad_()
+    (want,) = torch.autograd.grad(pgs.solve_pgs_reference(a, b_ref, lo, hi, dep, 2).sum(), b_ref)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * want.abs().max().item())
     with torch.no_grad():
         got = pgs.solve_pgs(a.clone().requires_grad_(), b.clone().requires_grad_(), lo, hi, dep, 2)
     torch.cuda.synchronize()
     assert torch.equal(got, expected) and not got.requires_grad
+
+
+# K1's backward: the row counts of the paths (12, 24, 48, 105), the padded
+# instances (3, 8) and the smallest warp per env (33)
+GRAD_ROWS = (3, 8, 12, 24, 33, 48, 105)
+
+
+def _ties(a, b, n):
+    """Env 1 with every normal impulse at exactly 0 (its friction rows at
+    s = 0) and env 2 with b = 0 (x = 0 everywhere): the kinks."""
+    n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
+    b[1, :n_c] = -10.0 * np.abs(b[1, :n_c]) - 50.0 * np.abs(a[1, :n_c, :n_c]).sum(-1) - 1.0
+    b[2] = 0.0
+
+
+@pytest.mark.parametrize("iterations", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", GRAD_ROWS)
+def test_backward_kernel_matches_plain_autograd(cuda_device, monkeypatch, n, dtype, iterations):
+    """The gradients of A, b, lo and hi for a random cotangent: the
+    backward kernel against the plain version's autograd on the same CUDA
+    tensors, at a batch that fills no whole block, ties included; float64
+    within 1e-12 relative, float32 within rtol 1e-4 and atol 1e-5 max|grad|.
+    The plain version is never reached through the wrapper."""
+    a, b, lo, hi, dep = _rows_problem(37, n, seed=n + iterations)
+    _ties(a, b, n)
+    x_bar = torch.from_numpy(np.random.default_rng(n).normal(size=b.shape)).to(cuda_device, dtype)
+    operands = [torch.from_numpy(x).to(cuda_device, dtype) for x in (a, b, lo, hi)]
+    ref_inputs = [t.clone().requires_grad_() for t in operands]
+    want = torch.autograd.grad(pgs.solve_pgs_reference(*ref_inputs, dep, iterations), ref_inputs, x_bar)
+    inputs = [t.clone().requires_grad_() for t in operands]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain PGS ran on a CUDA tensor")
+
+    monkeypatch.setattr(pgs, "solve_pgs_reference", refuse)
+    before = pgs.backward_launches
+    got = torch.autograd.grad(pgs.solve_pgs(*inputs, dep, iterations), inputs, x_bar)
+    torch.cuda.synchronize()
+    assert pgs.backward_launches == before + 1
+    for name, g, w in zip(("A", "b", "lo", "hi"), got, want):
+        scale = w.abs().max().item()
+        if dtype == torch.float64:
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * scale, msg=lambda m: f"{name}: {m}")
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale, msg=lambda m: f"{name}: {m}")
+
+
+def test_backward_has_a_launch_shape_without_local_memory(cuda_device):
+    for dtype in (torch.float32, torch.float64):
+        for n in GRAD_ROWS:
+            shape = pgs.launch_shape(dtype, n, 4096, backward=True)
+            assert shape["blocks_per_sm"] >= 1 and shape["local_bytes"] == 0, (dtype, n, shape)
+
+
+def test_second_derivative_and_forward_mode_raise(cuda_device):
+    """once_differentiable: a double backward raises; forward mode
+    (torch.func.jacfwd, forward AD) raises NotImplementedError that names
+    the ROADMAP item."""
+    from tds_tpu_torch.utils.diff import DiffMethod, GradientFunctional
+
+    a, b, lo, hi, dep = (torch.from_numpy(x).to(cuda_device) if isinstance(x, np.ndarray) else x for x in _rows_problem(5, 12, seed=3))
+    b = b.clone().requires_grad_()
+    x = pgs.solve_pgs(a, b, lo, hi, dep, 1)
+    (g,) = torch.autograd.grad((x**2).sum(), b, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), b)
+    f = GradientFunctional(lambda v: pgs.solve_pgs(a, v.reshape(b.shape), lo, hi, dep, 1).sum(), method=DiffMethod.FORWARD)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        f.gradient(b.detach().reshape(-1))
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level(), pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        pgs.solve_pgs(a, fwAD.make_dual(b.detach(), torch.ones_like(b)), lo, hi, dep, 1)

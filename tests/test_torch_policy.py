@@ -149,6 +149,7 @@ assert set(("tds_tpu_torch.envs.fused_step", "tds_tpu_torch.tools.megastep", "td
 assert set(("tds_tpu_torch.learn.ars", "tds_tpu_torch.envs.cartpole", "tds_tpu_torch.tools.ars_train")) <= set(names), names
 assert set(("tds_tpu_torch.envs.ant", "tds_tpu_torch.envs.hopper")) <= set(names), names
 assert set(("tds_tpu_torch.utils.obj", "tds_tpu_torch.utils.terrain", "tds_tpu_torch.collision.raycast")) <= set(names), names
+assert set(("tds_tpu_torch.learn.apg", "tds_tpu_torch.utils.diff", "tds_tpu_torch.utils.estimation", "tds_tpu_torch.model.pendulum", "tds_tpu_torch.tools.apg_train", "tds_tpu_torch.tools.contact_loss")) <= set(names), names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -16,8 +16,12 @@ CUDA graphs against the same rollouts run eagerly on the card
   own eager run, and the second result does not alias the first; two envs
   of one class keep graphs of their own;
 - a capture that fails (a host sync in the body) raises and runs nothing in
-  the Python loop, and the card goes on working; under grad, an operand
-  that requires grad is refused.
+  the Python loop, and the card goes on working;
+- under grad, the carry's and the consts' gradients through the replayed
+  graphs (the forward graph, then the one-step VJP graph in reverse) equal
+  the Python loop's under autograd bit for bit in float64: a toy body, APG's
+  laikago rollout return (K1's backward kernel once a replayed step) and
+  the contact-gradient loss; forward mode is refused.
 
 Every test here needs the card and skips without one. The file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -212,8 +216,85 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
 
 
 def test_an_operand_that_requires_grad_is_refused(cuda_device):
-    x = torch.zeros(4, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no_grad"):
-        graphs.scan(lambda c, k: (c[0] + 1,), (x,), (), 3, key="grad")
+    """No operand is refused under grad now: scan on the card carries the
+    gradient of its carry and consts through the replayed graphs (the
+    one-step VJP graph in reverse), equal bit for bit to the Python loop's
+    under autograd; under torch.no_grad() it replays as before; a
+    torch.func transform (forward mode) is refused."""
+    x = torch.linspace(-1.0, 1.0, 4, device=cuda_device, dtype=torch.float64, requires_grad=True)
+    k = torch.full((4,), 2.0, device=cuda_device, dtype=torch.float64, requires_grad=True)
+
+    def body(c, kk):
+        # kk enters the step once: the loop's sum of its gradient over the
+        # steps associates as the graphs' does (a const used twice a step
+        # sums its two parts first in the graphs, into the running sum in
+        # the loop, and agrees to rounding only)
+        return (torch.sin(c[0]) * kk[0] + c[0] ** 2,)
+
+    out = graphs.scan(body, (x,), (k,), 7, key="grad")
+    got = torch.autograd.grad(out[0].sum(), (x, k))
+    with graphs.eager():
+        ref = graphs.scan(body, (x,), (k,), 7, key="grad")
+        want = torch.autograd.grad(ref[0].sum(), (x, k))
+    _assert_same([out[0].detach(), *got], [ref[0].detach(), *want])
     with torch.no_grad():
-        assert graphs.scan(lambda c, k: (c[0] + 1,), (x,), (), 3, key="grad")[0].tolist() == [3.0] * 4
+        assert torch.equal(graphs.scan(body, (x,), (k,), 7, key="grad")[0], out[0].detach())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        torch.func.jacfwd(lambda v: graphs.scan(body, (v,), (k.detach(),), 7, key="grad")[0])(x.detach())
+
+
+def _apg_grads(env, policy, reward, params, q0, qd0, cfg):
+    from tds_tpu_torch.learn import apg
+
+    p = params.clone().requires_grad_()
+    ret = apg.rollout_return(env, policy, cfg, p, q0, qd0, reward)
+    (g,) = torch.autograd.grad(ret, p)
+    torch.cuda.synchronize()
+    return [ret.detach(), g]
+
+
+def test_gradients_equal_the_eager_loop(cuda_device):
+    """APG's rollout return and its gradient (laikago, contacts active, an
+    MLP, horizon 12 cut every 5 steps) through replayed graphs against the
+    same loop under autograd inside graphs.eager(): equal bit for bit in
+    float64. K1's backward wrapper launches in the VJP graph's warm-up and
+    capture only; a trace of a replayed backward holds one backward kernel
+    a step."""
+    from tds_tpu_torch.learn import apg
+    from tds_tpu_torch.tools.apg_train import forward_reward, make_policy
+
+    env = LaikagoEnv(dtype=torch.float64, device=cuda_device)
+    policy, reward = make_policy(env), forward_reward(env)  # one reward function: one key, one set of graphs
+    params = 0.1 * policy.init(torch.Generator().manual_seed(1), dtype=torch.float64, device=cuda_device)
+    state, _ = env.reset(noise=env.draw_reset_noise(torch.Generator().manual_seed(1), 3))
+    q0, qd0 = state.q.clone(), state.qd
+    q0[:, 2] -= 0.03  # the toes in the ground from the first step
+    cfg = apg.APGConfig(horizon=12, batch=3, truncation=5)
+    before = pgs.backward_launches
+    got = _apg_grads(env, policy, reward, params, q0, qd0, cfg)
+    assert pgs.backward_launches - before == 2  # the VJP graph's warm-up and capture
+    before = pgs.backward_launches
+    (again, traced) = _traced(lambda: _apg_grads(env, policy, reward, params, q0, qd0, cfg), "pgs_backward", cfg.horizon)
+    assert pgs.backward_launches == before and traced == cfg.horizon
+    with graphs.eager():
+        want = _apg_grads(env, policy, reward, params, q0, qd0, cfg)
+    _assert_same(got, want)
+    _assert_same(again, want)
+    assert torch.isfinite(got[1]).all() and got[1].abs().max() > 0
+    vjp = [s for s in graphs.vjp_stats() if s.key[0] == "apg"]
+    assert len(vjp) == 1 and vjp[0].batch == 3 and vjp[0].nodes > 1000
+
+
+def test_contact_loss_gradient_equals_the_eager_loop(cuda_device):
+    """The consts' gradients (kp, a link's mass scale, the friction) of
+    tools/contact_loss.py's loss over 30 steps, through graphs and eager,
+    bit for bit in float64."""
+    from tds_tpu_torch.tools import contact_loss
+
+    env = LaikagoEnv(dtype=torch.float64, device=cuda_device)
+    q0, qd0, link = contact_loss.sliding_start(env)
+    loss = contact_loss.make_loss(env, q0, qd0, link, 30)
+    got = contact_loss.gradient(loss, contact_loss.POINT, torch.float64, cuda_device)
+    with graphs.eager():
+        want = contact_loss.gradient(loss, contact_loss.POINT, torch.float64, cuda_device)
+    _assert_same(got, want)
