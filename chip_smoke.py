@@ -18,7 +18,7 @@ against the graphs it captured, and phases 5, 9 (c), 10 (b), 12 (b),
 (f) and 13 (b) count the kernels of replayed steps in a torch.profiler
 trace: one a step.
 Phases, each of which raises on failure, so that the run exits non-zero and
-prints no final line:
+prints no final line (each phase and sub-phase prints its seconds):
 
 1. device: a CUDA device, its name and power limit, TF32 off;
 2. build: the kernels of ``tds_tpu_torch/csrc/`` with nvcc for sm_90a, one
@@ -41,8 +41,8 @@ prints no final line:
    beside it, equal bit for bit, the graphs' nodes and capture seconds,
    the replays' device operations, K1 kernels (one a step) and idle share
    (``torch.profiler``), ``bench.py``'s
-   ``laikago_scan_rollout_env_steps_per_s`` (1000 steps, best of 3) and an
-   eager stage breakdown;
+   ``laikago_scan_rollout_env_steps_per_s`` (1000 steps, one timed run) and an
+   eager stage breakdown (this main path's only);
 6. trained policy: ``logs/laikago_ars/policy_r2b.pkl`` replayed in float32
    for 2000 steps at batch 8 through graphs, held to the thresholds of
    ``tests/test_trained_policy.py``, with the kernel's wrapper launches
@@ -56,7 +56,7 @@ prints no final line:
    an operand that requires grad; then the loop of
    ``python -m tds_tpu_torch.tools.megastep`` at batch 16384 for 100
    float32 steps, with K2's launches counted, and K2's device time, wall
-   time, bound and launch shape beside the eager step's;
+   time, bound and launch shape beside the eager step's (20 eager steps);
 8. probes: the probe kernels K3 and K4 (``tds_tpu_torch/tools/kernel_probe.py``)
    through the probe command's path, with their launches counted, then
    timed against their plain versions and the one PyTorch call each
@@ -77,7 +77,7 @@ prints no final line:
    equal bit for bit, and under ``torch.profiler``: device operations per
    step, idle share, K2's kernels (one a step), its time per launch and
    its launch shape at batch 256; the recipe's rollout through graphs of
-   one step and of ``ars.FUSED_CHUNK`` steps, 10 alternating timed runs
+   one step and of ``ars.FUSED_CHUNK`` steps, 2 alternating timed runs
    each; (d) the trainer
    ``python -m tds_tpu_torch.tools.ars_train`` resumed from the policy for
    2 iterations, its checkpoint read back;
@@ -100,18 +100,19 @@ prints no final line:
    tds_tpu_torch.tools.ars_train --env ant`` resumed from that policy for
    2 iterations;
 12. humanoid and half-cheetah (``tds_tpu_torch/envs/humanoid.py``: a
-   spherical base joint, 35 plane candidates and 105 MLCP rows, K1's warp
-   per env; ``HalfCheetahEnv``, 48 rows), run before phase 11 so that its
+   spherical base joint, 35 plane candidates and 105 MLCP rows, K1's
+   blocked form; ``HalfCheetahEnv``, 48 rows), run before phase 11 so that its
    graphs count there: (a) K1 against its plain version at n = 3, 6, 8, 9,
    12, 24, 48, 51, 105 and B = 1, 37, 4096 (and 1024 at n = 105), float32
    and float64, two sweeps of random problems, and on the float32 operands
    of a humanoid step (B = 1024) and a half-cheetah step (B = 4096) with
-   contacts active; each n's time (median of 100 CUDA-event-timed
-   launches), the plain version's, the bound and the launch shape; (b) the
+   contacts active; each n's form (row per lane, blocked), its time
+   (median of 100 CUDA-event-timed launches) with one sweep and with 0, the
+   plain version's, the bound and the launch shape; (b) the
    humanoid's main path as phase 5's at batch 1024 for 200 steps, with
    ``bench.py``'s ``humanoid_scan_rollout_env_steps_per_s`` (200 steps,
-   best of 3), and the same number at ``top_k=8`` (24 rows) as a
-   measurement; (c) 50 float64 humanoid steps at batch 8 on the card
+   the timed replay), and the same number at ``top_k=8`` (24 rows, 50
+   steps, one timed run) as a measurement; (c) 50 float64 humanoid steps at batch 8 on the card
    against the CPU, the feet in the ground, within 1e-9 abs + rel; (d)
    ``logs/humanoid_ars/policy_curr2.pkl`` replayed in float32 through
    graphs for 3000 steps from the 4 starts of
@@ -132,9 +133,9 @@ prints no final line:
    step at batch 4096 with the toes in contact, its time (median of 100
    launches), the plain version's, the bound and the launch shape; (b) the
    main path as phase 5's on the +-2 cm bump with ``bench.py``'s
-   ``laikago_terrain_scan_rollout_env_steps_per_s`` (500 steps, best of
-   3) and its eager counterpart, device operations, busy ms and idle share
-   per step, one K1 a replayed step, then 100 steps on the ``Mesh`` form of
+   ``laikago_terrain_scan_rollout_env_steps_per_s`` (500 steps, one timed
+   run) and its eager counterpart, device operations, busy ms and idle share
+   per step, one K1 a replayed step, then 50 steps on the ``Mesh`` form of
    the terrain as a measurement; (c) 50 float64 steps at batch 8 on the
    card against the CPU on the heightfield and the mesh, q, qd and the
    observation within 1e-9 abs + rel; (d) ``policy_b4c.pkl`` and
@@ -155,7 +156,8 @@ prints no final line:
    (``csrc/pgs.cu``, through ``contact.pgs.PGSFunction``) against the
    plain version's autograd at n = 12, 24, 48 (B = 4096) and 105 (B =
    1024), float32 and float64, one and two sweeps, ties included, and on
-   the operands of a laikago step; its time (median of 100 launches), the
+   the operands of a laikago step; its form (linearised), its time (median
+   of 100 launches) with one sweep and with 0 (the gradients zeroed), the
    plain backward's, the bound and the launch shape; (b)
    ``tests/test_contact_gradients.py``'s loss (``tools/contact_loss.py``)
    over 500 float64 steps through graphs against central differences on
@@ -165,7 +167,8 @@ prints no final line:
    equal bit for bit to ``graphs.eager()``'s, then the scaled recipe
    (horizon 100, truncation 20, float32) at batch 4 and 4096 with K1's
    forward and backward launches counted, ``apg_laikago_iterations_per_s``
-   and ``apg_laikago_env_steps_per_s``, the VJP graph's nodes, capture
+   and ``apg_laikago_env_steps_per_s`` (one timed iteration after the
+   captures), the VJP graph's nodes, capture
    seconds and memory, and one backward kernel a replayed step in a trace;
    (d) ``logs/laikago_apg/policy_h100.pkl`` replayed for 500 steps from the
    JAX package's reset (``tests/golden/laikago_apg_reset.json``) at
@@ -241,7 +244,7 @@ ARS_TOL = 1e-9
 # rollout of the zero linear policy at batch 4096, env-steps over the best
 # of BENCH_REPEATS timed calls; vs_baseline over the reference's 2.0e5
 # laikago env-steps/s (BASELINE.md)
-LAIKAGO_BENCH_STEPS, ANT_BENCH_STEPS, BENCH_REPEATS, BASELINE = 1000, 500, 3, 2.0e5
+LAIKAGO_BENCH_STEPS, ANT_BENCH_STEPS, BENCH_REPEATS, BASELINE = 1000, 500, 1, 2.0e5
 HUMANOID_CHECKPOINT = REPO / "logs" / "humanoid_ars" / "policy_curr2.pkl"
 # bench.py's humanoid rollout: batch min(4096 // 4, 2048), 200 steps
 HUMANOID_BATCH, HUMANOID_STEPS = 1024, 200
@@ -255,7 +258,7 @@ CHEETAH_BATCH, CHEETAH_STEPS = 4096, 50
 # policy_b4c.pkl against policy_r2b.pkl) and tests/test_terrain.py's
 # (policy_r2b.pkl, 1500 steps on the +-2 cm mesh), from the JAX package's
 # reset draws for their keys, recorded in the JSON file
-TERRAIN_BUMP, TERRAIN_BENCH_STEPS, MESH_STEPS = 0.02, 500, 100
+TERRAIN_BUMP, TERRAIN_BENCH_STEPS, MESH_STEPS = 0.02, 500, 50  # the mesh's rollout a measurement (100 steps before)
 TERRAIN_CHECKPOINT = REPO / "logs" / "laikago_terrain" / "policy_b4c.pkl"
 TERRAIN_RESET_NOISE = REPO / "tests" / "golden" / "laikago_terrain_policy_reset_noise.json"
 TERRAIN_REPLAY_BUMP, TERRAIN_REPLAY_STEPS, MESH_REPLAY_STEPS = 0.04, 3000, 1500
@@ -275,13 +278,19 @@ K1_ROWS, K1_BATCHES = (3, 6, 8, 9, 12, 24, 48, 51, 105), (1, 37, 4096)
 GRAD_ROWS = ((12, 4096), (24, 4096), (48, 4096), (105, 1024))
 CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 100
 APG_RECIPE = {"horizon": 100, "truncation": 20}
-APG_BATCHES, APG_TIMED_ITERATIONS = (4, 4096), 3
+APG_BATCHES, APG_TIMED_ITERATIONS = (4, 4096), 1
 APG_TEST = {"horizon": 30, "batch": 2, "truncation": 10}
 APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 25, 500
 APG_CHECKPOINT = REPO / "logs" / "laikago_apg" / "policy_h100.pkl"
 APG_RESET = REPO / "tests" / "golden" / "laikago_apg_reset.json"
 PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
-CHUNK_RUNS = 10  # alternating timed runs of each graph length of ARS's rollout
+# measurements only, cut to keep the script inside 700 s, under 60% of its
+# limit: eager steps of the stage breakdown, now of the laikago's main path
+# only (5 steps on every main path before), alternating timed runs of each
+# graph length of ARS's rollout (10 before), the humanoid's top_k = 8
+# rollout (200 steps, best of 3 before) and the eager steps timed beside
+# K2 (MEGA_STEPS before); BENCH_REPEATS and APG_TIMED_ITERATIONS were 3
+BREAKDOWN_STEPS, CHUNK_RUNS, TOP_K_STEPS, TOP_K_REPEATS, MEGA_EAGER_STEPS = 1, 2, 50, 1, 20
 
 
 def log(msg):
@@ -561,7 +570,7 @@ def phase_kernel(env, card):
         f"({n_bytes} bytes, {n_ops} flops)")
     log(f"kernel: the same launch with 0 sweeps (launch, loads and stores): {sweepless_ms * 1e3:.2f} us on the device")
     shape = pgs.launch_shape(b.dtype, n, bsz)
-    log_launch_shape(f"kernel: B={bsz} n={n} {b.dtype}", shape)
+    log_launch_shape(f"kernel: B={bsz} n={n} {b.dtype} ({shape['form']})", shape)
     return {
         "name": "pgs",
         "route": "cuda",
@@ -579,6 +588,7 @@ def phase_kernel(env, card):
         "library_ms": None,
         "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
         "ms_0_sweeps": sweepless_ms,
+        "design": shape["form"],
         **launch_fields(shape),
         "cases": results,
     }
@@ -749,7 +759,7 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, batch=MAIN_BATCH):
+def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, batch=MAIN_BATCH, stages=False):
     """``reset`` at ``batch`` and a ``steps``-step rollout of the zero
     linear policy through graphs, the first use of ``env``, with K1's
     wrapper launches counted from 0 just before and read just after (the
@@ -758,9 +768,12 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
     and run eagerly (``graphs.eager()``, eager ms/step), which must agree
     bit for bit; PROFILE_STEPS replayed steps under torch.profiler (device
     operations, busy ms, and K1 kernels, exactly one a step); the graphs'
-    statistics; 5 eager steps' stage breakdown; and with ``bench =
-    (metric, steps)`` bench.py's rollout metric: the best of BENCH_REPEATS
-    rollouts of that many steps. Returns a dict of the numbers; device
+    statistics; with ``stages``, BREAKDOWN_STEPS eager steps' stage
+    breakdown; and with
+    ``bench = (metric, steps)`` bench.py's rollout metric: the best of
+    BENCH_REPEATS rollouts of that many steps (the timed replay one of them
+    when it has that many; bench.py itself takes the best of 3). Returns a
+    dict of the numbers; device
     numbers None when the profiler saw no device activity."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.learn.nn import linear_policy
@@ -786,6 +799,7 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
     again, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
     with graphs.eager():
         eager, eager_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
+    log(f"{label} seconds: reset {reset_s:.1f} s, first rollout {first_s:.1f} s, replay {graph_s:.1f} s, eager {eager_s:.1f} s")
     # the same kernels on the same inputs in the same order: bit for bit
     worst = max((g.double() - e.double()).abs().max().item() for g, e in zip((*again[0], *again[1:]), (*eager[0], *eager[1:])))
     if worst != 0:
@@ -798,8 +812,9 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
         f"|graph - eager| = 0 over every output; PGS wrapper launches {launches} (warm-ups and captures); "
         f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
     found = graph_lines(label, env, "rollout")
-    profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1, kernel="pgs_kernel",
-                             expected=PROFILE_STEPS)
+    with sub_phase(f"{label} seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1,
+                                 kernel="pgs_kernel", expected=PROFILE_STEPS)
     out = {"launches": launches, "ms_per_step": step_ms, "eager_ms_per_step": eager_ms, "first_call_s": first_s,
            "graph_nodes": [g.nodes for g in found], "graph_vs_eager_max_abs": worst,
            "device_ops": None, "device_ms": None, "idle": None, "replayed_launches_per_step": None}
@@ -820,12 +835,21 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
             f"({100 * (1 - busy / profiled_ms):.1f}% idle; {step_ms:.3f} ms/step without it)")
     if bench is not None:
         metric, bench_steps = bench
-        best = min(timed_call(lambda: rollout(env, policy, None, state0, obs0, bench_steps))[1] for _ in range(BENCH_REPEATS))
+        bench_s = time.perf_counter()
+        # the timed replay above is one of the repeats when it has the bench's steps
+        times = [graph_s] if bench_steps == steps else []
+        times += [timed_call(lambda: rollout(env, policy, None, state0, obs0, bench_steps))[1]
+                  for _ in range(BENCH_REPEATS - len(times))]
+        best = min(times)
         rate = batch * bench_steps / best
         out[metric] = rate
         bench_line(metric, rate, "steps/s", card_line, vs_baseline=rate / BASELINE, batch=batch, steps=bench_steps,
                    best_s=best, eager_env_steps_per_s=batch / eager_ms * 1e3)
-    breakdown = stage_breakdown(env, policy, state, obs, steps=5)
+        log(f"{label} seconds: the bench rollouts: {time.perf_counter() - bench_s:.1f} s")
+    if not stages:
+        return out
+    with sub_phase(f"{label} seconds: the stage breakdown"):
+        breakdown = stage_breakdown(env, policy, state, obs, steps=BREAKDOWN_STEPS)
     if breakdown is None:
         log(f"{label}: stage breakdown not measured (the profiler saw no device activity)")
         return out
@@ -843,7 +867,7 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
 
 def phase_main_path(env, card_line):
     bench = ("laikago_scan_rollout_env_steps_per_s", LAIKAGO_BENCH_STEPS)
-    return drive_main_path(env, "main path", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line, bench)
+    return drive_main_path(env, "main path", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line, bench, stages=True)
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -998,11 +1022,11 @@ def phase_mega_step(card):
     launches = fused_step.launches
     if launches != MEGA_STEPS:
         raise AssertionError(f"{MEGA_STEPS} fused steps launched K2 {launches} times")
-    _, _, eager_s = megastep.timed_steps(env.sim_step, qs, qds, zero, MEGA_STEPS)
-    mega_rate, eager_rate = MEGA_BATCH * MEGA_STEPS / mega_s, MEGA_BATCH * MEGA_STEPS / eager_s
+    _, _, eager_s = megastep.timed_steps(env.sim_step, qs, qds, zero, MEGA_EAGER_STEPS)
+    mega_rate, eager_rate = MEGA_BATCH * MEGA_STEPS / mega_s, MEGA_BATCH * MEGA_EAGER_STEPS / eager_s
     log(f"mega step: experiment loop, {MEGA_STEPS} float32 steps at batch {MEGA_BATCH}: K2 {mega_s * 1e3 / MEGA_STEPS:.3f} ms/step "
-        f"= {mega_rate:.1f} env-steps/s, eager sim_step {eager_s * 1e3 / MEGA_STEPS:.3f} ms/step = {eager_rate:.1f} env-steps/s, "
-        f"ratio {mega_rate / eager_rate:.2f}x; K2 launches {launches}")
+        f"= {mega_rate:.1f} env-steps/s, eager sim_step ({MEGA_EAGER_STEPS} steps) {eager_s * 1e3 / MEGA_EAGER_STEPS:.3f} ms/step "
+        f"= {eager_rate:.1f} env-steps/s, ratio {mega_rate / eager_rate:.2f}x; K2 launches {launches}")
 
     ms = device_ms(lambda: fused(q, qd, action), rounds=5, per_round=20)
     wall = wall_ms(lambda: fused(q, qd, action), reps=100)
@@ -1374,9 +1398,11 @@ def phase_ars(card, mega, card_line):
     from tds_tpu_torch.learn.nn import MLPSpec
     from tds_tpu_torch.tools import ars_train
 
-    worst = ars_card_against_cpu()
+    with sub_phase("ARS (a) seconds"):
+        worst = ars_card_against_cpu()
 
     # (b) the recipe in float32 from the trained policy
+    b_start = time.perf_counter()
     env = LaikagoEnv(dtype=torch.float32, fused_step=True)
     policy = MLPSpec(env.observation_dim, [env.action_dim])
     saved, _ = load_checkpoint(str(CHECKPOINT))
@@ -1399,8 +1425,10 @@ def phase_ars(card, mega, card_line):
     bench_line("ars_laikago_env_steps_per_s", env_steps / s_per_it, "steps/s", card_line, config=ARS_RECIPE)
     graph_lines("ARS (b)", env, "ars_rollout")
     graph_lines("ARS (b)", env, "settle")
+    log(f"ARS (b) seconds: {time.perf_counter() - b_start:.1f} s")
 
     # (c) where the time goes
+    c_start = time.perf_counter()
     steps = 100
     wall_ms, eager_ms, prof = ars_profile(env, policy, trained, steps)
     chunk_runs = ars_chunks(env, policy, trained)
@@ -1423,6 +1451,7 @@ def phase_ars(card, mega, card_line):
             f"{k2_us:.2f} us each on the device ({prof['k2_launches'] * k2_us / 1e3:.2f} ms), bound {bound_us:.4f} us "
             f"({mega['flops_needed_per_env']:.0f} flops per env x {batch})")
     log_launch_shape(f"ARS (c): K2 B={batch} float32", shape)
+    log(f"ARS (c) seconds: {time.perf_counter() - c_start:.1f} s")
 
     # (d) the trainer as a user runs it
     with tempfile.TemporaryDirectory() as tmp:
@@ -1439,6 +1468,7 @@ def phase_ars(card, mega, card_line):
             raise AssertionError(f"the trainer's checkpoint: finite {finite}, moved {moved}, metadata {meta}")
     log(f"ARS (d): python -m tds_tpu_torch.tools.ars_train --resume policy_r2b.pkl --iterations 2 --eval_interval 2 "
         f"--rollout_length 400 in {trainer_s:.1f} s; its checkpoint reads back finite, params moved by up to {moved:.3e}")
+    log(f"ARS (d) seconds: {trainer_s:.1f} s")
     return {
         "ars_wrapper_launches_per_iteration": launches,
         "ars_replayed_launches_100_step_iteration": None if prof is None else prof["k2_launches"],
@@ -1664,15 +1694,20 @@ def phase_ant(card, card_line):
     from tds_tpu_torch.envs.hopper import HopperEnv
 
     ant, hopper = AntEnv(dtype=torch.float32), HopperEnv(dtype=torch.float32)
-    kernel = ant_kernel(card, ant, hopper)
+    with sub_phase("ant (a) seconds"):
+        kernel = ant_kernel(card, ant, hopper)
     # new envs, so that the main paths capture graphs of their own
-    ant_path = drive_main_path(AntEnv(dtype=torch.float32), "ant (b)", ROLLOUT_STEPS, 2, (0.26, 0.48), card_line,
-                               ("ant_scan_rollout_env_steps_per_s", ANT_BENCH_STEPS))
-    hop = drive_main_path(HopperEnv(dtype=torch.float32), "hopper (b)", HOPPER_STEPS, 1, (-0.35, 0.1), card_line)
+    with sub_phase("ant (b) seconds"):
+        ant_path = drive_main_path(AntEnv(dtype=torch.float32), "ant (b)", ROLLOUT_STEPS, 2, (0.26, 0.48), card_line,
+                                   ("ant_scan_rollout_env_steps_per_s", ANT_BENCH_STEPS))
+        hop = drive_main_path(HopperEnv(dtype=torch.float32), "hopper (b)", HOPPER_STEPS, 1, (-0.35, 0.1), card_line)
     launches, step_ms = ant_path["launches"], ant_path["ms_per_step"]
-    worst = ant_device_vs_cpu()
-    replay_launches = ant_replay()
-    reward_min = ant_trainer()
+    with sub_phase("ant (c) seconds"):
+        worst = ant_device_vs_cpu()
+    with sub_phase("ant (d) seconds"):
+        replay_launches = ant_replay()
+    with sub_phase("ant (e) seconds"):
+        reward_min = ant_trainer()
     return {
         "ant_shape": f"B={MAIN_BATCH} n=24 iterations=1 float32",
         "ant_ms": kernel["ant"]["ms"],
@@ -1765,16 +1800,16 @@ def k1_timing(label, operands, dep, it, card, prefix="humanoid (a)"):
     else:
         plain_ms = span_ms(lambda: pgs.solve_pgs_reference(*operands, dep, it), reps=5)
         plain_how = "event span, host-paced"
+    sweepless_ms = device_ms(lambda: pgs.solve_pgs(*operands, dep, 0), rounds=5, per_round=20)
     t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
     shape = pgs.launch_shape(b.dtype, n, bsz)
-    design = "row per lane" if n <= 32 else "warp per env"
-    log(f"{prefix}: K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({design}): {ms * 1e3:.2f} us on the device, "
-        f"plain {plain_ms * 1e3:.1f} us ({plain_how}), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, "
-        f"{n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")
+    log(f"{prefix}: K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us on the device, "
+        f"{sweepless_ms * 1e3:.2f} us with 0 sweeps, plain {plain_ms * 1e3:.1f} us ({plain_how}), bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")
     log_launch_shape(f"{prefix}: K1 B={bsz} n={n} {str(b.dtype)[6:]}", shape)
-    return {"ms": ms, "plain_ms": plain_ms, "plain_timing": plain_how, "bound_ms": max(t_bytes, t_ops),
+    return {"ms": ms, "ms_0_sweeps": sweepless_ms, "plain_ms": plain_ms, "plain_timing": plain_how, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "shape": f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
-            "design": design, **launch_fields(shape)}
+            "design": shape["form"], **launch_fields(shape)}
 
 
 def humanoid_kernel(card):
@@ -1982,11 +2017,11 @@ def humanoid_top_k(card_line):
     env = HumanoidEnv(dtype=torch.float32, solver=ContactSolverParams(top_k=8))
     policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
     state, obs = env.reset(torch.Generator(device="cuda").manual_seed(1), batch_size=HUMANOID_BATCH)
-    (_, _, _, alive), first_s = timed_call(lambda: rollout(env, policy, None, state, obs, HUMANOID_STEPS))
-    best = min(timed_call(lambda: rollout(env, policy, None, state, obs, HUMANOID_STEPS))[1] for _ in range(BENCH_REPEATS))
-    rate = HUMANOID_BATCH * HUMANOID_STEPS / best
+    (_, _, _, alive), first_s = timed_call(lambda: rollout(env, policy, None, state, obs, TOP_K_STEPS))
+    best = min(timed_call(lambda: rollout(env, policy, None, state, obs, TOP_K_STEPS))[1] for _ in range(TOP_K_REPEATS))
+    rate = HUMANOID_BATCH * TOP_K_STEPS / best
     bench_line("humanoid_scan_rollout_env_steps_per_s", rate, "steps/s", card_line, batch=HUMANOID_BATCH,
-               steps=HUMANOID_STEPS, best_s=best, top_k=8, rows=24, alive=int(alive.sum()))
+               steps=TOP_K_STEPS, best_s=best, top_k=8, rows=24, alive=int(alive.sum()))
     return rate
 
 
@@ -1995,17 +2030,24 @@ def phase_humanoid(card, card_line):
     from tds_tpu_torch.envs.hopper import HalfCheetahEnv
     from tds_tpu_torch.envs.humanoid import HumanoidEnv
 
-    entries = humanoid_kernel(card)
-    path = drive_main_path(HumanoidEnv(dtype=torch.float32), "humanoid (b)", HUMANOID_STEPS, 2, (0.8, 1.45), card_line,
-                           ("humanoid_scan_rollout_env_steps_per_s", HUMANOID_STEPS), batch=HUMANOID_BATCH)
-    top_k_rate = humanoid_top_k(card_line)
+    with sub_phase("humanoid (a) seconds"):
+        entries = humanoid_kernel(card)
+    with sub_phase("humanoid (b) seconds, top_k = 0"):
+        path = drive_main_path(HumanoidEnv(dtype=torch.float32), "humanoid (b)", HUMANOID_STEPS, 2, (0.8, 1.45), card_line,
+                               ("humanoid_scan_rollout_env_steps_per_s", HUMANOID_STEPS), batch=HUMANOID_BATCH)
+    with sub_phase("humanoid (b) seconds, top_k = 8"):
+        top_k_rate = humanoid_top_k(card_line)
     log(f"humanoid (b): humanoid_scan_rollout_env_steps_per_s {path['humanoid_scan_rollout_env_steps_per_s']:.1f} at "
         f"top_k=0 (105 rows, the default) against {top_k_rate:.1f} at top_k=8 (24 rows)")
-    worst = humanoid_device_vs_cpu()
-    replay_launches = humanoid_replay()
-    reward_min = humanoid_trainer()
-    cheetah = drive_main_path(HalfCheetahEnv(dtype=torch.float32), "halfcheetah (f)", CHEETAH_STEPS, 1, (-0.3, 0.1), card_line,
-                              batch=CHEETAH_BATCH)
+    with sub_phase("humanoid (c) seconds"):
+        worst = humanoid_device_vs_cpu()
+    with sub_phase("humanoid (d) seconds"):
+        replay_launches = humanoid_replay()
+    with sub_phase("humanoid (e) seconds"):
+        reward_min = humanoid_trainer()
+    with sub_phase("halfcheetah (f) seconds"):
+        cheetah = drive_main_path(HalfCheetahEnv(dtype=torch.float32), "halfcheetah (f)", CHEETAH_STEPS, 1, (-0.3, 0.1),
+                                  card_line, batch=CHEETAH_BATCH)
     entries[105].update(launches=path["launches"], replayed_launches_per_step=path["replayed_launches_per_step"],
                         main_path="humanoid (b)")
     entries[48].update(launches=cheetah["launches"], replayed_launches_per_step=cheetah["replayed_launches_per_step"],
@@ -2264,14 +2306,20 @@ def terrain_trainer():
 def phase_terrain(card, card_line):
     import tempfile
 
-    entry = terrain_kernel(card)
+    with sub_phase("terrain (a) seconds"):
+        entry = terrain_kernel(card)
     with tempfile.TemporaryDirectory() as obj_dir:
-        path = drive_main_path(terrain_env(TERRAIN_BUMP, 9), "terrain (b)", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line,
-                               ("laikago_terrain_scan_rollout_env_steps_per_s", TERRAIN_BENCH_STEPS))
-        mesh_ms = mesh_rollout(obj_dir)
-        worst = terrain_device_vs_cpu(obj_dir)
-        replay = terrain_replay(obj_dir)
-    reward_min = terrain_trainer()
+        with sub_phase("terrain (b) seconds, heightfield"):
+            path = drive_main_path(terrain_env(TERRAIN_BUMP, 9), "terrain (b)", ROLLOUT_STEPS, 2, (0.3, 0.6), card_line,
+                                   ("laikago_terrain_scan_rollout_env_steps_per_s", TERRAIN_BENCH_STEPS))
+        with sub_phase("terrain (b) seconds, mesh"):
+            mesh_ms = mesh_rollout(obj_dir)
+        with sub_phase("terrain (c) seconds"):
+            worst = terrain_device_vs_cpu(obj_dir)
+        with sub_phase("terrain (d) seconds"):
+            replay = terrain_replay(obj_dir)
+    with sub_phase("terrain (e) seconds"):
+        reward_min = terrain_trainer()
     summary = {
         "terrain_shape": entry["shape"],
         "terrain_ms": entry["ms"],
@@ -2355,16 +2403,19 @@ def k1_backward_case(label, operands, dep, it, card, gen, timing=True):
     if not timing:
         return out
     ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar), rounds=5, per_round=20)
+    # 0 sweeps: the gradients zeroed, the floor of the stores
+    sweepless_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, 0, x, x_bar), rounds=5, per_round=20)
     plain_ms = span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=5)
     t_bytes, t_ops, n_bytes, n_ops = k1_backward_bound(b, it, card)
     shape = pgs.launch_shape(b.dtype, n, bsz, backward=True)
-    log(f"gradients (a): K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]}: {ms * 1e3:.2f} us on the device, "
-        f"plain backward {plain_ms * 1e3:.1f} us (event span, host-paced), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
-        f"({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound; max |kernel - plain| {worst:.3e}")
+    log(f"gradients (a): K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us "
+        f"on the device, {sweepless_ms * 1e3:.2f} us with 0 sweeps, plain backward {plain_ms * 1e3:.1f} us (event span, "
+        f"host-paced), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), "
+        f"{ms / max(t_bytes, t_ops):.1f}x the bound; max |kernel - plain| {worst:.3e}")
     log_launch_shape(f"gradients (a): K1 backward B={bsz} n={n} {str(b.dtype)[6:]}", shape)
-    out.update(ms=ms, plain_ms=plain_ms, plain_timing="event span, host-paced", bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations", shape=f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
-               **launch_fields(shape))
+    out.update(ms=ms, ms_0_sweeps=sweepless_ms, plain_ms=plain_ms, plain_timing="event span, host-paced",
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               shape=f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}", design=shape["form"], **launch_fields(shape))
     return out
 
 
@@ -2417,16 +2468,18 @@ def gradients_contact_loss(card_line):
     env = LaikagoEnv(dtype=torch.float64)
     q0, qd0, link = contact_loss.sliding_start(env)
     loss = contact_loss.make_loss(env, q0, qd0, link, CONTACT_LOSS_STEPS)
-    contact_loss.gradient(loss, contact_loss.POINT, torch.float64, "cuda")  # the captures
+    # the first call, the graphs' captures included (a second, timed call
+    # was a measurement only)
     (value, grad), grad_s = timed_call(lambda: contact_loss.gradient(loss, contact_loss.POINT, torch.float64, "cuda"))
     fd, fd_s = timed_call(lambda: contact_loss.central_differences(loss, contact_loss.POINT, contact_loss.FD_EPS, torch.float64, "cuda"))
     rel = ((grad - fd).abs() / fd.abs()).max().item()
     log(f"gradients (b): the {CONTACT_LOSS_STEPS}-step contact loss {value.item():.12g} on the card (float64): gradient "
-        f"(kp, mass scale, friction) {[f'{v:.10e}' for v in grad.tolist()]} in {grad_s:.2f} s wall, central differences "
+        f"(kp, mass scale, friction) {[f'{v:.10e}' for v in grad.tolist()]} in {grad_s:.2f} s wall with the captures, central differences "
         f"{[f'{v:.10e}' for v in fd.tolist()]} in {fd_s:.2f} s; largest relative difference {rel:.2e} (rtol 2e-4)")
     if not bool(torch.isfinite(grad).all()) or rel > 2e-4 or grad.abs().min().item() == 0:
         raise AssertionError(f"gradients (b): the card's gradient {grad.tolist()} disagrees with central differences {fd.tolist()}")
     out.update(contact_loss_grad_s=grad_s, contact_loss_fd_s=fd_s, contact_loss_fd_rel=rel)
+    log(f"gradients (b) seconds: the {CONTACT_LOSS_STEPS}-step gradient {grad_s:.1f} s, central differences {fd_s:.1f} s")
     # the CPU test's horizon: the card against the CPU
     short = contact_loss.make_loss(env, q0, qd0, link, CONTACT_LOSS_CPU_STEPS)
     card = contact_loss.gradient(short, contact_loss.POINT, torch.float64, "cuda")[1].cpu()
@@ -2441,9 +2494,10 @@ def gradients_contact_loss(card_line):
         raise AssertionError(f"gradients (b): the card's gradient differs from the CPU's by {rel_cpu:.2e} relative")
     out["contact_loss_card_vs_cpu_rel"] = rel_cpu
     traced = contact_loss.make_loss(env, q0, qd0, link, PROFILE_STEPS)
-    contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda")
-    _, _, _, count = counted_trace(lambda: contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda"),
-                                   "pgs_backward", PROFILE_STEPS)
+    with sub_phase(f"gradients (b) seconds: the {PROFILE_STEPS}-step trace"):
+        contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda")
+        _, _, _, count = counted_trace(lambda: contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda"),
+                                       "pgs_backward", PROFILE_STEPS)
     log(f"gradients (b): a replayed {PROFILE_STEPS}-step gradient ran K1's backward kernel {count} times (torch.profiler)")
     if count != PROFILE_STEPS:
         raise AssertionError(f"gradients (b): {count} backward kernels in {PROFILE_STEPS} replayed VJP steps")
@@ -2496,7 +2550,8 @@ def apg_recipe(batch, card_line):
     # the forward alone: the rollout's return through the one-step graph, no grad
     starts = apg.draw_starts(env, state.generator, batch)
     with torch.no_grad():
-        forward_s = min(timed_call(lambda: apg.rollout_return(env, policy, cfg, state.params, *starts, reward))[1] for _ in range(3))
+        forward_s = min(timed_call(lambda: apg.rollout_return(env, policy, cfg, state.params, *starts, reward))[1]
+                        for _ in range(APG_TIMED_ITERATIONS))
     vjp = [s for s in graphs.vjp_stats() if s.key[0] == "apg" and s.key[1] is env]
     if len(vjp) != 1 or not bool(torch.isfinite(state.params).all()) or not bool(torch.isfinite(metrics["grad_norm"])):
         raise AssertionError(f"APG at batch {batch}: {len(vjp)} VJP graphs, or a non-finite result")
@@ -2527,12 +2582,14 @@ def gradients_apg(card_line):
     from tds_tpu_torch.learn import apg
     from tds_tpu_torch.utils import graphs
 
+    check_s = time.perf_counter()
     env, policy, _, cfg, train = apg_setup(torch.float64, APG_TEST["batch"], APG_TEST["horizon"], APG_TEST["truncation"])
     state = apg.init_apg(env, policy, 0, cfg)
     starts = apg.draw_starts(env, torch.Generator(device="cuda").manual_seed(3), cfg.batch)
     got, metrics = train(state, starts=starts)
     with graphs.eager():
         want, want_metrics = train(state, starts=starts)
+    log(f"gradients (c) seconds: the float64 train_step through graphs and eager: {time.perf_counter() - check_s:.1f} s")
     pairs = [(got.params, want.params), (got.opt_state.mu, want.opt_state.mu), (got.opt_state.nu, want.opt_state.nu),
              (metrics["mean_return"], want_metrics["mean_return"]), (metrics["grad_norm"], want_metrics["grad_norm"])]
     worst = max((g - w).abs().max().item() for g, w in pairs)
@@ -2544,12 +2601,14 @@ def gradients_apg(card_line):
     out = {"apg_graph_vs_eager_max_abs": worst}
     main = None
     for batch in APG_BATCHES:
-        numbers, objects = apg_recipe(batch, card_line)
+        with sub_phase(f"gradients (c) seconds: the recipe at batch {batch}"):
+            numbers, objects = apg_recipe(batch, card_line)
         out.update(numbers)
         main = main or objects
     env, policy, reward, cfg, state = main
     short = apg.make_apg_train_step(env, policy, cfg._replace(horizon=PROFILE_STEPS), reward_fn=reward)
-    profile = device_profile(lambda: short(state), calls=1, kernel="pgs_backward", expected=PROFILE_STEPS)
+    with sub_phase(f"gradients (c) seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: short(state), calls=1, kernel="pgs_backward", expected=PROFILE_STEPS)
     if profile is None:
         raise AssertionError("gradients (c): the profiler saw no device activity in a train_step")
     ops, busy, wall, count = profile
@@ -2619,11 +2678,16 @@ def gradients_apg_learning():
 def phase_gradients(card, card_line):
     """Phase 14: gradients through the port on the card. Returns K1's
     backward entry of the kernels line."""
-    rows = gradients_kernel(card)
-    out = gradients_contact_loss(card_line)
-    out.update(gradients_apg(card_line))
-    out.update(gradients_apg_policy())
-    out.update(gradients_apg_learning())
+    with sub_phase("gradients (a) seconds"):
+        rows = gradients_kernel(card)
+    with sub_phase("gradients (b) seconds"):
+        out = gradients_contact_loss(card_line)
+    with sub_phase("gradients (c) seconds"):
+        out.update(gradients_apg(card_line))
+    with sub_phase("gradients (d) seconds"):
+        out.update(gradients_apg_policy())
+    with sub_phase("gradients (e) seconds"):
+        out.update(gradients_apg_learning())
     main = rows[12]
     entry = {
         "name": "pgs backward",
@@ -2641,12 +2705,18 @@ def phase_gradients(card, card_line):
     return entry
 
 
+@contextlib.contextmanager
+def sub_phase(label):
+    """A line of the seconds the block took, under ``label``."""
+    t0 = time.perf_counter()
+    yield
+    log(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line of the seconds it took."""
-    t0 = time.perf_counter()
-    out = phase(*args)
-    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    return out
+    with sub_phase(phase.__name__):
+        return phase(*args)
 
 
 def phase_graphs(start_s):

@@ -4,12 +4,17 @@
 
 - on CUDA tensors it launches the hand-written kernel ``csrc/pgs.cu``,
   which replaces the TPU kernel ``tds_tpu/contact/pallas_pgs.py::_pgs_kernel``,
-  for any number of rows n >= 1: a group of lanes per env, row i on lane
-  i, for n <= 32 (instances of N = 8, 12, 16, 24 and 32 rows, an n in
-  between padded to the next), one warp per env streaming A for n > 32;
-  through :class:`PGSFunction`, whose backward is the kernel's backward
-  in the same file (``tds_pgs_backward_*``), so gradients reach A, b, lo
-  and hi on the card as ``jax.grad`` of the unrolled sweep gives them;
+  for any number of rows n >= 1, in one of three forms by n (:data:`FORMS`):
+  "row per lane" for n <= 32 (a group of lanes per env, row i on lane i,
+  instances of N = 8, 12, 16, 24 and 32 rows, an n in between padded to
+  the next), "blocked" above (one warp per env, the rows in blocks of 32,
+  A's lower triangle staged in shared memory), and "streaming" where an
+  env's staging does not fit a block (n > 335 in float32, > 236 in
+  float64); through :class:`PGSFunction`, whose backward is the kernel's
+  backward in the same file (``tds_pgs_backward_*``: "linearised", or
+  "streaming" past n = 328 in float32 and 229 in float64), so gradients
+  reach A, b, lo and hi on the card as ``jax.grad`` of the unrolled sweep
+  gives them;
 - on CPU tensors it runs :func:`solve_pgs_reference`, the plain version,
   which autograd differentiates;
 - anything else raises. No switch sends a CUDA tensor to the plain version,
@@ -29,8 +34,8 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` at their first launch
 (or by :func:`build`) into ``build/kernels/pgs-<hash>/`` through
 :func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
 Importing this module builds nothing. :func:`launch_shape` reports a
-kernel's lanes per env, envs per block and resident warps per SM on the
-card for any n.
+kernel's form, lanes per env, envs per block and resident warps per SM on
+the card for any n.
 
 ``launches`` counts the forward kernel's launches and ``backward_launches``
 the backward kernel's; a caller may reset either to 0.
@@ -50,6 +55,8 @@ from tds_tpu_torch.utils.tensors import constant
 
 launches = 0
 backward_launches = 0
+# the kernels' forms, by the code tds_pgs_form returns
+FORMS = ("row per lane", "blocked", "streaming", "linearised")
 FORWARD_MODE = (
     "forward-mode differentiation and torch.func transforms through the PGS kernel on the card are not ported yet "
     "(ROADMAP Queue 1 item 5: forward mode through K1); use torch.autograd (reverse mode), or the plain version on "
@@ -191,15 +198,23 @@ def _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar):
     return grads
 
 
-def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False) -> dict:
-    """How the kernel (with ``backward``, its backward) launches for n rows
-    in ``dtype`` at ``batch`` envs on ``device``: ``cuda_build.launch_shape``'s
-    fields, resident warps per SM and waves among them."""
+def form(dtype: torch.dtype, n: int, backward: bool = False) -> str:
+    """The form of the kernel (with ``backward``, of its backward) that
+    runs for n rows in ``dtype``: one of :data:`FORMS`."""
     if n < 1 or dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no PGS kernel for n = {n} in {dtype}")
+    return FORMS[_library().tds_pgs_form(int(dtype == torch.float64), n, int(backward))]
+
+
+def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False) -> dict:
+    """How the kernel (with ``backward``, its backward) launches for n rows
+    in ``dtype`` at ``batch`` envs on ``device``: its ``form`` and
+    ``cuda_build.launch_shape``'s fields, resident warps per SM and waves
+    among them."""
+    name = form(dtype, n, backward)
     lib = _library()
     fn = lib.tds_pgs_backward_launch_shape if backward else lib.tds_pgs_launch_shape
-    return cuda_build.launch_shape(fn, (int(dtype == torch.float64), n), batch, device)
+    return {"form": name, **cuda_build.launch_shape(fn, (int(dtype == torch.float64), n), batch, device)}
 
 
 def build() -> Path:
@@ -210,11 +225,15 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    return bind(ctypes.CDLL(str(build())))
+    lib = bind(ctypes.CDLL(str(build())))
+    lib.tds_pgs_form.argtypes = [ctypes.c_int] * 3
+    lib.tds_pgs_form.restype = ctypes.c_int
+    return lib
 
 
 def bind(lib):
-    """Declares the C functions of a library built from csrc/pgs.cu."""
+    """Declares the C functions that every library built from csrc/pgs.cu
+    has (an earlier commit's too: ``tools/pgs_ab.py`` binds one)."""
     for fn in (lib.tds_pgs_solve_f32, lib.tds_pgs_solve_f64):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

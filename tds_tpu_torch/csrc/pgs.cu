@@ -18,7 +18,7 @@
 // written and sits in L2, so the launch itself (~5 us on this card) is the
 // real floor. At n = 105, B = 1024 A is 45 MB (f32): 13.5 us of bytes.
 //
-// Two designs, by n:
+// Three forms, by n:
 //
 // n <= 32: a group of G lanes per env (16 for n <= 16, 32 above), row i on
 // lane i, in pgs_sweep.cuh, which the fused step kernel (megastep.cu)
@@ -36,26 +36,55 @@
 // thread per env, whose neighbouring threads read addresses n*n apart (13 us
 // at n = 12 on an H100 80GB HBM3).
 //
-// n > 32: a row no longer fits in a lane's registers (A is 44 KB per env
-// at n = 105 in f32), so one warp per env streams A row by row from global
-// memory: lane l reads A_ij for j = l (mod 32), 32 consecutive values per
-// load, coalesced, each row's loads issued a row ahead (up to 128 columns
-// held in registers, the rest streamed). x lives in shared memory, n values
-// per warp (its warp's lanes read x_j beside A_ij and lane (i mod 32)
-// writes x_i), so any n fits without local memory, up to the shared memory
-// of a block (n <= 29,056 in f64 at one env per block). Row i's sum over j != i of A_ij x_j is a
-// lane's partial sum over its columns in increasing j, then a butterfly
-// reduction over the warp (__shfl_xor_sync, 16, 8, 4, 2, 1); every lane
-// then clips x_i alike and lane (i mod 32) stores it. In the first sweep
-// x_j = 0 for j >= i, so the row reads only the 32-column blocks below its
-// diagonal block and the diagonal block. The summation order differs from
-// the plain sweep's, so float64 agrees to rounding (about 1e-12 relative),
-// not bit for bit. Its first version issued a row's loads when the row was
-// used, one global-memory round trip per 32 columns on the chain of rows
-// (146 us at n = 105, B = 1024, f32 on an H100 80GB HBM3). A in shared
-// memory through TMA and several envs per warp are later work.
+// n > 32, "blocked": one warp per env, the rows in blocks of 32, lane l
+// owning row 32 K + l of block K. Only a little of a sweep is truly
+// sequential. For block K each lane first sums its row over every column
+// outside the block's triangle (this sweep's final x_j for j < 32 K and,
+// after the first sweep, the previous sweep's x_j for j > its row): a
+// mat-vec, parallel over the lanes. Then, in order, lane m clips
+// x_{32K+m} = clip((b - sum) / A_rr), broadcasts it with one __shfl_sync,
+// and every later lane adds A_{r, 32K+m} x_{32K+m} to its sum with one
+// FMA: the chain of dependent rows is a multiply, two compares, a shuffle
+// and an FMA a row (1 / A_rr is taken before the chain, so that no divide
+// sits on it). The bounds' s = max(x_dep, 0) reads x_dep as it stands when
+// the row is clipped: this sweep's value when dep lies before the row (the
+// broadcast one when dep is in the block), else the previous sweep's.
 //
-// The ragged edge (both designs): a group past the end of the batch reads
+// A's lower triangle (all one sweep needs) lives in shared memory, packed
+// (row r at r (r + 1) / 2), with x, b, lo, hi and dep: 24,360 B an env at
+// n = 105 in f32, 5,664 B at n = 48, so that 4 envs a block make one wave
+// at the paths' batches (n = 105, B = 1024: 8 envs an SM; n = 48, B =
+// 4096: 32). The triangle's rows land with cp.async, 4 or 8 bytes a lane:
+// TMA (cp.async.bulk) wants 16-byte-aligned sources and strides, and an
+// env's A starts at e n^2 values (e x 44,100 B at n = 105 in f32), a row
+// at n values (420 B), so neither is aligned in general. Each block's rows
+// are one cp.async group, issued two blocks ahead: block K's chain runs
+// while blocks K + 1 and K + 2 are in flight (issuing every block's group
+// at the start was slower: 21.4 against 17.7 us with 0 sweeps at n = 105,
+// B = 1024, 19.7 against 14.5 us at n = 48, B = 4096, f32 on an H100 80GB
+// HBM3). The packed layout is free of
+// bank conflicts both ways: 32 consecutive rows read at one column sit at
+// offsets r (r + 1) / 2 + j, and the triangular numbers of 32 consecutive
+// rows are distinct mod 32 (mod 16 within a half-warp for 8-byte values);
+// a row read across consecutive columns is contiguous. After the first
+// sweep (iterations > 1) a row's columns above the diagonal come from
+// global memory (L2), a lane walking its own row: every path runs one
+// sweep. A row's sum runs in double in both types: in float32 a sum of up
+// to n products in order, in float32, strayed from the plain sweep's by
+// more than the float32 tolerance at n = 97 and 3 sweeps, where the
+// butterfly of the streaming form did not. The summation order differs
+// from the plain sweep's, and x_r is (b - sum) times 1 / A_rr, so float64
+// agrees to rounding (about 1e-12 relative), not bit for bit.
+//
+// n > 32 whose staged env does not fit a block's 227 KB (n > 335 in f32,
+// > 236 in f64), "streaming": one warp per env streams A row by row from
+// global memory, x in shared memory: lane l reads A_ij for j = l (mod 32),
+// coalesced, each row's loads issued a row ahead; row i's sum is a
+// butterfly over the warp (__shfl_xor_sync) and a divide, the chain a row.
+// That was the only design for n > 32 before the blocked one (69.3 us at
+// n = 105, B = 1024, f32 on an H100 80GB HBM3, 9.5x its bound).
+//
+// The ragged edge (every form): a group past the end of the batch reads
 // the last env's operands, runs the sweeps with the rest of its warp (the
 // shuffles need every lane) and stores nothing.
 
@@ -236,25 +265,182 @@ __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict
   }
 }
 
-// Envs per block and dynamic shared memory of the warp kernel at n rows:
-// 4 warps a block while their x fit the default 48 KB, else 1.
+// The forms, as tds_pgs_form reports them.
+enum Form { kRowPerLane = 0, kBlocked = 1, kStreaming = 2, kLinearised = 3 };
+
+// cp.async of one 4- or 8-byte value from global to shared memory (the
+// sources are aligned to their type only), and the group fences.
 template <typename T>
-void warp_shape(int n, int* envs, long long* smem) {
-  const long long per_env = (long long)n * sizeof(T);
-  *envs = 4 * per_env <= kSmemDefault ? 4 : 1;
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async copies 4 or 8 bytes here");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits until at most `pending` of this lane's groups are in flight; the
+// caller's __syncwarp() then shows every lane's copies to the warp.
+template <int pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+__host__ __device__ __forceinline__ int triangle(int r) { return r * (r + 1) / 2; }
+
+// Rows [r0, r1) of an env's A, columns 0..r, into the packed triangle,
+// G lanes walking each row.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* tri, const T* a_env, int n, int r0, int r1, int lane, int G) {
+  for (int r = r0; r < r1; ++r) {
+    const T* src = a_env + (long long)r * n;
+    T* dst = tri + triangle(r);
+    for (int c = lane; c <= r; c += G) copy_async(dst + c, src + c);
+  }
+}
+
+// Bytes of shared memory of one env of the blocked forward: the triangle,
+// x, b, lo, hi and dep, rounded up to 16.
+template <typename T>
+__host__ __device__ __forceinline__ long long blocked_env_bytes(int n) {
+  const long long bytes = ((long long)triangle(n) + 4LL * n) * sizeof(T) + 4LL * n;
+  return (bytes + 15) / 16 * 16;
+}
+
+// Resident blocks of 128 threads the blocked kernels are built for: 8 in
+// f32 (32 warps an SM, at most 64 registers a thread: the half-cheetah's
+// 4096 envs in one wave), 4 in f64.
+template <typename T>
+struct Resident {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Resident<T>::kBlocks)
+pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
+                   const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
+                   int batch, int n, int iterations) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const long long env = (long long)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const bool active = env < batch;
+  const long long e = active ? env : batch - 1;  // a valid env to read from
+  T* tri = reinterpret_cast<T*>(smem_raw + warp * blocked_env_bytes<T>(n));
+  T* x = tri + triangle(n);
+  T* bs = x + n;
+  T* los = bs + n;
+  T* his = los + n;
+  int* deps = reinterpret_cast<int*>(his + n);
+  const T* a_env = a + e * n * n;
+  const int blocks = (n + kWarp - 1) / kWarp;
+  // one cp.async group a block of rows, issued two blocks ahead; group 0
+  // also holds b, lo, hi and dep
+  for (int j = lane; j < n; j += kWarp) {
+    copy_async(bs + j, b + e * n + j);
+    copy_async(los + j, lo + e * n + j);
+    copy_async(his + j, hi + e * n + j);
+    copy_async(deps + j, dep + j);
+    x[j] = T(0);
+  }
+  stage_rows(tri, a_env, n, 0, min(n, kWarp), lane, kWarp);
+  copy_commit();
+  stage_rows(tri, a_env, n, kWarp, min(n, 2 * kWarp), lane, kWarp);
+  copy_commit();
+  // a launch of 0 sweeps stages A all the same: the floor of its loads
+  const int sweeps = iterations > 0 ? iterations : 1;
+  for (int it = 0; it < sweeps; ++it) {
+    for (int k = 0; k < blocks; ++k) {
+      const int k0 = k * kWarp;
+      if (it == 0) {
+        copy_wait<1>();  // block k's rows have landed; block k + 1's may not have
+        __syncwarp();
+        stage_rows(tri, a_env, n, min(n, k0 + 2 * kWarp), min(n, k0 + 3 * kWarp), lane, kWarp);
+        copy_commit();
+      }
+      if (iterations == 0) continue;
+      const int r = k0 + lane;
+      const bool row = r < n;
+      const int rr = row ? r : n - 1;  // lanes past n shadow the last row
+      const T* trow = tri + triangle(rr);
+      // this sweep's x before the block, in increasing j; the row's sum
+      // runs in double in both types
+      double sum = 0.0;
+#pragma unroll 4
+      for (int j = 0; j < k0; ++j) sum += double(trow[j]) * double(x[j]);
+      if (it > 0) {
+        // the previous sweep's x after the row: A's upper part from L2
+        const T* a_row = a_env + (long long)rr * n;
+        for (int j = rr + 1; j < n; ++j) sum += double(a_row[j]) * double(x[j]);
+      }
+      const double bi = bs[rr];
+      const T loi = los[rr], hii = his[rr];
+      const double inv = 1.0 / double(trow[rr]);
+      const int d = deps[rr];
+      T xd = d >= 0 ? x[d] : T(0);  // x_dep now: replaced below when dep is an earlier row of the block
+      T mine = T(0);
+      const int rows = min(kWarp, n - k0);
+#pragma unroll 4
+      for (int m = 0; m < rows; ++m) {
+        T xi = T((bi - sum) * inv);
+        const T s = d >= 0 ? (xd > T(0) ? xd : T(0)) : T(1);
+        // clip(xi, lo*s, hi*s) = min(max(xi, lo*s), hi*s), as jnp.clip
+        const T l = loi * s;
+        const T h = hii * s;
+        xi = xi < l ? l : xi;
+        xi = xi > h ? h : xi;
+        const T xm = __shfl_sync(0xffffffffu, xi, m);
+        mine = lane == m ? xm : mine;
+        xd = d == k0 + m ? xm : xd;
+        sum += double(lane > m ? trow[k0 + m] : T(0)) * double(xm);
+      }
+      __syncwarp();  // every lane has read the x it needs of this block
+      if (row) x[r] = mine;
+      __syncwarp();
+    }
+  }
+  if (active) {
+    for (int j = lane; j < n; j += kWarp) x_out[e * n + j] = x[j];
+  }
+}
+
+// Envs per block (4, 2 or 1 while they fit a block's 227 KB) and dynamic
+// shared memory of a launch with `per_env` bytes an env.
+inline void staged_shape(long long per_env, int most, int* envs, long long* smem) {
+  *envs = most;
+  while (*envs > 1 && *envs * per_env > kSmemMax) *envs /= 2;
   *smem = *envs * per_env;
 }
 
 template <typename T>
-cudaError_t prepare_warp_kernel(int n, int* envs, long long* smem) {
-  warp_shape<T>(n, envs, smem);
-  if (*smem > kSmemMax) return cudaErrorInvalidValue;
-  if (*smem > kSmemDefault) {
-    return cudaFuncSetAttribute(pgs_kernel_per_warp<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*smem));
-  }
-  return cudaSuccess;
+bool blocked_fits(int n) {
+  return n > 32 && blocked_env_bytes<T>(n) <= kSmemMax;
 }
+
+// Envs per block and dynamic shared memory of a streaming kernel with
+// `per_env` bytes an env: 4 warps a block while they fit the default 48 KB,
+// else 1.
+inline void streaming_shape(long long per_env, int* envs, long long* smem) {
+  *envs = 4 * per_env <= kSmemDefault ? 4 : 1;
+  *smem = *envs * per_env;
+}
+
+// Opts a kernel in to more than the default 48 KB of dynamic shared memory.
+inline cudaError_t allow_smem(const void* fn, long long smem) {
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem <= kSmemDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+// A kernel's launch for n rows: the kernel, its form, lanes per env, envs
+// per block and dynamic shared memory per block (fn null: no kernel).
+struct Plan {
+  const void* fn = nullptr;
+  int form = -1;
+  int lanes = 0;
+  int envs = 0;
+  long long smem = 0;
+};
 
 template <typename T, int N>
 const void* row_kernel(int n) {
@@ -263,15 +449,32 @@ const void* row_kernel(int n) {
 }
 
 template <typename T>
-const void* kernel_for(int n) {
-  switch (instance_rows(n)) {
-    case 8: return row_kernel<T, 8>(n);
-    case 12: return row_kernel<T, 12>(n);
-    case 16: return row_kernel<T, 16>(n);
-    case 24: return row_kernel<T, 24>(n);
-    case 32: return row_kernel<T, 32>(n);
-    default: return n > 32 ? reinterpret_cast<const void*>(&pgs_kernel_per_warp<T>) : nullptr;
+Plan forward_plan(int n) {
+  Plan p;
+  const int rows = instance_rows(n);
+  if (rows != 0) {
+    switch (rows) {
+      case 8: p.fn = row_kernel<T, 8>(n); break;
+      case 12: p.fn = row_kernel<T, 12>(n); break;
+      case 16: p.fn = row_kernel<T, 16>(n); break;
+      case 24: p.fn = row_kernel<T, 24>(n); break;
+      default: p.fn = row_kernel<T, 32>(n); break;
+    }
+    p.form = kRowPerLane;
+    p.lanes = rows <= 16 ? 16 : 32;
+    p.envs = kThreads / p.lanes;
+  } else if (blocked_fits<T>(n)) {
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_blocked<T>);
+    p.form = kBlocked;
+    p.lanes = kWarp;
+    staged_shape(blocked_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
+  } else if (n > 32) {
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T>);
+    p.form = kStreaming;
+    p.lanes = kWarp;
+    streaming_shape((long long)n * sizeof(T), &p.envs, &p.smem);  // x
   }
+  return p;
 }
 
 template <typename T, int N>
@@ -305,13 +508,16 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
     case 24: launch_rows<T, 24>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
     case 32: launch_rows<T, 32>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
     default: {
-      if (n <= 32) return static_cast<int>(cudaErrorInvalidValue);
-      int envs = 0;
-      long long smem = 0;
-      const cudaError_t err = prepare_warp_kernel<T>(n, &envs, &smem);
+      const Plan p = forward_plan<T>(n);
+      if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      const cudaError_t err = allow_smem(p.fn, p.smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = static_cast<int>((batch + envs - 1) / envs);
-      pgs_kernel_per_warp<T><<<blocks, envs * kWarp, smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations);
+      const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+      if (p.form == kBlocked) {
+        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations);
+      } else {
+        pgs_kernel_per_warp<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations);
+      }
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -341,56 +547,51 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
 // wrapper (contact/pgs.py) fills from the forward's output and, for
 // iterations > 1, from forward launches of 1 .. iterations-1 sweeps, which
 // compute the same sweeps bit for bit. Each row's p_i is recomputed from
-// xs; its sum runs in another order than the forward's (a reduction over
-// the lanes), so p_i may differ from the forward's by rounding, which moves
-// A-bar_ii by as much and picks another branch of the clip only where p_i
-// lies within rounding of a bound without sitting on it.
+// xs; its sum runs in another order than the forward's, so p_i may differ
+// from the forward's by rounding, which moves A-bar_ii by as much and picks
+// another branch of the clip only where p_i lies within rounding of a
+// bound without sitting on it.
 //
-// What bounds it on an H100: like the forward, memory and the chain of
-// dependent rows. Each env reads A (its lower triangle with one sweep), b,
-// lo, hi, xs and x-bar and writes A-bar whole (zeros above the diagonal
-// with one sweep: autograd takes a dense (B, n, n) gradient), b-bar, lo-bar
-// and hi-bar; each row costs a reduction over the lanes (the forward's
-// lane-per-row sweep needs none) and a divide.
+// What bounds it on an H100: memory, and the chain of dependent rows. Each
+// env reads A (its lower triangle with one sweep), b, lo, hi, xs and x-bar
+// and writes A-bar whole (zeros above the diagonal with one sweep:
+// autograd takes a dense (B, n, n) gradient), b-bar, lo-bar and hi-bar.
 //
-// n <= 32: a group of G lanes per env, lane j owns index j: column j of A
-// (col[i] = A_ij, loaded a row at a time, so a group's loads are
-// contiguous), x-bar_j, and column j of A-bar in registers, written at the
-// end; rows are instances of N = 8, 12, 16, 24, 32 with the padded rows
-// and lanes inert (identity columns, no dependency, rows i >= n skipped).
-// n > 32: a warp per env, lane l owns the columns j = l (mod 32); this
-// sweep's x, the previous sweep's and x-bar sit in shared memory (3n values
-// a warp), each row's p_i is a butterfly over the warp, and row i of A-bar
-// goes straight to global memory (stored by the last sweep, the first in
-// reverse, added to by the sweeps before it).
-
-// x = min(max(p, l), h) with jnp.maximum's and jnp.minimum's tie rule:
-// the adjoints of p, l and h for the adjoint g of x.
-template <typename T>
-__device__ __forceinline__ void clip_adjoint(T p, T l, T h, T g, T& p_bar, T& l_bar, T& h_bar) {
-  const T m = p > l ? p : l;
-  T m_bar;
-  if (m < h) {
-    m_bar = g;
-    h_bar = T(0);
-  } else if (m > h) {
-    m_bar = T(0);
-    h_bar = g;
-  } else {
-    m_bar = g * T(0.5);
-    h_bar = g * T(0.5);
-  }
-  if (p > l) {
-    p_bar = m_bar;
-    l_bar = T(0);
-  } else if (p < l) {
-    p_bar = T(0);
-    l_bar = m_bar;
-  } else {
-    p_bar = m_bar * T(0.5);
-    l_bar = m_bar * T(0.5);
-  }
-}
+// "linearised" (every n whose staging fits a block): the saved sweeps fix
+// every p_i, s_i and so the clip's factors, so the walk is linear in g and
+// only one multiply-add a row stays on the chain. For sweep t, in reverse:
+// (a) in parallel, each row's p_i from x after sweeps t and t - 1 (a
+// mat-vec), s_i, and the factors of the clip's adjoint for g = 1 (p-bar =
+// m_i g, l-bar = ml_i g, h-bar = mh_i g, each in {0, 1/4, 1/2, 1}), with
+// f_i = -m_i / A_ii and e_i = (ml_i lo_i + mh_i hi_i) max'(x_dep); (b) the
+// chain, in reverse, in blocks of G rows (lane l owning row G K + l):
+// g_i = x-bar_i + sum over i' > i of c_i' A_i'i + d_i' for the rows i'
+// whose dep is i, with c_i = f_i g_i and d_i = e_i g_i. Each lane first
+// sums the rows of the later blocks (a mat-vec over its column, parallel),
+// then lane m broadcasts g with one __shfl_sync and every earlier lane of
+// the block adds w g with one FMA, w = f_m A_ml (+ e_m where dep_m is the
+// lane's row), taken off the chain; (c) in parallel, A-bar's row i is
+// c_i times the x row i read, A-bar_ii = c_i p_i, b-bar_i = -c_i,
+// lo-bar_i = ml_i g_i s_i, hi-bar_i = mh_i g_i s_i, A-bar written a row
+// at a time by consecutive lanes; and x-bar for sweep t - 1 is the
+// sum over i < j of c_i A_ij plus d_i for the rows i whose dep is j >= i.
+// A dep before its row feeds this sweep's chain, one at or after its row
+// the previous sweep's x-bar. A's lower triangle, x after both sweeps,
+// x-bar, b, lo, hi, p, f, e, c, d and dep sit in shared memory (27,300 B
+// an env at n = 105 in f32, 888 B at n = 12), staged as the blocked
+// forward stages them, the last block's rows first; the columns above the
+// diagonal (sweeps after the first) come from L2. G = 16 lanes for
+// n <= 16 (two envs a warp), else 32.
+//
+// "streaming" (n > 328 in f32, > 229 in f64): a warp per env, lane l owns
+// the columns j = l (mod 32); this sweep's x, the previous sweep's and
+// x-bar sit in shared memory (3n values a warp), each row's p_i is a
+// butterfly over the warp, and row i of A-bar goes straight to global
+// memory (stored by the last sweep, the first in reverse, added to by the
+// sweeps before it). Before the linearised form it ran every n > 32
+// (237.4-239.3 us at n = 105, B = 1024, f32 on an H100 80GB HBM3), and n <=
+// 32 ran lane j owning column j of A and of A-bar in registers, a
+// butterfly and seven shuffles a row.
 
 // d max(x, 0) / dx with jnp.maximum's tie rule
 template <typename T>
@@ -398,75 +599,184 @@ __device__ __forceinline__ T relu_slope(T x) {
   return x > T(0) ? T(1) : (x == T(0) ? T(0.5) : T(0));
 }
 
-template <typename T, int N, int G>
+// x = min(max(p, l), h)'s adjoints of p, l and h for an adjoint 1 of x,
+// with jnp.maximum's and jnp.minimum's tie rule (a tie gives each side
+// half, so clip(0, 0, 0) passes 1/4, 1/4 and 1/2 back): each in {0, 1/4,
+// 1/2, 1}. The adjoints for g are these times g.
+template <typename T>
+__device__ __forceinline__ void clip_factors(T p, T l, T h, T& mp, T& ml, T& mh) {
+  const T m = p > l ? p : l;
+  const T mm = m < h ? T(1) : (m > h ? T(0) : T(0.5));
+  mh = m < h ? T(0) : (m > h ? T(1) : T(0.5));
+  const T split = p > l ? T(1) : (p < l ? T(0) : T(0.5));
+  mp = mm * split;
+  ml = mm * (T(1) - split);
+}
+
+// Bytes of shared memory of one env of the linearised backward: the
+// triangle, 11 vectors of n and dep, rounded up to 16.
+template <typename T>
+__host__ __device__ __forceinline__ long long linearised_env_bytes(int n) {
+  const long long bytes = ((long long)triangle(n) + 11LL * n) * sizeof(T) + 4LL * n;
+  return (bytes + 15) / 16 * 16;
+}
+
+template <typename T>
+bool linearised_fits(int n) {
+  return n >= 1 && linearised_env_bytes<T>(n) <= kSmemMax;
+}
+
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-pgs_backward_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
-                  const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
-                  const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
-                  T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations) {
+pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
+                        const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
+                        const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
+                        T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % G;
-  const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const int group = threadIdx.x / G;
+  const long long env = (long long)blockIdx.x * (blockDim.x / G) + group;
   const bool active = env < batch;
   const long long e = active ? env : batch - 1;  // a valid env to read from
-  const bool real = lane < n;                    // lanes n.. own padded (or no) indices
-  const int j = real ? lane : 0;
-  T col[N], col_bar[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const T v = (real && i < n) ? a[(e * n + i) * n + j] : T(0);
-    col[i] = real ? v : (i == lane ? T(1) : T(0));
-    col_bar[i] = T(0);
+  T* abar_env = a_bar + e * n * n;
+  if (iterations == 0) {
+    if (active) {
+      for (int q = lane; q < n * n; q += G) abar_env[q] = T(0);
+      for (int j = lane; j < n; j += G) b_bar[e * n + j] = lo_bar[e * n + j] = hi_bar[e * n + j] = T(0);
+    }
+    return;
   }
-  const T bj = real ? b[e * n + j] : T(0);
-  const T loj = real ? lo[e * n + j] : T(0);
-  const T hij = real ? hi[e * n + j] : T(0);
-  const int depj = real ? dep[j] : -1;
-  T xbar = real ? x_bar[e * n + j] : T(0);
-  T bbar = T(0), lobar = T(0), hibar = T(0);
+  T* tri = reinterpret_cast<T*>(smem_raw + group * linearised_env_bytes<T>(n));
+  T* xt = tri + triangle(n);  // x after sweep t: what rows read before them
+  T* xp = xt + n;             // x after sweep t - 1: what rows read after them
+  T* xbar = xp + n;           // the adjoint of x after sweep t
+  T* bs = xbar + n;
+  T* los = bs + n;
+  T* his = los + n;
+  T* ps = his + n;
+  T* fs = ps + n;
+  T* es = fs + n;
+  T* cs = es + n;
+  T* ds = cs + n;
+  int* deps = reinterpret_cast<int*>(ds + n);
+  const T* a_env = a + e * n * n;
+  const int blocks = (n + G - 1) / G;
+  const long long sweep = (long long)batch * n;  // xs's stride from one sweep to the next
+  // one cp.async group a block of rows, the last block's first, issued
+  // two blocks ahead; group 0 also holds the vectors
+  for (int j = lane; j < n; j += G) {
+    copy_async(bs + j, b + e * n + j);
+    copy_async(los + j, lo + e * n + j);
+    copy_async(his + j, hi + e * n + j);
+    copy_async(deps + j, dep + j);
+    copy_async(xbar + j, x_bar + e * n + j);
+    copy_async(xt + j, xs + (iterations - 1) * sweep + e * n + j);
+    if (iterations > 1) {
+      copy_async(xp + j, xs + (iterations - 2) * sweep + e * n + j);
+    } else {
+      xp[j] = T(0);
+    }
+  }
+  stage_rows(tri, a_env, n, (blocks - 1) * G, n, lane, G);
+  copy_commit();
+  stage_rows(tri, a_env, n, max(0, (blocks - 2) * G), max(0, (blocks - 1) * G), lane, G);
+  copy_commit();
   for (int t = iterations - 1; t >= 0; --t) {
-    const T xt = real ? xs[((long long)t * batch + e) * n + j] : T(0);
-    const T xp = (real && t > 0) ? xs[((long long)(t - 1) * batch + e) * n + j] : T(0);
-#pragma unroll
-    for (int i = N - 1; i >= 0; --i) {
-      if (i >= n) continue;  // a padded row: x stays 0 and no adjoint reaches it
-      // x_j as row i of this sweep read it
-      const T sel = lane < i ? xt : xp;
-      T partial = lane != i ? col[i] * sel : T(0);
-#pragma unroll
-      for (int offset = G / 2; offset > 0; offset /= 2) partial += __shfl_xor_sync(0xffffffffu, partial, offset, G);
-      const T aii = __shfl_sync(0xffffffffu, col[i], i, G);
-      const T bi = __shfl_sync(0xffffffffu, bj, i, G);
-      const T loi = __shfl_sync(0xffffffffu, loj, i, G);
-      const T hii = __shfl_sync(0xffffffffu, hij, i, G);
-      const int di = __shfl_sync(0xffffffffu, depj, i, G);
-      const T g = __shfl_sync(0xffffffffu, xbar, i, G);
-      const T xd = __shfl_sync(0xffffffffu, sel, di >= 0 ? di : 0, G);
-      const T p = (bi - partial) / aii;
-      const T s = di >= 0 ? (xd > T(0) ? xd : T(0)) : T(1);
-      T p_bar, l_bar, h_bar;
-      clip_adjoint(p, loi * s, hii * s, g, p_bar, l_bar, h_bar);
-      const T c = -p_bar / aii;
-      if (lane == i) {
-        xbar = T(0);
-        bbar += p_bar / aii;
-        lobar += l_bar * s;
-        hibar += h_bar * s;
-        col_bar[i] += c * p;
-      } else {
-        col_bar[i] += c * sel;
-        xbar += c * col[i];
+    const bool first = t == iterations - 1;  // the first sweep visited stores, the others add
+    if (!first) {
+      __syncwarp();
+      for (int j = lane; j < n; j += G) {
+        xt[j] = xs[t * sweep + e * n + j];
+        xp[j] = t > 0 ? xs[(t - 1) * sweep + e * n + j] : T(0);
       }
-      if (lane == di) xbar += (l_bar * loi + h_bar * hii) * relu_slope(xd);
+      __syncwarp();
     }
-  }
-  if (active && real) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i < n) a_bar[(e * n + i) * n + j] = col_bar[i];
+    for (int k = blocks - 1; k >= 0; --k) {
+      const int k0 = k * G;
+      const int k1 = min(n, k0 + G);
+      if (first) {
+        copy_wait<1>();  // block k's rows have landed; block k - 1's may not have
+        __syncwarp();
+        stage_rows(tri, a_env, n, max(0, k0 - 2 * G), max(0, k0 - G), lane, G);
+        copy_commit();
+      }
+      const int r = k0 + lane;
+      const bool row = r < n;
+      const int rr = row ? r : n - 1;  // lanes past n shadow the last row
+      const T* trow = tri + triangle(rr);
+      // (a) p, s and the clip's factors of row rr, from the x it read
+      T sum = T(0);
+#pragma unroll 4
+      for (int j = 0; j < k0; ++j) sum += trow[j] * xt[j];
+      for (int j = k0; j < k0 + G; ++j) sum += j < rr ? trow[j] * xt[j] : T(0);
+      if (t > 0) {
+        const T* a_row = a_env + (long long)rr * n;
+        for (int j = rr + 1; j < n; ++j) sum += a_row[j] * xp[j];
+      }
+      const T aii = trow[rr];
+      const T p = (bs[rr] - sum) / aii;
+      const int d = deps[rr];
+      const T xd = d >= 0 ? (d < rr ? xt[d] : xp[d]) : T(0);
+      const T s = d >= 0 ? (xd > T(0) ? xd : T(0)) : T(1);
+      T mp, ml, mh;
+      clip_factors(p, los[rr] * s, his[rr] * s, mp, ml, mh);
+      const T f = -mp / aii;
+      const T ef = d >= 0 ? (ml * los[rr] + mh * his[rr]) * relu_slope(xd) : T(0);
+      if (row) {
+        ps[r] = p;
+        fs[r] = f;
+        es[r] = ef;
+      }
+      __syncwarp();
+      // (b) g of the block's rows: the later blocks' rows, then the chain
+      T acc = xbar[rr];
+      for (int i = k1; i < n; ++i) {
+        acc += cs[i] * tri[triangle(i) + rr];
+        acc += deps[i] == rr ? ds[i] : T(0);
+      }
+#pragma unroll 4
+      for (int m = k1 - k0 - 1; m >= 0; --m) {
+        const int i = k0 + m;
+        const T w = lane < m ? fs[i] * tri[triangle(i) + rr] + (deps[i] == rr ? es[i] : T(0)) : T(0);
+        acc += w * __shfl_sync(0xffffffffu, acc, m, G);
+      }
+      const T g = acc;
+      const T c = f * g;
+      if (row) {
+        cs[r] = c;
+        ds[r] = ef * g;
+        if (active) {
+          const long long q = e * n + r;
+          b_bar[q] = first ? -c : b_bar[q] - c;
+          lo_bar[q] = first ? ml * g * s : lo_bar[q] + ml * g * s;
+          hi_bar[q] = first ? mh * g * s : hi_bar[q] + mh * g * s;
+        }
+      }
+      __syncwarp();
+      // (c) A-bar's rows of the block: c_i times the x row i read
+      if (active) {
+        for (int i = k0; i < k1; ++i) {
+          const T ci = cs[i];
+          T* abar_row = abar_env + (long long)i * n;
+          for (int j = lane; j < n; j += G) {
+            const T v = ci * (j == i ? ps[i] : (j < i ? xt[j] : xp[j]));
+            abar_row[j] = first ? v : abar_row[j] + v;
+          }
+        }
+      }
     }
-    b_bar[e * n + j] = bbar;
-    lo_bar[e * n + j] = lobar;
-    hi_bar[e * n + j] = hibar;
+    if (t > 0) {
+      // x-bar of sweep t - 1: A's upper part from L2, a row at a time
+      for (int j0 = 0; j0 < n; j0 += G) {
+        const int j = min(j0 + lane, n - 1);
+        T v = T(0);
+        for (int i = 0; i < n; ++i) {
+          v += i < j ? cs[i] * a_env[(long long)i * n + j] : T(0);
+          v += deps[i] == j && j >= i ? ds[i] : T(0);
+        }
+        if (j0 + lane < n) xbar[j] = v;
+      }
+    }
   }
 }
 
@@ -518,8 +828,9 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
       const T hii = hi[e * n + i];
       const T p = (b[e * n + i] - partial) / aii;
       const T g = xbar[i];
-      T p_bar, l_bar, h_bar;
-      clip_adjoint(p, loi * s, hii * s, g, p_bar, l_bar, h_bar);
+      T mp, ml, mh;
+      clip_factors(p, loi * s, hii * s, mp, ml, mh);
+      const T p_bar = mp * g, l_bar = ml * g, h_bar = mh * g;
       const T c = -p_bar / aii;
       __syncwarp();  // every lane has read x-bar_i before it changes
       T* abar_row = abar_env + (long long)i * n;
@@ -548,104 +859,77 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
   }
 }
 
-// Envs per block and dynamic shared memory of the backward's warp kernel
-// at n rows: 4 warps a block while their 3n values fit the default 48 KB,
-// else 1.
 template <typename T>
-void backward_warp_shape(int n, int* envs, long long* smem) {
-  const long long per_env = 3LL * n * sizeof(T);
-  *envs = 4 * per_env <= kSmemDefault ? 4 : 1;
-  *smem = *envs * per_env;
-}
-
-template <typename T>
-cudaError_t prepare_backward_warp_kernel(int n, int* envs, long long* smem) {
-  backward_warp_shape<T>(n, envs, smem);
-  if (*smem > kSmemMax) return cudaErrorInvalidValue;
-  if (*smem > kSmemDefault) {
-    return cudaFuncSetAttribute(pgs_backward_per_warp<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*smem));
+Plan backward_plan(int n) {
+  Plan p;
+  if (linearised_fits<T>(n)) {
+    p.fn = n <= 16 ? reinterpret_cast<const void*>(&pgs_backward_linearised<T, 16>)
+                   : reinterpret_cast<const void*>(&pgs_backward_linearised<T, 32>);
+    p.form = kLinearised;
+    p.lanes = n <= 16 ? 16 : 32;
+    // n <= 16 needs under 2 KB an env: its blocks keep 8 envs, whole warps
+    staged_shape(linearised_env_bytes<T>(n), kThreads / p.lanes, &p.envs, &p.smem);
+  } else if (n >= 1) {
+    p.fn = reinterpret_cast<const void*>(&pgs_backward_per_warp<T>);
+    p.form = kStreaming;
+    p.lanes = kWarp;
+    streaming_shape(3LL * n * sizeof(T), &p.envs, &p.smem);  // x after both sweeps, x-bar
   }
-  return cudaSuccess;
-}
-
-template <typename T>
-const void* backward_kernel_for(int n) {
-  switch (instance_rows(n)) {
-    case 8: return reinterpret_cast<const void*>(&pgs_backward_rows<T, 8, Lanes<8>::G>);
-    case 12: return reinterpret_cast<const void*>(&pgs_backward_rows<T, 12, Lanes<12>::G>);
-    case 16: return reinterpret_cast<const void*>(&pgs_backward_rows<T, 16, Lanes<16>::G>);
-    case 24: return reinterpret_cast<const void*>(&pgs_backward_rows<T, 24, Lanes<24>::G>);
-    case 32: return reinterpret_cast<const void*>(&pgs_backward_rows<T, 32, Lanes<32>::G>);
-    default: return n > 32 ? reinterpret_cast<const void*>(&pgs_backward_per_warp<T>) : nullptr;
-  }
-}
-
-template <typename T>
-struct BackwardArgs {
-  const T *a, *b, *lo, *hi;
-  const int* dep;
-  const T *xs, *x_bar;
-  T *a_bar, *b_bar, *lo_bar, *hi_bar;
-};
-
-template <typename T, int N>
-void launch_backward_rows(const BackwardArgs<T>& g, int batch, int n, int iterations, cudaStream_t s) {
-  constexpr int G = Lanes<N>::G;
-  constexpr int envs = kThreads / G;
-  const int blocks = (batch + envs - 1) / envs;
-  pgs_backward_rows<T, N, G><<<blocks, kThreads, 0, s>>>(g.a, g.b, g.lo, g.hi, g.dep, g.xs, g.x_bar, g.a_bar,
-                                                          g.b_bar, g.lo_bar, g.hi_bar, batch, n, iterations);
-}
-
-template <typename T>
-int launch_backward(const BackwardArgs<T>& g, int batch, int n, int iterations, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (instance_rows(n)) {
-    case 8: launch_backward_rows<T, 8>(g, batch, n, iterations, s); break;
-    case 12: launch_backward_rows<T, 12>(g, batch, n, iterations, s); break;
-    case 16: launch_backward_rows<T, 16>(g, batch, n, iterations, s); break;
-    case 24: launch_backward_rows<T, 24>(g, batch, n, iterations, s); break;
-    case 32: launch_backward_rows<T, 32>(g, batch, n, iterations, s); break;
-    default: {
-      if (n <= 32) return static_cast<int>(cudaErrorInvalidValue);
-      int envs = 0;
-      long long smem = 0;
-      const cudaError_t err = prepare_backward_warp_kernel<T>(n, &envs, &smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = static_cast<int>((batch + envs - 1) / envs);
-      pgs_backward_per_warp<T><<<blocks, envs * kWarp, smem, s>>>(g.a, g.b, g.lo, g.hi, g.dep, g.xs, g.x_bar, g.a_bar,
-                                                                  g.b_bar, g.lo_bar, g.hi_bar, batch, n, iterations);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return p;
 }
 
 template <typename T>
 int backward(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* xs,
              const void* x_bar, void* a_bar, void* b_bar, void* lo_bar, void* hi_bar, int batch, int n,
              int iterations, void* stream) {
-  const BackwardArgs<T> g{static_cast<const T*>(a),     static_cast<const T*>(b),     static_cast<const T*>(lo),
-                          static_cast<const T*>(hi),    static_cast<const int*>(dep), static_cast<const T*>(xs),
-                          static_cast<const T*>(x_bar), static_cast<T*>(a_bar),       static_cast<T*>(b_bar),
-                          static_cast<T*>(lo_bar),      static_cast<T*>(hi_bar)};
-  return launch_backward<T>(g, batch, n, iterations, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = backward_plan<T>(n);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(p.fn, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+  const int threads = p.envs * p.lanes;
+  const T* a_t = static_cast<const T*>(a);
+  const T* b_t = static_cast<const T*>(b);
+  const T* lo_t = static_cast<const T*>(lo);
+  const T* hi_t = static_cast<const T*>(hi);
+  const int* dep_t = static_cast<const int*>(dep);
+  const T* xs_t = static_cast<const T*>(xs);
+  const T* xbar_t = static_cast<const T*>(x_bar);
+  T* abar_t = static_cast<T*>(a_bar);
+  T* bbar_t = static_cast<T*>(b_bar);
+  T* lobar_t = static_cast<T*>(lo_bar);
+  T* hibar_t = static_cast<T*>(hi_bar);
+  if (p.form == kStreaming) {
+    pgs_backward_per_warp<T><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t, bbar_t,
+                                                             lobar_t, hibar_t, batch, n, iterations);
+  } else if (p.lanes == 16) {
+    pgs_backward_linearised<T, 16><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
+                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations);
+  } else {
+    pgs_backward_linearised<T, 32><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
+                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The launch-shape query shared by the forward and the backward (see
 // tds_pgs_launch_shape below).
-int launch_shape(const void* fn, int lanes, int envs, long long smem, int* out) {
-  const int threads = envs * lanes;
+int launch_shape(const Plan& p, int* out) {
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(p.fn, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = p.envs * p.lanes;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  err = cudaFuncGetAttributes(&attr, p.fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, static_cast<size_t>(smem));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn, threads, static_cast<size_t>(p.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = lanes;
-  out[1] = envs;
+  out[0] = p.lanes;
+  out[1] = p.envs;
   out[2] = threads;
-  out[3] = static_cast<int>(attr.sharedSizeBytes + smem);
+  out[3] = static_cast<int>(attr.sharedSizeBytes + p.smem);
   out[4] = blocks;
   out[5] = attr.numRegs;
   out[6] = static_cast<int>(attr.localSizeBytes);
@@ -679,18 +963,7 @@ extern "C" int tds_pgs_solve_f64(const void* a, const void* b, const void* lo,
 // thread and out[6] local memory per thread (bytes; stack frame and
 // spills), both from cudaFuncGetAttributes. Returns a cudaError_t.
 extern "C" int tds_pgs_launch_shape(int f64, int n, int* out) {
-  const void* fn = f64 ? kernel_for<double>(n) : kernel_for<float>(n);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = instance_rows(n);
-  int lanes = rows <= 16 ? 16 : 32;
-  int envs = kThreads / lanes;
-  long long smem = 0;
-  if (rows == 0) {
-    const cudaError_t err = f64 ? prepare_warp_kernel<double>(n, &envs, &smem) : prepare_warp_kernel<float>(n, &envs, &smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    lanes = kWarp;
-  }
-  return launch_shape(fn, lanes, envs, smem, out);
+  return launch_shape(f64 ? forward_plan<double>(n) : forward_plan<float>(n), out);
 }
 
 // K1's backward: a, b, lo, hi (the forward's operands), dep, xs
@@ -712,17 +985,13 @@ extern "C" int tds_pgs_backward_f64(const void* a, const void* b, const void* lo
 
 // The backward's launch shape, in tds_pgs_launch_shape's fields.
 extern "C" int tds_pgs_backward_launch_shape(int f64, int n, int* out) {
-  const void* fn = f64 ? backward_kernel_for<double>(n) : backward_kernel_for<float>(n);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = instance_rows(n);
-  int lanes = rows <= 16 ? 16 : 32;
-  int envs = kThreads / lanes;
-  long long smem = 0;
-  if (rows == 0) {
-    const cudaError_t err = f64 ? prepare_backward_warp_kernel<double>(n, &envs, &smem)
-                                : prepare_backward_warp_kernel<float>(n, &envs, &smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    lanes = kWarp;
-  }
-  return launch_shape(fn, lanes, envs, smem, out);
+  return launch_shape(f64 ? backward_plan<double>(n) : backward_plan<float>(n), out);
+}
+
+// The form that runs for n rows in float32 (f64 = 0) or float64 (f64 = 1),
+// of the forward (backward = 0) or the backward (backward = 1): 0 row per
+// lane, 1 blocked, 2 streaming, 3 linearised; -1 for no kernel.
+extern "C" int tds_pgs_form(int f64, int n, int backward) {
+  if (backward) return f64 ? backward_plan<double>(n).form : backward_plan<float>(n).form;
+  return f64 ? forward_plan<double>(n).form : forward_plan<float>(n).form;
 }
