@@ -6,8 +6,9 @@
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
 hopper rollouts, the humanoid and half-cheetah rollouts, the terrain
-laikago's rollout, replays and trainer, and gradients (the contact loss
-and APG through K1's backward kernel) through them.
+laikago's rollout, replays and trainer, gradients (the contact loss
+and APG through K1's backward kernel), forward mode (jacfwd through K1's
+JVP kernel) and PPO on the ant through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -175,6 +176,31 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``test_committed_apg_policy_walks``'s thresholds; (e) 25 APG
    iterations of ``test_apg_through_laikago_contact``'s setup: finite
    grad norms, the last 5 returns' mean above the first;
+15. forward mode and PPO, run before phase 11: (a) K1's forward-mode
+   kernel (``csrc/pgs.cu`` ``tds_pgs_jvp_*``, through
+   ``contact.pgs.PGSJVP``) against ``torch.func.jvp`` of the plain version
+   at n = 12, 24, 48 (B = 4096) and 105 (B = 1024), all three forms,
+   float32 (rtol 1e-5, atol 1e-6 max|x'|) and float64 (1e-12 relative),
+   one to three sweeps, ties included; its time (median of 100 launches),
+   the plain JVP's, the bound and the launch shape in float32 at one
+   sweep; (b) ``torch.func.jacfwd`` of ``tools/contact_loss.py``'s loss
+   over a 20-step laikago contact rollout through ``graphs.scan`` (float64,
+   batch 1): a JVP graph of three tangents, K1's JVP wrapper launches
+   counted (its warm-up and capture), the graph's nodes and capture
+   seconds, within 1e-9 of the CPU's jacfwd and of ``torch.func.jacrev`` on
+   the card, one JVP kernel a replayed step in a trace; (c) PPO
+   (``learn/ppo.py``) at ``examples/ppo_train.py``'s ant recipe (256 envs x
+   128 steps, 8 minibatches x 4 epochs, 64 x 64 tanh MLPs, float32), two
+   iterations from seed 0: each iteration's seconds, its collect's and its
+   fresh resets', env-steps/s, K1's wrapper launches counted, and K1 once a
+   collect step and once a settle step in a trace of an 8-step collect; (d)
+   ``logs/ant_ppo/policy.pkl`` and ``policy_anneal.pkl.final`` replayed for
+   1000 steps through graphs from the JAX test's starts
+   (``tests/golden/ant_ppo_policy_reset_noise.json``) at
+   ``tests/test_ppo_ant_policy.py``'s thresholds, and from four
+   ``torch.Generator`` starts in the same batch, reported; (e) one float64
+   PPO iteration on the ant on the card against the CPU's from the same
+   draws, within 1e-9, an env reset inside the unroll;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -183,8 +209,9 @@ prints no final line (each phase and sub-phase prints its seconds):
 The line before the last is the ``kernels`` JSON object (K1 once for each
 row count a main path runs, 12, 24, 48 and 105, the other row counts of
 phase 12 (a) and the terrain's n = 24 (``terrain_*``) inside the first;
-K1's backward at n = 12, the other row counts inside it; K2, K3, K4); the
-last line is
+K1's backward at n = 12, the other row counts inside it; K1's forward
+mode at n = 12, the other row counts inside it; K2, K3, K4); the last
+line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
 
@@ -283,7 +310,22 @@ APG_TEST = {"horizon": 30, "batch": 2, "truncation": 10}
 APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 25, 500
 APG_CHECKPOINT = REPO / "logs" / "laikago_apg" / "policy_h100.pkl"
 APG_RESET = REPO / "tests" / "golden" / "laikago_apg_reset.json"
+# phase 15: jacfwd through a 20-step laikago contact rollout; PPO at
+# examples/ppo_train.py's ant recipe (256 envs x 128 steps), two iterations;
+# the committed ant checkpoints' replays at tests/test_ppo_ant_policy.py's
+# 1000 steps from its starts (the JAX package's reset draws for them,
+# recorded in the JSON file)
+# the jacfwd trace a measurement: 20 replayed steps took 40 s under the
+# profiler on an H100 80GB HBM3 at 700 W
+FORWARD_STEPS, FORWARD_TRACE_STEPS = 20, 5
+PPO_RECIPE, PPO_ITERATIONS, PPO_TRACE_STEPS = {"num_envs": 256, "unroll": 128}, 2, 8
+ANT_PPO_STEPS = 1000
+ANT_PPO_RESET_NOISE = REPO / "tests" / "golden" / "ant_ppo_policy_reset_noise.json"
 PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
+# the gradient paths' traces (phase 14 (b), (c)): 20 replayed VJP steps took
+# 26.2 and 36.1 s under the profiler on an H100 80GB HBM3 at 700 W; 5 keep
+# the count
+GRAD_PROFILE_STEPS = 5
 # measurements only, cut to keep the script inside 700 s, under 60% of its
 # limit: eager steps of the stage breakdown, now of the laikago's main path
 # only (5 steps on every main path before), alternating timed runs of each
@@ -2458,7 +2500,7 @@ def gradients_contact_loss(card_line):
     over 500 float64 steps on the card through graphs: its gradient against
     central differences on the card (rtol 2e-4, the test's eps); then over
     the CPU test's 100 steps, the card's gradient within 1e-9 relative of
-    the CPU's; K1's backward kernels in a trace of a replayed 20-step
+    the CPU's; K1's backward kernels in a trace of a replayed 5-step
     gradient (one a step)."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.envs.laikago import LaikagoEnv
@@ -2493,14 +2535,14 @@ def gradients_contact_loss(card_line):
     if rel_cpu > 1e-9:
         raise AssertionError(f"gradients (b): the card's gradient differs from the CPU's by {rel_cpu:.2e} relative")
     out["contact_loss_card_vs_cpu_rel"] = rel_cpu
-    traced = contact_loss.make_loss(env, q0, qd0, link, PROFILE_STEPS)
-    with sub_phase(f"gradients (b) seconds: the {PROFILE_STEPS}-step trace"):
+    traced = contact_loss.make_loss(env, q0, qd0, link, GRAD_PROFILE_STEPS)
+    with sub_phase(f"gradients (b) seconds: the {GRAD_PROFILE_STEPS}-step trace"):
         contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda")
         _, _, _, count = counted_trace(lambda: contact_loss.gradient(traced, contact_loss.POINT, torch.float64, "cuda"),
-                                       "pgs_backward", PROFILE_STEPS)
-    log(f"gradients (b): a replayed {PROFILE_STEPS}-step gradient ran K1's backward kernel {count} times (torch.profiler)")
-    if count != PROFILE_STEPS:
-        raise AssertionError(f"gradients (b): {count} backward kernels in {PROFILE_STEPS} replayed VJP steps")
+                                       "pgs_backward", GRAD_PROFILE_STEPS)
+    log(f"gradients (b): a replayed {GRAD_PROFILE_STEPS}-step gradient ran K1's backward kernel {count} times (torch.profiler)")
+    if count != GRAD_PROFILE_STEPS:
+        raise AssertionError(f"gradients (b): {count} backward kernels in {GRAD_PROFILE_STEPS} replayed VJP steps")
     return out
 
 
@@ -2578,7 +2620,7 @@ def gradients_apg(card_line):
     graphs against the same inside graphs.eager(), bit for bit; the scaled
     recipe at batch 4 (the main path: its K1 launches feed the kernels
     line) and 4096; K1's backward kernels in a trace of a replayed
-    PROFILE_STEPS-step train_step at batch 4 (one a step)."""
+    GRAD_PROFILE_STEPS-step train_step at batch 4 (one a step)."""
     from tds_tpu_torch.learn import apg
     from tds_tpu_torch.utils import graphs
 
@@ -2606,18 +2648,18 @@ def gradients_apg(card_line):
         out.update(numbers)
         main = main or objects
     env, policy, reward, cfg, state = main
-    short = apg.make_apg_train_step(env, policy, cfg._replace(horizon=PROFILE_STEPS), reward_fn=reward)
-    with sub_phase(f"gradients (c) seconds: the {PROFILE_STEPS}-step trace"):
-        profile = device_profile(lambda: short(state), calls=1, kernel="pgs_backward", expected=PROFILE_STEPS)
+    short = apg.make_apg_train_step(env, policy, cfg._replace(horizon=GRAD_PROFILE_STEPS), reward_fn=reward)
+    with sub_phase(f"gradients (c) seconds: the {GRAD_PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: short(state), calls=1, kernel="pgs_backward", expected=GRAD_PROFILE_STEPS)
     if profile is None:
         raise AssertionError("gradients (c): the profiler saw no device activity in a train_step")
     ops, busy, wall, count = profile
-    log(f"gradients (c): a replayed {PROFILE_STEPS}-step train_step at batch {cfg.batch} (with its reset's "
+    log(f"gradients (c): a replayed {GRAD_PROFILE_STEPS}-step train_step at batch {cfg.batch} (with its reset's "
         f"{env.settle_steps} settle steps): {ops:.0f} device operations, device busy {busy:.3f} of {wall:.3f} ms wall under "
         f"torch.profiler ({100 * (1 - busy / wall):.1f}% idle), K1's backward kernel {count:.0f} times")
-    if count != PROFILE_STEPS:
-        raise AssertionError(f"gradients (c): {count} backward kernels in {PROFILE_STEPS} replayed VJP steps")
-    out.update(backward_replayed_launches_per_step=count / PROFILE_STEPS, apg_train_step_device_ops=ops,
+    if count != GRAD_PROFILE_STEPS:
+        raise AssertionError(f"gradients (c): {count} backward kernels in {GRAD_PROFILE_STEPS} replayed VJP steps")
+    out.update(backward_replayed_launches_per_step=count / GRAD_PROFILE_STEPS, apg_train_step_device_ops=ops,
                apg_train_step_idle=1 - busy / wall)
     return out
 
@@ -2705,6 +2747,353 @@ def phase_gradients(card, card_line):
     return entry
 
 
+# -- phase 15 --------------------------------------------------------------
+def k1_jvp_bound(b, iterations, card):
+    """(ms for the bytes, ms for the flops, bytes, flops) of K1's forward
+    mode on operands whose b is ``b``: A's and A''s lower triangles read
+    (all of both after the first sweep), b, lo, hi and their tangents read,
+    x and x' written, dep read once. Per row of a sweep: 6 flops for each
+    column it sums (A_ij x_j, A'_ij x_j and A_ij x'_j, and their sums: i in
+    the first sweep, n - 1 after), and about 30 for u, u', the bound scale
+    and the clip's factors."""
+    bsz, n = b.shape
+    a_values = n * (n + 1) // 2 if iterations <= 1 else n * n
+    n_bytes = b.element_size() * bsz * (2 * a_values + 8 * n) + 4 * n
+    first = sum(6 * i + 30 for i in range(n))
+    n_ops = bsz * (first + max(iterations - 1, 0) * n * (6 * (n - 1) + 30))
+    bandwidth, f32_rate, f64_rate = card
+    rate = f32_rate if b.dtype == torch.float32 else f64_rate
+    return n_bytes / bandwidth * 1e3, n_ops / rate * 1e3, n_bytes, n_ops
+
+
+def k1_jvp_case(operands, dep, it, card, gen, timing):
+    """K1's forward-mode kernel against torch.func.jvp of the plain version
+    on the same operands and random tangents (x and x'): raises past rtol
+    1e-5 and atol 1e-6 max|x'| in float32, 1e-12 relative in float64; with
+    ``timing`` its device time (median of 100 launches), the plain JVP's
+    (event spans around single calls, the host's pace in them), the bound
+    and the launch shape."""
+    from tds_tpu_torch.contact import pgs
+
+    b = operands[1]
+    bsz, n = b.shape
+    dep = tuple(dep)
+    tangents = [torch.randn(t.shape, generator=gen, dtype=t.dtype, device=t.device) for t in operands]
+    want_x, want = pgs.solve_pgs_jvp_reference(*operands, tangents, dep, it)
+    before = pgs.jvp_launches
+    got_x, got = pgs._launch_jvp(*operands, *tangents, dep, it)
+    torch.cuda.synchronize()
+    if pgs.jvp_launches != before + 1:
+        raise AssertionError("K1's JVP wrapper did not count its launch")
+    rtol, atol = pgs_tol(b.dtype, n)
+    x_over = ((got_x - want_x).abs() - (atol + rtol * want_x.abs())).max().item()
+    scale = max(1.0, want.abs().max().item())
+    rtol, atol = (1e-5, 1e-6 * scale) if b.dtype == torch.float32 else (1e-12, 1e-12 * scale)
+    err = (got - want).abs()
+    over = (err - (atol + rtol * want.abs())).max().item()
+    if not bool(torch.isfinite(got).all()) or over > 0 or x_over > 0:
+        raise AssertionError(f"K1's JVP disagrees with torch.func.jvp of the plain version at n={n} it={it} {b.dtype}: "
+                             f"max |kernel - plain| {err.max().item():.3e} in x' (max |x'| {scale:.3e}), x over its "
+                             f"tolerance by {x_over:.3e}")
+    out = {"max_abs_err": err.max().item(), "margin": -over}
+    if not timing:
+        return out
+    ms = device_ms(lambda: pgs._launch_jvp(*operands, *tangents, dep, it), rounds=5, per_round=20)
+    plain_ms = span_ms(lambda: pgs.solve_pgs_jvp_reference(*operands, tangents, dep, it), reps=3)
+    t_bytes, t_ops, n_bytes, n_ops = k1_jvp_bound(b, it, card)
+    shape = pgs.launch_shape(b.dtype, n, bsz, jvp=True)
+    log(f"forward mode (a): K1 JVP B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us on the "
+        f"device, plain JVP (torch.func.jvp) {plain_ms * 1e3:.1f} us (event span, host-paced), bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound; "
+        f"max |kernel - plain| {err.max().item():.3e}")
+    log_launch_shape(f"forward mode (a): K1 JVP B={bsz} n={n} {str(b.dtype)[6:]}", shape)
+    out.update(ms=ms, plain_ms=plain_ms, plain_timing="event span, host-paced", bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", shape=f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}",
+               design=shape["form"], **launch_fields(shape))
+    return out
+
+
+def forward_mode_kernel(card):
+    """(a): K1's forward-mode kernel against torch.func.jvp of the plain
+    version at the paths' row counts and batches (GRAD_ROWS: all three
+    forms), float32 and float64, 1 to 3 sweeps, with the ties of
+    tests/test_torch_pgs_grad.py in envs 1 and 2; timed in float32 at one
+    sweep."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = {}
+    for n, batch in GRAD_ROWS:
+        for dtype in (torch.float64, torch.float32):
+            for it in (3, 2, 1):
+                operands, dep = random_rows_problem(batch, n, dtype, gen)
+                n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
+                a, b = operands[0], operands[1]
+                b[1, :n_c] = -10.0 * b[1, :n_c].abs() - 50.0 * a[1, :n_c, :n_c].abs().sum(-1) - 1.0
+                b[2] = 0.0
+                timing = dtype == torch.float32 and it == 1
+                case = k1_jvp_case(operands, dep, it, card, gen, timing)
+                if timing:
+                    rows[n] = case
+                else:
+                    log(f"forward mode (a): K1 JVP random B={batch} n={n} it={it} {str(dtype)[6:]}: max |kernel - plain| "
+                        f"{case['max_abs_err']:.3e}, margin {case['margin']:.3e} under the tolerance")
+    return rows
+
+
+def forward_mode_scan(card_line):
+    """(b): torch.func.jacfwd of tools/contact_loss.py's loss over a 20-step
+    laikago contact rollout (float64, batch 1, touching down at the first
+    step) through graphs.scan on the card: a JVP graph of three tangents
+    (K1's JVP kernel inside), its wrapper launches counted from 0 just
+    before and read just after (the warm-up and the capture), the graph's
+    nodes and capture seconds; equal within 1e-9 relative to the CPU's
+    jacfwd and to jacrev on the card; K1's JVP kernels in a trace of a
+    replayed call (one a step)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.tools import contact_loss
+    from tds_tpu_torch.utils import graphs
+
+    def loss_on(device):
+        env = LaikagoEnv(dtype=torch.float64, device=device)
+        q0, qd0, link = contact_loss.sliding_start(env, height=0.44)
+        return contact_loss.make_loss(env, q0, qd0, link, FORWARD_STEPS), (env, q0, qd0, link)
+
+    loss, (env, q0, qd0, link) = loss_on("cuda")
+    cached = graphs.stats()
+    pgs.launches = pgs.jvp_launches = 0
+    card, first_s = timed_call(lambda: contact_loss.jacobian(loss, contact_loss.POINT, torch.float64, "cuda"))
+    launches, jvp_launches = pgs.launches, pgs.jvp_launches
+    again, replay_s = timed_call(lambda: contact_loss.jacobian(loss, contact_loss.POINT, torch.float64, "cuda"))
+    if (pgs.launches, pgs.jvp_launches) != (launches, jvp_launches) or jvp_launches != 2 or not torch.equal(card, again):
+        raise AssertionError(f"forward mode (b): K1's JVP launched {jvp_launches} times in the first jacfwd (expected the "
+                             f"warm-up and the capture), {pgs.jvp_launches - jvp_launches} in a replay, or the replay differs")
+    new = [g for g in graphs.stats() if g not in cached]
+    jvp = [g for g in new if isinstance(g.key, tuple) and g.key[0] == "vmap" and g.key[1][0] == "jvp"]
+    if len(jvp) != 1:
+        raise AssertionError(f"forward mode (b): {len(jvp)} JVP graphs under vmap captured, expected one")
+    g = jvp[0]
+    rev, rev_s = timed_call(lambda: contact_loss.jacobian(loss, contact_loss.POINT, torch.float64, "cuda", forward=False))
+    cpu, cpu_s = timed_call(lambda: contact_loss.jacobian(loss_on("cpu")[0], contact_loss.POINT, torch.float64, "cpu"))
+    rel_cpu = ((card.cpu() - cpu).abs() / cpu.abs()).max().item()
+    rel_rev = ((card - rev).abs() / rev.abs()).max().item()
+    log(f"forward mode (b): jacfwd of the {FORWARD_STEPS}-step contact loss through graphs on the card (float64) "
+        f"{[f'{v:.12e}' for v in card.tolist()]}: first call {first_s:.2f} s with the captures, replay {replay_s:.3f} s; "
+        f"the JVP graph (3 tangents under vmap) {g.nodes} nodes, captured in {g.capture_s:.3f} s, instantiated in "
+        f"{g.instantiate_s:.3f} s; K1 wrapper launches {launches}, K1 JVP wrapper launches {jvp_launches} (warm-up and "
+        f"capture); against the CPU's jacfwd {[f'{v:.12e}' for v in cpu.tolist()]} ({cpu_s:.1f} s) largest relative "
+        f"difference {rel_cpu:.2e}, against jacrev on the card ({rev_s:.2f} s) {rel_rev:.2e} (1e-9 each)")
+    if not bool(torch.isfinite(card).all()) or rel_cpu > 1e-9 or rel_rev > 1e-9 or card.abs().min().item() == 0:
+        raise AssertionError(f"forward mode (b): jacfwd {card.tolist()} against the CPU {cpu.tolist()} and jacrev {rev.tolist()}")
+    # the same env's loss over fewer steps replays the same one-step graphs
+    traced = contact_loss.make_loss(env, q0, qd0, link, FORWARD_TRACE_STEPS)
+    with sub_phase(f"forward mode (b) seconds: the {FORWARD_TRACE_STEPS}-step trace"):
+        _, _, _, count = counted_trace(lambda: contact_loss.jacobian(traced, contact_loss.POINT, torch.float64, "cuda"),
+                                       "pgs_jvp", FORWARD_TRACE_STEPS)
+    log(f"forward mode (b): a replayed {FORWARD_TRACE_STEPS}-step jacfwd ran K1's JVP kernel {count} times (torch.profiler)")
+    if count != FORWARD_TRACE_STEPS:
+        raise AssertionError(f"forward mode (b): {count} JVP kernels in {FORWARD_TRACE_STEPS} replayed JVP steps")
+    return {"launches": jvp_launches, "jacfwd_card_vs_cpu_rel": rel_cpu, "jacfwd_vs_jacrev_rel": rel_rev,
+            "jacfwd_first_s": first_s, "jacfwd_replay_s": replay_s, "jvp_graph_nodes": g.nodes,
+            "jvp_graph_capture_s": g.capture_s, "jvp_graph_instantiate_s": g.instantiate_s,
+            "replayed_launches_per_step": count / FORWARD_TRACE_STEPS}
+
+
+@contextlib.contextmanager
+def timed_stage(module, name, seconds):
+    """Inside the block, ``module.name`` is wrapped to add the seconds each
+    call takes (synchronised before and after) to ``seconds[name]``."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def ppo_recipe(card_line):
+    """(c): examples/ppo_train.py's recipe on the ant in float32 (256 envs x
+    128-step unrolls, 8 minibatches x 4 epochs, 64 x 64 tanh MLPs):
+    PPO_ITERATIONS iterations from seed 0 with K1's wrapper launches
+    counted from 0 just before and read just after, each iteration's
+    seconds, its collect's (the scan of the unroll) and its fresh resets'
+    (the auto-reset's R B envs settled ahead of the unroll); env-steps/s;
+    K1 kernels in a trace of a PPO_TRACE_STEPS-step collect at the recipe's
+    batch (one a collect step and one a settle step)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.learn import ppo
+
+    env = AntEnv(dtype=torch.float32)
+    nets = ppo.PPONetworks(env.observation_dim, env.action_dim, hidden=(64, 64))
+    cfg = ppo.PPOConfig(num_envs=PPO_RECIPE["num_envs"], unroll_length=PPO_RECIPE["unroll"], num_minibatches=8, num_epochs=4,
+                        init_log_std=-1.0)
+    init_fn, step_fn = ppo.make_ppo(env, nets, cfg)
+    state = init_fn(0)
+    torch.cuda.synchronize()
+    from tds_tpu_torch.utils import graphs
+
+    cached = graphs.stats()
+    pgs.launches = 0
+    rows = []
+    for _ in range(PPO_ITERATIONS):
+        stages = {}
+        with timed_stage(ppo, "collect", stages), timed_stage(ppo, "fresh_resets", stages):
+            (state, metrics), seconds = timed_call(lambda: step_fn(state))
+        rows.append((seconds, stages["collect"], stages["fresh_resets"], {k: v.item() for k, v in metrics.items()}))
+    launches = pgs.launches
+    check_wrapper_launches("PPO (c)", "PGS", launches, cached)
+    for p in state.params.values():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("PPO (c): a parameter is not finite")
+    steps = cfg.num_envs * cfg.unroll_length
+    for i, (seconds, collect_s, reset_s, m) in enumerate(rows):
+        log(f"PPO (c): iteration {i + 1} at the ant recipe (float32, {cfg.num_envs} envs x {cfg.unroll_length} steps): "
+            f"{seconds:.3f} s{' with the captures' if i == 0 else ''}, collect {collect_s:.3f} s "
+            f"({100 * collect_s / seconds:.1f}%, the fresh resets' {reset_s:.3f} s of it: {m['resets']:.0f} resets in the "
+            f"unroll, at most {m['env_resets_max']:.0f} of one env, {m['reset_slots']:.0f} slots x {cfg.num_envs} envs "
+            f"settled ahead), {steps / seconds:.1f} env-steps/s; "
+            f"reward_mean "
+            f"{m['reward_mean']:.4f}, episode_done_rate {m['episode_done_rate']:.4f}, value_mean {m['value_mean']:.4f}")
+    seconds, collect_s, reset_s, _ = rows[-1]
+    # the trace: a collect of PPO_TRACE_STEPS steps at the recipe's batch,
+    # from draws with a reset slot for each step (no env can run out, and
+    # so no retry collects twice), so that its K1 count is known: a trace of
+    # the whole iteration (513,256 device operations) took 47.3 s on an H100
+    short = cfg._replace(unroll_length=PPO_TRACE_STEPS)
+    draws = ppo.draw_iteration(env, short, state.generator, torch.float32, reset_slots=PPO_TRACE_STEPS)
+    with sub_phase("PPO (c) seconds: the traced collect"):
+        profile = device_profile(lambda: ppo.collect(env, nets, short, state, draws), calls=1, kernel="pgs_kernel",
+                                 expected=PPO_TRACE_STEPS + env.settle_steps)
+    if profile is None:
+        raise AssertionError("PPO (c): the profiler saw no device activity in a collect")
+    ops, busy, wall, count = profile
+    log(f"PPO (c): a traced {PPO_TRACE_STEPS}-step collect at batch {cfg.num_envs} (with its fresh resets' "
+        f"{env.settle_steps} settle steps): {ops:.0f} device operations, device busy {busy:.3f} of {wall:.3f} ms wall "
+        f"({100 * (1 - busy / wall):.1f}% idle), K1 {count:.0f} times; K1 wrapper launches over {PPO_ITERATIONS} "
+        f"iterations {launches} (warm-ups and captures)")
+    if count != PPO_TRACE_STEPS + env.settle_steps:
+        raise AssertionError(f"PPO (c): {count} K1 kernels in a collect of {PPO_TRACE_STEPS} steps and "
+                             f"{env.settle_steps} settle steps")
+    bench_line("ppo_ant_env_steps_per_s", steps / seconds, "steps/s", card_line, num_envs=cfg.num_envs,
+               unroll=cfg.unroll_length, iteration_s=seconds)
+    return {"ppo_iteration_s": [r[0] for r in rows], "ppo_collect_s": [r[1] for r in rows],
+            "ppo_fresh_resets_s": [r[2] for r in rows], "ppo_env_steps_per_s": steps / seconds, "ppo_launches": launches,
+            "ppo_collect_device_ops": ops, "ppo_collect_idle_share": 1 - busy / wall, "ppo_collect_trace_k1": count}
+
+
+def ppo_checkpoints_walk():
+    """(d): logs/ant_ppo/policy.pkl and policy_anneal.pkl.final replayed on
+    the card in float32 for 1000 steps through graphs, in one batch of 8:
+    the JAX test's four starts (tests/golden/ant_ppo_policy_reset_noise.json),
+    held to tests/test_ppo_ant_policy.py's thresholds, and four starts
+    drawn from torch.Generators seeded 0, 7, 123 and 42, reported."""
+    from tds_tpu_torch.convert import ppo_from_checkpoint
+    from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.learn.ppo import PPONetworks
+    from tds_tpu_torch.tools.ppo_train import policy_rollout
+
+    env = AntEnv(dtype=torch.float32)
+    golden = torch.tensor(json.loads(ANT_PPO_RESET_NOISE.read_text())["noise"], dtype=torch.float32, device="cuda")
+    drawn = torch.cat([env.draw_reset_noise(torch.Generator(device="cuda").manual_seed(s), 1) for s in (0, 7, 123, 42)])
+    out = {}
+    for name, x_min, mean_min, survivors in (("policy.pkl", 4.0, 8.0, 2), ("policy_anneal.pkl.final", 8.0, 0.0, 4)):
+        params, stat, hidden, _ = ppo_from_checkpoint(REPO / "logs" / "ant_ppo" / name, device="cuda")
+        nets = PPONetworks(env.observation_dim, env.action_dim, hidden=(hidden, hidden))
+        state, obs = env.reset(noise=torch.cat([golden, drawn]))
+        (_, steps, x), seconds = timed_call(lambda: policy_rollout(env, nets, params, stat, state, obs, ANT_PPO_STEPS))
+        dx, steps = (x - state.q[:, 0]).tolist(), steps.tolist()
+        jax_dx, jax_steps = dx[:4], steps[:4]
+        passed = min(jax_dx) > x_min and sum(jax_dx) / 4 > mean_min and sum(s >= 900 for s in jax_steps) >= survivors
+        drawn_ok = min(dx[4:]) > x_min and sum(s >= 900 for s in steps[4:]) >= survivors
+        log(f"PPO (d): {name}, {ANT_PPO_STEPS} steps through graphs in {seconds:.2f} s: from the JAX test's starts dx "
+            f"{[round(v, 3) for v in jax_dx]} m, steps {[int(s) for s in jax_steps]} (each > {x_min} m, mean > {mean_min} m, "
+            f">= {survivors} of 4 alive 900 steps); from torch.Generator starts 0, 7, 123, 42 dx {[round(v, 3) for v in dx[4:]]} m, "
+            f"steps {[int(s) for s in steps[4:]]} ({'within' if drawn_ok else 'NOT within'} the same thresholds, reported)")
+        if not passed:
+            raise AssertionError(f"PPO (d): {name} fails tests/test_ppo_ant_policy.py's thresholds on the card")
+        out[name] = {"jax_starts_dx": jax_dx, "jax_starts_steps": jax_steps, "generator_starts_dx": dx[4:],
+                     "generator_starts_steps": steps[4:]}
+    return out
+
+
+def ppo_card_against_cpu():
+    """(e): one float64 PPO iteration on the ant (4 envs, 8-step unroll, 2
+    epochs of 2 minibatches, the anneal on, env 0 started below the done
+    height so that it resets in the unroll) on the card through graphs and
+    K1, against the CPU's from the same draws: params, Adam's moments, the
+    envs' states, the statistics and the metrics within 1e-9 relative."""
+    from tds_tpu_torch.envs.ant import AntEnv
+    from tds_tpu_torch.envs.base import EnvState
+    from tds_tpu_torch.learn import ppo
+
+    cfg = ppo.PPOConfig(num_envs=4, unroll_length=8, num_minibatches=2, num_epochs=2, learning_rate=1e-3,
+                        lr_anneal_iterations=5, init_log_std=-1.0)
+    cpu_env = AntEnv(dtype=torch.float64, device="cpu")
+    start, _ = cpu_env.reset(torch.Generator().manual_seed(1), batch_size=cfg.num_envs)
+    q = start.q.clone()
+    q[0, 2] = 0.2
+    draws = ppo.draw_iteration(cpu_env, cfg, torch.Generator().manual_seed(2), torch.float64)
+    results = []
+    for device in ("cuda", "cpu"):
+        env = AntEnv(dtype=torch.float64, device=device)
+        nets = ppo.PPONetworks(env.observation_dim, env.action_dim, hidden=(16, 16))
+        state = ppo.make_ppo(env, nets, cfg)[0](0)
+        state = state._replace(env_state=EnvState(q.to(device), start.qd.to(device), start.t.to(device)),
+                               obs=cpu_env.observation(q, start.qd).to(device))
+        new, metrics = ppo.ppo_iteration(env, nets, cfg, state, ppo.PPODraws(*(d.to(device) for d in draws)))
+        flat = [new.params[k] for k in ("policy", "value", "log_std")] + [new.opt_state.mu[k] for k in ("policy", "value")]
+        flat += [new.env_state.q, new.env_state.qd, new.obs, *new.obs_stat, *metrics.values()]
+        results.append([t.cpu() for t in flat])
+    worst = max(((g - w).abs() / w.abs().clamp_min(1.0)).max().item() for g, w in zip(*results))
+    resets = int(results[1][-1])
+    log(f"PPO (e): one float64 ant iteration ({cfg.num_envs} envs x {cfg.unroll_length} steps, {resets} auto-resets in the "
+        f"unroll) on the card against the CPU from the same draws: largest difference {worst:.3e} relative (abs below 1) "
+        f"over params, Adam's moments, states, statistics and metrics (1e-9)")
+    if worst > 1e-9 or resets < 1:
+        raise AssertionError(f"PPO (e): the card's iteration differs from the CPU's by {worst:.3e}, or no env reset")
+    return {"ppo_float64_card_against_cpu": worst}
+
+
+def phase_forward_and_ppo(card, card_line):
+    """Phase 15: forward mode and PPO on the card. Returns K1's JVP entry of
+    the kernels line and PPO's numbers."""
+    with sub_phase("forward mode (a) seconds"):
+        rows = forward_mode_kernel(card)
+    with sub_phase("forward mode (b) seconds"):
+        path = forward_mode_scan(card_line)
+    with sub_phase("PPO (c) seconds"):
+        numbers = ppo_recipe(card_line)
+    with sub_phase("PPO (d) seconds"):
+        numbers["ppo_checkpoints"] = ppo_checkpoints_walk()
+    with sub_phase("PPO (e) seconds"):
+        numbers.update(ppo_card_against_cpu())
+    main = rows[12]
+    entry = {
+        "name": "pgs jvp",
+        "route": "cuda",
+        "source": "tds_tpu_torch/csrc/pgs.cu",
+        "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel; its forward mode is jax.jvp of tds_tpu/contact/mlcp.py:94 solve_pgs)",
+        "launches": path["launches"],
+        "library_ms": None,
+        "main_path": f"jacfwd of the {FORWARD_STEPS}-step laikago contact loss through graphs (b)",
+        **{k: v for k, v in main.items() if k != "margin"},
+        "row_counts": [{"rows": n, **{k: v for k, v in case.items() if k != "margin"}} for n, case in sorted(rows.items()) if n != 12],
+        **{f"path_{k}": v for k, v in path.items() if k != "launches"},
+    }
+    log(f"forward mode: {json.dumps({k: v for k, v in entry.items() if k != 'row_counts'})}")
+    log(f"PPO: {json.dumps(numbers)}")
+    return entry, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -2790,11 +3179,13 @@ def main():
     k1_rows, humanoid = timed(phase_humanoid, card, card_line)
     terrain = timed(phase_terrain, card, card_line)
     backward = timed(phase_gradients, card, card_line)
+    jvp, ppo_numbers = timed(phase_forward_and_ppo, card, card_line)
     kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
     kernel.update(humanoid)
     kernel.update(terrain)
+    kernel.update(ppo_numbers)
     kernel.update(timed(phase_graphs, start_s))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

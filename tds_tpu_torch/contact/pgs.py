@@ -20,10 +20,16 @@
 - anything else raises. No switch sends a CUDA tensor to the plain version,
   in the forward or in the backward.
 
-A second derivative through the kernel raises (``once_differentiable``),
-and so do forward mode (forward AD's ``jvp``) and ``torch.func`` transforms
-(``jacfwd``) with ``NotImplementedError``: they wait for ROADMAP Queue 1
-item 5.
+Forward mode runs through the kernel's JVP in the same file
+(``tds_pgs_jvp_*``: x and its tangent carried through the sweeps together,
+in the forward's three forms): ``PGSFunction.jvp`` launches it, for
+forward AD (``torch.autograd.forward_ad``) and ``torch.func.jvp``. Its
+``vmap`` rule folds a vmapped dimension into the batch B (K1 is batched
+over B already, so ``vmap`` of K1 is K1 on T B rows), and so do the rules
+of the JVP's and the backward's own functions; so ``torch.func.jacfwd``
+(a vmap of jvp), ``torch.func.jacrev`` and ``torch.func.vmap`` launch the
+kernels on the card too. A second derivative (reverse over reverse, or a
+derivative of the JVP) raises.
 
 Ties follow the JAX package's subgradients: ``s = max(x_dep, 0)`` and the
 clip ``min(max(x_i, lo s), hi s)`` give each side half at a tie, as
@@ -37,8 +43,9 @@ Importing this module builds nothing. :func:`launch_shape` reports a
 kernel's form, lanes per env, envs per block and resident warps per SM on
 the card for any n.
 
-``launches`` counts the forward kernel's launches and ``backward_launches``
-the backward kernel's; a caller may reset either to 0.
+``launches`` counts the forward kernel's launches, ``backward_launches``
+the backward kernel's and ``jvp_launches`` the forward mode's; a caller
+may reset any of them to 0.
 """
 
 import ctypes
@@ -55,13 +62,11 @@ from tds_tpu_torch.utils.tensors import constant
 
 launches = 0
 backward_launches = 0
+jvp_launches = 0
 # the kernels' forms, by the code tds_pgs_form returns
 FORMS = ("row per lane", "blocked", "streaming", "linearised")
-FORWARD_MODE = (
-    "forward-mode differentiation and torch.func transforms through the PGS kernel on the card are not ported yet "
-    "(ROADMAP Queue 1 item 5: forward mode through K1); use torch.autograd (reverse mode), or the plain version on "
-    "CPU tensors"
-)
+# the kernels tds_pgs_form and launch_shape name: K1, its backward, its JVP
+_WHICH = {"forward": 0, "backward": 1, "jvp": 2}
 
 
 def solve_pgs_reference(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int):
@@ -94,19 +99,39 @@ def solve_pgs(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int
         return solve_pgs_reference(a_mat, b, lo, hi, limit_dependency, iterations)
     if device.type != "cuda":
         raise ValueError(f"no PGS implementation for device {device}")
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in (a_mat, b, lo, hi)):
-        raise NotImplementedError(FORWARD_MODE)
     dep = tuple(int(d) for d in limit_dependency)
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in (a_mat, b, lo, hi)):
+        # under a torch.func transform: the rules below see the plain tensors
+        a_mat, b, lo, hi = (t.contiguous() for t in (a_mat, b, lo, hi))
     _check_operands(a_mat, b, lo, hi, dep, int(iterations))
     return PGSFunction.apply(a_mat, b, lo, hi, dep, int(iterations))
+
+
+def _fold(info, in_dims, tensors):
+    """A vmap rule's operands with the vmapped dimension folded into the
+    batch: each (T, B, ...) with T = ``info.batch_size`` (an unbatched
+    operand expanded to it) as a contiguous (T B, ...)."""
+    size = info.batch_size
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(size, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(size * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def _unfold(t, size):
+    return t.reshape(size, -1, *t.shape[1:])
 
 
 class PGSFunction(torch.autograd.Function):
     """The kernel as an autograd function: the forward launches K1 and
     saves A, b, lo, hi and x; the backward launches K1's backward kernel
     (for ``iterations`` > 1 after relaunching the forward at 1 ..
-    iterations - 1 sweeps, to recover x after each sweep). Takes checked
-    operands (:func:`solve_pgs` checks them)."""
+    iterations - 1 sweeps, to recover x after each sweep); the JVP
+    launches K1's forward-mode kernel on the saved operands and the
+    tangents (zeros for an operand without one); the vmap rule folds the
+    vmapped dimension into B. Takes checked operands (:func:`solve_pgs`
+    checks them)."""
 
     @staticmethod
     def forward(a_mat, b, lo, hi, dep, iterations):
@@ -116,17 +141,64 @@ class PGSFunction(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         a_mat, b, lo, hi, dep, iterations = inputs
         ctx.save_for_backward(a_mat, b, lo, hi, output)
+        ctx.save_for_forward(a_mat, b, lo, hi)
         ctx.dep, ctx.iterations = dep, iterations
 
     @staticmethod
     @once_differentiable
     def backward(ctx, x_bar):
         a_mat, b, lo, hi, x = ctx.saved_tensors
-        return (*_launch_backward(a_mat, b, lo, hi, ctx.dep, ctx.iterations, x, x_bar.contiguous()), None, None)
+        return (*PGSBackward.apply(a_mat, b, lo, hi, x, x_bar.contiguous(), ctx.dep, ctx.iterations), None, None)
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        raise NotImplementedError(FORWARD_MODE)
+    def jvp(ctx, a_dot, b_dot, lo_dot, hi_dot, _dep, _iterations):
+        operands = ctx.saved_tensors[:4]
+        dots = [torch.zeros_like(p) if d is None else d.contiguous() for p, d in zip(operands, (a_dot, b_dot, lo_dot, hi_dot))]
+        return PGSJVP.apply(*operands, *dots, ctx.dep, ctx.iterations)[1]
+
+    @staticmethod
+    def vmap(info, in_dims, a_mat, b, lo, hi, dep, iterations):
+        x = PGSFunction.apply(*_fold(info, in_dims[:4], (a_mat, b, lo, hi)), dep, iterations)
+        return _unfold(x, info.batch_size), 0
+
+
+class PGSJVP(torch.autograd.Function):
+    """K1's forward mode: (x, x_dot) from the operands and their tangents,
+    one launch of the JVP kernel; the vmap rule folds the vmapped
+    dimension into B (``torch.func.jacfwd`` vmaps the tangents)."""
+
+    @staticmethod
+    def forward(a_mat, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, iterations):
+        return _launch_jvp(a_mat, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, iterations)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        x, x_dot = PGSJVP.apply(*_fold(info, in_dims[:8], args[:8]), *args[8:])
+        return (_unfold(x, info.batch_size), _unfold(x_dot, info.batch_size)), (0, 0)
+
+
+class PGSBackward(torch.autograd.Function):
+    """K1's backward: (A-bar, b-bar, lo-bar, hi-bar) from the forward's
+    operands, its x and x-bar, one launch of the backward kernel; the vmap
+    rule folds the vmapped dimension into B (``torch.func.jacrev`` vmaps
+    the cotangents)."""
+
+    @staticmethod
+    def forward(a_mat, b, lo, hi, x, x_bar, dep, iterations):
+        return _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        grads = PGSBackward.apply(*_fold(info, in_dims[:6], args[:6]), *args[6:])
+        return tuple(_unfold(g, info.batch_size) for g in grads), (0,) * 4
 
 
 def _check_operands(a_mat, b, lo, hi, dep, iterations):
@@ -198,23 +270,65 @@ def _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar):
     return grads
 
 
-def form(dtype: torch.dtype, n: int, backward: bool = False) -> str:
-    """The form of the kernel (with ``backward``, of its backward) that
-    runs for n rows in ``dtype``: one of :data:`FORMS`."""
+def _launch_jvp(a_mat, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, iterations):
+    """(x, x_dot): one launch of the forward-mode kernel on the operands
+    and their tangents (each of its operand's shape, dtype and device)."""
+    global jvp_launches
+    bsz, n = b.shape
+    for name, t, p in zip(("a_dot", "b_dot", "lo_dot", "hi_dot"), (a_dot, b_dot, lo_dot, hi_dot), (a_mat, b, lo, hi)):
+        if t.shape != p.shape or t.dtype != p.dtype or t.device != p.device or not t.is_contiguous():
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}, its operand {tuple(p.shape)} {p.dtype}")
+    x, x_dot = torch.empty_like(b), torch.empty_like(b)
+    if bsz == 0:
+        return x, x_dot
+    fn = _library().tds_pgs_jvp_f32 if b.dtype == torch.float32 else _library().tds_pgs_jvp_f64
+    dep_t = constant(dep, torch.int32, b.device)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = fn(
+            *(t.data_ptr() for t in (a_mat, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot)), dep_t.data_ptr(),
+            x.data_ptr(), x_dot.data_ptr(), bsz, n, iterations, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"PGS forward-mode kernel launch failed with CUDA error {rc}")
+    jvp_launches += 1
+    return x, x_dot
+
+
+def solve_pgs_jvp_reference(a_mat, b, lo, hi, tangents, limit_dependency: Sequence[int], iterations: int):
+    """The plain version of K1's forward mode: (x, x_dot), ``torch.func.jvp``
+    of :func:`solve_pgs_reference` for ``tangents`` = (A', b', lo', hi')."""
+    return torch.func.jvp(
+        lambda *t: solve_pgs_reference(*t, limit_dependency, iterations), (a_mat, b, lo, hi), tuple(tangents)
+    )
+
+
+def form(dtype: torch.dtype, n: int, backward: bool = False, jvp: bool = False) -> str:
+    """The form of the kernel (with ``backward``, of its backward; with
+    ``jvp``, of its forward mode) that runs for n rows in ``dtype``: one of
+    :data:`FORMS`."""
     if n < 1 or dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no PGS kernel for n = {n} in {dtype}")
-    return FORMS[_library().tds_pgs_form(int(dtype == torch.float64), n, int(backward))]
+    which = _which(backward, jvp)
+    return FORMS[_library().tds_pgs_form(int(dtype == torch.float64), n, _WHICH[which])]
 
 
-def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False) -> dict:
-    """How the kernel (with ``backward``, its backward) launches for n rows
-    in ``dtype`` at ``batch`` envs on ``device``: its ``form`` and
-    ``cuda_build.launch_shape``'s fields, resident warps per SM and waves
-    among them."""
-    name = form(dtype, n, backward)
+def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False, jvp: bool = False) -> dict:
+    """How the kernel (with ``backward``, its backward; with ``jvp``, its
+    forward mode) launches for n rows in ``dtype`` at ``batch`` envs on
+    ``device``: its ``form`` and ``cuda_build.launch_shape``'s fields,
+    resident warps per SM and waves among them."""
+    name = form(dtype, n, backward, jvp)
     lib = _library()
-    fn = lib.tds_pgs_backward_launch_shape if backward else lib.tds_pgs_launch_shape
+    fn = {"forward": lib.tds_pgs_launch_shape, "backward": lib.tds_pgs_backward_launch_shape,
+          "jvp": lib.tds_pgs_jvp_launch_shape}[_which(backward, jvp)]
     return {"form": name, **cuda_build.launch_shape(fn, (int(dtype == torch.float64), n), batch, device)}
+
+
+def _which(backward: bool, jvp: bool) -> str:
+    if backward and jvp:
+        raise ValueError("backward and jvp name different kernels")
+    return "backward" if backward else "jvp" if jvp else "forward"
 
 
 def build() -> Path:
@@ -243,4 +357,10 @@ def bind(lib):
     for fn in (lib.tds_pgs_launch_shape, lib.tds_pgs_backward_launch_shape):
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
+    if hasattr(lib, "tds_pgs_jvp_f32"):  # an earlier commit's library may have no forward mode
+        for fn in (lib.tds_pgs_jvp_f32, lib.tds_pgs_jvp_f64):
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.tds_pgs_jvp_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.tds_pgs_jvp_launch_shape.restype = ctypes.c_int
     return lib

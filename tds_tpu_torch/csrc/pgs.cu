@@ -593,25 +593,8 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
 // 32 ran lane j owning column j of A and of A-bar in registers, a
 // butterfly and seven shuffles a row.
 
-// d max(x, 0) / dx with jnp.maximum's tie rule
-template <typename T>
-__device__ __forceinline__ T relu_slope(T x) {
-  return x > T(0) ? T(1) : (x == T(0) ? T(0.5) : T(0));
-}
-
-// x = min(max(p, l), h)'s adjoints of p, l and h for an adjoint 1 of x,
-// with jnp.maximum's and jnp.minimum's tie rule (a tie gives each side
-// half, so clip(0, 0, 0) passes 1/4, 1/4 and 1/2 back): each in {0, 1/4,
-// 1/2, 1}. The adjoints for g are these times g.
-template <typename T>
-__device__ __forceinline__ void clip_factors(T p, T l, T h, T& mp, T& ml, T& mh) {
-  const T m = p > l ? p : l;
-  const T mm = m < h ? T(1) : (m > h ? T(0) : T(0.5));
-  mh = m < h ? T(0) : (m > h ? T(1) : T(0.5));
-  const T split = p > l ? T(1) : (p < l ? T(0) : T(0.5));
-  mp = mm * split;
-  ml = mm * (T(1) - split);
-}
+// relu_slope and clip_factors (pgs_sweep.cuh) give the clip's and the
+// bound scale's factors, shared with the forward mode below.
 
 // Bytes of shared memory of one env of the linearised backward: the
 // triangle, 11 vectors of n and dep, rounded up to 16.
@@ -913,8 +896,354 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch-shape query shared by the forward and the backward (see
-// tds_pgs_launch_shape below).
+// ---------------------------------------------------------------------------
+// K1's forward mode: the Jacobian-vector product of the sweeps above, the
+// counterpart of jax.jvp through tds_tpu/contact/mlcp.py::solve_pgs (the
+// Pallas kernel has no JVP of its own: the JAX package differentiates the
+// unrolled sweep, jax.jacfwd through contact included). Given tangents
+// (A', b', lo', hi') of the operands it computes x and its tangent x'
+// together, sweep by sweep, so that no sweep is saved (unlike the
+// backward, which replays the forward to recover x after each sweep).
+// Per row, u = (b_i - delta_i) / A_ii and
+//   u' = (b'_i - delta'_i - u A'_ii) / A_ii,  delta'_i = sum_{j != i} A'_ij x_j + A_ij x'_j,
+// s = max(x_dep, 0), s' = x'_dep max'(x_dep); l = lo_i s, l' = lo'_i s +
+// lo_i s', h likewise; x_i = min(max(u, l), h) and x'_i = mp u' + ml l' +
+// mh h' with clip_factors' factors: jax.jvp's rule at ties, half to each
+// side of a tie of lax.max or lax.min.
+//
+// What bounds it on an H100: memory, as the forward. Each env reads A's
+// and A''s lower triangles (all of both after the first sweep) and b, lo,
+// hi and their tangents, and writes x and x'; per row and column about 6
+// flops against the forward's 2.
+//
+// Its three forms are the forward's:
+// - n <= 32, "row per lane" (pgs_jvp_sweeps in pgs_sweep.cuh): lane i
+//   holds row i of A and of A' in registers, and the whole x and x'; each
+//   row's x_i and x'_i are two shuffles. Every n runs the padded instance
+//   of the next N of 8, 12, 16, 24, 32 (identity rows with zero tangents
+//   keep x = x' = 0 past n).
+// - n > 32, "blocked": one warp per env, both lower triangles and the
+//   vectors staged in shared memory with cp.async (jvp_env_bytes: 48,304
+//   B an env at n = 105 in f32), the rows in blocks of 32; each lane first
+//   sums its row over the columns outside the block's triangle, then the
+//   chain broadcasts x_m and x'_m and every later lane adds its terms. The
+//   sums run in double in both types, as the blocked forward's.
+// - past a block's 227 KB (n > 236 in f32, > 165 in f64), "streaming": one
+//   warp per env streams both rows from global memory, x and x' in shared
+//   memory, each row's two sums a butterfly over the warp.
+
+template <typename T, int N, int G>
+__global__ void __launch_bounds__(kThreads)
+pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
+             const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
+             const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
+             T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+  const int lane = threadIdx.x % G;
+  const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  const bool active = env < batch;
+  const long long e = active ? env : batch - 1;  // a valid env to read from
+  const int i = lane < N ? lane : 0;              // lanes past N carry row 0, unused
+  // a padding row (i >= n) reads row 0 and keeps none of it
+  const bool real = i < n;
+  const int r = real ? i : 0;
+  LaneRow<T, N> row, tangent;
+  const long long q = (e * n + r) * n;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const T v = j < n ? a[q + j] : T(0);
+    const T vd = j < n ? a_dot[q + j] : T(0);
+    row.a[j] = real ? v : (j == i ? T(1) : T(0));
+    tangent.a[j] = real ? vd : T(0);
+  }
+  const long long k = e * n + r;
+  row.b = real ? b[k] : T(0);
+  row.lo = real ? lo[k] : T(0);
+  row.hi = real ? hi[k] : T(0);
+  row.dep = real ? dep[r] : -1;
+  tangent.b = real ? b_dot[k] : T(0);
+  tangent.lo = real ? lo_dot[k] : T(0);
+  tangent.hi = real ? hi_dot[k] : T(0);
+  tangent.dep = -1;
+  T x[N], xd[N];
+  T mine, mined;
+  pgs_jvp_sweeps<T, N, G>(x, xd, row, tangent, iterations, mine, mined);
+  if (active && lane < n) {
+    x_out[e * n + lane] = mine;
+    x_dot_out[e * n + lane] = mined;
+  }
+}
+
+// Bytes of shared memory of one env of the blocked JVP: both triangles,
+// x, x', b, b', lo, lo', hi, hi' and dep, rounded up to 16.
+template <typename T>
+__host__ __device__ __forceinline__ long long jvp_env_bytes(int n) {
+  const long long bytes = (2LL * triangle(n) + 8LL * n) * sizeof(T) + 4LL * n;
+  return (bytes + 15) / 16 * 16;
+}
+
+template <typename T>
+bool jvp_blocked_fits(int n) {
+  return n > 32 && jvp_env_bytes<T>(n) <= kSmemMax;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
+                const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
+                const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
+                T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const long long env = (long long)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const bool active = env < batch;
+  const long long e = active ? env : batch - 1;  // a valid env to read from
+  T* tri = reinterpret_cast<T*>(smem_raw + warp * jvp_env_bytes<T>(n));
+  T* trid = tri + triangle(n);
+  T* x = trid + triangle(n);
+  T* xd = x + n;
+  T* bs = xd + n;
+  T* bds = bs + n;
+  T* los = bds + n;
+  T* lods = los + n;
+  T* his = lods + n;
+  T* hids = his + n;
+  int* deps = reinterpret_cast<int*>(hids + n);
+  const T* a_env = a + e * n * n;
+  const T* ad_env = a_dot + e * n * n;
+  const int blocks = (n + kWarp - 1) / kWarp;
+  for (int j = lane; j < n; j += kWarp) {
+    const long long k = e * n + j;
+    copy_async(bs + j, b + k);
+    copy_async(bds + j, b_dot + k);
+    copy_async(los + j, lo + k);
+    copy_async(lods + j, lo_dot + k);
+    copy_async(his + j, hi + k);
+    copy_async(hids + j, hi_dot + k);
+    copy_async(deps + j, dep + j);
+    x[j] = xd[j] = T(0);
+  }
+  stage_rows(tri, a_env, n, 0, min(n, kWarp), lane, kWarp);
+  stage_rows(trid, ad_env, n, 0, min(n, kWarp), lane, kWarp);
+  copy_commit();
+  stage_rows(tri, a_env, n, kWarp, min(n, 2 * kWarp), lane, kWarp);
+  stage_rows(trid, ad_env, n, kWarp, min(n, 2 * kWarp), lane, kWarp);
+  copy_commit();
+  const int sweeps = iterations > 0 ? iterations : 1;
+  for (int it = 0; it < sweeps; ++it) {
+    for (int k = 0; k < blocks; ++k) {
+      const int k0 = k * kWarp;
+      if (it == 0) {
+        copy_wait<1>();  // block k's rows have landed; block k + 1's may not have
+        __syncwarp();
+        stage_rows(tri, a_env, n, min(n, k0 + 2 * kWarp), min(n, k0 + 3 * kWarp), lane, kWarp);
+        stage_rows(trid, ad_env, n, min(n, k0 + 2 * kWarp), min(n, k0 + 3 * kWarp), lane, kWarp);
+        copy_commit();
+      }
+      if (iterations == 0) continue;
+      const int r = k0 + lane;
+      const bool row = r < n;
+      const int rr = row ? r : n - 1;  // lanes past n shadow the last row
+      const T* trow = tri + triangle(rr);
+      const T* trowd = trid + triangle(rr);
+      double sum = 0.0, sumd = 0.0;
+      for (int j = 0; j < k0; ++j) {
+        sum += double(trow[j]) * double(x[j]);
+        sumd += double(trowd[j]) * double(x[j]) + double(trow[j]) * double(xd[j]);
+      }
+      if (it > 0) {
+        // the previous sweep's x after the row: the upper parts from L2
+        const T* a_row = a_env + (long long)rr * n;
+        const T* ad_row = ad_env + (long long)rr * n;
+        for (int j = rr + 1; j < n; ++j) {
+          sum += double(a_row[j]) * double(x[j]);
+          sumd += double(ad_row[j]) * double(x[j]) + double(a_row[j]) * double(xd[j]);
+        }
+      }
+      const double bi = bs[rr], bdi = bds[rr];
+      const T loi = los[rr], hii = his[rr], lodi = lods[rr], hidi = hids[rr];
+      const double aii = trow[rr], aiid = trowd[rr];
+      const int d = deps[rr];
+      T xdep = d >= 0 ? x[d] : T(0);  // x_dep now: replaced below when dep is an earlier row of the block
+      T xddep = d >= 0 ? xd[d] : T(0);
+      T mine = T(0), mined = T(0);
+      const int rows = min(kWarp, n - k0);
+      for (int m = 0; m < rows; ++m) {
+        const double u = (bi - sum) / aii;
+        const T ut = T(u);
+        const T udt = T((bdi - sumd - u * aiid) / aii);
+        const T s = d >= 0 ? (xdep > T(0) ? xdep : T(0)) : T(1);
+        const T sd = d >= 0 ? xddep * relu_slope(xdep) : T(0);
+        const T l = loi * s, h = hii * s;
+        const T ld = lodi * s + loi * sd, hd = hidi * s + hii * sd;
+        T xi = ut < l ? l : ut;
+        xi = xi > h ? h : xi;
+        T mp, ml, mh;
+        clip_factors(ut, l, h, mp, ml, mh);
+        const T xdi = mp * udt + ml * ld + mh * hd;
+        const T xm = __shfl_sync(0xffffffffu, xi, m);
+        const T xdm = __shfl_sync(0xffffffffu, xdi, m);
+        mine = lane == m ? xm : mine;
+        mined = lane == m ? xdm : mined;
+        xdep = d == k0 + m ? xm : xdep;
+        xddep = d == k0 + m ? xdm : xddep;
+        const T am = lane > m ? trow[k0 + m] : T(0);
+        const T amd = lane > m ? trowd[k0 + m] : T(0);
+        sum += double(am) * double(xm);
+        sumd += double(amd) * double(xm) + double(am) * double(xdm);
+      }
+      __syncwarp();  // every lane has read the x it needs of this block
+      if (row) {
+        x[r] = mine;
+        xd[r] = mined;
+      }
+      __syncwarp();
+    }
+  }
+  if (active) {
+    for (int j = lane; j < n; j += kWarp) {
+      x_out[e * n + j] = x[j];
+      x_dot_out[e * n + j] = xd[j];
+    }
+  }
+}
+
+template <typename T>
+__global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
+                                 const T* __restrict__ hi, const T* __restrict__ a_dot, const T* __restrict__ b_dot,
+                                 const T* __restrict__ lo_dot, const T* __restrict__ hi_dot, const int* __restrict__ dep,
+                                 T* __restrict__ x_out, T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const long long env = (long long)blockIdx.x * (blockDim.x / kWarp) + warp;
+  const bool active = env < batch;
+  const long long e = active ? env : batch - 1;  // a valid env to read from
+  T* x = reinterpret_cast<T*>(smem_raw) + (long long)warp * 2 * n;
+  T* xd = x + n;
+  for (int j = lane; j < n; j += kWarp) x[j] = xd[j] = T(0);
+  __syncwarp();
+  const T* a_env = a + e * n * n;
+  const T* ad_env = a_dot + e * n * n;
+  for (int it = 0; it < iterations; ++it) {
+    for (int i = 0; i < n; ++i) {
+      const T* a_row = a_env + (long long)i * n;
+      const T* ad_row = ad_env + (long long)i * n;
+      // in the first sweep x_j = x'_j = 0 for j > i
+      const int cols = it == 0 ? i : n;
+      T partial = T(0), partiald = T(0);
+      for (int j = lane; j < cols; j += kWarp) {
+        if (j != i) {
+          partial += a_row[j] * x[j];
+          partiald += ad_row[j] * x[j] + a_row[j] * xd[j];
+        }
+      }
+#pragma unroll
+      for (int offset = kWarp / 2; offset > 0; offset /= 2) {
+        partial += __shfl_xor_sync(0xffffffffu, partial, offset);
+        partiald += __shfl_xor_sync(0xffffffffu, partiald, offset);
+      }
+      const long long k = e * n + i;
+      const T aii = a_row[i], aiid = ad_row[i];
+      const T u = (b[k] - partial) / aii;
+      const T ud = (b_dot[k] - partiald - u * aiid) / aii;
+      const int d = dep[i];
+      const T s = d >= 0 ? (x[d] > T(0) ? x[d] : T(0)) : T(1);
+      const T sd = d >= 0 ? xd[d] * relu_slope(x[d]) : T(0);
+      const T l = lo[k] * s, h = hi[k] * s;
+      const T ld = lo_dot[k] * s + lo[k] * sd, hd = hi_dot[k] * s + hi[k] * sd;
+      T xi = u < l ? l : u;
+      xi = xi > h ? h : xi;
+      T mp, ml, mh;
+      clip_factors(u, l, h, mp, ml, mh);
+      const T xdi = mp * ud + ml * ld + mh * hd;
+      __syncwarp();  // every lane has read x[d] before it changes
+      if (lane == i % kWarp) {
+        x[i] = xi;
+        xd[i] = xdi;
+      }
+      __syncwarp();
+    }
+  }
+  if (active) {
+    for (int j = lane; j < n; j += kWarp) {
+      x_out[e * n + j] = x[j];
+      x_dot_out[e * n + j] = xd[j];
+    }
+  }
+}
+
+template <typename T, int N>
+const void* jvp_row_kernel() {
+  return reinterpret_cast<const void*>(&pgs_jvp_rows<T, N, Lanes<N>::G>);
+}
+
+template <typename T>
+Plan jvp_plan(int n) {
+  Plan p;
+  const int rows = instance_rows(n);
+  if (rows != 0) {
+    switch (rows) {
+      case 8: p.fn = jvp_row_kernel<T, 8>(); break;
+      case 12: p.fn = jvp_row_kernel<T, 12>(); break;
+      case 16: p.fn = jvp_row_kernel<T, 16>(); break;
+      case 24: p.fn = jvp_row_kernel<T, 24>(); break;
+      default: p.fn = jvp_row_kernel<T, 32>(); break;
+    }
+    p.form = kRowPerLane;
+    p.lanes = rows <= 16 ? 16 : 32;
+    p.envs = kThreads / p.lanes;
+  } else if (jvp_blocked_fits<T>(n)) {
+    p.fn = reinterpret_cast<const void*>(&pgs_jvp_blocked<T>);
+    p.form = kBlocked;
+    p.lanes = kWarp;
+    staged_shape(jvp_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
+  } else if (n > 32) {
+    p.fn = reinterpret_cast<const void*>(&pgs_jvp_per_warp<T>);
+    p.form = kStreaming;
+    p.lanes = kWarp;
+    streaming_shape(2LL * n * sizeof(T), &p.envs, &p.smem);  // x and x'
+  }
+  return p;
+}
+
+template <typename T>
+int jvp(const void* a, const void* b, const void* lo, const void* hi, const void* a_dot, const void* b_dot,
+        const void* lo_dot, const void* hi_dot, const void* dep, void* x, void* x_dot, int batch, int n, int iterations,
+        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = jvp_plan<T>(n);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(p.fn, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+  const int threads = p.envs * p.lanes;
+  const T* args[8] = {static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(lo),
+                      static_cast<const T*>(hi), static_cast<const T*>(a_dot), static_cast<const T*>(b_dot),
+                      static_cast<const T*>(lo_dot), static_cast<const T*>(hi_dot)};
+  const int* dep_t = static_cast<const int*>(dep);
+  T* x_t = static_cast<T*>(x);
+  T* xd_t = static_cast<T*>(x_dot);
+#define TDS_JVP_ARGS args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7], dep_t, x_t, xd_t, batch, n, iterations
+  if (p.form == kBlocked) {
+    pgs_jvp_blocked<T><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
+  } else if (p.form == kStreaming) {
+    pgs_jvp_per_warp<T><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
+  } else {
+    switch (instance_rows(n)) {
+      case 8: pgs_jvp_rows<T, 8, Lanes<8>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 12: pgs_jvp_rows<T, 12, Lanes<12>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 16: pgs_jvp_rows<T, 16, Lanes<16>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 24: pgs_jvp_rows<T, 24, Lanes<24>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      default: pgs_jvp_rows<T, 32, Lanes<32>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+    }
+  }
+#undef TDS_JVP_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch-shape query shared by the forward, the backward and the
+// forward mode (see tds_pgs_launch_shape below).
 int launch_shape(const Plan& p, int* out) {
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(p.fn, p.smem);
@@ -988,10 +1317,32 @@ extern "C" int tds_pgs_backward_launch_shape(int f64, int n, int* out) {
   return launch_shape(f64 ? backward_plan<double>(n) : backward_plan<float>(n), out);
 }
 
+// K1's forward mode: a, b, lo, hi (B, n, n) / (B, n), their tangents
+// a_dot, b_dot, lo_dot, hi_dot of the same shapes, and dep, all contiguous
+// on the current device; writes x and its tangent x_dot (B, n). Launches on
+// `stream` without synchronising and returns cudaGetLastError().
+extern "C" int tds_pgs_jvp_f32(const void* a, const void* b, const void* lo, const void* hi, const void* a_dot,
+                               const void* b_dot, const void* lo_dot, const void* hi_dot, const void* dep, void* x,
+                               void* x_dot, int batch, int n, int iterations, void* stream) {
+  return jvp<float>(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, x, x_dot, batch, n, iterations, stream);
+}
+
+extern "C" int tds_pgs_jvp_f64(const void* a, const void* b, const void* lo, const void* hi, const void* a_dot,
+                               const void* b_dot, const void* lo_dot, const void* hi_dot, const void* dep, void* x,
+                               void* x_dot, int batch, int n, int iterations, void* stream) {
+  return jvp<double>(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, x, x_dot, batch, n, iterations, stream);
+}
+
+// The forward mode's launch shape, in tds_pgs_launch_shape's fields.
+extern "C" int tds_pgs_jvp_launch_shape(int f64, int n, int* out) {
+  return launch_shape(f64 ? jvp_plan<double>(n) : jvp_plan<float>(n), out);
+}
+
 // The form that runs for n rows in float32 (f64 = 0) or float64 (f64 = 1),
-// of the forward (backward = 0) or the backward (backward = 1): 0 row per
-// lane, 1 blocked, 2 streaming, 3 linearised; -1 for no kernel.
-extern "C" int tds_pgs_form(int f64, int n, int backward) {
-  if (backward) return f64 ? backward_plan<double>(n).form : backward_plan<float>(n).form;
+// of the forward (which = 0), the backward (1) or the forward mode (2): 0
+// row per lane, 1 blocked, 2 streaming, 3 linearised; -1 for no kernel.
+extern "C" int tds_pgs_form(int f64, int n, int which) {
+  if (which == 2) return f64 ? jvp_plan<double>(n).form : jvp_plan<float>(n).form;
+  if (which == 1) return f64 ? backward_plan<double>(n).form : backward_plan<float>(n).form;
   return f64 ? forward_plan<double>(n).form : forward_plan<float>(n).form;
 }

@@ -75,3 +75,81 @@ __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int
   }
   return mine;
 }
+
+// d max(x, 0) / dx with jnp.maximum's tie rule: 1, 1/2 at x = 0, else 0.
+template <typename T>
+__device__ __forceinline__ T relu_slope(T x) {
+  return x > T(0) ? T(1) : (x == T(0) ? T(0.5) : T(0));
+}
+
+// x = min(max(p, l), h)'s partial derivatives in p, l and h, with
+// jnp.maximum's and jnp.minimum's tie rule (a tie gives each side half, so
+// clip(0, 0, 0) gives 1/4, 1/4 and 1/2): each in {0, 1/4, 1/2, 1}. The
+// JVP of the clip is mp p' + ml l' + mh h'; its VJP for an adjoint g is
+// (mp g, ml g, mh g).
+template <typename T>
+__device__ __forceinline__ void clip_factors(T p, T l, T h, T& mp, T& ml, T& mh) {
+  const T m = p > l ? p : l;
+  const T mm = m < h ? T(1) : (m > h ? T(0) : T(0.5));
+  mh = m < h ? T(0) : (m > h ? T(1) : T(0.5));
+  const T split = p > l ? T(1) : (p < l ? T(0) : T(0.5));
+  mp = mm * split;
+  ml = mm * (T(1) - split);
+}
+
+// The forward-mode (JVP) counterpart of pgs_sweeps: the same sweeps over
+// (x, x') together, x' the tangent of x for the tangents (A', b', lo',
+// hi') that `tangent` holds in a LaneRow's fields (its dep is unused). Per
+// row, with u = (b_i - delta_i) / A_ii the unclipped value,
+//   u' = (b'_i - delta'_i - u A'_ii) / A_ii,  delta'_i = sum_{j != i} A'_ij x_j + A_ij x'_j,
+// s = max(x_dep, 0) with s' = x'_dep max'(x_dep), l = lo_i s,
+// l' = lo'_i s + lo_i s', h likewise, and x'_i = mp u' + ml l' + mh h'
+// (clip_factors): at a tie each side takes half, as jax.jvp of the
+// unrolled sweep gives. Fills x[] and xd[] from 0 and returns (x, x') of
+// the lane's row in (mine, mined) on lanes below N.
+template <typename T, int N, int G>
+__device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], T (&xd)[N], const LaneRow<T, N>& row,
+                                               const LaneRow<T, N>& tangent, int iterations, T& mine, T& mined) {
+  static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
+  const int lane = threadIdx.x % G;
+  T x_dep = T(0), xd_dep = T(0);
+  mine = mined = T(0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) x[j] = xd[j] = T(0);
+  for (int it = 0; it < iterations; ++it) {
+    T prefix = T(0), prefixd = T(0);  // the row's sums over the columns j < lane done so far
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T delta = prefix, deltad = prefixd;
+      if (it > 0) {
+#pragma unroll
+        for (int j = i + 1; j < N; ++j) {
+          delta += row.a[j] * x[j];
+          deltad += tangent.a[j] * x[j] + row.a[j] * xd[j];
+        }
+      }
+      const T u = (row.b - delta) / row.a[i];
+      const T ud = (tangent.b - deltad - u * tangent.a[i]) / row.a[i];
+      const bool dep = row.dep >= 0;
+      const T s = dep ? (x_dep > T(0) ? x_dep : T(0)) : T(1);
+      const T sd = dep ? xd_dep * relu_slope(x_dep) : T(0);
+      const T l = row.lo * s, h = row.hi * s;
+      const T ld = tangent.lo * s + row.lo * sd, hd = tangent.hi * s + row.hi * sd;
+      T xi = u < l ? l : u;
+      xi = xi > h ? h : xi;
+      T mp, ml, mh;
+      clip_factors(u, l, h, mp, ml, mh);
+      const T xdi = mp * ud + ml * ld + mh * hd;
+      x[i] = __shfl_sync(0xffffffffu, xi, i, G);
+      xd[i] = __shfl_sync(0xffffffffu, xdi, i, G);
+      mine = lane == i ? x[i] : mine;
+      mined = lane == i ? xd[i] : mined;
+      x_dep = row.dep == i ? x[i] : x_dep;
+      xd_dep = row.dep == i ? xd[i] : xd_dep;
+      if (lane > i) {
+        prefix += row.a[i] * x[i];
+        prefixd += tangent.a[i] * x[i] + row.a[i] * xd[i];
+      }
+    }
+  }
+}

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from tds_tpu_torch.algebra.inertia import RigidBodyInertia
 from tds_tpu_torch.algebra.transform import Transform
@@ -32,6 +33,10 @@ _TENSOR_FIELDS = (
 
 @dataclasses.dataclass(frozen=True)
 class MultiBodyModel:
+    """A pytree (registered below): its tensor parameters are the leaves,
+    its topology the static context, so ``torch.func.vmap`` maps a batch of
+    models whose leaves carry a leading axis."""
+
     # --- tensor parameters ---
     x_t_pos: torch.Tensor  # (nl, 3) joint frame origin in the parent link frame
     x_t_rot: torch.Tensor  # (nl, 3, 3) joint frame rotation in the parent
@@ -204,6 +209,8 @@ class MultiBodyBuilder:
         mass = float(mass)
         com = np.asarray(com, dtype=float)
         icom = np.zeros((3, 3)) if inertia_about_com is None else np.asarray(inertia_about_com, dtype=float)
+        if icom.ndim == 1:  # a diagonal, as the JAX package's builder takes it
+            icom = np.diag(icom)
         cx = np_cross_matrix(com)
         self.masses.append(mass)
         self.coms.append(mass * com)
@@ -282,3 +289,18 @@ def np_rpy(r, p, y):
     ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
     rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
     return rz @ ry @ rx
+
+
+def _flatten(model: MultiBodyModel):
+    static = tuple(getattr(model, f.name) for f in dataclasses.fields(model) if f.name not in _TENSOR_FIELDS)
+    return [getattr(model, f) for f in _TENSOR_FIELDS], static
+
+
+def _unflatten(leaves, static) -> MultiBodyModel:
+    names = [f.name for f in dataclasses.fields(MultiBodyModel) if f.name not in _TENSOR_FIELDS]
+    return MultiBodyModel(**dict(zip(_TENSOR_FIELDS, leaves)), **dict(zip(names, static)))
+
+
+pytree.register_pytree_node(
+    MultiBodyModel, _flatten, _unflatten, serialized_type_name="tds_tpu_torch.model.multibody.MultiBodyModel"
+)

@@ -11,8 +11,10 @@ first moment and inertia together) and the ground's friction coefficient
 under ``friction_mode="world_default"``. The rollout is one
 ``graphs.scan``: replayed CUDA graphs on the card, whose backward replays
 the step's VJP graph (K1's backward kernel inside), the Python loop on the
-CPU. The command prints the gradient, central differences of the same loss
-(the test's eps) and the seconds each took, in float64.
+CPU. Under ``torch.func.jacfwd`` (:func:`jacobian`) the scan replays a JVP
+graph of the step instead. The command prints the gradient, central
+differences of the same loss (the test's eps) and the seconds each took,
+in float64.
 """
 
 import argparse
@@ -34,13 +36,14 @@ POINT = (100.0, 1.0, 0.5)
 FD_EPS = (1e-3, 1e-5, 1e-5)
 
 
-def sliding_start(env, batch: int = 1):
+def sliding_start(env, batch: int = 1, height: float = 0.47):
     """(q0, qd0, link): the test's start, standing joints with the base at
-    z = 0.47 and x velocity 0.8, and the first link with real mass (past
+    z = ``height`` (0.47, 3 cm above standing; 0.44 touches down at the
+    first step) and x velocity 0.8, and the first link with real mass (past
     the massless base-emulation chain)."""
     q0 = env.model.zero_q((batch,))
     q0[:, list(env.pd_q_indices())] = env.initial_poses
-    q0[:, 2] = 0.47
+    q0[:, 2] = height
     qd0 = env.model.zero_qd((batch,))
     qd0[:, 0] = 0.8
     link = int(torch.nonzero(env.model.mass > 1e-6)[0, 0])
@@ -92,6 +95,14 @@ def gradient(loss, point, dtype, device):
         value = loss(*args)
         grads = torch.autograd.grad(value, args)
     return value.detach(), torch.stack(grads)
+
+
+def jacobian(loss, point, dtype, device, forward: bool = True):
+    """d loss / d (kp, mscale, friction) at ``point`` by ``torch.func.jacfwd``
+    (forward mode: on the card one JVP graph of three tangents, K1's JVP
+    kernel inside) or, with ``forward`` False, ``torch.func.jacrev``."""
+    transform = torch.func.jacfwd if forward else torch.func.jacrev
+    return transform(lambda p: loss(*p.unbind()))(torch.tensor(point, dtype=dtype, device=device))
 
 
 def central_differences(loss, point, eps, dtype, device):

@@ -11,13 +11,14 @@ REVERSE             ``torch.autograd.grad`` (reverse mode)
 
 Reverse mode goes through ``torch.autograd`` rather than ``torch.func.grad``:
 the port's hand-written kernels and ``graphs.scan`` on the card are
-autograd functions whose backward launches kernels and replays graphs,
-which run under ``torch.autograd`` and not under a ``torch.func``
-transform. ``compile=True`` adds nothing to what the function does itself:
-a rollout through ``graphs.scan`` replays CUDA graphs on the card, the
-counterpart of ``jax.jit``. Forward mode through the PGS kernel or through
-``graphs.scan`` on the card raises ``NotImplementedError`` (ROADMAP Queue 1
-item 5); on the CPU it runs.
+autograd functions whose backward launches kernels and replays graphs.
+Forward mode is ``torch.func.jacfwd``, on the card too: K1's forward-mode
+kernel carries the contact solve's tangents (``contact.pgs.PGSFunction``'s
+JVP and vmap rules), and ``graphs.scan`` replays a JVP graph of the step
+over the tangents, as ``jax.jacfwd`` runs through the JAX package's
+contact solve. ``compile=True`` adds nothing to what the function does
+itself: a rollout through ``graphs.scan`` replays CUDA graphs on the card,
+the counterpart of ``jax.jit``.
 """
 
 import enum

@@ -56,8 +56,31 @@ operand requires grad, ``scan`` is an autograd function (``_GradScan``):
   carry's the last carry_bar.
 
 Gradients reach the carry's and the consts' floating tensors, never a
-tensor the body closes over. Forward mode (``torch.func.jacfwd``) through
-graphs raises: it waits for ROADMAP Queue 1 item 5.
+tensor the body closes over.
+
+Under a ``torch.func`` transform (``jvp``, ``jacfwd``, ``vmap``,
+``jacrev``, ``vjp``) ``scan`` on the card is ``_TransformScan``, an autograd function with a rule for
+each transform, and each rule is a scan of a transformed body, replayed
+as graphs like any other:
+
+- its JVP scans ``torch.func.jvp`` of the body over (carry, carry
+  tangent) with (consts, consts' tangents): a one-step JVP graph that
+  carries primal and tangent together, captured on static buffers once
+  per signature and replayed ``length`` times (a kernel's forward mode
+  launches inside it: K1's JVP kernel through ``PGSFunction.jvp``);
+- its vmap rule scans ``torch.func.vmap`` of the body over the batched
+  operands (an unbatched carry entry expanded to the batch), the width T
+  in the graph's key. ``jacfwd`` through ``scan`` is that rule over the
+  JVP's scan: one graph of T tangents, in which K1's JVP runs on T B rows
+  (the vmap rule of ``contact.pgs.PGSJVP``);
+- its backward (``jacrev``, ``torch.func.vjp``) replays the one-step graph
+  to recover each step's input carry and then the one-step VJP graph in
+  reverse, as ``_GradScan`` does; under vmap (``jacrev``'s batch of
+  cotangents) it runs once for each cotangent.
+
+Inside these graphs the kernels run, never their plain versions. Forward
+AD's dual tensors (``torch.autograd.forward_ad``) raise on the card: the
+JVP rule's ``torch.func.jvp`` cannot nest inside a dual level.
 """
 
 import contextlib
@@ -100,15 +123,24 @@ def scan(body: Callable, carry: Sequence[torch.Tensor], consts: Sequence[torch.T
         return scan_reference(body, carry, consts, length)
     if device.type != "cuda":
         raise ValueError(f"no scan implementation for device {device}")
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in carry + consts):
-        raise NotImplementedError(
-            "scan on the card under a torch.func transform: forward mode through replayed graphs is not ported yet "
-            "(ROADMAP Queue 1 item 5); differentiate with torch.autograd, or run inside graphs.eager()"
-        )
+    return _card_scan(body, carry, consts, length, key, chunk, device)
+
+
+def _card_scan(body, carry, consts, length, key, chunk, device):
+    """``scan`` on the card: the transforms' function, the gradient's, or
+    the graphs' replay."""
+    tensors = carry + consts
     if length == 0:
         return carry
-    if torch.is_grad_enabled() and any(t.requires_grad for t in carry + consts):
-        return _GradScan.apply(body, key, length, len(carry), *carry, *consts)
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors):
+        return _TransformScan.apply(body, key, length, chunk, len(carry), *tensors)
+    if torch.autograd.forward_ad._current_level >= 0 and any(
+            torch.autograd.forward_ad.unpack_dual(t).tangent is not None for t in tensors):
+        # the JVP rule scans torch.func.jvp of the body, and forward AD does not nest
+        raise NotImplementedError("forward AD (torch.autograd.forward_ad) through scan on the card: use torch.func.jvp "
+                                  "or torch.func.jacfwd, whose JVP graphs scan replays")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _GradScan.apply(body, key, length, len(carry), *tensors)
     return _entry(body, carry, consts, key, device, chunk).run(body, carry, consts, length)
 
 
@@ -155,6 +187,125 @@ class _GradScan(torch.autograd.Function):
         carry_bar, consts_bar = vjp.run(ctx.inputs, ctx.consts, carry_bar)
         del ctx.inputs
         return (None, None, None, None, *carry_bar, *consts_bar)
+
+
+class _TransformScan(torch.autograd.Function):
+    """``scan`` on the card under torch.func transforms: the forward replays the body's graphs; the JVP, vmap and backward rules
+    scan transformed bodies (module docstring)."""
+
+    @staticmethod
+    def forward(body, key, length, chunk, n_carry, *tensors):
+        carry, consts = tensors[:n_carry], tensors[n_carry:]
+        return _entry(body, carry, consts, key, tensors[0].device, chunk).run(body, carry, consts, length)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        body, key, length, chunk, n_carry, *tensors = inputs
+        ctx.body, ctx.key, ctx.length, ctx.chunk, ctx.n_carry = body, key, length, chunk, n_carry
+        ctx.save_for_backward(*tensors)
+        ctx.save_for_forward(*tensors)
+        ctx.mark_non_differentiable(*(t for t in output if not t.is_floating_point()))
+
+    @staticmethod
+    def jvp(ctx, _body, _key, _length, _chunk, _n_carry, *tangents):
+        tensors = ctx.saved_tensors
+        carry, consts = tensors[: ctx.n_carry], tensors[ctx.n_carry :]
+        carry_mask = tuple(t.is_floating_point() for t in carry)
+        const_mask = tuple(t.is_floating_point() and d is not None for t, d in zip(consts, tangents[ctx.n_carry :]))
+        carry_dot = tuple(torch.zeros_like(t) if d is None else d
+                          for t, d, m in zip(carry, tangents[: ctx.n_carry], carry_mask) if m)
+        const_dot = tuple(d for d, m in zip(tangents[ctx.n_carry :], const_mask) if m)
+        jbody = functools.partial(_jvp_body, ctx.body, carry_mask, const_mask)
+        out = _card_scan(jbody, carry + carry_dot, consts + const_dot, ctx.length, ("jvp", ctx.key, carry_mask, const_mask),
+                         ctx.chunk, tensors[0].device)
+        dots = iter(out[ctx.n_carry :])
+        return tuple(next(dots) if m else None for m in carry_mask)
+
+    @staticmethod
+    def vmap(info, in_dims, body, key, length, chunk, n_carry, *tensors):
+        size, dims = info.batch_size, in_dims[5:]
+        carry = tuple((t.expand(size, *t.shape) if d is None else t.movedim(d, 0)).contiguous()
+                      for t, d in zip(tensors[:n_carry], dims[:n_carry]))
+        consts = tuple(t if d is None else t.movedim(d, 0).contiguous() for t, d in zip(tensors[n_carry:], dims[n_carry:]))
+        const_dims = tuple(None if d is None else 0 for d in dims[n_carry:])
+        vbody = functools.partial(_vmap_body, body, const_dims)
+        out = _card_scan(vbody, carry, consts, length, ("vmap", key, const_dims, size), chunk, tensors[0].device)
+        return out, (0,) * len(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *carry_bar):
+        tensors = ctx.saved_tensors
+        floating = [i for i, t in enumerate(tensors) if t.is_floating_point()]
+        bars = tuple(torch.zeros_like(t) if g is None else g
+                     for t, g in zip(tensors[: ctx.n_carry], carry_bar) if t.is_floating_point())
+        grads = iter(_ScanVJP.apply(ctx.body, ctx.key, ctx.length, ctx.n_carry, len(tensors), *tensors, *bars))
+        out = [None] * len(tensors)
+        for i in floating:
+            out[i] = next(grads)
+        return (None,) * 5 + tuple(out)
+
+
+def _jvp_body(body, carry_mask, const_mask, carry_all, consts_all):
+    """One step of (carry, carry tangent) under ``torch.func.jvp`` of
+    ``body``: the carry's floating entries and the consts that
+    ``const_mask`` marks carry tangents (the latter constant)."""
+    n_carry, n_consts = len(carry_mask), len(const_mask)
+    carry, consts = list(carry_all[:n_carry]), list(consts_all[:n_consts])
+    carry_dot, const_dot = carry_all[n_carry:], consts_all[n_consts:]
+    carry_idx = [i for i, m in enumerate(carry_mask) if m]
+    const_idx = [i for i, m in enumerate(const_mask) if m]
+
+    def step(*primals):
+        c, k = list(carry), list(consts)
+        for j, i in enumerate(carry_idx):
+            c[i] = primals[j]
+        for j, i in enumerate(const_idx):
+            k[i] = primals[len(carry_idx) + j]
+        out = tuple(body(tuple(c), tuple(k)))
+        return tuple(out[i] for i in carry_idx), tuple(o for o, m in zip(out, carry_mask) if not m)
+
+    primals = tuple(carry[i] for i in carry_idx) + tuple(consts[i] for i in const_idx)
+    out, out_dot, rest = torch.func.jvp(step, primals, tuple(carry_dot) + tuple(const_dot), has_aux=True)
+    floats, others = iter(out), iter(rest)
+    return tuple(next(floats) if m else next(others) for m in carry_mask) + tuple(out_dot)
+
+
+def _vmap_body(body, const_dims, carry, consts):
+    """One step of ``torch.func.vmap`` of ``body`` over the carry (batched
+    on dim 0) and the consts batched where ``const_dims`` says 0."""
+    return torch.func.vmap(lambda c, k: tuple(body(c, k)), in_dims=(0, const_dims))(tuple(carry), tuple(consts))
+
+
+class _ScanVJP(torch.autograd.Function):
+    """The backward of ``_TransformScan``: the adjoints of the first input
+    carry's and the consts' floating entries for the adjoint of the last
+    carry's floating entries. The forward replays the one-step graph to
+    recover each step's input carry, then the one-step VJP graph in
+    reverse; the vmap rule runs it once for each entry of the batch."""
+
+    @staticmethod
+    def forward(body, key, length, n_carry, n_tensors, *args):
+        tensors, bars = args[:n_tensors], iter(args[n_tensors:])
+        carry, consts = tensors[:n_carry], tensors[n_carry:]
+        device = tensors[0].device
+        inputs, _ = _entry(body, carry, consts, key, device, 1).run_keeping(body, carry, consts, length)
+        carry_bar = tuple(next(bars) if t.is_floating_point() else None for t in carry)
+        carry_bar, consts_bar = _vjp_entry(body, carry, consts, key, device).run(inputs, consts, carry_bar)
+        return tuple(g for g in carry_bar + consts_bar if g is not None)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, body, key, length, n_carry, n_tensors, *args):
+        dims = in_dims[5:]
+        rows = [_ScanVJP.apply(body, key, length, n_carry, n_tensors,
+                               *(a if d is None else a.select(d, i) for a, d in zip(args, dims)))
+                for i in range(info.batch_size)]
+        out = tuple(torch.stack(col) for col in zip(*rows))
+        return out, (0,) * len(out)
 
 
 def _vjp_entry(body, carry, consts, key, device) -> "_VJP":

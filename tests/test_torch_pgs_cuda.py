@@ -10,7 +10,13 @@ count past which an env's staging no longer fits a block; and its launch
 shape on the card. K1's backward kernel against the plain version's
 autograd on the same CUDA tensors at the same edges, 0 to 3 sweeps, ties
 included: float64 within 1e-12 relative, float32 within rtol 1e-4 and atol
-1e-5 max|grad|; a double backward and forward mode raise.
+1e-5 max|grad|; a double backward raises. K1's forward-mode kernel
+against ``torch.func.jvp`` of the plain version at every row count of
+``ROWS`` and both sides of its staged form's limit, 0 to 3 sweeps, ties
+included: float64 within 1e-12 relative, float32 within rtol 1e-5 and atol
+1e-6 max|x'|; ``torch.func.jvp``, ``jacfwd``, ``jacrev``, ``vmap`` and
+forward AD through ``solve_pgs`` launch the kernels (the vmap rules fold
+the vmapped dimension into the batch), equal to the plain version's.
 Every test here needs the card and skips without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -288,22 +294,129 @@ def test_backward_has_a_launch_shape_without_local_memory(cuda_device):
             assert shape["form"] == "linearised" and shape["lanes_per_env"] == (16 if n <= 16 else 32), (dtype, n, shape)
 
 
-def test_second_derivative_and_forward_mode_raise(cuda_device):
-    """once_differentiable: a double backward raises; forward mode
-    (torch.func.jacfwd, forward AD) raises NotImplementedError that names
-    the ROADMAP item."""
-    from tds_tpu_torch.utils.diff import DiffMethod, GradientFunctional
-
+def test_second_derivative_raises(cuda_device):
+    """once_differentiable: a double backward raises."""
     a, b, lo, hi, dep = (torch.from_numpy(x).to(cuda_device) if isinstance(x, np.ndarray) else x for x in _rows_problem(5, 12, seed=3))
     b = b.clone().requires_grad_()
     x = pgs.solve_pgs(a, b, lo, hi, dep, 1)
     (g,) = torch.autograd.grad((x**2).sum(), b, create_graph=True)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(g.sum(), b)
-    f = GradientFunctional(lambda v: pgs.solve_pgs(a, v.reshape(b.shape), lo, hi, dep, 1).sum(), method=DiffMethod.FORWARD)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        f.gradient(b.detach().reshape(-1))
+
+
+def _jvp_problem(bsz, n, seed, dtype, layout, device):
+    """Operands of _rows_problem with the ties of _ties where the batch
+    holds them, and random tangents of each, on ``device`` in ``dtype``."""
+    a, b, lo, hi, dep = _rows_problem(bsz, n, seed=seed, layout=layout)
+    if bsz >= 3:
+        _ties(a, b, dep)
+    rng = np.random.default_rng(seed + 1)
+    operands = [torch.from_numpy(x).to(device, dtype) for x in (a, b, lo, hi)]
+    tangents = [torch.from_numpy(rng.normal(size=x.shape)).to(device, dtype) for x in (a, b, lo, hi)]
+    return operands, tangents, dep
+
+
+def _assert_tangent_close(got, want, dtype):
+    """Float64 within 1e-12 relative, float32 within rtol 1e-5 and atol
+    1e-6 max|x'|."""
+    got, want = got.cpu(), want.cpu()
+    scale = max(1.0, want.abs().max().item())
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 2, 3])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,bsz", [(n, bsz) for n in ROWS for bsz in (1, 37)] + [(12, 4096), (24, 4096), (48, 4096), (105, 1024)])
+def test_jvp_kernel_matches_plain_at_every_row_count(cuda_device, monkeypatch, dtype, n, bsz, layout, iterations):
+    """x and x' for random tangents of A, b, lo and hi: the forward-mode
+    kernel (one launch) against torch.func.jvp of the plain version on the
+    same CUDA tensors, ties included where the batch holds them; through
+    torch.func.jvp of solve_pgs the kernels alone run, to the same x'."""
+    operands, tangents, dep = _jvp_problem(bsz, n, n * bsz + iterations, dtype, layout, cuda_device)
+    want_x, want = pgs.solve_pgs_jvp_reference(*operands, tangents, dep, iterations)
+    before = pgs.jvp_launches
+    got_x, got = pgs._launch_jvp(*operands, *tangents, tuple(dep), iterations)
+    torch.cuda.synchronize()
+    assert pgs.jvp_launches == before + 1
+    torch.testing.assert_close(got_x.cpu(), want_x.cpu(), **_tolerance(dtype, n))
+    _assert_tangent_close(got, want, dtype)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain PGS ran on a CUDA tensor")
+
+    monkeypatch.setattr(pgs, "solve_pgs_reference", refuse)
+    _, x_dot = torch.func.jvp(lambda *t: pgs.solve_pgs(*t, dep, iterations), tuple(operands), tuple(tangents))
+    assert pgs.jvp_launches == before + 2
+    torch.testing.assert_close(x_dot, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", ROWS)
+def test_jvp_kernel_forms(cuda_device, dtype, n):
+    """The forward's forms: a row per lane for n <= 32, blocked above, with
+    a block resident per SM."""
+    shape = pgs.launch_shape(dtype, n, 4096, jvp=True)
+    assert shape["blocks_per_sm"] >= 1, shape
+    assert shape["form"] == ("row per lane" if n <= 32 else "blocked"), shape
+    assert shape["envs_per_block"] * shape["lanes_per_env"] == shape["threads_per_block"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jvp_both_sides_of_the_large_n_threshold(cuda_device, dtype):
+    """The last n whose env's two staged triangles fit a block runs the
+    blocked form, the next the streaming form, each against the plain
+    version (two sweeps, B = 5, ties in envs 1 and 2)."""
+    last = max(n for n in range(33, 400) if pgs.form(dtype, n, jvp=True) == "blocked")
+    for n, form in ((last, "blocked"), (last + 1, "streaming")):
+        assert pgs.launch_shape(dtype, n, 5, jvp=True)["form"] == form
+        operands, tangents, dep = _jvp_problem(5, n, n, dtype, "interleaved", cuda_device)
+        want_x, want = pgs.solve_pgs_jvp_reference(*operands, tangents, dep, 2)
+        got_x, got = pgs._launch_jvp(*operands, *tangents, tuple(dep), 2)
+        torch.testing.assert_close(got_x.cpu(), want_x.cpu(), **_tolerance(dtype, n))
+        _assert_tangent_close(got, want, dtype)
+
+
+def test_torch_func_transforms_launch_the_kernels(cuda_device):
+    """jacfwd (one forward and one JVP launch: the basis folded into the
+    batch), jacrev (one backward launch, and a forward launch for each
+    sweep count the backward recovers x after: 1 and 2), vmap (one forward
+    launch over T B rows) and forward AD through solve_pgs on the card,
+    each equal to the same transform of the plain version in float64
+    within 1e-12 relative."""
     import torch.autograd.forward_ad as fwAD
 
-    with fwAD.dual_level(), pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pgs.solve_pgs(a, fwAD.make_dual(b.detach(), torch.ones_like(b)), lo, hi, dep, 1)
+    operands, tangents, dep = _jvp_problem(5, 12, 7, torch.float64, "normals first", cuda_device)
+    a, b, lo, hi = operands
+
+    def kernel(bb, aa):
+        return pgs.solve_pgs(aa, bb, lo, hi, dep, 2)
+
+    def plain(bb, aa):
+        return pgs.solve_pgs_reference(aa, bb, lo, hi, dep, 2)
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * max(1.0, w.abs().max().item()))
+
+    def counts():
+        return pgs.launches, pgs.jvp_launches, pgs.backward_launches
+
+    before = counts()
+    got = torch.func.jacfwd(kernel, argnums=(0, 1))(b, a)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    want = torch.func.jacfwd(plain, argnums=(0, 1))(b, a)
+    close(got, want)
+    before = counts()
+    close(torch.func.jacrev(kernel, argnums=(0, 1))(b, a), want)
+    assert counts() == (before[0] + 2, before[1], before[2] + 1)
+    batch = b + torch.randn((4,) + b.shape, dtype=b.dtype, device=b.device)
+    before = counts()
+    close([torch.func.vmap(kernel, in_dims=(0, None))(batch, a)], [torch.stack([plain(x, a) for x in batch])])
+    assert counts() == (before[0] + 1, before[1], before[2])
+    with fwAD.dual_level():
+        x_dot = fwAD.unpack_dual(kernel(fwAD.make_dual(b, tangents[1]), a)).tangent
+    close([x_dot], [torch.func.jvp(lambda bb: plain(bb, a), (b,), (tangents[1],))[1]])

@@ -21,7 +21,12 @@ CUDA graphs against the same rollouts run eagerly on the card
   graphs (the forward graph, then the one-step VJP graph in reverse) equal
   the Python loop's under autograd bit for bit in float64: a toy body, APG's
   laikago rollout return (K1's backward kernel once a replayed step) and
-  the contact-gradient loss; forward mode is refused.
+  the contact-gradient loss;
+- under torch.func transforms, the same contact loss over 20 steps:
+  ``jacfwd`` (a JVP graph of three tangents, K1's JVP kernel inside)
+  within 1e-9 relative of the CPU's and of ``jacrev`` on the card (the
+  VJP graph once per cotangent), ``jvp`` and ``vmap`` of a toy body equal
+  to the Python loop's; forward AD through the card's scan raises.
 
 Every test here needs the card and skips without one. The file imports
 neither JAX nor the JAX package, so on a machine with a card and no JAX it
@@ -219,8 +224,7 @@ def test_an_operand_that_requires_grad_is_refused(cuda_device):
     """No operand is refused under grad now: scan on the card carries the
     gradient of its carry and consts through the replayed graphs (the
     one-step VJP graph in reverse), equal bit for bit to the Python loop's
-    under autograd; under torch.no_grad() it replays as before; a
-    torch.func transform (forward mode) is refused."""
+    under autograd; under torch.no_grad() it replays as before."""
     x = torch.linspace(-1.0, 1.0, 4, device=cuda_device, dtype=torch.float64, requires_grad=True)
     k = torch.full((4,), 2.0, device=cuda_device, dtype=torch.float64, requires_grad=True)
 
@@ -239,8 +243,64 @@ def test_an_operand_that_requires_grad_is_refused(cuda_device):
     _assert_same([out[0].detach(), *got], [ref[0].detach(), *want])
     with torch.no_grad():
         assert torch.equal(graphs.scan(body, (x,), (k,), 7, key="grad")[0], out[0].detach())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        torch.func.jacfwd(lambda v: graphs.scan(body, (v,), (k.detach(),), 7, key="grad")[0])(x.detach())
+
+
+def test_torch_func_transforms_through_scan(cuda_device):
+    """A toy body (a carry of a vector and a step counter, a const) over 7
+    steps: jvp, jacfwd, jacrev and vmap through the replayed graphs equal
+    the same transforms of the Python loop within 1e-12 relative; the
+    transforms' graphs are cached under keys of their own; forward AD
+    raises."""
+    import torch.autograd.forward_ad as fwAD
+
+    x = torch.linspace(-1.0, 1.0, 4, device=cuda_device, dtype=torch.float64)
+    k = torch.full((4,), 2.0, device=cuda_device, dtype=torch.float64)
+
+    def body(c, kk):
+        return torch.sin(c[0]) * kk[0] + 0.3 * c[0] ** 2, c[1] + 1
+
+    def run(v, kk):
+        return graphs.scan(body, (v, torch.zeros((), dtype=torch.int64, device=v.device)), (kk,), 7, key="transforms")[0]
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12 * max(1.0, w.abs().max().item()))
+
+    dirs = (torch.ones_like(x), torch.linspace(0.5, 2.0, 4, device=cuda_device, dtype=torch.float64))
+    got = [torch.func.jvp(run, (x, k), dirs)[1], *torch.func.jacfwd(run, argnums=(0, 1))(x, k),
+           *torch.func.jacrev(run, argnums=(0, 1))(x, k), torch.func.vmap(run, in_dims=(0, None))(torch.stack([x, -x]), k)]
+    with graphs.eager():
+        want = [torch.func.jvp(run, (x, k), dirs)[1], *torch.func.jacfwd(run, argnums=(0, 1))(x, k),
+                *torch.func.jacfwd(run, argnums=(0, 1))(x, k), torch.func.vmap(run, in_dims=(0, None))(torch.stack([x, -x]), k)]
+    close(got, want)
+    keys = {s.key[0] if isinstance(s.key, tuple) else s.key for s in graphs.stats()}
+    assert {"transforms", "jvp", "vmap"} <= keys, keys
+    with fwAD.dual_level(), pytest.raises(NotImplementedError, match="forward AD"):
+        run(fwAD.make_dual(x, torch.ones_like(x)), k)
+
+
+def test_jacfwd_through_a_contact_rollout_matches_the_cpu_and_jacrev(cuda_device):
+    """tools/contact_loss.py's loss over 20 steps touching down at the
+    first: jacfwd of (kp, mass scale, friction) on the card replays a JVP
+    graph of 3 tangents (K1's JVP kernel launched in its warm-up and
+    capture, once a step in a replayed call's trace) and agrees within
+    1e-9 relative with the CPU's jacfwd and with jacrev on the card."""
+    from tds_tpu_torch.tools import contact_loss
+
+    def jac(device, forward=True):
+        env = LaikagoEnv(dtype=torch.float64, device=device)
+        q0, qd0, link = contact_loss.sliding_start(env, height=0.44)
+        loss = contact_loss.make_loss(env, q0, qd0, link, 20)
+        return contact_loss.jacobian(loss, contact_loss.POINT, torch.float64, device, forward)
+
+    before = pgs.jvp_launches
+    got = jac(cuda_device)
+    assert pgs.jvp_launches - before == 2  # the JVP graph's warm-up and capture
+    want = jac("cpu")
+    rev = jac(cuda_device, forward=False)
+    assert torch.all(want != 0)
+    for other in (want, rev.cpu()):
+        torch.testing.assert_close(got.cpu(), other, rtol=1e-9, atol=0)
 
 
 def _apg_grads(env, policy, reward, params, q0, qd0, cfg):
