@@ -8,7 +8,8 @@ the laikago contact rollout, the fused step, the probes, ARS, the ant and
 hopper rollouts, the humanoid and half-cheetah rollouts, the terrain
 laikago's rollout, replays and trainer, gradients (the contact loss
 and APG through K1's backward kernel), forward mode (jacfwd through K1's
-JVP kernel) and PPO on the ant through them.
+JVP kernel), PPO on the ant, and floating bases (the floating laikago,
+balls through ``world_step`` and a ball's gradient) through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -201,6 +202,30 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``torch.Generator`` starts in the same batch, reported; (e) one float64
    PPO iteration on the ant on the card against the CPU's from the same
    draws, within 1e-9, an env reset inside the unroll;
+16. floating bases, run before phase 11: (a) the floating laikago
+   (``LaikagoEnv(urdf="laikago/laikago_toes_zup.urdf", is_floating=True)``,
+   q 19 wide with the base's quaternion and position, 12 MLCP rows) for 50
+   float64 contact steps at batch 8 on the card against the CPU within
+   1e-9 abs + rel, then ``tests/golden/laikago_floating_contact_trajectory.json``
+   replayed on the card under ``reference_base_abi_quirk`` for 500 steps
+   in ``graphs.scan`` (1e-8 to step 100, 1e-6 after), and 100 steps of the
+   same scan without the quirk, a graph of its own; (b) its 1000-step
+   zero-policy rollout at batch 4096 in float32 through graphs,
+   ``laikago_floating_scan_rollout_env_steps_per_s`` beside phase 5's
+   fixed-base figure and the card's name and power limit, the graph's
+   nodes, K1's wrapper launches and its count in a trace of 20 replayed
+   steps, and K1 against its plain version on the operands of a step of
+   this rollout (n = 12), timed; (c) ``tests/golden/sphere_contact_trajectory.json``
+   through ``world.world_rollout`` (``world_step`` in ``graphs.scan``, the
+   ground's (B, 0) state in the carry) in float64 at the golden's
+   tolerances, then 4096 balls of ``tools/ball_loss.py`` dropped for 500
+   float32 steps through graphs, K1 at n = 3 once a replayed step, against
+   its plain version on a step's operands and timed; (d) the gradient of
+   ``tools/ball_loss.py``'s 100-step loss with respect to the initial
+   velocity on the card through the scan's VJP graph (K1's backward at n =
+   3) within 1e-9 of the CPU's, one backward kernel a replayed step in a
+   trace, K1's backward against the plain version's autograd on (c)'s
+   operands, timed;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -210,7 +235,9 @@ The line before the last is the ``kernels`` JSON object (K1 once for each
 row count a main path runs, 12, 24, 48 and 105, the other row counts of
 phase 12 (a) and the terrain's n = 24 (``terrain_*``) inside the first;
 K1's backward at n = 12, the other row counts inside it; K1's forward
-mode at n = 12, the other row counts inside it; K2, K3, K4); the last
+mode at n = 12, the other row counts inside it; K1 on the floating
+laikago (n = 12) and on the balls (n = 3) and K1's backward under the
+ball loss (n = 3); K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -321,6 +348,13 @@ FORWARD_STEPS, FORWARD_TRACE_STEPS = 20, 5
 PPO_RECIPE, PPO_ITERATIONS, PPO_TRACE_STEPS = {"num_envs": 256, "unroll": 128}, 2, 8
 ANT_PPO_STEPS = 1000
 ANT_PPO_RESET_NOISE = REPO / "tests" / "golden" / "ant_ppo_policy_reset_noise.json"
+# phase 16: the floating laikago (tests/test_golden_reference.py's URDF and
+# golden), the golden sphere, a batch of tools/ball_loss.py's balls dropped
+# at the main path's batch, and that tool's loss over the CPU test's steps
+FLOATING_URDF = "laikago/laikago_toes_zup.urdf"
+FLOATING_GOLDEN = REPO / "tests" / "golden" / "laikago_floating_contact_trajectory.json"
+SPHERE_GOLDEN = REPO / "tests" / "golden" / "sphere_contact_trajectory.json"
+BALL_BATCH, BALL_STEPS, BALL_LOSS_STEPS = 4096, 500, 100
 PROFILE_STEPS = 20  # graph-replayed steps under torch.profiler
 # the gradient paths' traces (phase 14 (b), (c)): 20 replayed VJP steps took
 # 26.2 and 36.1 s under the profiler on an H100 80GB HBM3 at 700 W; 5 keep
@@ -2410,7 +2444,7 @@ def k1_backward_bound(b, iterations, card):
     return n_bytes / bandwidth * 1e3, n_ops / rate * 1e3, n_bytes, n_ops
 
 
-def k1_backward_case(label, operands, dep, it, card, gen, timing=True):
+def k1_backward_case(label, operands, dep, it, card, gen, timing=True, prefix="gradients (a)"):
     """K1's backward kernel against the plain version's autograd on the
     same operands and cotangent: the largest difference (raising past
     rtol 1e-4 and atol 1e-5 max|grad| in float32, 1e-12 relative in
@@ -2450,11 +2484,11 @@ def k1_backward_case(label, operands, dep, it, card, gen, timing=True):
     plain_ms = span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=5)
     t_bytes, t_ops, n_bytes, n_ops = k1_backward_bound(b, it, card)
     shape = pgs.launch_shape(b.dtype, n, bsz, backward=True)
-    log(f"gradients (a): K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us "
+    log(f"{prefix}: K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us "
         f"on the device, {sweepless_ms * 1e3:.2f} us with 0 sweeps, plain backward {plain_ms * 1e3:.1f} us (event span, "
         f"host-paced), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), "
         f"{ms / max(t_bytes, t_ops):.1f}x the bound; max |kernel - plain| {worst:.3e}")
-    log_launch_shape(f"gradients (a): K1 backward B={bsz} n={n} {str(b.dtype)[6:]}", shape)
+    log_launch_shape(f"{prefix}: K1 backward B={bsz} n={n} {str(b.dtype)[6:]}", shape)
     out.update(ms=ms, ms_0_sweeps=sweepless_ms, plain_ms=plain_ms, plain_timing="event span, host-paced",
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                shape=f"B={bsz} n={n} iterations={it} {str(b.dtype)[6:]}", design=shape["form"], **launch_fields(shape))
@@ -3094,6 +3128,322 @@ def phase_forward_and_ppo(card, card_line):
     return entry, numbers
 
 
+# -- phase 16 --------------------------------------------------------------
+def floating_device_vs_cpu():
+    """(a): 50 float64 steps of the floating laikago at batch 8 on the card
+    (K1, n = 12) against the CPU from a start 3 cm lower than the env's
+    (the toes touch from the first steps), with seeded actions, within 1e-9
+    abs + rel; one K1 launch a step. Returns the largest difference."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    batch, steps, tol, start = 8, 50, 1e-9, (0.0, 0.0, 0.45)
+    cpu_env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float64, device="cpu", start_base_position=start)
+    gpu_env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float64, start_base_position=start)
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    actions = (torch.rand(steps, batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qc, qdc = cpu_env.initial_state(batch_size=batch)
+    qg, qdg = gpu_env.initial_state(batch_size=batch)
+    before, worst, active = pgs.launches, 0.0, []
+    for t in range(steps):
+        qc, qdc = cpu_env.sim_step(qc, qdc, actions[t])
+        with recorded_pgs_calls() as calls:
+            qg, qdg = gpu_env.sim_step(qg, qdg, actions[t].cuda())
+        active.append(int((calls[0][1] != 0).sum()))
+        for got, expected in ((qg.cpu(), qc), (qdg.cpu(), qdc)):
+            worst = max(worst, (got - expected).abs().max().item())
+            if ((got - expected).abs() - tol * (1 + expected.abs())).max().item() > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"floating (a): the card and the CPU differ beyond {tol} at step {t + 1}")
+    if pgs.launches - before != steps or active[0] == 0:
+        raise AssertionError(f"floating (a): {pgs.launches - before} K1 launches in {steps} steps, {active[0]} rows active "
+                             "in the first")
+    log(f"floating (a): {steps} float64 floating-laikago sim_steps at batch {batch}: max |cuda - cpu| = {worst:.3e} (tolerance "
+        f"{tol} abs + rel), {steps} K1 launches, {min(active)} to {max(active)} of {calls[0][1].numel()} contact rows active "
+        "per step")
+    return worst
+
+
+def floating_golden():
+    """(a): tests/golden/laikago_floating_contact_trajectory.json on the card
+    in float64 under ``reference_base_abi_quirk``: 500 steps of the zero
+    action in ``graphs.scan`` between the snapshots, 1e-8 to step 100 and
+    1e-6 after (tests/test_golden_reference.py's); then 100 steps of the
+    same scan outside the quirk, a graph of its own (the switch is in the
+    signature), whose distance from the golden is printed."""
+    from tds_tpu_torch.dynamics.forward_dynamics import reference_base_abi_quirk
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.utils import graphs
+
+    env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float64)
+    golden = json.loads(FLOATING_GOLDEN.read_text())
+    snaps = golden["snapshots"]
+    start = tuple(torch.tensor([snaps["0"][k]], dtype=torch.float64, device="cuda") for k in ("q", "qd"))
+    zero = (torch.zeros(1, env.action_dim, dtype=torch.float64, device="cuda"),)
+
+    def body(carry, consts):
+        return env.sim_step(*carry, *consts)
+
+    key = ("floating golden", env)
+    worst, carry, done = 0.0, start, 0
+    with reference_base_abi_quirk():
+        for t in sorted(int(k) for k in snaps if k != "0"):
+            carry = graphs.scan(body, carry, zero, t - done, key=key)
+            done = t
+            tol = 1e-8 if t <= 100 else 1e-6
+            for got, name in zip(carry, ("q", "qd")):
+                want = torch.tensor(snaps[str(t)][name], dtype=torch.float64)
+                err = (got[0].cpu() - want).abs()
+                worst = max(worst, err.max().item())
+                if (err - tol * (1 + want.abs())).max().item() > 0:
+                    raise AssertionError(f"floating (a): the golden's {name} differs by {err.max().item():.3e} at step {t}")
+    plain = graphs.scan(body, start, zero, 100, key=key)
+    off = max((got[0].cpu() - torch.tensor(snaps["100"][n], dtype=torch.float64)).abs().max().item()
+              for got, n in zip(plain, ("q", "qd")))
+    entries = [g for g in graphs.stats() if g.key == key]
+    if len(entries) != 2:
+        raise AssertionError(f"floating (a): {len(entries)} graphs for the golden's scan, expected one with the quirk and one without")
+    log(f"floating (a): laikago_floating_contact_trajectory.json, {done} steps through graphs under the quirk on the card: "
+        f"max |card - golden| {worst:.3e} over the snapshots (1e-8 to step 100, 1e-6 after); without the quirk (a graph of "
+        f"its own, {entries[1].nodes} nodes) step 100 lies {off:.3e} from the golden")
+    return worst, off
+
+
+def floating_rollout(card, card_line, fixed_rate):
+    """(b): the floating laikago in float32 at batch 4096: reset and a
+    ROLLOUT_STEPS-step rollout of the zero linear policy through graphs with
+    K1's wrapper launches counted from 0 just before and read just after
+    (the warm-ups and captures), every env alive at 0.3 < z < 0.6; bench.py's
+    1000-step rollout timed once (``laikago_floating_scan_rollout_env_steps_per_s``,
+    beside phase 5's fixed-base figure), K1 in a trace of PROFILE_STEPS
+    replayed steps (one a step), and K1 against its plain version on the
+    operands of a step of this rollout (n = 12), timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
+
+    env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float32)
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    (state0, obs0), reset_s = timed_call(lambda: env.reset(gen, batch_size=MAIN_BATCH))
+    (state, _, _, alive), first_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, ROLLOUT_STEPS))
+    launches = pgs.launches
+    check_wrapper_launches("floating (b)", "PGS", launches, cached)
+    z = state.q[:, 6]
+    if not bool(alive.all()) or not bool(((z > 0.3) & (z < 0.6)).all()) or not bool(torch.isfinite(state.q).all()):
+        raise AssertionError(f"floating (b): the zero policy should stand: {int(alive.sum())}/{MAIN_BATCH} alive, z in "
+                             f"[{z.min():.3f}, {z.max():.3f}]")
+    (final, _, _, alive), bench_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, LAIKAGO_BENCH_STEPS))
+    if not bool(alive.all()) or not bool(torch.isfinite(final.q).all()):
+        raise AssertionError(f"floating (b): {int(alive.sum())}/{MAIN_BATCH} alive after {LAIKAGO_BENCH_STEPS} steps")
+    rate = MAIN_BATCH * LAIKAGO_BENCH_STEPS / bench_s
+    bench_line("laikago_floating_scan_rollout_env_steps_per_s", rate, "steps/s", card_line, batch=MAIN_BATCH,
+               steps=LAIKAGO_BENCH_STEPS, seconds=bench_s, fixed_base_env_steps_per_s=fixed_rate)
+    found = graph_lines("floating (b)", env, "rollout")
+    log(f"floating (b): reset ({env.settle_steps} settle steps, graphs) in {reset_s * 1e3:.1f} ms; {ROLLOUT_STEPS} steps "
+        f"through graphs {first_s:.3f} s with the captures; the {LAIKAGO_BENCH_STEPS}-step rollout {bench_s:.3f} s = "
+        f"{bench_s * 1e3 / LAIKAGO_BENCH_STEPS:.3f} ms/step, {rate:.1f} env-steps/s against the fixed base's {fixed_rate:.1f} "
+        f"(phase 5), {card_line}; K1 wrapper launches {launches} (warm-ups and captures); z after {LAIKAGO_BENCH_STEPS} "
+        f"steps in [{final.q[:, 6].min():.3f}, {final.q[:, 6].max():.3f}]")
+    with sub_phase(f"floating (b) seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: rollout(env, policy, None, state0, obs0, PROFILE_STEPS), calls=1,
+                                 kernel="pgs_kernel", expected=PROFILE_STEPS)
+    if profile is None:
+        raise AssertionError("floating (b): the profiler saw no device activity in the replayed rollout")
+    ops, busy, wall, k1 = profile
+    if k1 != PROFILE_STEPS:
+        raise AssertionError(f"floating (b): {k1} K1 kernels in {PROFILE_STEPS} replayed steps")
+    log(f"floating (b): graph replays: {ops / PROFILE_STEPS:.0f} device operations per step, K1 {k1:.0f} times in "
+        f"{PROFILE_STEPS} replayed steps (torch.profiler), device busy {busy / PROFILE_STEPS:.3f} of {wall / PROFILE_STEPS:.3f} "
+        f"ms/step under the profiler ({100 * (1 - busy / wall):.1f}% idle)")
+    a, b, lo, hi, dep, it = harvest_pgs_operands(env, gen, ROLLOUT_STEPS, "floating laikago", "floating (b)")
+    if tuple(b.shape) != (MAIN_BATCH, 12):
+        raise AssertionError(f"floating (b): the floating laikago's MLCP has shape {tuple(b.shape)}")
+    err, margin = k1_against_plain("the floating laikago step", [a, b, lo, hi], dep, it)
+    log(f"floating (b): K1 on the floating laikago step B={b.shape[0]} n=12: max |kernel - plain| = {err:.3e} (margin left "
+        f"{margin:.3e})")
+    timing = k1_timing("floating laikago step", [a, b, lo, hi], dep, it, card, prefix="floating (b)")
+    return {"launches": launches, "max_abs_err": err, **timing, "replayed_launches_per_step": k1 / PROFILE_STEPS,
+            "laikago_floating_scan_rollout_env_steps_per_s": rate, "ms_per_step": bench_s * 1e3 / LAIKAGO_BENCH_STEPS,
+            "graph_nodes": [g.nodes for g in found], "device_ops": ops / PROFILE_STEPS, "idle": 1 - busy / wall,
+            "main_path": "the floating laikago's rollout (phase 16 (b))"}
+
+
+def sphere_world(dtype, device):
+    """tests/test_golden_reference.py's sphere: a floating ball of 1.5 kg,
+    inertia 0.024, radius 0.2, on the plane with the default solver."""
+    import numpy as np
+
+    from tds_tpu_torch.model.geometry import GeomAttachment, Sphere
+    from tds_tpu_torch.model.multibody import MultiBodyBuilder
+    from tds_tpu_torch.world import build_world, make_ground_plane
+
+    b = MultiBodyBuilder(is_floating=True, name="golden_sphere")
+    b.set_base_inertia(1.5, (0, 0, 0), np.diag([0.024] * 3))
+    ball = b.finalize(dtype=dtype, device=device)
+    return build_world([make_ground_plane(dtype=dtype, device=device), (ball, (GeomAttachment(link_index=-1, shape=Sphere(0.2)),))])
+
+
+def balls(card):
+    """(c): sphere_contact_trajectory.json through ``world_rollout`` (world_step
+    in graphs.scan) on the card in float64, at the golden's tolerances; then
+    BALL_BATCH balls of tools/ball_loss.py's world (4 PGS sweeps) dropped
+    from 0.1-0.5 m with random spins and slides, BALL_STEPS float32 steps
+    through graphs with K1's wrapper launches counted from 0 just before and
+    read just after, none through the floor, K1 (n = 3) once a replayed
+    step in a trace, and K1 against its plain version on the operands of a
+    step of this drop, timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import ball_loss
+    from tds_tpu_torch.utils import graphs
+    from tds_tpu_torch.world import world_rollout, world_step
+
+    world = sphere_world(torch.float64, "cuda")
+    golden = json.loads(SPHERE_GOLDEN.read_text())
+    snaps, dt = golden["snapshots"], golden["dt"]
+    ground = torch.zeros(1, 0, dtype=torch.float64, device="cuda")
+    qs = (ground, torch.tensor([snaps["0"]["q"]], dtype=torch.float64, device="cuda"))
+    qds = (ground, torch.tensor([snaps["0"]["qd"]], dtype=torch.float64, device="cuda"))
+    gravity = torch.tensor((0.0, 0.0, -9.81), dtype=torch.float64, device="cuda")
+    worst, done = 0.0, 0
+    for t in sorted(int(k) for k in snaps if k != "0"):
+        qs, qds = world_rollout(world, qs, qds, gravity, dt, t - done)
+        done = t
+        tol = 1e-8 if t <= 100 else 1e-6
+        for got, name in ((qs[1], "q"), (qds[1], "qd")):
+            want = torch.tensor(snaps[str(t)][name], dtype=torch.float64)
+            err = (got[0].cpu() - want).abs()
+            worst = max(worst, err.max().item())
+            if (err - tol * (1 + want.abs())).max().item() > 0:
+                raise AssertionError(f"balls (c): the sphere golden's {name} differs by {err.max().item():.3e} at step {t}")
+    if qs[0].shape != (1, 0) or qds[0].shape != (1, 0):
+        raise AssertionError("balls (c): the ground's (B, 0) state changed shape in the scan")
+    log(f"balls (c): sphere_contact_trajectory.json, {done} float64 steps of world_step through graphs on the card: max "
+        f"|card - golden| {worst:.3e} (1e-8 to step 100, 1e-6 after); the ground's (1, 0) q and qd carried through")
+    world = ball_loss.ball_world(dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ball = world.bodies[1]
+    q0 = ball.zero_q((BALL_BATCH,))
+    q0[:, 6] = 0.1 + 0.4 * torch.rand(BALL_BATCH, generator=gen, device="cuda")
+    qd0 = torch.randn(BALL_BATCH, 6, generator=gen, device="cuda")
+    qd0[:, 5] = 0.0
+    ground = torch.zeros(BALL_BATCH, 0, device="cuda")
+    gravity = torch.tensor((0.0, 0.0, -9.81), device="cuda")
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    (qs, qds), first_s = timed_call(lambda: world_rollout(world, (ground, q0), (ground, qd0), gravity, ball_loss.DT, BALL_STEPS))
+    launches = pgs.launches
+    check_wrapper_launches("balls (c)", "PGS", launches, cached)
+    z = qs[1][:, 6]
+    if not bool(torch.isfinite(qs[1]).all()) or z.min().item() < ball_loss.RADIUS - 0.01:
+        raise AssertionError(f"balls (c): a ball is not finite or fell through the floor: z >= {z.min().item():.4f}")
+    _, replay_s = timed_call(lambda: world_rollout(world, (ground, q0), (ground, qd0), gravity, ball_loss.DT, BALL_STEPS))
+    found = [g for g in graphs.stats() if isinstance(g.key, tuple) and g.key[0] == "world_rollout" and g.key[1] is world]
+    with sub_phase(f"balls (c) seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: world_rollout(world, (ground, q0), (ground, qd0), gravity, ball_loss.DT, PROFILE_STEPS),
+                                 calls=1, kernel="pgs_kernel", expected=PROFILE_STEPS)
+    if profile is None or profile[3] != PROFILE_STEPS:
+        raise AssertionError(f"balls (c): K1 ran {None if profile is None else profile[3]} times in {PROFILE_STEPS} replayed steps")
+    ops, busy, wall, k1 = profile
+    log(f"balls (c): {BALL_BATCH} balls dropped for {BALL_STEPS} float32 steps through graphs: {first_s:.3f} s with the "
+        f"captures, replayed {replay_s * 1e3 / BALL_STEPS:.3f} ms/step = {BALL_BATCH * BALL_STEPS / replay_s:.1f} ball-steps/s; "
+        f"graph {[g.nodes for g in found]} nodes, {ops / PROFILE_STEPS:.0f} device operations and K1 {k1 / PROFILE_STEPS:.0f} "
+        f"a replayed step, {100 * (1 - busy / wall):.1f}% idle under the profiler; K1 wrapper launches {launches} (warm-ups "
+        f"and captures); z in [{z.min():.4f}, {z.max():.4f}]")
+    # the operands of one eager step of the drop, 200 steps in
+    mid = world_rollout(world, (ground, q0), (ground, qd0), gravity, ball_loss.DT, 200)
+    with recorded_pgs_calls() as calls:
+        world_step(world, *mid, None, gravity, ball_loss.DT)
+    a, b, lo, hi, dep, it = calls[0]
+    active = int((b != 0).sum())
+    if tuple(b.shape) != (BALL_BATCH, 3) or active == 0:
+        raise AssertionError(f"balls (c): the drop's MLCP has shape {tuple(b.shape)}, {active} rows active")
+    err, margin = k1_against_plain("the ball drop", [a, b, lo, hi], dep, it)
+    log(f"balls (c): K1 on the ball drop's step 201 B={BALL_BATCH} n=3 it={it}: {active} of {b.numel()} rows active, max "
+        f"|kernel - plain| = {err:.3e} (margin left {margin:.3e})")
+    timing = k1_timing("ball drop step", [a, b, lo, hi], dep, it, card, prefix="balls (c)")
+    return {"launches": launches, "max_abs_err": err, **timing, "replayed_launches_per_step": k1 / PROFILE_STEPS,
+            "ms_per_step": replay_s * 1e3 / BALL_STEPS, "graph_nodes": [g.nodes for g in found],
+            "sphere_golden_max_abs": worst, "main_path": f"{BALL_BATCH} balls through world_rollout (phase 16 (c))"}, (a, b, lo, hi, dep, it)
+
+
+def ball_gradient(card, operands):
+    """(d): tools/ball_loss.py's BALL_LOSS_STEPS-step loss on the card in
+    float64 through ``world_rollout``: its gradient with respect to the
+    initial velocity, the scan's VJP graph replayed (K1's backward at n = 3
+    inside), K1's backward wrapper launches counted from 0 just before and
+    read just after (the VJP graph's warm-up and capture), within 1e-9
+    abs + rel of the CPU's; one backward kernel a replayed VJP step in a
+    trace of a GRAD_PROFILE_STEPS-step gradient; K1's backward against the
+    plain version's autograd on (c)'s float32 operands, timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import ball_loss
+
+    shots = torch.tensor([ball_loss.VELOCITY, (1.2, -0.6)], dtype=torch.float64)
+    world = ball_loss.ball_world()
+    torch.cuda.synchronize()
+    pgs.backward_launches = 0
+    (value, grad), grad_s = timed_call(lambda: ball_loss.gradient(world, shots.cuda(), BALL_LOSS_STEPS))
+    launches = pgs.backward_launches
+    cpu_value, cpu_grad = ball_loss.gradient(ball_loss.ball_world(device="cpu"), shots, BALL_LOSS_STEPS)
+    err = max((value.cpu() - cpu_value).abs().max().item(), (grad.cpu() - cpu_grad).abs().max().item())
+    over = max(((value.cpu() - cpu_value).abs() - 1e-9 * (1 + cpu_value.abs())).max().item(),
+               ((grad.cpu() - cpu_grad).abs() - 1e-9 * (1 + cpu_grad.abs())).max().item())
+    if over > 0 or launches != 2 or grad.abs().min().item() == 0:
+        raise AssertionError(f"ball (d): the card's gradient {grad.tolist()} against the CPU's {cpu_grad.tolist()}, or "
+                             f"{launches} backward launches (2 expected: the VJP graph's warm-up and capture)")
+    log(f"ball (d): the {BALL_LOSS_STEPS}-step ball loss {value.tolist()} on the card (float64, 2 shots): d loss / d (vx, vy) "
+        f"{[[f'{v:.12e}' for v in row] for row in grad.tolist()]} in {grad_s:.2f} s with the captures, the CPU's "
+        f"{[[f'{v:.12e}' for v in row] for row in cpu_grad.tolist()]}: max |card - cpu| {err:.3e} (1e-9 abs + rel); K1 "
+        f"backward wrapper launches {launches} (the VJP graph's warm-up and capture)")
+    with sub_phase(f"ball (d) seconds: the {GRAD_PROFILE_STEPS}-step trace"):
+        ball_loss.gradient(world, shots.cuda(), GRAD_PROFILE_STEPS)
+        _, _, _, count = counted_trace(lambda: ball_loss.gradient(world, shots.cuda(), GRAD_PROFILE_STEPS), "pgs_backward",
+                                       GRAD_PROFILE_STEPS)
+    if count != GRAD_PROFILE_STEPS:
+        raise AssertionError(f"ball (d): {count} backward kernels in {GRAD_PROFILE_STEPS} replayed VJP steps")
+    log(f"ball (d): a replayed {GRAD_PROFILE_STEPS}-step gradient ran K1's backward kernel {count} times (torch.profiler)")
+    a, b, lo, hi, dep, it = operands
+    case = k1_backward_case("ball drop step", [a, b, lo, hi], dep, it, card, torch.Generator(device="cuda").manual_seed(16),
+                            prefix="ball (d)")
+    return {"launches": launches, **{k: v for k, v in case.items() if k != "margin"}, "replayed_launches_per_step": count / GRAD_PROFILE_STEPS,
+            "card_vs_cpu_max_abs": err, "gradient_s": grad_s,
+            "main_path": f"the {BALL_LOSS_STEPS}-step ball loss's gradient through world_rollout's VJP graph (phase 16 (d))"}
+
+
+def phase_floating(card, card_line, fixed_rate):
+    """Phase 16: floating bases on the card. Returns the kernels line's
+    entries of K1 on the floating laikago (n = 12), on the balls (n = 3)
+    and K1's backward under the ball loss (n = 3), and the numbers."""
+    numbers = {}
+    with sub_phase("floating (a) seconds"):
+        numbers["floating_float64_card_vs_cpu"] = floating_device_vs_cpu()
+        numbers["floating_golden_max_abs"], numbers["floating_golden_without_quirk_step100"] = floating_golden()
+    with sub_phase("floating (b) seconds"):
+        laikago = floating_rollout(card, card_line, fixed_rate)
+    with sub_phase("balls (c) seconds"):
+        drop, operands = balls(card)
+    with sub_phase("ball (d) seconds"):
+        backward = ball_gradient(card, operands)
+    common = {"route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None}
+    entries = [
+        {"name": "pgs n=12 floating", **common, "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", **laikago},
+        {"name": "pgs n=3", **common, "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", **drop},
+        {"name": "pgs backward n=3", **common,
+         "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel; its gradient is jax.grad of tds_tpu/contact/mlcp.py:94 solve_pgs)",
+         **backward},
+    ]
+    for entry in entries:
+        log(f"floating: {json.dumps(entry)}")
+    log(f"floating: {json.dumps(numbers)}")
+    return entries, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -3180,12 +3530,14 @@ def main():
     terrain = timed(phase_terrain, card, card_line)
     backward = timed(phase_gradients, card, card_line)
     jvp, ppo_numbers = timed(phase_forward_and_ppo, card, card_line)
+    floating, floating_numbers = timed(phase_floating, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
     kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
     kernel.update(humanoid)
     kernel.update(terrain)
     kernel.update(ppo_numbers)
+    kernel.update(floating_numbers)
     kernel.update(timed(phase_graphs, start_s))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -84,6 +84,20 @@ class ArticulatedBodyInertia(NamedTuple):
             I=a_inv + ainv_h_sinv @ (ht @ a_inv), H=-ainv_h_sinv, M=s_inv
         )
 
+    def inverse_reference_quirk(self):
+        """The C++ reference's block inverse as it ships, with C = -H for the
+        lower-left block where the true block is H^T: right while H is skew
+        (a rigid body's), wrong for a floating base's accumulated
+        articulated inertia. Kept to replay the reference's floating-base
+        trajectories (``forward_dynamics.reference_base_abi_quirk``)."""
+        a_inv = inv3(self.I)
+        h = self.H
+        s_inv = inv3(self.M + h @ (a_inv @ h))
+        ainv_h_sinv = a_inv @ h @ s_inv
+        return ArticulatedBodyInertia(
+            I=a_inv - ainv_h_sinv @ (h @ a_inv), H=-ainv_h_sinv, M=s_inv
+        )
+
     @staticmethod
     def outer_ff(a, b):
         """a b^T for force vectors, as ABI blocks."""

@@ -1,6 +1,6 @@
 """Quaternion operations, xyzw storage, broadcasting over leading dims
 (counterpart of tds_tpu/algebra/quaternion.py: what revolute-axis and
-spherical joints use).
+spherical joints and floating bases use).
 """
 
 import torch
@@ -70,6 +70,18 @@ def to_axis_angle(q):
     far = n > 1e-12
     scale = torch.where(far, theta / torch.where(far, n, torch.ones_like(n)), 2.0 / qw)
     return qv * scale[..., None]
+
+
+def velocity_world(q, omega_world, dt):
+    """Quaternion increment 0.5 dt (omega_world ⊗ q), the world-frame
+    derivative of a floating base."""
+    w = torch.cat([omega_world, torch.zeros_like(omega_world[..., :1])], dim=-1)
+    return mul(w, q) * (0.5 * dt)
+
+
+def integrate_world(q, omega_world, dt):
+    """q + 0.5 dt (omega ⊗ q), renormalized."""
+    return normalize(q + velocity_world(q, omega_world, dt))
 
 
 def velocity_local(q, omega_local, dt):

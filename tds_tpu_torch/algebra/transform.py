@@ -56,6 +56,11 @@ class Transform(NamedTuple):
         per_column = Transform(pos=self.pos[..., None, :], rot=self.rot[..., None, :, :])
         return per_column.motion_to_parent(s.transpose(-1, -2)).transpose(-1, -2)
 
+    def force_matrix_to_parent(self, s):
+        """Columnwise force_to_parent of a (..., 6, 3) force matrix."""
+        per_column = Transform(pos=self.pos[..., None, :], rot=self.rot[..., None, :, :])
+        return per_column.force_to_parent(s.transpose(-1, -2)).transpose(-1, -2)
+
     def force_to_parent(self, f):
         """[n, f] -> [R n + r x (R f), R f]."""
         n, lin = f[..., :3], f[..., 3:]

@@ -1,16 +1,23 @@
 """Articulated-Body Algorithm forward dynamics, O(n) (counterpart of
-tds_tpu/dynamics/forward_dynamics.py), for fixed-base models with fixed,
-1-DoF and spherical joints.
+tds_tpu/dynamics/forward_dynamics.py), for fixed and floating bases with
+fixed, 1-DoF and spherical joints.
 
 The backward sweep is split into a velocity-independent articulated factor
 (:class:`AbaFactor`) and a bias sweep. The factor doubles as an O(n)
 factorization of the joint-space mass matrix: :func:`minv_mul` applies
 M(q)^-1 to many generalized-force vectors at once, which the contact
 solver uses for M^-1 J^T. Gravity enters as a fictitious base acceleration
--g. A spherical joint's U is (6, 3) and its D^-1 the closed-form inverse
-of the 3x3 S^T U; its stiffness acts on the quaternion's rotation vector.
-Floating bases and the JAX package's ``reference_base_abi_quirk`` are not
-ported yet.
+-g, and is added back to a floating base's qdd[0:6]. A spherical joint's U
+is (6, 3) and its D^-1 the closed-form inverse of the 3x3 S^T U; its
+stiffness acts on the quaternion's rotation vector.
+
+A floating base gathers its children's articulated inertias into its own;
+its acceleration is -inv(base ABI) (base bias force). Inside
+:func:`reference_base_abi_quirk` ABA inverts the base ABI with the C++
+reference's shipped block formula (``inverse_reference_quirk``), to replay
+the reference's floating-base trajectories; ``minv_mul``, and so the
+contact solver, keeps the correct inverse, as in the reference, whose
+constraint solver inverts the CRBA mass matrix.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -24,16 +31,32 @@ from tds_tpu_torch.algebra.spatial import matTvec, matvec
 from tds_tpu_torch.dynamics.kinematics import KinLinks, fk_links
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
+from tds_tpu_torch.utils import graphs
+
+QUIRK = "reference_base_abi_quirk"
+
+
+def reference_base_abi_quirk():
+    """A context manager: within it, floating-base ABA inverts the base ABI
+    with the reference's shipped (C = -H) formula. The switch is one of
+    :func:`graphs.switch`'s, so a graph captured inside the block is never
+    replayed outside it, nor one captured outside replayed inside."""
+    return graphs.switch(QUIRK, True)
 
 
 class AbaFactor(NamedTuple):
     """Per-link U = I^A S ((..., 6) or (..., 6, 3) for a spherical joint),
     D^-1 (a scalar, 0 for fixed joints, or (..., 3, 3)) and the post-update
-    articulated inertia I^a = I^A - U D^-1 U^T."""
+    articulated inertia I^a = I^A - U D^-1 U^T. A floating base adds its
+    accumulated ABI, its inverse, and the inverse ABA's base solve uses
+    (the same object but inside :func:`reference_base_abi_quirk`)."""
 
     u: Tuple[torch.Tensor, ...]
     d_inv: Tuple[torch.Tensor, ...]
     ia: Tuple[ArticulatedBodyInertia, ...]
+    base_abi: Optional[ArticulatedBodyInertia] = None
+    base_abi_inv: Optional[ArticulatedBodyInertia] = None
+    base_abi_inv_aba: Optional[ArticulatedBodyInertia] = None
 
 
 def aba_factor(model: MultiBodyModel, kin: KinLinks) -> AbaFactor:
@@ -42,6 +65,7 @@ def aba_factor(model: MultiBodyModel, kin: KinLinks) -> AbaFactor:
     the contact solver."""
     nl = model.num_links
     abi = list(kin.abi)
+    base_abi = kin.base_abi
     u_terms, d_inv, ia_list = [None] * nl, [None] * nl, [None] * nl
     for i in reversed(range(nl)):
         jt = JointType(model.joint_types[i])
@@ -63,19 +87,34 @@ def aba_factor(model: MultiBodyModel, kin: KinLinks) -> AbaFactor:
         u_terms[i], d_inv[i], ia_list[i] = u, invd, ia
         if parent >= 0:
             abi[parent] = abi[parent] + kin.x_parent[i].abi_to_parent(ia)
-    return AbaFactor(u=tuple(u_terms), d_inv=tuple(d_inv), ia=tuple(ia_list))
+        elif model.is_floating:
+            base_abi = base_abi + kin.x_parent[i].abi_to_parent(ia)
+    base_abi_inv = base_abi_inv_aba = None
+    if model.is_floating:
+        base_abi_inv = base_abi.inverse()
+        base_abi_inv_aba = base_abi.inverse_reference_quirk() if graphs.switched(QUIRK) else base_abi_inv
+    return AbaFactor(
+        u=tuple(u_terms), d_inv=tuple(d_inv), ia=tuple(ia_list),
+        base_abi=base_abi, base_abi_inv=base_abi_inv, base_abi_inv_aba=base_abi_inv_aba,
+    )
 
 
-def forward_dynamics(model: MultiBodyModel, q, qd, tau, gravity):
+def forward_dynamics(model: MultiBodyModel, q, qd, tau, gravity, f_ext=None, base_applied_force=None):
     """Generalized accelerations qdd (B, dof_qd): FK, the articulated
-    factor and the ABA sweeps. ``tau`` holds the actuated DoF only."""
+    factor and the ABA sweeps. ``tau`` holds the actuated DoF only (a
+    floating base's wrench goes in ``base_applied_force`` or ``f_ext``, see
+    :func:`~tds_tpu_torch.dynamics.kinematics.fk_links`)."""
     if q.shape[-1] != model.dof_q:
         raise ValueError(f"q has {q.shape[-1]} coords, model needs {model.dof_q}")
     if qd.shape[-1] != model.dof_qd:
         raise ValueError(f"qd has {qd.shape[-1]} coords, model needs {model.dof_qd}")
     if tau.shape[-1] != model.dof_actuated:
-        raise ValueError(f"tau has {tau.shape[-1]} entries, model has {model.dof_actuated} actuated DoF")
-    return forward_dynamics_from_kin(model, fk_links(model, q, qd), q, qd, tau, gravity)
+        raise ValueError(
+            f"tau has {tau.shape[-1]} entries, model has {model.dof_actuated} actuated DoF (a base wrench belongs in "
+            "base_applied_force, not tau)"
+        )
+    kin = fk_links(model, q, qd, f_ext=f_ext, base_applied_force=base_applied_force)
+    return forward_dynamics_from_kin(model, kin, q, qd, tau, gravity)
 
 
 def forward_dynamics_from_kin(
@@ -87,6 +126,7 @@ def forward_dynamics_from_kin(
     if factor is None:
         factor = aba_factor(model, kin)
     p_a = list(kin.pA)
+    base_bias = kin.base_bias_force
     u_bias = [None] * nl
 
     for i in reversed(range(nl)):
@@ -111,10 +151,15 @@ def forward_dynamics_from_kin(
             u_bias[i] = u_b
         if parent >= 0:
             p_a[parent] = p_a[parent] + kin.x_parent[i].force_to_parent(pa)
+        elif model.is_floating:
+            base_bias = base_bias + kin.x_parent[i].force_to_parent(pa)
 
     spatial_gravity = torch.cat([torch.zeros_like(gravity), gravity])
-    base_acc = (-spatial_gravity).expand(q.shape[:-1] + (6,))
-    return _forward_sweep(model, kin, factor, u_bias, base_acc, kin.c)
+    if not model.is_floating:
+        base_acc = (-spatial_gravity).expand(q.shape[:-1] + (6,))
+        return _forward_sweep(model, kin, factor, u_bias, base_acc, kin.c)
+    base_acc = -_abi_apply(factor.base_abi_inv_aba, base_bias)
+    return _forward_sweep(model, kin, factor, u_bias, base_acc, kin.c, base_qdd=base_acc + spatial_gravity)
 
 
 def minv_mul(model: MultiBodyModel, kin: KinLinks, factor: AbaFactor, x):
@@ -123,6 +168,7 @@ def minv_mul(model: MultiBodyModel, kin: KinLinks, factor: AbaFactor, x):
     example many right-hand sides) broadcast against the state batch."""
     nl = model.num_links
     p_a = [None] * nl  # None stands for a zero force
+    base_p = None
     u_bias = [None] * nl
     for i in reversed(range(nl)):
         jt = JointType(model.joint_types[i])
@@ -142,20 +188,28 @@ def minv_mul(model: MultiBodyModel, kin: KinLinks, factor: AbaFactor, x):
             uud = factor.u[i] * (u_b * factor.d_inv[i])[..., None]
             pa = uud if p_a[i] is None else p_a[i] + uud
             u_bias[i] = u_b
-        if parent >= 0 and pa is not None:
+        if pa is not None and (parent >= 0 or model.is_floating):
             delta = kin.x_parent[i].force_to_parent(pa)
-            p_a[parent] = delta if p_a[parent] is None else p_a[parent] + delta
-    base_acc = x.new_zeros(x.shape[:-1] + (6,))
-    return _forward_sweep(model, kin, factor, u_bias, base_acc, None)
+            if parent >= 0:
+                p_a[parent] = delta if p_a[parent] is None else p_a[parent] + delta
+            else:
+                base_p = delta if base_p is None else base_p + delta
+    if not model.is_floating:
+        return _forward_sweep(model, kin, factor, u_bias, x.new_zeros(x.shape[:-1] + (6,)), None)
+    f0 = x[..., 0:6] if base_p is None else x[..., 0:6] - base_p
+    base_acc = _abi_apply(factor.base_abi_inv, f0)
+    return _forward_sweep(model, kin, factor, u_bias, base_acc, None, base_qdd=base_acc)
 
 
-def _forward_sweep(model, kin, factor, u_bias, base_acc, c):
+def _forward_sweep(model, kin, factor, u_bias, base_acc, c, base_qdd=None):
     """Forward acceleration sweep shared by ABA (with the bias accelerations
-    ``c``) and minv_mul (``c`` None); returns the stacked joint
-    accelerations (..., dof_qd)."""
+    ``c``) and minv_mul (``c`` None); returns the stacked accelerations
+    (..., dof_qd), a floating base's ``base_qdd`` first."""
     nl = model.num_links
     a = [None] * nl
     cols = [None] * model.dof_qd
+    if model.is_floating:
+        cols[0:6] = base_qdd.unbind(-1)
     for i in range(nl):
         jt = JointType(model.joint_types[i])
         parent = model.parents[i]
@@ -174,3 +228,10 @@ def _forward_sweep(model, kin, factor, u_bias, base_acc, c):
             ai = ai + model.subspaces[i] * qdd_val[..., None]
         a[i] = ai
     return torch.stack(cols, dim=-1)
+
+
+def _abi_apply(abi: ArticulatedBodyInertia, f):
+    """[[I, H], [H^T, M]] [n; f] for the blocks of a (precomputed inverse)
+    ABI."""
+    n, lin = f[..., :3], f[..., 3:]
+    return spatial.mv(matvec(abi.I, n) + matvec(abi.H, lin), matvec(abi.M, lin) + matTvec(abi.H, n))

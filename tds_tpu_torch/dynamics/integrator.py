@@ -1,8 +1,10 @@
 """Semi-implicit Euler integration (counterpart of
-tds_tpu/dynamics/integrator.py) for fixed-base models: velocities first,
-then positions from the updated velocities. A spherical joint's rates decay
-by pow(joint_damping, 1000 dt) and its quaternion integrates the body-frame
-angular velocity, renormalized."""
+tds_tpu/dynamics/integrator.py): velocities first, then positions from the
+updated velocities. A floating base's quaternion integrates its
+world-frame angular velocity, renormalized, and its position its linear
+velocity. A spherical joint's rates decay by pow(joint_damping, 1000 dt)
+and its quaternion integrates the body-frame angular velocity,
+renormalized."""
 
 import torch
 
@@ -24,13 +26,15 @@ def integrate_euler(model: MultiBodyModel, q, qd, qdd, dt):
 def integrate_q(model: MultiBodyModel, q, qd, dt):
     """Position update from the (already updated) velocities; returns
     (q, qd), qd with the spherical joints' decay applied."""
-    if model.is_floating:
-        raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
-    if JointType.SPHERICAL not in model.joint_types:
-        # fixed and 1-DoF joints only: q and qd share one layout
-        return q + qd * dt, qd
     q_parts, qd_parts = [], []
     q_at = qd_at = 0
+    if model.is_floating:
+        q_parts += [quaternion.integrate_world(q[..., 0:4], qd[..., 0:3], dt), q[..., 4:7] + qd[..., 3:6] * dt]
+        qd_parts.append(qd[..., 0:6])
+        q_at, qd_at = 7, 6
+    elif JointType.SPHERICAL not in model.joint_types:
+        # fixed and 1-DoF joints only: q and qd share one layout
+        return q + qd * dt, qd
     for i in range(model.num_links):
         jt = JointType(model.joint_types[i])
         if jt == JointType.FIXED:

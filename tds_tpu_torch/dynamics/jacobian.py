@@ -1,12 +1,24 @@
 """Point Jacobians, 3 x dof_qd (counterpart of
-tds_tpu/dynamics/jacobian.py) for fixed-base models; a spherical joint
-gives 3 columns."""
+tds_tpu/dynamics/jacobian.py); a spherical joint gives 3 columns, and a
+floating base 6: the transposed cross matrix of the point (relative to the
+base) on the angular ones and the identity on the linear ones, for its
+world-frame twist."""
 
 import torch
 
 from tds_tpu_torch.algebra.spatial import cross, cross_matrix
+from tds_tpu_torch.dynamics.kinematics import forward_kinematics_q
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyModel
+
+
+def point_jacobian(model: MultiBodyModel, q, link_index: int, point, is_local_point: bool = False):
+    """Jacobian (B, 3, dof_qd) of the world-frame velocity of ``point``
+    (B, 3) on link ``link_index`` (-1: the base) with respect to qd; the
+    point is in the world frame, or with ``is_local_point`` in the base
+    frame."""
+    base_x_world, links_x_world, links_x_base = forward_kinematics_q(model, q)
+    return point_jacobian_kin(model, base_x_world, links_x_world, links_x_base, link_index, point, is_local_point)
 
 
 def point_jacobian_kin(
@@ -24,9 +36,15 @@ def point_jacobian_kin(
     ``is_local_point`` (then ``links_x_base`` supplies the link frames).
     Columns are gathered per joint on the path to the root and stacked
     once."""
-    if model.is_floating:
-        raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
     cols = {}
+    if model.is_floating:
+        base_point = point if is_local_point else point - base_x_world.pos
+        cr = cross_matrix(base_point).transpose(-1, -2)
+        for k in range(3):
+            cols[k] = cr[..., :, k]
+        eye = torch.eye(3, dtype=point.dtype, device=point.device)
+        for k in range(3):
+            cols[3 + k] = eye[:, k].expand(point.shape)
     i = link_index if link_index is not None else -1
     while i >= 0:
         jt = JointType(model.joint_types[i])

@@ -172,7 +172,12 @@ def pack_step_params(env) -> StepParams:
     rotation does not move its centre and is not packed."""
     model, world = env.model, env.world
     if model.is_floating:
-        raise NotImplementedError("the fused step handles fixed bases only")
+        # by design: K2's source, tools/pallas_megastep_experiment.py, is the
+        # fixed-base laikago's step (the xyz_xyzrot emulation chain)
+        raise NotImplementedError(
+            "the fused step handles fixed bases only: its source, tools/pallas_megastep_experiment.py, is the fixed-base "
+            "laikago's step; a floating base runs the eager step through K1"
+        )
     if JointType.SPHERICAL in model.joint_types:
         raise NotImplementedError("the fused step handles fixed and 1-DoF joints only")
     ground, robot = world.geoms if len(world.geoms) == 2 else ((), ())

@@ -3,10 +3,14 @@ of tds_tpu/envs/locomotion.py), on batched tensors.
 
 Per control step: PD(initial poses + clipped action) -> ABA -> velocity
 half-step -> contact impulses -> position update, with observation
-[q, qd]. Fixed-base variants emulate the floating base with passive joints
-that the PD loop skips: 3 prismatic + 3 revolute (the *_xyz_xyzrot URDFs)
-or 3 prismatic + 1 spherical (the humanoid's xyz_spherical URDF, whose
-q[3:7] is the base's xyzw quaternion, so q and qd differ in length).
+[q, qd]. A floating base (``is_floating=True`` on the URDF) carries its
+pose in q[0:7], [qx, qy, qz, qw, x, y, z], and its twist in qd[0:6]; every
+joint is PD-controlled (``skip_links`` 0) and the standing start draws no
+joint noise, as in the JAX package. Fixed-base variants emulate the
+floating base with passive joints that the PD loop skips: 3 prismatic + 3
+revolute (the *_xyz_xyzrot URDFs) or 3 prismatic + 1 spherical (the
+humanoid's xyz_spherical URDF, whose q[3:7] is the base's xyzw quaternion,
+so q and qd differ in length).
 
 ``fused_step=True`` picks the fused step kernel K2 for the whole control
 step (``envs/fused_step.py``), as ``ContactSolverParams(pgs_impl=
@@ -18,8 +22,8 @@ kernel does not handle (a terrain among them) raises at construction.
 ``terrain`` puts a ``Heightfield`` or a ``Mesh`` on the ground in place of
 the plane; ``height_scan`` adds the terrain's height under egocentric scan
 points to the observation; ``reset_pool`` makes ``reset`` start from pool
-states with probability ``reset_pool_prob``. Not ported yet (they raise
-NotImplementedError): floating bases and the spring contact model.
+states with probability ``reset_pool_prob``. Not ported yet (it raises
+NotImplementedError): the spring contact model.
 """
 
 from typing import Optional, Sequence
@@ -86,8 +90,6 @@ class LocomotionEnv(Env):
         dtype: Optional[torch.dtype] = None,
         fused_step: bool = False,
     ):
-        if model.is_floating:
-            raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
         self.device = resolve_device(device)
         self.dtype = dtype or model.dtype
         self.model = model.to(self.device, self.dtype)
@@ -103,7 +105,9 @@ class LocomotionEnv(Env):
         self.initial_poses = torch.tensor(initial_poses, dtype=self.dtype, device=self.device)
         self.action_dim = len(initial_poses)
         self.observation_dim = model.dof_q + model.dof_qd
-        self.skip_links = 6 if skip_links is None else skip_links
+        if skip_links is None:
+            skip_links = 0 if model.is_floating else 6
+        self.skip_links = skip_links
         # the ground in the env's dtype and on its device: a terrain's
         # narrowphase works in the dtype of the ground's transform
         plane_model, plane_geoms = make_ground_plane(dtype=self.dtype, device=self.device)
@@ -162,8 +166,12 @@ class LocomotionEnv(Env):
         return torch.cat([q, qd, self._scan_heights(q)], dim=-1)
 
     def _base_yaw(self, q):
-        """q[..., 5], the yaw of the xyz_xyzrot emulation chain, whatever the
-        base chain is (as the JAX package reads it on a fixed base)."""
+        """The yaw of a floating base's quaternion; on a fixed base q[..., 5],
+        the yaw of the xyz_xyzrot emulation chain, whatever the base chain
+        is (as the JAX package reads it)."""
+        if self.model.is_floating:
+            x, y, z, w = q[..., 0:4].unbind(-1)
+            return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
         return q[..., 5]
 
     def _scan_heights(self, q):
@@ -215,14 +223,22 @@ class LocomotionEnv(Env):
 
         The noise is drawn from ``generator`` (:meth:`draw_reset_noise`), or
         given as an explicit (B, action_dim) ``noise`` tensor, so a test can
-        feed the draws of another implementation."""
+        feed the draws of another implementation. A floating base starts at
+        ``start_base_position`` (q[4:7]) with the initial poses and no noise
+        (the JAX package's floating start ignores its key): neither the
+        generator nor ``noise`` (whose rows give the batch) moves it."""
         if noise is None:
             noise = self.draw_reset_noise(generator, batch_size)
         noise = noise.to(self.device, self.dtype)
         q = self.model.zero_q(noise.shape[:-1])
-        n_base = min(3, self.pd_q_indices()[0])
-        q[..., :n_base] = constant(self.start_base_position[:n_base], self.dtype, self.device)
-        q = self._set_joint_poses(q, self.initial_poses + noise)
+        start = constant(self.start_base_position, self.dtype, self.device)
+        if self.model.is_floating:
+            q[..., 4:7] = start
+            q = self._set_joint_poses(q, self.initial_poses.expand(noise.shape))
+        else:
+            n_base = min(3, self.pd_q_indices()[0])
+            q[..., :n_base] = start[:n_base]
+            q = self._set_joint_poses(q, self.initial_poses + noise)
         return q, self.model.zero_qd(noise.shape[:-1])
 
     def draw_reset_pool(self, generator: Optional[torch.Generator] = None, batch_size: int = 1):
@@ -254,7 +270,7 @@ class LocomotionEnv(Env):
             use, idx = self.draw_reset_pool(generator, q.shape[0]) if pool_draws is None else pool_draws
             use = use.to(self.device)[:, None]
             pool_q, pool_qd = (p.index_select(0, idx.to(self.device)) for p in self.reset_pool)
-            pool_q[:, 0] = 0.0  # translated back to the origin in x
+            pool_q[:, 4 if self.model.is_floating else 0] = 0.0  # translated back to the origin in x
             q, qd = torch.where(use, pool_q, q), torch.where(use, pool_qd, qd)
         t = torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device)
         return EnvState(q=q, qd=qd, t=t), self.observation(q, qd)
@@ -266,15 +282,15 @@ class LocomotionEnv(Env):
 
     # -- per-robot specialization -----------------------------------------
     def base_pose_xyz_rpy(self, q):
-        """(base position (B, 3), up.z (B,)) of the emulation chain: q[3:6]
-        holds roll, pitch, yaw on the xyz_xyzrot base, and q[3:7] the
-        base's xyzw quaternion on the xyz_spherical one."""
+        """(base position (B, 3), up.z (B,)): a floating base's q[4:7] and
+        R(q[0:4])[2, 2]; on the emulation chains, q[0:3] and R[2, 2] of
+        roll, pitch, yaw in q[3:6] on the xyz_xyzrot base, of the base's
+        xyzw quaternion q[3:7] on the xyz_spherical one."""
+        if self.model.is_floating:
+            return q[..., 4:7], _quaternion_up_z(q[..., 0:4])
         jt = tuple(int(t) for t in self.model.joint_types[:4])
         if len(jt) == 4 and jt[3] == JointType.SPHERICAL and jt[:3] == (0, 1, 2):
-            # R[2, 2] of quaternion.to_matrix, in its order of operations
-            x, y, z, w = q[..., 3:7].unbind(-1)
-            s = 2.0 / (x * x + y * y + z * z + w * w)
-            up = 1.0 - (x * (x * s) + y * (y * s))
+            up = _quaternion_up_z(q[..., 3:7])
         else:
             # (Rz(yaw) Ry(pitch) Rx(roll))[2, 2] = cos(pitch) cos(roll)
             up = q[..., 4].cos() * q[..., 3].cos()
@@ -282,3 +298,10 @@ class LocomotionEnv(Env):
 
     def reward_done(self, q_prev, qd_prev, q, qd):
         raise NotImplementedError
+
+
+def _quaternion_up_z(quat):
+    """R[2, 2] of ``quaternion.to_matrix(quat)``, in its order of operations."""
+    x, y, z, w = quat.unbind(-1)
+    s = 2.0 / (x * x + y * y + z * z + w * w)
+    return 1.0 - (x * (x * s) + y * (y * s))

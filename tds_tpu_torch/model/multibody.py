@@ -6,10 +6,14 @@ move together with ``model.to(device, dtype)``. The topology (joint types,
 parents, q/qd offsets) is plain Python, so every dynamics function unrolls
 its link loops in Python, as the JAX package does at trace time.
 
-State layout (fixed base): q = [joint coords...], qd = [joint vels...];
-a spherical joint takes 4 q slots (an xyzw quaternion) and 3 qd slots, so
+State layout:
+- fixed base: q = [joint coords...], qd = [joint vels...];
+- floating base: q = [qx, qy, qz, qw, x, y, z, joint coords...] and
+  qd = [wx, wy, wz, vx, vy, vz, joint vels...], the base's twist in the
+  world frame.
+A spherical joint takes 4 q slots (an xyzw quaternion) and 3 qd slots, so
 with one, q and qd have different offsets. tau covers the actuated DoF
-only. Floating bases are not ported yet.
+only: its index is the qd index less 6 on a floating base.
 """
 
 import dataclasses
@@ -113,6 +117,9 @@ class MultiBodyModel:
     def rbi(self, i: int) -> RigidBodyInertia:
         return RigidBodyInertia(mass=self.mass[i], h=self.com[i], inertia=self.inertia[i])
 
+    def base_rbi(self) -> RigidBodyInertia:
+        return RigidBodyInertia(mass=self.base_mass, h=self.base_com, inertia=self.base_inertia)
+
     def base_x_world(self) -> Transform:
         return Transform(pos=self.base_pos, rot=self.base_rot)
 
@@ -130,11 +137,11 @@ class MultiBodyModel:
         return tau[..., off : off + qd_width(JointType(self.joint_types[i]))]
 
     def zero_q(self, batch_shape=()):
-        """The zero pose: every coordinate 0 but the identity quaternion of
-        each spherical joint."""
-        if self.is_floating:
-            raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
+        """The zero pose: every coordinate 0 but the identity quaternions of
+        a floating base and of each spherical joint."""
         q = torch.zeros(batch_shape + (self.dof_q,), dtype=self.dtype, device=self.device)
+        if self.is_floating:
+            q[..., 3] = 1.0
         for i, jt in enumerate(self.joint_types):
             if jt == JointType.SPHERICAL:
                 q[..., self.q_offsets[i] + 3] = 1.0

@@ -5,7 +5,7 @@ from typing import Dict, Tuple
 import torch
 
 from tds_tpu_torch.urdf.converter import convert_to_multibody
-from tds_tpu_torch.urdf.parser import parse_urdf_file
+from tds_tpu_torch.urdf.parser import parse_urdf_file, parse_urdf_string
 from tds_tpu_torch.utils.file_utils import find_file
 
 _MODEL_CACHE: Dict[Tuple, object] = {}
@@ -22,3 +22,8 @@ def construct(name: str, is_floating: bool = False, dtype=torch.float64, mesh_co
             parse_urdf_file(path), is_floating, dtype, mesh_contacts=mesh_contacts
         )
     return _MODEL_CACHE[key]
+
+
+def construct_from_string(text: str, is_floating: bool = False, dtype=torch.float64, mesh_contacts: int = 0):
+    """:func:`construct` of a URDF document given as text, not cached."""
+    return convert_to_multibody(parse_urdf_string(text), is_floating, dtype, mesh_contacts=mesh_contacts)

@@ -95,9 +95,8 @@ def convert_to_multibody(
     mesh_contacts: int = 0,
 ) -> Tuple[MultiBodyModel, Tuple[GeomAttachment, ...]]:
     """Returns (model on the CPU, collision attachments); base shapes use
-    link_index=-1."""
-    if is_floating:
-        raise NotImplementedError("floating bases are not ported to tds_tpu_torch yet")
+    link_index=-1. The root link's inertia is the base's: a floating base
+    moves with it, a fixed one holds it still."""
     b = MultiBodyBuilder(is_floating=is_floating, name=urdf.robot_name)
     base = urdf.base_links[0]
     b.set_base_inertia(base.inertial.mass, *_inertia_com_and_matrix(base.inertial))

@@ -81,6 +81,12 @@ as graphs like any other:
 Inside these graphs the kernels run, never their plain versions. Forward
 AD's dual tensors (``torch.autograd.forward_ad``) raise on the card: the
 JVP rule's ``torch.func.jvp`` cannot nest inside a dual level.
+
+A body may read a switch (:func:`switch`, :func:`switched`) as the JAX
+package reads a flag at trace time: the switches in force when ``scan`` is
+called are part of every graph's signature, so a graph captured under one
+setting is never replayed under another
+(``dynamics.forward_dynamics.reference_base_abi_quirk`` is one).
 """
 
 import contextlib
@@ -93,6 +99,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 _eager = False
+_switches: Dict[str, object] = {}
 
 
 def scan_reference(body: Callable, carry: Sequence[torch.Tensor], consts: Sequence[torch.Tensor], length: int):
@@ -157,8 +164,41 @@ def eager():
         _eager = saved
 
 
+@contextlib.contextmanager
+def switch(name: str, value):
+    """Inside the block, ``switched(name)`` is ``value``, for the bodies
+    that read it; the graphs of a body are captured and replayed under the
+    switches in force, which are part of their signature."""
+    saved = _switches.get(name, _switches)
+    _switches[name] = value
+    try:
+        yield
+    finally:
+        if saved is _switches:
+            del _switches[name]
+        else:
+            _switches[name] = saved
+
+
+def switched(name: str, default=False):
+    """The value :func:`switch` gives ``name`` here, else ``default``."""
+    return _switches.get(name, default)
+
+
+@contextlib.contextmanager
+def _switches_as(saved: Dict[str, object]):
+    """Inside the block, the switches are ``saved`` (a backward runs under
+    its forward's, wherever it is called)."""
+    global _switches
+    current, _switches = _switches, dict(saved)
+    try:
+        yield
+    finally:
+        _switches = current
+
+
 def _entry(body, carry, consts, key, device, chunk) -> "_Entry":
-    signature = (key, _shapes(carry), _shapes(consts), device, chunk)
+    signature = (key, _shapes(carry), _shapes(consts), device, chunk, tuple(sorted(_switches.items())))
     entry = _CACHE.get(signature)
     if entry is None:
         entry = _CACHE[signature] = _Entry(body, carry, consts, device, chunk)
@@ -177,14 +217,16 @@ class _GradScan(torch.autograd.Function):
         entry = _entry(body, carry, consts, key, device, 1)
         inputs, out = entry.run_keeping(body, carry, consts, length)
         ctx.body, ctx.key, ctx.inputs, ctx.consts, ctx.device = body, key, inputs, consts, device
+        ctx.switches = dict(_switches)
         ctx.mark_non_differentiable(*(t for t in out if not t.is_floating_point()))
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *carry_bar):
-        vjp = _vjp_entry(ctx.body, ctx.inputs[0], ctx.consts, ctx.key, ctx.device)
-        carry_bar, consts_bar = vjp.run(ctx.inputs, ctx.consts, carry_bar)
+        with _switches_as(ctx.switches):
+            vjp = _vjp_entry(ctx.body, ctx.inputs[0], ctx.consts, ctx.key, ctx.device)
+            carry_bar, consts_bar = vjp.run(ctx.inputs, ctx.consts, carry_bar)
         del ctx.inputs
         return (None, None, None, None, *carry_bar, *consts_bar)
 
@@ -202,6 +244,7 @@ class _TransformScan(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         body, key, length, chunk, n_carry, *tensors = inputs
         ctx.body, ctx.key, ctx.length, ctx.chunk, ctx.n_carry = body, key, length, chunk, n_carry
+        ctx.switches = dict(_switches)
         ctx.save_for_backward(*tensors)
         ctx.save_for_forward(*tensors)
         ctx.mark_non_differentiable(*(t for t in output if not t.is_floating_point()))
@@ -239,7 +282,8 @@ class _TransformScan(torch.autograd.Function):
         floating = [i for i, t in enumerate(tensors) if t.is_floating_point()]
         bars = tuple(torch.zeros_like(t) if g is None else g
                      for t, g in zip(tensors[: ctx.n_carry], carry_bar) if t.is_floating_point())
-        grads = iter(_ScanVJP.apply(ctx.body, ctx.key, ctx.length, ctx.n_carry, len(tensors), *tensors, *bars))
+        with _switches_as(ctx.switches):
+            grads = iter(_ScanVJP.apply(ctx.body, ctx.key, ctx.length, ctx.n_carry, len(tensors), *tensors, *bars))
         out = [None] * len(tensors)
         for i in floating:
             out[i] = next(grads)
@@ -309,7 +353,7 @@ class _ScanVJP(torch.autograd.Function):
 
 
 def _vjp_entry(body, carry, consts, key, device) -> "_VJP":
-    signature = (key, _shapes(carry), _shapes(consts), device)
+    signature = (key, _shapes(carry), _shapes(consts), device, tuple(sorted(_switches.items())))
     entry = _VJP_CACHE.get(signature)
     if entry is None:
         entry = _VJP_CACHE[signature] = _VJP(body, carry, consts, device)
@@ -338,7 +382,7 @@ def stats():
     """A :class:`GraphStats` for every cached step graph, in capture order
     (:func:`vjp_stats` lists the VJP graphs)."""
     out = []
-    for (key, carry_shapes, _, _, _), entry in _CACHE.items():
+    for (key, carry_shapes, *_), entry in _CACHE.items():
         batch = carry_shapes[0][0][0] if carry_shapes and carry_shapes[0][0] else 0
         for graph in entry.graphs.values():
             out.append(GraphStats(key, batch, graph.steps, graph.nodes, graph.capture_s, graph.instantiate_s))
@@ -362,7 +406,7 @@ class VJPStats(NamedTuple):
 def vjp_stats():
     """A :class:`VJPStats` for every cached VJP graph, in capture order."""
     out = []
-    for (key, carry_shapes, _, _), entry in _VJP_CACHE.items():
+    for (key, carry_shapes, *_), entry in _VJP_CACHE.items():
         batch = carry_shapes[0][0][0] if carry_shapes and carry_shapes[0][0] else 0
         g = entry.graph
         out.append(VJPStats(key, batch, g.nodes, g.capture_s, g.instantiate_s, entry.reserved_bytes))

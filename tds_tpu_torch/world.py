@@ -1,8 +1,9 @@
 """World: bodies, collision geometry and contact resolution (counterpart of
 tds_tpu/world.py, MLCP contact only).
 
-The world is a static description; :func:`resolve_contacts` is a function
-over the tuple of body states. Pairs are enumerated in Python from the
+The world is a static description; :func:`resolve_contacts` and
+:func:`world_step` are functions over the tuple of body states, and
+:func:`world_rollout` runs many steps as one ``graphs.scan``. Pairs are enumerated in Python from the
 static geometry lists, producing fixed-size masked contact batches. A
 terrain (``Heightfield`` or ``Mesh``) hangs on the zero-DoF ground body
 like the plane. The spring contact model is not ported yet and raises.
@@ -25,17 +26,23 @@ from tds_tpu_torch.algebra.transform import Transform
 from tds_tpu_torch.collision import narrowphase
 from tds_tpu_torch.collision.narrowphase import Contact
 from tds_tpu_torch.contact.mlcp import ContactBatch, ContactSolverParams, resolve_collision
+from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, forward_dynamics_from_kin
+from tds_tpu_torch.dynamics.integrator import integrate_euler_qdd, integrate_q
 from tds_tpu_torch.dynamics.kinematics import fk_links
 from tds_tpu_torch.model.geometry import GeomAttachment, Plane
 from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_rpy
+from tds_tpu_torch.utils.graphs import scan
 from tds_tpu_torch.utils.tensors import constant
 
 
 FRICTION_MODES = ("geom_min", "world_default")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class World:
+    """Compared and hashed by identity (its tensors have no value equality),
+    so that it can name a scan's graphs."""
+
     bodies: Tuple[MultiBodyModel, ...]
     geoms: Tuple[Tuple[GeomAttachment, ...], ...]
     solver: ContactSolverParams = ContactSolverParams()
@@ -183,3 +190,58 @@ def resolve_contacts(world: World, qs, qds, dt, kins=None, factors=None):
                 factor_b=factors[j] if factors is not None else None,
             )
     return tuple(qds)
+
+
+def world_step(world: World, qs, qds, taus, gravity, dt, f_exts=None):
+    """One step of every body: ABA, the velocity update, the contact
+    impulses, the position update. ``qs``, ``qds`` and ``taus`` are tuples
+    with one (B, width) tensor per body (a zero-DoF body's pass through
+    unchanged); ``taus`` or an entry of it None is no torque; ``f_exts`` an
+    optional tuple of per-body world-frame link forces (see
+    :func:`~tds_tpu_torch.dynamics.kinematics.fk_links`). Returns
+    (qs, qds)."""
+    new_qds, kins, factors = [], [], []
+    for i, model in enumerate(world.bodies):
+        if model.dof_qd == 0:
+            new_qds.append(qds[i])
+            kins.append(None)
+            factors.append(None)
+            continue
+        kin = fk_links(model, qs[i], qds[i], f_ext=f_exts[i] if f_exts is not None else None)
+        factor = aba_factor(model, kin)
+        tau = taus[i] if taus is not None and taus[i] is not None else qs[i].new_zeros(qs[i].shape[:-1] + (model.dof_actuated,))
+        qdd = forward_dynamics_from_kin(model, kin, qs[i], qds[i], tau, gravity, factor=factor)
+        new_qds.append(integrate_euler_qdd(model, qs[i], qds[i], qdd, dt))
+        kins.append(kin)
+        factors.append(factor)
+    new_qds = resolve_contacts(world, tuple(qs), tuple(new_qds), dt, kins=kins, factors=factors)
+    out_qs, out_qds = [], []
+    for i, model in enumerate(world.bodies):
+        if model.dof_qd == 0:
+            out_qs.append(qs[i])
+            out_qds.append(new_qds[i])
+            continue
+        q, qd = integrate_q(model, qs[i], new_qds[i], dt)
+        out_qs.append(q)
+        out_qds.append(qd)
+    return tuple(out_qs), tuple(out_qds)
+
+
+def world_rollout(world: World, qs, qds, gravity, dt, steps: int, taus=None):
+    """``steps`` :func:`world_step`s as one
+    :func:`~tds_tpu_torch.utils.graphs.scan` (replayed CUDA graphs on the
+    card, a Python loop on the CPU, differentiable in the states, gravity
+    and the torques): every body's q and qd, the zero-DoF bodies' (B, 0)
+    ones included, are the carry; ``gravity`` (3,) and ``taus`` (a tuple of
+    per-body (B, dof_actuated) torques, None for none) the consts. Returns
+    (qs, qds)."""
+    n = world.num_bodies
+    if taus is None:
+        taus = tuple(q.new_zeros(q.shape[:-1] + (m.dof_actuated,)) for q, m in zip(qs, world.bodies))
+
+    def body(carry, consts):
+        new_qs, new_qds = world_step(world, carry[:n], carry[n:], consts[1:], consts[0], dt)
+        return new_qs + new_qds
+
+    out = scan(body, tuple(qs) + tuple(qds), (gravity, *taus), steps, key=("world_rollout", world, dt))
+    return out[:n], out[n:]

@@ -293,9 +293,7 @@ def test_reward_done(envs):
     np.testing.assert_allclose(t_reward.numpy(), np.asarray(j_reward), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize(
-    "kwargs", [dict(is_floating=True), dict(contact_model="spring")], ids=["floating", "spring"]
-)
+@pytest.mark.parametrize("kwargs", [dict(contact_model="spring")], ids=["spring"])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         AntEnv(dtype=torch.float64, device="cpu", **kwargs)
@@ -312,8 +310,8 @@ def test_default_device_is_cuda():
 # -- dynamics goldens -------------------------------------------------------
 @pytest.mark.parametrize("golden, tol", [("ant_dynamics.json", 1e-10), ("ant_random_sweep.json", 1e-9)])
 def test_forward_dynamics_matches_golden(golden, tol):
-    """qdd only: the files' mass matrices wait for the port's mass_matrix
-    (ROADMAP Queue 1 item 12)."""
+    """qdd; the files' mass matrices are held in
+    tests/test_torch_floating.py (test_golden_mass_matrices)."""
     with open(os.path.join(GOLDEN, golden)) as f:
         data = json.load(f)
     model, _ = construct(URDF)

@@ -176,7 +176,6 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize(
     "kwargs, error",
     [
-        (dict(is_floating=True), NotImplementedError),
         # a terrain whose pair with the toes is not ported (sphere-sphere)
         (dict(terrain=Sphere(1.0)), NotImplementedError),
         # terrain, height_scan and reset_pool are ported: what they refuse
@@ -184,7 +183,7 @@ def test_default_device_is_cuda():
         (dict(reset_pool=(np.zeros((1, 17)), np.zeros((1, 18)))), ValueError),
         (dict(contact_model="spring"), NotImplementedError),
     ],
-    ids=["floating", "terrain", "height_scan", "reset_pool", "spring"],
+    ids=["terrain", "height_scan", "reset_pool", "spring"],
 )
 def test_unported_options_raise(kwargs, error):
     """Unported options raise NotImplementedError at construction; the
