@@ -8,8 +8,10 @@ the laikago contact rollout, the fused step, the probes, ARS, the ant and
 hopper rollouts, the humanoid and half-cheetah rollouts, the terrain
 laikago's rollout, replays and trainer, gradients (the contact loss
 and APG through K1's backward kernel), forward mode (jacfwd through K1's
-JVP kernel), PPO on the ant, and floating bases (the floating laikago,
-balls through ``world_step`` and a ball's gradient) through them.
+JVP kernel), PPO on the ant, floating bases (the floating laikago,
+balls through ``world_step`` and a ball's gradient), and control and the
+rest of dynamics (the MPC trot walk of 4096 laikagos, spring contact, the
+CRBA and bf16 contact options) through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -226,6 +228,30 @@ prints no final line (each phase and sub-phase prints its seconds):
    3) within 1e-9 of the CPU's, one backward kernel a replayed step in a
    trace, K1's backward against the plain version's autograd on (c)'s
    operands, timed;
+17. control and the rest of dynamics, run before phase 11: (a) float64,
+   card against CPU within 1e-9 abs + rel: the MPC walk
+   (``tds_tpu_torch.tools.mpc_walk``'s build) at batch 8 over 10 ticks of
+   5 substeps through graphs (q, qd, and the controller's torques at the
+   start and the end), the spring laikago and the laikago under
+   ``minv_method="crba"`` over 50 seeded steps, and one CRBA step against
+   ABA's within 1e-10; (b) the MPC walk at full width: batch 4096, float32,
+   400 ticks x 5 substeps at a 0.4 m/s command, a tick a replayed graph,
+   env 0 from ``tests/test_mpc_walk.py``'s start
+   (``tests/golden/laikago_mpc_walk_start.json``) held to that test's
+   three thresholds and the share of the batch that meets them printed,
+   env-steps/s with the card's name and power limit, the graph's nodes a
+   tick, the controller's share of a tick's device time, K1's wrapper
+   launches (counted from 0 just before the walk) and its count in a trace
+   of 20 replayed substeps, K1 against its plain version on a substep's
+   operands, timed; (c) the spring laikago's 1000-step zero-policy rollout
+   at batch 4096 (``laikago_spring_scan_rollout_env_steps_per_s``, beside
+   phase 5's MLCP figure; no PGS launch) and
+   ``tests/test_spring_contact.py``'s ball: d(final z)/d(z0) over 400
+   steps through the scan's VJP graph, within 1e-9 of the CPU's and at
+   rtol 1e-3 of central differences; (d) the laikago at batch 4096 for 200
+   replayed steps under "aba", "crba" and "bf16" (ms/step each), K1
+   against its plain version on the bf16 and the CRBA operands, timed, and
+   the humanoid under "aba" and "crba" at batch 1024 (ms/step);
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -237,7 +263,8 @@ phase 12 (a) and the terrain's n = 24 (``terrain_*``) inside the first;
 K1's backward at n = 12, the other row counts inside it; K1's forward
 mode at n = 12, the other row counts inside it; K1 on the floating
 laikago (n = 12) and on the balls (n = 3) and K1's backward under the
-ball loss (n = 3); K2, K3, K4); the last
+ball loss (n = 3); K1 on the MPC walk and on the bf16 Delassus operands
+(n = 12); K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -367,6 +394,19 @@ GRAD_PROFILE_STEPS = 5
 # rollout (200 steps, best of 3 before) and the eager steps timed beside
 # K2 (MEGA_STEPS before); BENCH_REPEATS and APG_TIMED_ITERATIONS were 3
 BREAKDOWN_STEPS, CHUNK_RUNS, TOP_K_STEPS, TOP_K_REPEATS, MEGA_EAGER_STEPS = 1, 2, 50, 1, 20
+# cut to make room for phase 17: the eager rollout each main path holds its
+# graphs to, bit for bit (the path's whole rollout before: 100 steps, 200
+# on the humanoid's)
+EAGER_STEPS = 20
+# phase 17: examples/laikago_mpc_walk.py's walk at tests/test_mpc_walk.py's
+# 400 ticks x 5 substeps, env 0 from that test's start (the JAX package's
+# reset draws for its key, recorded in the JSON file); the card against the
+# CPU over 10 ticks at batch 8; the spring laikago's rollout and
+# tests/test_spring_contact.py's ball gradient (400 steps); the CRBA and
+# bf16 options over 200 replayed steps, the humanoid under CRBA over 50
+MPC_START = REPO / "tests" / "golden" / "laikago_mpc_walk_start.json"
+MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 10, 4
+SPRING_BALL_STEPS, OPTION_STEPS, HUMANOID_CRBA_STEPS = 400, 200, 50
 
 
 def log(msg):
@@ -840,9 +880,9 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
     linear policy through graphs, the first use of ``env``, with K1's
     wrapper launches counted from 0 just before and read just after (the
     warm-ups and the captures); every env must be alive with q[:, z_index]
-    in ``z_range``. Then: the same rollout replayed again (graph ms/step)
-    and run eagerly (``graphs.eager()``, eager ms/step), which must agree
-    bit for bit; PROFILE_STEPS replayed steps under torch.profiler (device
+    in ``z_range``. Then: the same rollout replayed again (graph ms/step),
+    and its first EAGER_STEPS steps replayed and run eagerly
+    (``graphs.eager()``, eager ms/step), which must agree bit for bit; PROFILE_STEPS replayed steps under torch.profiler (device
     operations, busy ms, and K1 kernels, exactly one a step); the graphs'
     statistics; with ``stages``, BREAKDOWN_STEPS eager steps' stage
     breakdown; and with
@@ -872,15 +912,18 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
     if not bool(alive.all()) or not bool(((z > z_range[0]) & (z < z_range[1])).all()):
         raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{batch} alive, "
                              f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
-    again, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
+    _, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
+    eager_steps = min(steps, EAGER_STEPS)
+    again = rollout(env, policy, None, state0, obs0, eager_steps)
     with graphs.eager():
-        eager, eager_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
-    log(f"{label} seconds: reset {reset_s:.1f} s, first rollout {first_s:.1f} s, replay {graph_s:.1f} s, eager {eager_s:.1f} s")
+        eager, eager_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, eager_steps))
+    log(f"{label} seconds: reset {reset_s:.1f} s, first rollout {first_s:.1f} s, replay {graph_s:.1f} s, eager "
+        f"({eager_steps} steps) {eager_s:.1f} s")
     # the same kernels on the same inputs in the same order: bit for bit
     worst = max((g.double() - e.double()).abs().max().item() for g, e in zip((*again[0], *again[1:]), (*eager[0], *eager[1:])))
     if worst != 0:
         raise AssertionError(f"{label}: the graph rollout differs from the eager one by up to {worst:.3e}")
-    step_ms, eager_ms = graph_s * 1e3 / steps, eager_s * 1e3 / steps
+    step_ms, eager_ms = graph_s * 1e3 / steps, eager_s * 1e3 / eager_steps
     log(f"{label}: reset ({env.settle_steps} settle steps, graphs) at batch {batch} in {reset_s * 1e3:.1f} ms; "
         f"{steps}-step rollout through graphs: first call {first_s:.3f} s (with the captures), then "
         f"{step_ms:.3f} ms/step = {batch / step_ms * 1e3:.1f} env-steps/s; eager (graphs.eager()) "
@@ -1004,7 +1047,7 @@ def device_profile(fn, calls, kernel=None, expected=None):
     wall_ms = seconds * 1e3 / calls
     if not device_events:
         return None
-    return len(device_events) / calls, sum(e.time_range.elapsed_us() for e in device_events) / 1e3 / calls, wall_ms, named / calls
+    return len(device_events) / calls, sum(us for _, us in device_events) / 1e3 / calls, wall_ms, named / calls
 
 
 def excess(got, expected, tol):
@@ -1422,12 +1465,12 @@ def ars_profile(env, policy, state, steps):
     device_events, _, profiled_s, _ = counted_trace(iteration, "megastep_kernel", env.settle_steps + steps)
     if not device_events:
         return wall_s * 1e3, eager_s * 1e3, None
-    k2 = [e.time_range.elapsed_us() for e in device_events if "megastep_kernel" in e.name]
+    k2 = [us for name, us in device_events if "megastep_kernel" in name]
     if len(k2) != env.settle_steps + steps:
         raise AssertionError(f"ARS (c): {env.settle_steps + steps} replayed steps ran K2 {len(k2)} times in the trace")
     return wall_s * 1e3, eager_s * 1e3, {
         "device_ops": len(device_events),
-        "device_ms": sum(e.time_range.elapsed_us() for e in device_events) / 1e3,
+        "device_ms": sum(us for _, us in device_events) / 1e3,
         "profiled_ms": profiled_s * 1e3,
         "k2_launches": len(k2),
         "k2_us": sum(k2) / len(k2),
@@ -3444,6 +3487,428 @@ def phase_floating(card, card_line, fixed_rate):
     return entries, numbers
 
 
+# -- phase 17 --------------------------------------------------------------
+def mpc_device_vs_cpu():
+    """(a): the MPC walk (tools/mpc_walk.py's build) in float64 at batch
+    MPC_CHECK_BATCH for MPC_CHECK_TICKS ticks through graphs on the card
+    against the same ticks on the CPU, from the CPU's reset, within 1e-9 abs
+    + rel on q and qd after every tick and on the controller's torques at
+    the start and the end. Returns the largest difference."""
+    from tds_tpu_torch.control.mpc.locomotion import make_walk_step
+    from tds_tpu_torch.tools.mpc_walk import build
+
+    tol = 1e-9
+    cpu_env, cpu_ctrl = build(dtype=torch.float64, device="cpu")
+    gpu_env, gpu_ctrl = build(dtype=torch.float64)
+    step_c, step_g = make_walk_step(cpu_env, cpu_ctrl, MPC_CONTROL_EVERY), make_walk_step(gpu_env, gpu_ctrl, MPC_CONTROL_EVERY)
+    state, _ = cpu_env.reset(torch.Generator().manual_seed(17), batch_size=MPC_CHECK_BATCH)
+    carry_c = (cpu_ctrl.init_state(state.q), state.q, state.qd)
+    carry_g = (gpu_ctrl.init_state(state.q.cuda()), state.q.cuda(), state.qd.cuda())
+    worst = {"q": 0.0, "qd": 0.0, "tau": 0.0}
+
+    def check(name, got, want, when):
+        err = (got.cpu() - want).abs()
+        worst[name] = max(worst[name], err.max().item())
+        if (err - tol * (1 + want.abs())).max().item() > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"mpc (a): the card's {name} differs from the CPU's by {err.max().item():.3e} {when}")
+
+    def torques(when):
+        tau_c = cpu_ctrl.update(*carry_c)[1]
+        tau_g = gpu_ctrl.update(*carry_g)[1]
+        check("tau", tau_g, tau_c, when)
+        return tau_c
+
+    tau0 = torques("at the start")
+    for t in range(MPC_CHECK_TICKS):
+        carry_g = step_g(carry_g)  # the card's replay runs while the CPU steps
+        carry_c = step_c(carry_c)
+        for name, got, want in (("q", carry_g[1], carry_c[1]), ("qd", carry_g[2], carry_c[2])):
+            check(name, got, want, f"after tick {t + 1}")
+    tau1 = torques(f"after {MPC_CHECK_TICKS} ticks")
+    log(f"mpc (a): the MPC walk in float64 at batch {MPC_CHECK_BATCH}, {MPC_CHECK_TICKS} ticks x {MPC_CONTROL_EVERY} substeps "
+        f"through graphs on the card against the CPU: max |cuda - cpu| q {worst['q']:.3e}, qd {worst['qd']:.3e}, tau "
+        f"{worst['tau']:.3e} (|tau| up to {max(tau0.abs().max().item(), tau1.abs().max().item()):.1f}; tolerance {tol} abs + rel)")
+    return max(worst.values())
+
+
+def env_device_vs_cpu(label, steps=50, **kwargs):
+    """(a): ``steps`` float64 laikago sim_steps at batch 8 under a seeded
+    action held through the run, from a start 3 cm lower than the env's
+    (the toes touch from the first step): on the card through
+    ``graphs.scan``, 10 steps a call, against the CPU's loop, within 1e-9
+    abs + rel after every 10; ``kwargs`` pick the contact option. Returns
+    the largest difference."""
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.utils import graphs
+
+    batch, tol, start, chunk = 8, 1e-9, (0.0, 0.0, 0.45), 10
+    cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu", start_base_position=start, **kwargs)
+    gpu_env = LaikagoEnv(dtype=torch.float64, start_base_position=start, **kwargs)
+    gen = torch.Generator(device="cpu").manual_seed(170)
+    action = (torch.rand(batch, cpu_env.action_dim, generator=gen, dtype=torch.float64) - 0.5) * 0.8
+    qc, qdc = cpu_env.initial_state(gen, batch_size=batch)
+    carry = (qc.cuda(), qdc.cuda())
+
+    def body(c, consts):
+        return gpu_env.sim_step(*c, *consts)
+
+    worst = 0.0
+    for t in range(chunk, steps + 1, chunk):
+        carry = graphs.scan(body, carry, (action.cuda(),), chunk, key=("card against cpu", gpu_env))
+        for _ in range(chunk):
+            qc, qdc = cpu_env.sim_step(qc, qdc, action)
+        for got, expected in ((carry[0].cpu(), qc), (carry[1].cpu(), qdc)):
+            worst = max(worst, (got - expected).abs().max().item())
+            if ((got - expected).abs() - tol * (1 + expected.abs())).max().item() > 0 or not torch.isfinite(got).all():
+                raise AssertionError(f"{label}: the card and the CPU differ beyond {tol} at step {t}")
+    log(f"{label}: {steps} float64 laikago sim_steps at batch {batch} ({kwargs}) through graphs on the card against the CPU: "
+        f"max |cuda - cpu| = {worst:.3e} (tolerance {tol} abs + rel)")
+    return worst
+
+
+def crba_against_aba():
+    """(a): one float64 contact step of the laikago at batch 8 on the card
+    under minv_method="crba" against "aba" (the same M^-1 by other means)
+    within 1e-10 abs + rel, from a state with its toes on the ground."""
+    from tds_tpu_torch.contact.mlcp import ContactSolverParams
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    start = (0.0, 0.0, 0.45)
+    aba = LaikagoEnv(dtype=torch.float64, start_base_position=start)
+    crba = LaikagoEnv(dtype=torch.float64, start_base_position=start, solver=ContactSolverParams(minv_method="crba"))
+    q, qd = aba.initial_state(torch.Generator(device="cuda").manual_seed(171), batch_size=8)
+    zero = torch.zeros(8, aba.action_dim, dtype=torch.float64, device="cuda")
+    for _ in range(5):
+        q, qd = aba.sim_step(q, qd, zero)
+    with recorded_pgs_calls() as calls:
+        qa, qda = aba.sim_step(q, qd, zero)
+        qc, qdc = crba.sim_step(q, qd, zero)
+    active = int((calls[0][1] != 0).sum())
+    err = max((qa - qc).abs().max().item(), (qda - qdc).abs().max().item())
+    over = max(((qc - qa).abs() - 1e-10 * (1 + qa.abs())).max().item(), ((qdc - qda).abs() - 1e-10 * (1 + qda.abs())).max().item())
+    if over > 0 or active == 0:
+        raise AssertionError(f"crba (a): one step under crba differs from aba's by {err:.3e}, {active} rows active")
+    log(f"crba (a): one float64 contact step ({active} of {calls[0][1].numel()} rows active) under minv_method='crba' against "
+        f"'aba' on the card: max difference {err:.3e} (tolerance 1e-10 abs + rel)")
+    return err
+
+
+def mpc_walk(card, card_line):
+    """(b): the MPC walk at full width: tools/mpc_walk.py's build in float32,
+    batch MPC_BATCH, MPC_TICKS ticks x MPC_CONTROL_EVERY substeps at a 0.4
+    m/s command, a tick a replayed graph (controller and substeps); env 0
+    from tests/test_mpc_walk.py's start (tests/golden/laikago_mpc_walk_start.json),
+    the others from the port's reset draws. K1's wrapper launches counted
+    from 0 just before the walk and read just after; env 0 held to the
+    test's three thresholds, the share of the batch that meets them
+    printed; env-steps/s, the graph's nodes a tick, the controller's share
+    of a tick's device time (CUDA events around replays of the whole tick
+    and of the controller alone), K1 in a trace of 20 replayed substeps,
+    and K1 against its plain version on a substep's operands, timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.control.mpc.locomotion import LocomotionMpcState, make_walk_step
+    from tds_tpu_torch.tools.mpc_walk import build
+    from tds_tpu_torch.utils import graphs
+
+    env, controller = build(desired_speed=(0.4, 0.0, 0.0), dtype=torch.float32)
+    step = make_walk_step(env, controller, MPC_CONTROL_EVERY)
+    start = json.loads(MPC_START.read_text())
+    state, _ = env.reset(torch.Generator(device="cuda").manual_seed(0), batch_size=MPC_BATCH)
+    q, qd = state.q.clone(), state.qd.clone()
+    q[0] = torch.tensor(start["q"], dtype=torch.float32, device="cuda")
+    qd[0] = torch.tensor(start["qd"], dtype=torch.float32, device="cuda")
+    carry = (controller.init_state(q), q, qd)
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    xs, zs, ups = [], [], []
+
+    def tick(carry):
+        carry = step(carry, 1)
+        pos, up = env.base_pose_xyz_rpy(carry[1])
+        xs.append(pos[:, 0])
+        zs.append(pos[:, 2])
+        ups.append(up)
+        return carry
+
+    carry, first_s = timed_call(lambda: tick(carry))
+    t1 = time.perf_counter()
+    for _ in range(MPC_TICKS - 1):
+        carry = tick(carry)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t1
+    launches = pgs.launches
+    new = [g for g in graphs.stats() if g not in cached]
+    expected = MPC_CONTROL_EVERY * (sum(g.steps for g in new) + len(new))
+    if launches == 0 or launches != expected:
+        raise AssertionError(f"mpc (b): the PGS wrapper launched {launches} times, expected {expected} (the warm-up and the "
+                             f"capture of a tick's {MPC_CONTROL_EVERY} substeps)")
+    xs, zs, ups = torch.stack(xs), torch.stack(zs), torch.stack(ups)  # (ticks, B)
+    half = MPC_TICKS // 2
+    v_avg = (xs[-1] - xs[half]) / (env.dt * MPC_CONTROL_EVERY * (MPC_TICKS - half))
+    meets = ((xs[-1] > 0.4) & (ups.min(0).values > 0.85) & (zs.min(0).values > 0.30) & (zs.max(0).values < 0.55)
+             & (v_avg > 0.2) & (v_avg < 0.6) & torch.isfinite(carry[1]).all(-1))
+    env0 = (xs[-1, 0].item(), ups[:, 0].min().item(), zs[:, 0].min().item(), zs[:, 0].max().item(), v_avg[0].item())
+    share = meets.double().mean().item()
+    steady = MPC_TICKS - 1
+    rate = MPC_BATCH * MPC_CONTROL_EVERY * steady / walk_s
+    found = graph_lines("mpc (b)", env, "mpc walk")
+    log(f"mpc (b): {MPC_BATCH} laikagos walked {MPC_TICKS} ticks x {MPC_CONTROL_EVERY} substeps at 0.4 m/s through graphs: the "
+        f"first tick {first_s:.2f} s with the warm-up and capture, the other {steady} {walk_s:.2f} s = "
+        f"{walk_s * 1e3 / steady:.2f} ms/tick, {rate:.1f} env-steps/s, {card_line}; K1 wrapper launches {launches} (the warm-up and "
+        f"the capture of a tick's substeps); graph {[g.nodes for g in found]} nodes a tick")
+    log(f"mpc (b): env 0 (the JAX test's start): x_final {env0[0]:.3f} m (> 0.4), min up {env0[1]:.3f} (> 0.85), z in "
+        f"[{env0[2]:.3f}, {env0[3]:.3f}] (0.30, 0.55), v_avg over the second half {env0[4]:.3f} m/s (0.2, 0.6); "
+        f"{int(meets.sum())} of {MPC_BATCH} envs ({100 * share:.1f}%) meet all three thresholds")
+    if not bool(meets[0]):
+        raise AssertionError(f"mpc (b): env 0 misses tests/test_mpc_walk.py's thresholds: {env0}")
+
+    # the controller's share: CUDA events around replays of the tick's graph and of a graph of the controller alone
+    def controller_only(c, consts):
+        state, _ = controller.update(LocomotionMpcState.unflat(c[:5]), c[5], c[6])
+        return (*state.flat(), c[5], c[6])
+
+    flat = (*carry[0].flat(), carry[1], carry[2])
+    ctrl_key = ("mpc controller", env, controller)
+
+    def replay_ms(fn):
+        fn()
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start_ev.record()
+        fn()
+        end_ev.record()
+        torch.cuda.synchronize()
+        return start_ev.elapsed_time(end_ev) / MPC_TIMED_TICKS
+
+    tick_ms = replay_ms(lambda: step(carry, MPC_TIMED_TICKS))
+    ctrl_ms = replay_ms(lambda: graphs.scan(controller_only, flat, (), MPC_TIMED_TICKS, key=ctrl_key))
+    ctrl_nodes = [g.nodes for g in graphs.stats() if g.key == ctrl_key]
+    log(f"mpc (b): device time a replayed tick {tick_ms:.3f} ms, the controller alone {ctrl_ms:.3f} ms ({ctrl_nodes} nodes): "
+        f"{100 * ctrl_ms / tick_ms:.1f}% of a tick; the {MPC_CONTROL_EVERY} substeps about {tick_ms - ctrl_ms:.3f} ms")
+    with sub_phase(f"mpc (b) seconds: the {PROFILE_STEPS // MPC_CONTROL_EVERY}-tick trace"):
+        profile = device_profile(lambda: step(carry, PROFILE_STEPS // MPC_CONTROL_EVERY), calls=1, kernel="pgs_kernel",
+                                 expected=PROFILE_STEPS)
+    if profile is None or profile[3] != PROFILE_STEPS:
+        raise AssertionError(f"mpc (b): K1 ran {None if profile is None else profile[3]} times in {PROFILE_STEPS} replayed substeps")
+    ops, busy, wall, k1 = profile
+    log(f"mpc (b): {PROFILE_STEPS // MPC_CONTROL_EVERY} replayed ticks: K1 {k1:.0f} times in {PROFILE_STEPS} substeps "
+        f"(torch.profiler), {ops * MPC_CONTROL_EVERY / PROFILE_STEPS:.0f} device operations a tick, "
+        f"{100 * (1 - busy / wall):.1f}% idle under the profiler")
+    with graphs.eager(), recorded_pgs_calls() as calls:
+        step(carry, 1)
+    if len(calls) != MPC_CONTROL_EVERY:
+        raise AssertionError(f"mpc (b): {len(calls)} PGS calls in an eager tick, expected {MPC_CONTROL_EVERY}")
+    a, b, lo, hi, dep, it = calls[-1]
+    active = int((b != 0).sum())
+    if tuple(b.shape) != (MPC_BATCH, 12) or active == 0:
+        raise AssertionError(f"mpc (b): the walk's MLCP has shape {tuple(b.shape)}, {active} rows active")
+    err, margin = k1_against_plain("the MPC walk's substep", [a, b, lo, hi], dep, it)
+    log(f"mpc (b): K1 on the last substep of an eager tick from the walk's end B={MPC_BATCH} n=12: {active} of {b.numel()} rows "
+        f"active, max |kernel - plain| = {err:.3e} (margin left {margin:.3e})")
+    timing = k1_timing("MPC walk substep", [a, b, lo, hi], dep, it, card, prefix="mpc (b)")
+    return {"launches": launches, "max_abs_err": err, **timing, "replayed_launches_per_step": k1 / PROFILE_STEPS,
+            "mpc_walk_env_steps_per_s": rate, "ms_per_tick": walk_s * 1e3 / steady, "graph_nodes": [g.nodes for g in found],
+            "controller_share": ctrl_ms / tick_ms, "env0": env0, "share_meeting_thresholds": share,
+            "main_path": f"the MPC walk, {MPC_BATCH} laikagos x {MPC_TICKS} ticks (phase 17 (b))"}
+
+
+def spring_rollout(card_line, mlcp_rate):
+    """(c): the spring laikago (contact_model="spring") in float32 at batch
+    MAIN_BATCH: reset and a LAIKAGO_BENCH_STEPS-step zero-policy rollout
+    through graphs, timed once after a 2-step call that captures the
+    graph, beside phase 5's MLCP figure; no PGS launch on this path."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+
+    env = LaikagoEnv(dtype=torch.float32, contact_model="spring")
+    policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+    launches = pgs.launches
+    state0, obs0 = env.reset(torch.Generator(device="cuda").manual_seed(2), batch_size=MAIN_BATCH)
+    rollout(env, policy, None, state0, obs0, 2)  # captures the one-step graph
+    (final, _, _, alive), bench_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, LAIKAGO_BENCH_STEPS))
+    z = final.q[:, 2]
+    if pgs.launches != launches or not bool(torch.isfinite(final.q).all()) or not bool(alive.all()):
+        raise AssertionError(f"spring (c): {pgs.launches - launches} PGS launches, or {int(alive.sum())}/{MAIN_BATCH} alive")
+    rate = MAIN_BATCH * LAIKAGO_BENCH_STEPS / bench_s
+    found = graph_lines("spring (c)", env, "rollout")
+    bench_line("laikago_spring_scan_rollout_env_steps_per_s", rate, "steps/s", card_line, batch=MAIN_BATCH,
+               steps=LAIKAGO_BENCH_STEPS, seconds=bench_s, mlcp_env_steps_per_s=mlcp_rate)
+    log(f"spring (c): the spring laikago's {LAIKAGO_BENCH_STEPS}-step rollout at batch {MAIN_BATCH} through graphs "
+        f"{bench_s * 1e3 / LAIKAGO_BENCH_STEPS:.3f} ms/step, {rate:.1f} env-steps/s against the MLCP's {mlcp_rate:.1f} (phase "
+        f"5), {card_line}; graph {[g.nodes for g in found]} nodes; 0 PGS launches; z in [{z.min():.3f}, {z.max():.3f}]")
+    return rate
+
+
+def spring_ball(device, dtype=torch.float64):
+    """tests/test_spring_contact.py's ball: 1 kg, inertia 0.1, radius 0.5,
+    spring_k 2000, damper_d 50."""
+    import numpy as np
+
+    from tds_tpu_torch.contact.spring import SpringContactParams
+    from tds_tpu_torch.model.geometry import GeomAttachment, Sphere
+    from tds_tpu_torch.model.multibody import MultiBodyBuilder
+    from tds_tpu_torch.world import build_world, make_ground_plane
+
+    b = MultiBodyBuilder(is_floating=True, name="ball")
+    b.set_base_inertia(1.0, (0, 0, 0), np.diag([0.1] * 3))
+    ball = b.finalize(dtype=dtype, device=device)
+    return build_world([make_ground_plane(dtype=dtype, device=device), (ball, (GeomAttachment(link_index=-1, shape=Sphere(0.5)),))],
+                       contact_model="spring", spring=SpringContactParams(spring_k=2000.0, damper_d=50.0))
+
+
+def spring_final_z(world, z0):
+    """The ball's z after SPRING_BALL_STEPS steps of world_rollout from rest
+    at height ``z0`` (a (1,) tensor)."""
+    from tds_tpu_torch.world import world_rollout
+
+    ball = world.bodies[1]
+    ground = z0.new_zeros(1, 0)
+    q0 = torch.cat([ball.zero_q((1,))[:, :6], z0[:, None]], dim=-1)
+    gravity = torch.tensor((0.0, 0.0, -9.81), dtype=z0.dtype, device=z0.device)
+    qs, _ = world_rollout(world, (ground, q0), (ground, ball.zero_qd((1,))), gravity, 1e-3, SPRING_BALL_STEPS)
+    return qs[1][0, 6]
+
+
+def spring_ball_gradient():
+    """(c): d(final z)/d(z0) of tests/test_spring_contact.py's ball over
+    SPRING_BALL_STEPS steps from z0 = 0.9, float64, through graphs.scan's
+    VJP graph on the card, within 1e-9 abs + rel of the CPU's and at that
+    test's rtol 1e-3 (atol 1e-5) of central differences (eps 1e-5)."""
+    world = spring_ball("cuda")
+    z0 = torch.tensor([0.9], dtype=torch.float64, device="cuda", requires_grad=True)
+    (grad,), grad_s = timed_call(lambda: torch.autograd.grad(spring_final_z(world, z0), z0))
+    cpu_z0 = z0.detach().cpu().requires_grad_()
+    (cpu_grad,) = torch.autograd.grad(spring_final_z(spring_ball("cpu"), cpu_z0), cpu_z0)
+    eps = 1e-5
+    with torch.no_grad():
+        fd = (spring_final_z(world, z0 + eps) - spring_final_z(world, z0 - eps)) / (2 * eps)
+    g, c, f = grad.item(), cpu_grad.item(), fd.item()
+    if abs(g - c) > 1e-9 * (1 + abs(c)) or abs(g - f) > 1e-5 + 1e-3 * abs(f):
+        raise AssertionError(f"spring (c): the ball's gradient {g!r} on the card, {c!r} on the CPU, {f!r} by central differences")
+    log(f"spring (c): d(final z)/d(z0) of the spring ball over {SPRING_BALL_STEPS} steps through the scan's VJP graph on the "
+        f"card {g:.12e} in {grad_s:.2f} s with the captures; the CPU's {c:.12e} (|card - cpu| {abs(g - c):.3e}, 1e-9); central "
+        f"differences {f:.12e} (relative {abs(g - f) / abs(f):.2e}, rtol 1e-3)")
+    return abs(g - c)
+
+
+def option_rates(card, card_line):
+    """(d): the laikago at batch MAIN_BATCH in float32, OPTION_STEPS replayed
+    zero-policy steps each under "aba"/f32, minv_method="crba" and
+    delassus_dtype="bf16" (ms/step after a 2-step call that captures the
+    graph), and the humanoid at batch HUMANOID_BATCH for HUMANOID_CRBA_STEPS
+    steps under "aba" and "crba". Each env's K1 wrapper launches are counted
+    from 0 just before its reset and read just after its rollouts (the
+    warm-ups and captures); for the CRBA and bf16 laikagos, K1 in a trace of
+    PROFILE_STEPS replayed steps (one a step). Only then K1 against its
+    plain version on the operands of an eager step after the CRBA and the
+    bf16 rollouts, timed. Returns the kernels line's entries for the CRBA
+    and bf16 operands, and the numbers."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.contact.mlcp import ContactSolverParams
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn.nn import linear_policy
+    from tds_tpu_torch.rollout import rollout
+    from tds_tpu_torch.utils import graphs
+
+    def timed_rollout(name, env, batch, steps, trace=False):
+        """(ms/step, the final state, the wrapper's launches, K1 kernels a
+        replayed step in the trace or None)."""
+        policy = linear_policy(env.observation_dim, env.action_dim, dtype=env.dtype)
+        torch.cuda.synchronize()
+        cached = graphs.stats()
+        pgs.launches = 0
+        state, obs = env.reset(torch.Generator(device="cuda").manual_seed(3), batch_size=batch)
+        rollout(env, policy, None, state, obs, 2)
+        (final, _, _, _), seconds = timed_call(lambda: rollout(env, policy, None, state, obs, steps))
+        launches = pgs.launches
+        check_wrapper_launches(f"options (d) {name}", "PGS", launches, cached)
+        if not bool(torch.isfinite(final.q).all()):
+            raise AssertionError(f"options (d): the {name} rollout went non-finite")
+        per_step = None
+        if trace:
+            with sub_phase(f"options (d) seconds: the {name} {PROFILE_STEPS}-step trace"):
+                profile = device_profile(lambda: rollout(env, policy, None, state, obs, PROFILE_STEPS), calls=1,
+                                         kernel="pgs_kernel", expected=PROFILE_STEPS)
+            if profile is None or profile[3] != PROFILE_STEPS:
+                raise AssertionError(f"options (d): K1 ran {None if profile is None else profile[3]} times in {PROFILE_STEPS} "
+                                     f"replayed {name} steps")
+            per_step = profile[3] / PROFILE_STEPS
+            log(f"options (d): the {name} rollout: K1 wrapper launches {launches} (warm-ups and captures), K1 {profile[3]:.0f} "
+                f"times in {PROFILE_STEPS} replayed steps (torch.profiler)")
+        return seconds * 1e3 / steps, final, launches, per_step
+
+    def k1_on_step(name, env, state):
+        with recorded_pgs_calls() as calls:
+            env.step(state, torch.zeros(state.q.shape[0], env.action_dim, device="cuda"))
+        a, b, lo, hi, dep, it = calls[0]
+        active = int((b != 0).sum())
+        if active == 0:
+            raise AssertionError(f"options (d): no contact row active in the {name} step")
+        err, margin = k1_against_plain(f"the {name} operands", [a, b, lo, hi], dep, it)
+        log(f"options (d): K1 on the {name} operands (step {env.settle_steps + OPTION_STEPS + 1}, {active} of {b.numel()} rows "
+            f"active) B={b.shape[0]} n={b.shape[1]}: max |kernel - plain| = {err:.3e} (margin left {margin:.3e})")
+        return {"max_abs_err": err, **k1_timing(f"{name} laikago step", [a, b, lo, hi], dep, it, card, prefix="options (d)")}
+
+    numbers, finals, counts = {}, {}, {}
+    envs = {"aba": LaikagoEnv(dtype=torch.float32), "crba": LaikagoEnv(dtype=torch.float32, solver=ContactSolverParams(minv_method="crba")),
+            "bf16": LaikagoEnv(dtype=torch.float32, solver=ContactSolverParams(delassus_dtype="bf16"))}
+    for name, env in envs.items():
+        ms, finals[name], launches, per_step = timed_rollout(name, env, MAIN_BATCH, OPTION_STEPS, trace=name != "aba")
+        numbers[f"laikago_{name}_ms_per_step"] = ms
+        counts[name] = {"launches": launches, "replayed_launches_per_step": per_step}
+    log(f"options (d): the laikago at batch {MAIN_BATCH}, {OPTION_STEPS} replayed steps: "
+        + ", ".join(f"{k} {numbers[f'laikago_{k}_ms_per_step']:.3f} ms/step" for k in envs) + f", {card_line}")
+    for name, solver in (("aba", ContactSolverParams(top_k=0)), ("crba", ContactSolverParams(top_k=0, minv_method="crba"))):
+        numbers[f"humanoid_{name}_ms_per_step"] = timed_rollout(f"humanoid {name}", HumanoidEnv(dtype=torch.float32, solver=solver),
+                                                                HUMANOID_BATCH, HUMANOID_CRBA_STEPS)[0]
+    log(f"options (d): the humanoid at batch {HUMANOID_BATCH}, {HUMANOID_CRBA_STEPS} replayed steps: aba "
+        f"{numbers['humanoid_aba_ms_per_step']:.3f} ms/step, crba {numbers['humanoid_crba_ms_per_step']:.3f} ms/step (a "
+        "measurement, not a claim)")
+    common = {"route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None,
+              "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)"}
+    entries = []
+    for name, label, option in (("crba", "CRBA", "minv_method='crba'"), ("bf16", "bf16 Delassus", "delassus_dtype='bf16'")):
+        entries.append({"name": f"pgs n=12 {label.lower()}", **common, **k1_on_step(label, envs[name], finals[name]),
+                        **counts[name], "main_path": f"the laikago's rollout under {option} (phase 17 (d))"})
+    return entries, numbers
+
+
+def phase_mpc(card, card_line, mlcp_rate):
+    """Phase 17: control and the rest of dynamics on the card. Returns the
+    kernels line's entries of K1 on the MPC walk, on the CRBA operands and
+    on the bf16 Delassus operands (n = 12 each), and the numbers."""
+    from tds_tpu_torch.contact.mlcp import ContactSolverParams
+
+    numbers = {}
+    with sub_phase("mpc (a) seconds"):
+        with sub_phase("mpc (a) seconds: the walk"):
+            numbers["mpc_float64_card_vs_cpu"] = mpc_device_vs_cpu()
+        with sub_phase("spring (a) seconds"):
+            numbers["spring_float64_card_vs_cpu"] = env_device_vs_cpu("spring (a)", contact_model="spring")
+        with sub_phase("crba (a) seconds"):
+            numbers["crba_float64_card_vs_cpu"] = env_device_vs_cpu("crba (a)", solver=ContactSolverParams(minv_method="crba"))
+            numbers["crba_against_aba"] = crba_against_aba()
+    with sub_phase("mpc (b) seconds"):
+        walk = mpc_walk(card, card_line)
+    with sub_phase("spring (c) seconds"):
+        numbers["laikago_spring_scan_rollout_env_steps_per_s"] = spring_rollout(card_line, mlcp_rate)
+        with sub_phase("spring (c) seconds: the ball's gradient"):
+            numbers["spring_ball_gradient_card_vs_cpu"] = spring_ball_gradient()
+    with sub_phase("options (d) seconds"):
+        options, option_numbers = option_rates(card, card_line)
+    numbers.update(option_numbers)
+    entries = [{"name": "pgs n=12 mpc walk", "route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None,
+                "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", **walk}, *options]
+    for entry in entries:
+        log(f"mpc: {json.dumps(entry)}")
+    log(f"mpc: {json.dumps(numbers)}")
+    return entries, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -3521,6 +3986,7 @@ def main():
     # a new env, so that the main path captures graphs of its own
     main_path = timed(phase_main_path, LaikagoEnv(dtype=torch.float32), card_line)
     kernel["launches"] = main_path["launches"]
+    kernel["replayed_launches_per_step"] = main_path["replayed_launches_per_step"]
     timed(phase_trained_policy, env)
     mega = timed(phase_mega_step, card)
     probes = timed(phase_probes, card)
@@ -3531,13 +3997,13 @@ def main():
     backward = timed(phase_gradients, card, card_line)
     jvp, ppo_numbers = timed(phase_forward_and_ppo, card, card_line)
     floating, floating_numbers = timed(phase_floating, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
-    kernel.update({f"main_path_{k}": v for k, v in main_path.items() if k != "launches"})
-    kernel.update(humanoid)
-    kernel.update(terrain)
-    kernel.update(ppo_numbers)
-    kernel.update(floating_numbers)
-    kernel.update(timed(phase_graphs, start_s))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, mega, *probes]}))
+    mpc, mpc_numbers = timed(phase_mpc, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
+    # the paths' numbers on a line of their own, so that the kernels line stays short
+    numbers = {f"main_path_{k}": v for k, v in main_path.items() if k != "launches"}
+    for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, timed(phase_graphs, start_s)):
+        numbers.update(part)
+    print(json.dumps({"numbers": numbers}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -4,7 +4,13 @@ Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
 - rows [normals(k) | friction1(k) | friction2(k)] over the k candidates;
 - b_i = -(1+restitution)*vn - erp*d/dt, rows masked by collision = (d < 0);
 - A = J M^-1 J^T + cfm*I, with M^-1 J^T from the O(n) ABA factor
-  (``minv_method="aba"``);
+  (``minv_method="aba"``) or from the CRBA mass matrix factored by
+  :func:`~tds_tpu_torch.algebra.linalg.cholesky_unrolled` in reversed DoF
+  order under the tree's fill pattern (``"crba"``, kept for
+  cross-validation); ``delassus_dtype="bf16"`` rounds J and M^-1 J^T to
+  bfloat16 for the product and multiplies them in the working dtype (the
+  JAX package's bf16 operands with an f32 result: products of two bf16
+  values are exact there, so only the summation order differs);
 - ``top_k`` compaction: only the top_k deepest candidates of each env go
   into the MLCP, back in candidate order (ties go to the lower index, as
   ``jax.lax.top_k`` breaks them);
@@ -15,19 +21,20 @@ Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
 
 The friction plane-space vectors are normalized, as in the JAX package.
 The JAX package's ``pgs_impl`` switch is dropped: the device of the
-operands picks the PGS path. ``minv_method="crba"`` and
-``delassus_dtype="bf16"`` are not ported yet and raise.
+operands picks the PGS path.
 """
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from tds_tpu_torch.algebra.linalg import cho_solve_unrolled, cholesky_unrolled, symbolic_cholesky_fill
 from tds_tpu_torch.collision.narrowphase import Contact
 from tds_tpu_torch.contact import pgs
 from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, minv_mul
 from tds_tpu_torch.dynamics.jacobian import point_jacobian_kin
 from tds_tpu_torch.dynamics.kinematics import fk_links
+from tds_tpu_torch.dynamics.mass_matrix import mass_matrix_from_kin
 from tds_tpu_torch.model.multibody import MultiBodyModel
 
 
@@ -74,13 +81,39 @@ class ContactBatch(NamedTuple):
     restitution: torch.Tensor
 
 
+MINV_METHODS = ("aba", "crba")
+DELASSUS_DTYPES = ("f32", "bf16")
+
+
 def check_params(params: ContactSolverParams):
-    """Raises NotImplementedError on the solver options the port does not
-    handle."""
-    if params.minv_method != "aba":
-        raise NotImplementedError("minv_method='crba' is not ported to tds_tpu_torch yet")
-    if params.delassus_dtype != "f32":
-        raise NotImplementedError("delassus_dtype='bf16' is not ported to tds_tpu_torch yet")
+    """Raises ValueError on a solver option that names no method."""
+    if params.minv_method not in MINV_METHODS:
+        raise ValueError(f"minv_method must be one of {MINV_METHODS}, got {params.minv_method!r}")
+    if params.delassus_dtype not in DELASSUS_DTYPES:
+        raise ValueError(f"delassus_dtype must be one of {DELASSUS_DTYPES}, got {params.delassus_dtype!r}")
+
+
+def crba_solver(model: MultiBodyModel, kin, q):
+    """rows -> rows M^-1 through the CRBA mass matrix: M is factored in
+    reversed DoF order (leaves first, where the tree's coupling is
+    fill-free) under :func:`symbolic_cholesky_fill`'s pattern, and the
+    solve flips back."""
+    pattern = symbolic_cholesky_fill(model.dof_coupling_mask()[::-1, ::-1])
+    chol = cholesky_unrolled(mass_matrix_from_kin(model, kin, q).flip(-1, -2), pattern)
+
+    def minv_rows(rows):  # (B, R, n) -> (B, R, n)
+        rhs = rows.transpose(-1, -2).flip(-2)
+        return cho_solve_unrolled(chol, rhs, pattern).flip(-2).transpose(-1, -2)
+
+    return minv_rows
+
+
+def delassus(j, jminv, delassus_dtype: str):
+    """J (M^-1 J^T): (B, R, n) x (B, R, n) -> (B, R, R); under ``"bf16"``
+    both operands rounded to bfloat16 first."""
+    if delassus_dtype == "bf16":
+        j, jminv = (t.to(torch.bfloat16).to(j.dtype) for t in (j, jminv))
+    return j @ jminv.transpose(-1, -2)
 
 
 def top_k_indices(distance, k: int):
@@ -123,8 +156,6 @@ def resolve_collision(
         """Per-candidate Jacobians (B, k, 3, n) and the M^-1 row solver."""
         if kin is None:
             kin = fk_links(model, q, torch.zeros_like(qd))
-        if factor is None:
-            factor = aba_factor(model, kin)
         jac = torch.stack(
             [
                 point_jacobian_kin(model, kin.base_x_world, kin.x_world, None, links[i], points[..., i, :])
@@ -132,6 +163,11 @@ def resolve_collision(
             ],
             dim=-3,
         )
+
+        if params.minv_method == "crba":
+            return jac, crba_solver(model, kin, q)
+        if factor is None:
+            factor = aba_factor(model, kin)
 
         def minv_rows(rows):  # (B, R, n) -> (B, R, n) = rows M^-1
             return minv_mul(model, kin, factor, rows.movedim(-2, 0)).movedim(0, -2)
@@ -173,16 +209,16 @@ def resolve_collision(
     def rows(jac):  # J^T d per candidate and direction -> (B, R, n)
         return torch.cat([torch.einsum("...kdn,...kd->...kn", jac, d) for d in dirs], dim=-2)
 
-    delassus = []  # J (M^-1 J^T) of each dynamic body
+    blocks = []  # J (M^-1 J^T) of each dynamic body
     if n_a:
         j_a = rows(jac_a)
         jminv_a = solve_a(j_a)
-        delassus.append(j_a @ jminv_a.transpose(-1, -2))
+        blocks.append(delassus(j_a, jminv_a, params.delassus_dtype))
     if n_b:
         j_b = rows(jac_b)
         jminv_b = solve_b(j_b)
-        delassus.append(j_b @ jminv_b.transpose(-1, -2))
-    a_mat = sum(delassus[1:], delassus[0]) + params.cfm * torch.eye(n_rows, dtype=dtype, device=rhs.device)
+        blocks.append(delassus(j_b, jminv_b, params.delassus_dtype))
+    a_mat = sum(blocks[1:], blocks[0]) + params.cfm * torch.eye(n_rows, dtype=dtype, device=rhs.device)
 
     nfd = params.num_friction_dir
     lo = torch.cat([torch.zeros_like(fric)] + [-fric] * nfd, dim=-1)

@@ -16,7 +16,11 @@ vectors {"policy", "value", "log_std"}: :func:`ppo_params_from_numpy`
 moves one to a device, :func:`ppo_state_from_numpy` makes a
 :class:`PPOState` of it with optax's Adam state, and
 :func:`ppo_checkpoint` / :func:`ppo_from_checkpoint` write and read the
-JAX package's PPO checkpoint, ``{"params", "obs_stat", "hidden"}``.
+JAX package's PPO checkpoint, ``{"params", "obs_stat", "hidden"}``. An
+MPC controller's state (``LocomotionMpcState``: the gait clock, the
+swing-leg latch and the velocity window) crosses as numpy arrays with
+:func:`mpc_state_from_numpy`, so that both controllers start from one
+state; an ``ActuatorNetSpec``'s parameters are a flat ``MLPSpec`` vector.
 """
 
 from typing import Tuple
@@ -34,8 +38,9 @@ from tds_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from tds_tpu_torch.utils.tensors import resolve_device
 
 __all__ = [
-    "apg_state_from_numpy", "ars_state_from_numpy", "load_checkpoint", "mlp_params_from_numpy", "policy_from_numpy",
-    "ppo_checkpoint", "ppo_from_checkpoint", "ppo_params_from_numpy", "ppo_state_from_numpy", "save_checkpoint",
+    "apg_state_from_numpy", "ars_state_from_numpy", "load_checkpoint", "mlp_params_from_numpy", "mpc_state_from_numpy",
+    "policy_from_numpy", "ppo_checkpoint", "ppo_from_checkpoint", "ppo_params_from_numpy", "ppo_state_from_numpy",
+    "save_checkpoint",
 ]
 
 
@@ -160,3 +165,26 @@ def ppo_from_checkpoint(path: str, dtype=torch.float32, device=None):
     saved, metadata = load_checkpoint(path)
     return (ppo_params_from_numpy(saved["params"], dtype, device), _stat(saved["obs_stat"], dtype, device),
             int(saved.get("hidden", 64)), metadata)
+
+
+def mpc_state_from_numpy(time, last_leg_state, phase_switch_foot_position, buffer, count, dtype=torch.float64,
+                         device=None):
+    """A ``LocomotionMpcState`` from the JAX package's fields as numpy
+    arrays, one row per env: time (B,), the swing latch's last leg states
+    (B, legs) and take-off positions (B, legs, 3), the velocity window's
+    buffer (B, W, 3) and count (B,); in ``dtype`` on the card unless
+    ``device`` names another."""
+    from tds_tpu_torch.control.mpc.gait import VelocityFilterState
+    from tds_tpu_torch.control.mpc.locomotion import LocomotionMpcState
+    from tds_tpu_torch.control.mpc.swing_leg import SwingLegState
+
+    device = resolve_device(device)
+
+    def real(x):
+        return torch.from_numpy(np.array(x, dtype=np.float64)).to(device, dtype)
+
+    return LocomotionMpcState(
+        time=real(time),
+        swing=SwingLegState(torch.from_numpy(np.array(last_leg_state, dtype=np.int64)).to(device), real(phase_switch_foot_position)),
+        vel_filter=VelocityFilterState(real(buffer), torch.from_numpy(np.array(count, dtype=np.int32)).to(device)),
+    )

@@ -166,9 +166,9 @@ def pack_step_params(env) -> StepParams:
     experiment's closure conversion of the step's constants, written out).
     Raises NotImplementedError on what the kernel does not handle: floating
     bases, spherical joints, trees that :func:`link_schedule` refuses, geoms
-    other than a ground plane against spheres on the robot's links, the
-    solver options that ``resolve_collision`` refuses, and ``top_k``
-    compaction, which the kernel does not do. A sphere's attachment
+    other than a ground plane against spheres on the robot's links, spring
+    contact, the CRBA and bf16 solver options, and ``top_k`` compaction,
+    which the kernel does not do. A sphere's attachment
     rotation does not move its centre and is not packed."""
     model, world = env.model, env.world
     if model.is_floating:
@@ -186,6 +186,12 @@ def pack_step_params(env) -> StepParams:
     if not robot or not all(isinstance(g.shape, Sphere) and g.link_index >= 0 for g in robot):
         raise NotImplementedError("the fused step collides spheres on the robot's links only")
     check_params(world.solver)
+    if world.contact_model != "mlcp" or world.solver.minv_method != "aba" or world.solver.delassus_dtype != "f32":
+        raise NotImplementedError(
+            "the fused step runs its source's MLCP step (ABA's M^-1, a float32 Delassus matrix): not "
+            f"contact_model={world.contact_model!r}, minv_method={world.solver.minv_method!r}, "
+            f"delassus_dtype={world.solver.delassus_dtype!r}"
+        )
     if 0 < world.solver.top_k < len(robot):
         raise NotImplementedError("the fused step solves every candidate contact: it has no top_k compaction")
     (plane,) = ground

@@ -22,8 +22,10 @@ kernel does not handle (a terrain among them) raises at construction.
 ``terrain`` puts a ``Heightfield`` or a ``Mesh`` on the ground in place of
 the plane; ``height_scan`` adds the terrain's height under egocentric scan
 points to the observation; ``reset_pool`` makes ``reset`` start from pool
-states with probability ``reset_pool_prob``. Not ported yet (it raises
-NotImplementedError): the spring contact model.
+states with probability ``reset_pool_prob``. ``contact_model="spring"``
+puts the world on the spring-damper contact (no LCP, so no K1; K2
+refuses it), and ``solver``'s ``minv_method="crba"`` and
+``delassus_dtype="bf16"`` pass through to the MLCP.
 """
 
 from typing import Optional, Sequence

@@ -150,6 +150,31 @@ class MultiBodyModel:
     def zero_qd(self, batch_shape=()):
         return torch.zeros(batch_shape + (self.dof_qd,), dtype=self.dtype, device=self.device)
 
+    def dof_coupling_mask(self) -> np.ndarray:
+        """Boolean (dof_qd, dof_qd) numpy mask: M[i, j] can be nonzero only
+        when the joints carrying DoFs i and j lie on one root-to-leaf path
+        (the CRBA structure); a floating base's 6 DoFs couple with all."""
+        n = self.dof_qd
+        mask = np.eye(n, dtype=bool)
+        if self.is_floating:
+            mask[:6, :] = True
+            mask[:, :6] = True
+
+        def dofs_of(link):
+            off = self.qd_offsets[link]
+            return range(off, off + qd_width(JointType(self.joint_types[link])))
+
+        for i in range(self.num_links):
+            j, chain = i, []
+            while j >= 0:
+                chain.append(j)
+                j = self.parents[j]
+            for a in chain:
+                for di in dofs_of(i):
+                    for dj in dofs_of(a):
+                        mask[di, dj] = mask[dj, di] = True
+        return mask
+
 
 class MultiBodyBuilder:
     """Imperative model construction, links appended in topological order

@@ -57,7 +57,7 @@ def main():
                 t0 = time.perf_counter()
                 for _ in range(args.traces):
                     events = device_trace(run, pad_s=pad_s)[0]
-                    seen[(len(events), sum(1 for e in events if "pgs_kernel" in e.name))] += 1
+                    seen[(len(events), sum(1 for name, _ in events if "pgs_kernel" in name))] += 1
                 print(json.dumps({"busy_processes": busy, "pad_s": pad_s, "steps": args.steps, "batch": args.batch,
                                   "traces": [{"device_events": n, "k1": k, "count": c} for (n, k), c in sorted(seen.items())],
                                   "seconds": time.perf_counter() - t0}), flush=True)

@@ -27,6 +27,27 @@ def constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def constant_like(values, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``values`` (numbers, nested tuples or lists, or a tensor) in ``dtype``
+    (by default ``like``'s) on ``like``'s device: numbers as a
+    :func:`constant`, so that a captured step copies nothing from the
+    host."""
+    dtype = dtype or like.dtype
+    if isinstance(values, torch.Tensor):
+        return values.to(like.device, dtype)
+    return constant(_nested(values), dtype, like.device)
+
+
+def _nested(values):
+    """Nested tuples of numbers (hashable, for :func:`constant`'s cache) from
+    numbers, tuples, lists or a numpy array."""
+    if hasattr(values, "tolist"):
+        values = values.tolist()
+    if isinstance(values, (tuple, list)):
+        return tuple(_nested(v) for v in values)
+    return values
+
+
 def refuse_grad(kernel: str, tensors) -> None:
     """Raise when autograd would record a graph through ``kernel``: grad is
     enabled and one of ``tensors`` requires grad. K2 writes its outputs

@@ -52,7 +52,11 @@ def device_trace(fn, pad_s=0.25):
     ``pad_s`` of host sleep before the call and closes ``pad_s`` after that
     synchronise: the profiler receives a kernel's record some time after the
     kernel ends, and a trace stopped at once can lose the last kernels'. The
-    seconds leave the padding out."""
+    seconds leave the padding out. An event is a pair (name, duration in
+    us), read from the profiler's raw records rather than its event tree,
+    whose Python objects take seconds for a trace of ~100,000 operations.
+    ``kineto_results`` is private to torch.profiler and may change between
+    torch versions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,7 +68,9 @@ def device_trace(fn, pad_s=0.25):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         time.sleep(pad_s)
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], out, seconds
+    events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return events, out, seconds
 
 
 def counted_trace(fn, kernel, expected, tries=4, trace=device_trace):
@@ -81,7 +87,7 @@ def counted_trace(fn, kernel, expected, tries=4, trace=device_trace):
         events, out, seconds = trace(fn)
         if fullest is not None and len(events) <= len(fullest[0]):
             break
-        fullest = (events, out, seconds, sum(1 for e in events if kernel in e.name))
+        fullest = (events, out, seconds, sum(1 for name, _ in events if kernel in name))
         if fullest[3] == expected:
             break
     return fullest

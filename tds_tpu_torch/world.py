@@ -1,12 +1,14 @@
 """World: bodies, collision geometry and contact resolution (counterpart of
-tds_tpu/world.py, MLCP contact only).
+tds_tpu/world.py).
 
 The world is a static description; :func:`resolve_contacts` and
 :func:`world_step` are functions over the tuple of body states, and
 :func:`world_rollout` runs many steps as one ``graphs.scan``. Pairs are enumerated in Python from the
 static geometry lists, producing fixed-size masked contact batches. A
 terrain (``Heightfield`` or ``Mesh``) hangs on the zero-DoF ground body
-like the plane. The spring contact model is not ported yet and raises.
+like the plane. ``contact_model`` picks the impulse-level MLCP (``"mlcp"``,
+the reference's default, through K1 on the card) or the force-level
+spring-damper (``"spring"``, ``World.spring``'s parameters; no LCP).
 
 ``friction_mode`` picks each candidate's friction and restitution:
 ``"geom_min"`` (the default) the lesser friction and the greater
@@ -26,6 +28,7 @@ from tds_tpu_torch.algebra.transform import Transform
 from tds_tpu_torch.collision import narrowphase
 from tds_tpu_torch.collision.narrowphase import Contact
 from tds_tpu_torch.contact.mlcp import ContactBatch, ContactSolverParams, resolve_collision
+from tds_tpu_torch.contact.spring import SpringContactParams, resolve_collision_spring
 from tds_tpu_torch.dynamics.forward_dynamics import aba_factor, forward_dynamics_from_kin
 from tds_tpu_torch.dynamics.integrator import integrate_euler_qdd, integrate_q
 from tds_tpu_torch.dynamics.kinematics import fk_links
@@ -36,6 +39,7 @@ from tds_tpu_torch.utils.tensors import constant
 
 
 FRICTION_MODES = ("geom_min", "world_default")
+CONTACT_MODELS = ("mlcp", "spring")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -48,10 +52,13 @@ class World:
     solver: ContactSolverParams = ContactSolverParams()
     contact_model: str = "mlcp"
     friction_mode: str = "geom_min"
+    spring: SpringContactParams = SpringContactParams()
 
     def __post_init__(self):
         if self.friction_mode not in FRICTION_MODES:
             raise ValueError(f"friction_mode must be one of {FRICTION_MODES}, got {self.friction_mode!r}")
+        if self.contact_model not in CONTACT_MODELS:
+            raise ValueError(f"contact_model must be one of {CONTACT_MODELS}, got {self.contact_model!r}")
 
     @property
     def num_bodies(self):
@@ -69,13 +76,12 @@ def build_world(
     bodies_and_geoms: Sequence[Tuple[MultiBodyModel, Sequence[GeomAttachment]]],
     solver: ContactSolverParams = ContactSolverParams(),
     contact_model: str = "mlcp",
+    spring: SpringContactParams = SpringContactParams(),
     friction_mode: str = "geom_min",
 ) -> World:
     """The world of the given bodies. Raises NotImplementedError on a pair of
     geoms that :func:`resolve_contacts` would collide and the port cannot
     yet, here rather than at the first step."""
-    if contact_model != "mlcp":
-        raise NotImplementedError(f"contact_model={contact_model!r} is not ported to tds_tpu_torch yet")
     for i, (body_a, geoms_a) in enumerate(bodies_and_geoms):
         for body_b, geoms_b in bodies_and_geoms[i + 1 :]:
             if body_a.dof_qd == 0 and body_b.dof_qd == 0:
@@ -93,6 +99,7 @@ def build_world(
         solver=solver,
         contact_model=contact_model,
         friction_mode=friction_mode,
+        spring=spring,
     )
 
 
@@ -181,10 +188,11 @@ def resolve_contacts(world: World, qs, qds, dt, kins=None, factors=None):
             batch = gather_pair_contacts(world, kin_list, i, j, like)
             if batch is None:
                 continue
-            qds[i], qds[j], _ = resolve_collision(
+            spring = world.contact_model == "spring"
+            qds[i], qds[j], _ = (resolve_collision_spring if spring else resolve_collision)(
                 world.bodies[i], qs[i], qds[i],
                 world.bodies[j], qs[j], qds[j],
-                batch, dt, world.solver,
+                batch, dt, world.spring if spring else world.solver,
                 kin_a=kin_list[i], kin_b=kin_list[j],
                 factor_a=factors[i] if factors is not None else None,
                 factor_b=factors[j] if factors is not None else None,

@@ -295,8 +295,22 @@ def test_reward_done(envs):
 
 @pytest.mark.parametrize("kwargs", [dict(contact_model="spring")], ids=["spring"])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        AntEnv(dtype=torch.float64, device="cpu", **kwargs)
+    """Spring contact is ported: 12 float64 ant steps from the standing
+    start with seeded actions against the JAX package's at TOL; the feet
+    touch from step 9. (At the ant's 10 ms step the default spring, k =
+    5000, is unstable in both packages: velocities pass 1e3 by step 21.)"""
+    j_env, env = JaxAnt(dtype=jnp.float64, **kwargs), AntEnv(dtype=torch.float64, device="cpu", **kwargs)
+    rng = np.random.default_rng(21)
+    q, qd = env.initial_state(noise=torch.from_numpy(rng.uniform(-0.05, 0.05, (2, env.action_dim))))
+    jq, jqd = jnp.asarray(q.numpy()), jnp.asarray(qd.numpy())
+    j_step = jax.jit(jax.vmap(j_env.sim_step))
+    for t in range(1, 13):
+        action = rng.uniform(-0.4, 0.4, size=(2, env.action_dim))
+        jq, jqd = j_step(jq, jqd, jnp.asarray(action))
+        q, qd = env.sim_step(q, qd, torch.from_numpy(action))
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=TOL, atol=TOL, err_msg=f"q at step {t}")
+        np.testing.assert_allclose(qd.numpy(), np.asarray(jqd), rtol=TOL, atol=TOL, err_msg=f"qd at step {t}")
+    assert env.world.contact_model == "spring" and float(q[:, 2].min()) < 0.45  # on the ground
 
 
 def test_default_device_is_cuda():

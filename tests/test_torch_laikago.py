@@ -173,6 +173,30 @@ def test_default_device_is_cuda():
             LaikagoEnv()
 
 
+def check_steps_match_jax(steps, seed, **kwargs):
+    """``steps`` float64 sim_steps at batch 3 against the JAX package's at
+    TOL from a lowered start (0, 0, 0.45), where the toes touch from the
+    first step, with seeded actions; ``kwargs`` (``solver`` as the port's
+    ContactSolverParams) go to both envs."""
+    start = (0.0, 0.0, 0.45)
+    jax_kwargs = dict(kwargs)
+    if "solver" in kwargs:
+        jax_kwargs["solver"] = JaxSolverParams(**kwargs["solver"]._asdict())
+    j_env = JaxLaikago(dtype=jnp.float64, start_base_position=start, **jax_kwargs)
+    env = LaikagoEnv(dtype=torch.float64, device="cpu", start_base_position=start, **kwargs)
+    rng = np.random.default_rng(seed)
+    q, qd = env.initial_state(noise=torch.from_numpy(rng.uniform(-0.05, 0.05, (3, env.action_dim))))
+    jq, jqd = jnp.asarray(q.numpy()), jnp.asarray(qd.numpy())
+    j_step = jax.jit(jax.vmap(j_env.sim_step))
+    for t in range(1, steps + 1):
+        action = rng.uniform(-0.4, 0.4, size=(3, env.action_dim))
+        jq, jqd = j_step(jq, jqd, jnp.asarray(action))
+        q, qd = env.sim_step(q, qd, torch.from_numpy(action))
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=TOL, atol=TOL, err_msg=f"q at step {t}")
+        np.testing.assert_allclose(qd.numpy(), np.asarray(jqd), rtol=TOL, atol=TOL, err_msg=f"qd at step {t}")
+    return env
+
+
 @pytest.mark.parametrize(
     "kwargs, error",
     [
@@ -181,14 +205,23 @@ def test_default_device_is_cuda():
         # terrain, height_scan and reset_pool are ported: what they refuse
         (dict(height_scan=((0.0, 0.0),)), ValueError),
         (dict(reset_pool=(np.zeros((1, 17)), np.zeros((1, 18)))), ValueError),
-        (dict(contact_model="spring"), NotImplementedError),
+        # ported: spring contact matches the JAX package, and K2 refuses it
+        (dict(contact_model="spring"), None),
     ],
     ids=["terrain", "height_scan", "reset_pool", "spring"],
 )
 def test_unported_options_raise(kwargs, error):
     """Unported options raise NotImplementedError at construction; the
     ported terrain options raise ValueError on what the JAX package
-    refuses (a height scan without a terrain, a pool of the wrong width)."""
+    refuses (a height scan without a terrain, a pool of the wrong width).
+    Spring contact is ported: 10 steps against the JAX package at TOL (the
+    20-step case is tests/test_torch_spring.py's), and the fused step K2,
+    whose source is the MLCP step, refuses it."""
+    if error is None:
+        check_steps_match_jax(10, 14, **kwargs)
+        with pytest.raises(NotImplementedError, match="contact_model='spring'"):
+            LaikagoEnv(dtype=torch.float64, device="cpu", fused_step=True, **kwargs)
+        return
     with pytest.raises(error):
         LaikagoEnv(dtype=torch.float64, device="cpu", **kwargs)
 
@@ -199,26 +232,12 @@ def test_unported_options_raise(kwargs, error):
     ids=["crba", "top_k", "bf16"],
 )
 def test_unported_solver_options_raise(solver):
-    """crba and bf16 raise. top_k compaction is ported: its case holds the
-    port against the JAX package, 50 float64 steps at 1e-10 from a lowered
-    start, where the toes touch from the first step and the compaction
-    drops the shallower 2 of 4."""
-    if solver.top_k:
-        start = (0.0, 0.0, 0.45)
-        j_env = JaxLaikago(dtype=jnp.float64, solver=JaxSolverParams(top_k=solver.top_k), start_base_position=start)
-        env = LaikagoEnv(dtype=torch.float64, device="cpu", solver=solver, start_base_position=start)
-        rng = np.random.default_rng(12)
-        q, qd = env.initial_state(noise=torch.from_numpy(rng.uniform(-0.05, 0.05, (3, env.action_dim))))
-        jq, jqd = jnp.asarray(q.numpy()), jnp.asarray(qd.numpy())
-        j_step = jax.jit(jax.vmap(j_env.sim_step))
-        for t in range(1, 51):
-            action = rng.uniform(-0.4, 0.4, size=(3, env.action_dim))
-            jq, jqd = j_step(jq, jqd, jnp.asarray(action))
-            q, qd = env.sim_step(q, qd, torch.from_numpy(action))
-            np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=TOL, atol=TOL, err_msg=f"q at step {t}")
-            np.testing.assert_allclose(qd.numpy(), np.asarray(jqd), rtol=TOL, atol=TOL, err_msg=f"qd at step {t}")
-        return
-    env = LaikagoEnv(dtype=torch.float64, device="cpu", solver=solver)
-    q, qd = env.initial_state(noise=torch.zeros(1, env.action_dim, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        env.sim_step(q, qd, torch.zeros(1, env.action_dim, dtype=torch.float64))
+    """Every solver option is ported; each case holds the port against the
+    JAX package at TOL from a lowered start, where the toes touch from the
+    first step: top_k compaction over 50 steps (it drops the shallower 2 of
+    4), the CRBA M^-1 and the bf16 Delassus product over 20. K2 refuses
+    the CRBA and bf16 options (its source computes neither)."""
+    check_steps_match_jax(50 if solver.top_k else 20, 12, solver=solver)
+    if not solver.top_k:
+        with pytest.raises(NotImplementedError, match="the fused step"):
+            LaikagoEnv(dtype=torch.float64, device="cpu", fused_step=True, solver=solver)

@@ -4,8 +4,6 @@ counts other than expected is taken again while each new one holds more
 device events than the one before, and the fullest trace's count is the
 one returned. The traces themselves need the card; the rule does not."""
 
-from types import SimpleNamespace
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,8 +20,8 @@ def _fake_traces(shapes):
     def trace(fn):
         events, kernels = shapes[len(calls)]
         calls.append(fn())
-        named = [SimpleNamespace(name="pgs_kernel_f32") for _ in range(kernels)]
-        return named + [SimpleNamespace(name="elementwise") for _ in range(events - kernels)], len(calls) - 1, 0.5
+        named = [("pgs_kernel_f32", 1.0)] * kernels
+        return named + [("elementwise", 1.0)] * (events - kernels), len(calls) - 1, 0.5
 
     return trace, calls
 
