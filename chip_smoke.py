@@ -9,9 +9,10 @@ hopper rollouts, the humanoid and half-cheetah rollouts, the terrain
 laikago's rollout, replays and trainer, gradients (the contact loss
 and APG through K1's backward kernel), forward mode (jacfwd through K1's
 JVP kernel), PPO on the ant, floating bases (the floating laikago,
-balls through ``world_step`` and a ball's gradient), and control and the
+balls through ``world_step`` and a ball's gradient), control and the
 rest of dynamics (the MPC trot walk of 4096 laikagos, spring contact, the
-CRBA and bf16 contact options) through them.
+CRBA and bf16 contact options), and the rest of collision (4096 Pandas
+pushing boxes, the mesh-cube stack, raycasts) through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -252,6 +253,32 @@ prints no final line (each phase and sub-phase prints its seconds):
    replayed steps under "aba", "crba" and "bf16" (ms/step each), K1
    against its plain version on the bf16 and the CRBA operands, timed, and
    the humanoid under "aba" and "crba" at batch 1024 (ms/step);
+18. the rest of collision, run before phase 11: (a) ``tools/panda_push.py``'s
+   scene (a 9-DoF Panda with a sphere on its end effector, a floating box,
+   the ground: 3 contact solves a step, K1 at 3, 24 and 3 rows with 10
+   sweeps each) in float64 at batch 8 for 20 steps, the box against the
+   end effector from the start, through graphs on the card against the
+   CPU within 1e-9 abs + rel; then the tool as a user runs it: the IK
+   waypoints in float32 on the card and 1000 steps of 4096 scenes through a
+   replayed graph, env 0 from the example's box start held to the
+   example's criterion (pushed more than 4 cm) and within 5 mm of its
+   rest height, the share of the batch that meets both, env-steps/s,
+   ms/step and the graph's nodes, K1's wrapper launches counted from 0
+   just before and read just after (3 a captured step) and K1 in a trace
+   of 20 replayed steps (60), K1 against its plain version on the three
+   solves of a step mid-stroke, timed; (b) tests/test_mesh_contact.py's
+   mesh-cube stack (mesh-mesh, 8 candidates, 24 rows): 20 float64 steps of
+   8 envs in contact on the card against the CPU within 1e-10, then 4096
+   cubes dropped from 1.35 m (env 0 at the test's pose, the others moved
+   by U(-5 cm, +5 cm) in x and y) for 1200 steps through world_rollout in
+   float32, printed as a measurement (it does not settle in float32, in
+   the JAX package either), and in float64, held: env 0 at the test's
+   thresholds (z within 0.03 of 1.3, |qd| < 0.1), the share of the batch,
+   K1's wrapper launches and its count in a trace, K1 against its plain
+   version on a step's operands, timed; (c) ``cast_rays`` over
+   examples/raycast_example.py's sphere, box and plane and the unit mesh
+   cube, 1024 x 1024 rays, float64 on the card against the CPU: fractions
+   within 1e-12, ``geom_index`` identical, and its time;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -264,7 +291,8 @@ K1's backward at n = 12, the other row counts inside it; K1's forward
 mode at n = 12, the other row counts inside it; K1 on the floating
 laikago (n = 12) and on the balls (n = 3) and K1's backward under the
 ball loss (n = 3); K1 on the MPC walk and on the bf16 Delassus operands
-(n = 12); K2, K3, K4); the last
+(n = 12); K1 on the Panda push's three solves (n = 3, 24, 3, 10 sweeps)
+and on the mesh stack (n = 24); K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -407,6 +435,10 @@ EAGER_STEPS = 20
 MPC_START = REPO / "tests" / "golden" / "laikago_mpc_walk_start.json"
 MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 10, 4
 SPRING_BALL_STEPS, OPTION_STEPS, HUMANOID_CRBA_STEPS = 400, 200, 50
+# phase 18: tools/panda_push.py's 1000 steps at batch 4096 (float64 card
+# against CPU at batch 8), tests/test_mesh_contact.py's mesh-cube stack
+# (1200 steps at batch 4096), cast_rays over a 1024 x 1024 grid
+PANDA_BATCH, PANDA_CHECK_BATCH, STACK_BATCH, STACK_STEPS, RAY_GRID = 4096, 8, 4096, 1200, 1024
 
 
 def log(msg):
@@ -3909,6 +3941,308 @@ def phase_mpc(card, card_line, mlcp_rate):
     return entries, numbers
 
 
+# -- phase 18 --------------------------------------------------------------
+def k1_launches_trace(label, fn, per_step):
+    """K1 kernels in a trace of PROFILE_STEPS replayed steps of ``fn`` (which
+    replays them), ``per_step`` a step; raises on another count."""
+    expected = per_step * PROFILE_STEPS
+    with sub_phase(f"{label} seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(fn, calls=1, kernel="pgs_kernel", expected=expected)
+    if profile is None or profile[3] != expected:
+        raise AssertionError(f"{label}: K1 ran {None if profile is None else profile[3]} times in {PROFILE_STEPS} replayed "
+                             f"steps, {expected} expected")
+    return profile
+
+
+def k1_on_calls(label, calls, card, prefix):
+    """K1 against its plain version and timed on each recorded PGS call;
+    returns their entries' numbers, keyed by the call's index."""
+    out = []
+    for k, (a, b, lo, hi, dep, it) in enumerate(calls):
+        active = int((b != 0).sum())
+        err, margin = k1_against_plain(f"{label} solve {k}", [a, b, lo, hi], dep, it)
+        log(f"{prefix}: K1 on {label}'s solve {k} B={b.shape[0]} n={b.shape[1]} it={it}: {active} of {b.numel()} rows active, "
+            f"max |kernel - plain| = {err:.3e} (margin left {margin:.3e})")
+        out.append({"max_abs_err": err, "rows_active": active,
+                    **k1_timing(f"{label} solve {k}", [a, b, lo, hi], dep, it, card, prefix=prefix)})
+    return out
+
+
+def panda_device_vs_cpu():
+    """(a): tools/panda_push.py's scene in float64 at batch PANDA_CHECK_BATCH
+    for EAGER_STEPS steps, the box pressed into the end effector from the
+    start (all three pairs in contact), through graphs on the card against
+    the CPU's loop, the IK waypoints the CPU's; within 1e-9 abs + rel."""
+    from tds_tpu_torch.tools import panda_push
+
+    cpu_world, cpu_arm, _ = panda_push.build_scene(dtype=torch.float64, device="cpu")
+    gpu_world, _, _ = panda_push.build_scene(dtype=torch.float64)
+    q0, q1 = panda_push.ik_waypoints(cpu_arm)
+    box_x = panda_push.box_starts(PANDA_CHECK_BATCH, 1, torch.float64) - 0.057  # the box against the end effector's sphere
+    got = panda_push.push(gpu_world, q0.cuda(), q1.cuda(), box_x.cuda(), steps=EAGER_STEPS, report=())
+    want = panda_push.push(cpu_world, q0, q1, box_x, steps=EAGER_STEPS, report=())
+    worst = 0.0
+    for g_part, w_part in zip(got[:2], want[:2]):
+        for g, w in zip(g_part, w_part):
+            worst = max(worst, (g.cpu() - w).abs().max().item() if w.numel() else 0.0)
+            if w.numel() and excess(g.cpu(), w, 1e-9) > 0:
+                raise AssertionError(f"panda (a): the card and the CPU differ by {(g.cpu() - w).abs().max().item():.3e}")
+    log(f"panda (a): {EAGER_STEPS} float64 steps of the Panda push at batch {PANDA_CHECK_BATCH}, the box against the end "
+        f"effector from the start, through graphs on the card against the CPU: max |cuda - cpu| = {worst:.3e} (1e-9 abs + rel); "
+        f"the boxes' x moved by up to {(want[0][2][:, 4] - box_x).abs().max().item() * 1e3:.3f} mm")
+    return worst
+
+
+def panda_push_path(card, card_line):
+    """(a): tools/panda_push.py as a user runs it: the scene in float32 on the
+    card, the IK waypoints there, PANDA_BATCH scenes x 1000 steps through a
+    replayed graph, env 0 from the example's box start; K1's wrapper
+    launches counted from 0 just before and read just after (3 a captured
+    step), env 0 held to the example's criterion (pushed more than 4 cm)
+    and to z within 5 mm of its rest height, the share of the batch that
+    meets both, env-steps/s, ms/step and the graph's nodes a step; K1 in a
+    trace of PROFILE_STEPS replayed steps (3 a step); K1 against its plain
+    version on the three solves of an eager step mid-stroke, timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import panda_push
+    from tds_tpu_torch.utils import graphs
+
+    world, arm, _ = panda_push.build_scene(dtype=torch.float32)
+    (q0, q1), ik_s = timed_call(lambda: panda_push.ik_waypoints(arm))
+    box_x = panda_push.box_starts(PANDA_BATCH, 0, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    _, first_s = timed_call(lambda: panda_push.push(world, q0, q1, box_x, steps=2, report=()))
+    (qs, qds, seen), push_s = timed_call(lambda: panda_push.push(world, q0, q1, box_x))
+    launches = pgs.launches
+    expected = 3 * captured_launches(cached)
+    if launches == 0 or launches != expected:
+        raise AssertionError(f"panda (a): the PGS wrapper launched {launches} times, expected {expected} (3 solves in the "
+                             "warm-up and the capture)")
+    moved, z = qs[2][:, 4] - box_x, qs[2][:, 6]
+    rest = panda_push.BOX_EXTENTS[2] / 2
+    meets = (moved > panda_push.PUSHED) & ((z - rest).abs() < 5e-3) & torch.isfinite(qs[2]).all(-1)
+    share = meets.double().mean().item()
+    rate = PANDA_BATCH * panda_push.STEPS / push_s
+    found = graph_lines("panda (a)", "panda push", world)
+    nodes = [g.nodes for g in found if g.batch == PANDA_BATCH]
+    trail = ", ".join(f"t={r / 1000:.1f}s x={xz[0, 0].item():+.3f} z={xz[0, 1].item():.3f}" for r, xz in zip(panda_push.REPORT_STEPS, seen))
+    log(f"panda (a): IK waypoints in float32 on the card in {ik_s:.2f} s; {PANDA_BATCH} Pandas pushed their boxes for "
+        f"{panda_push.STEPS} float32 steps through a replayed graph in {push_s:.2f} s = {push_s * 1e3 / panda_push.STEPS:.3f} "
+        f"ms/step, {rate:.1f} env-steps/s, {card_line} (the 2-step call that captures the graph {first_s:.2f} s); graph "
+        f"{nodes} nodes a step; K1 wrapper launches {launches} (3 a captured step)")
+    log(f"panda (a): env 0 (the example's start): {trail}; pushed {moved[0].item() * 100:.2f} cm (> 4), final z "
+        f"{z[0].item():.4f} m (rest {rest}); {int(meets.sum())} of {PANDA_BATCH} scenes ({100 * share:.1f}%) pushed more than 4 "
+        f"cm and upright; pushed {moved.min().item() * 100:.2f}-{moved.max().item() * 100:.2f} cm")
+    if not bool(meets[0]):
+        raise AssertionError(f"panda (a): env 0 pushed {moved[0].item():.4f} m, z {z[0].item():.4f}")
+    ops, busy, wall, k1 = k1_launches_trace("panda (a)", lambda: panda_push.push(world, q0, q1, box_x, steps=PROFILE_STEPS,
+                                                                                    report=()), 3)
+    log(f"panda (a): {PROFILE_STEPS} replayed steps: K1 {k1:.0f} times (torch.profiler), {ops / PROFILE_STEPS:.0f} device "
+        f"operations a step, {100 * (1 - busy / wall):.1f}% idle under the profiler")
+    # the operands of an eager step mid-stroke, after 400 replayed steps
+    mid_qs, mid_qds, _ = panda_push.push(world, q0, q1, box_x, steps=400, report=())
+    step = panda_push.make_step(world)
+    i = torch.full_like(box_x, 400.0)
+    gravity = torch.tensor(panda_push.GRAVITY, device="cuda")
+    with recorded_pgs_calls() as calls:
+        step((*mid_qs, *mid_qds, i), (q0, q1, gravity))
+    if [c[1].shape[-1] for c in calls] != [3, 24, 3]:
+        raise AssertionError(f"panda (a): the step's PGS calls have {[c[1].shape[-1] for c in calls]} rows, not [3, 24, 3]")
+    solves = k1_on_calls("the Panda push", calls, card, "panda (a)")
+    common = {"launches": launches, "replayed_launches_per_step": k1 / PROFILE_STEPS,
+              "main_path": f"the Panda push, {PANDA_BATCH} scenes x {panda_push.STEPS} steps (phase 18 (a))"}
+    numbers = {"panda_push_env_steps_per_s": rate, "panda_push_ms_per_step": push_s * 1e3 / panda_push.STEPS,
+               "panda_push_graph_nodes": nodes, "panda_push_env0_cm": moved[0].item() * 100, "panda_push_env0_z": z[0].item(),
+               "panda_push_share": share, "panda_push_ik_s": ik_s}
+    names = ("plane-arm", "plane-box", "arm-box")
+    return [{"name": f"pgs n={c['shape'].split()[1][2:]} panda {name}", **common, **c} for name, c in zip(names, solves)], numbers
+
+
+CUBE_OBJ = "\n".join(
+    f"v {sx} {sy} {sz}" for sx in (-0.5, 0.5) for sy in (-0.5, 0.5) for sz in (-0.5, 0.5)
+) + "\n" + "\n".join(
+    f"f {a} {b} {c}"
+    for a, b, c in [(1, 3, 7), (1, 7, 5), (2, 6, 8), (2, 8, 4), (1, 2, 4), (1, 4, 3),
+                    (5, 7, 8), (5, 8, 6), (1, 5, 6), (1, 6, 2), (3, 4, 8), (3, 8, 7)]
+) + "\n"  # tests/test_mesh_contact.py's unit cube, wound outward
+
+
+def cube_obj():
+    """The unit cube's OBJ file, written under build/ in this checkout."""
+    path = REPO / "build" / "mesh" / "cube.obj"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(CUBE_OBJ)
+    return str(path)
+
+
+def stack_world(dtype, device):
+    """tests/test_mesh_contact.py's stack: a static unit mesh cube (4
+    candidates) at z = 0.5 and a 0.6-scale mesh cube of 1 kg over it."""
+    import dataclasses
+
+    import numpy as np
+
+    from tds_tpu_torch.contact.mlcp import ContactSolverParams
+    from tds_tpu_torch.model.geometry import GeomAttachment, Mesh
+    from tds_tpu_torch.model.multibody import MultiBodyBuilder
+    from tds_tpu_torch.world import build_world
+
+    m = Mesh(file_name=cube_obj(), max_contacts=4)
+    b = MultiBodyBuilder(is_floating=True, name="mesh_cube_dyn")
+    b.set_base_inertia(1.0, (0, 0, 0), np.diag([0.36 / 6.0] * 3))
+    cube = b.finalize(dtype=dtype, device=device)
+    static = MultiBodyBuilder(name="mesh_cube_static").finalize(dtype=dtype, device=device)
+    return build_world(
+        [(static, (GeomAttachment(link_index=-1, shape=m, pos=(0.0, 0.0, 0.5), friction=0.8),)),
+         (cube, (GeomAttachment(link_index=-1, shape=dataclasses.replace(m, scale=(0.6, 0.6, 0.6)), friction=0.8),))],
+        solver=ContactSolverParams(friction=0.8, restitution=0.0),
+    )
+
+
+def stack_start(world, batch, z, dtype, device, seed):
+    """(qs, qds): the cube at rest at height ``z``, env 0 at x = y = 0, the
+    others offset by U(-5 cm, +5 cm) in x and y from a seeded generator."""
+    cube = world.bodies[1]
+    q = cube.zero_q((batch,))
+    offsets = (torch.rand(batch, 2, generator=torch.Generator().manual_seed(seed), dtype=torch.float64) - 0.5) * 0.1
+    offsets[0] = 0.0
+    q[:, 4:6] = offsets.to(device, dtype)
+    q[:, 6] = z
+    ground = q.new_zeros(batch, 0)
+    return (ground, q), (ground, cube.zero_qd((batch,)))
+
+
+def stack_drop(dtype, label):
+    """STACK_BATCH cubes dropped from 1.35 m onto the static cube for
+    STACK_STEPS steps of world_rollout's graph in ``dtype``: (world, start,
+    final qs and qds, K1's wrapper launches counted from 0 just before and
+    read just after, the seconds of a replay, the share of the batch at
+    test_mesh_contact.py's thresholds and the mask of those that meet
+    them)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.utils import graphs
+    from tds_tpu_torch.world import world_rollout
+
+    world = stack_world(dtype, "cuda")
+    qs, qds = stack_start(world, STACK_BATCH, 1.35, dtype, "cuda", 6)
+    gravity = torch.tensor((0.0, 0.0, -9.81), dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    (fq, fqd), drop_s = timed_call(lambda: world_rollout(world, qs, qds, gravity, 1e-3, STACK_STEPS))
+    launches = pgs.launches
+    check_wrapper_launches(label, "PGS", launches, cached)
+    _, replay_s = timed_call(lambda: world_rollout(world, qs, qds, gravity, 1e-3, STACK_STEPS))
+    z, speed = fq[1][:, 6], fqd[1].abs().amax(-1)
+    meets = ((z - 1.3).abs() < 0.03) & (speed < 0.1) & torch.isfinite(fq[1]).all(-1)
+    nodes = [g.nodes for g in graph_lines(label, "world_rollout", world)]
+    log(f"{label}: {STACK_BATCH} mesh cubes dropped on the static one for {STACK_STEPS} {str(dtype)[6:]} steps through graphs: "
+        f"{drop_s:.2f} s with the capture, replayed {replay_s * 1e3 / STACK_STEPS:.3f} ms/step = "
+        f"{STACK_BATCH * STACK_STEPS / replay_s:.1f} env-steps/s; graph {nodes} nodes; K1 wrapper launches {launches}; env 0: "
+        f"z {z[0].item():.4f} (1.3 +- 0.03), max |qd| {speed[0].item():.2e} (< 0.1); {int(meets.sum())} of {STACK_BATCH} "
+        f"({100 * meets.double().mean().item():.1f}%) meet both")
+    return world, (qs, qds, gravity), launches, replay_s, nodes, meets, z
+
+
+def mesh_stack(card):
+    """(b): the mesh-cube stack: float64 card against CPU over EAGER_STEPS
+    steps of 8 envs in contact from the start (1 mm in, some tilted),
+    within 1e-10 abs + rel; then the drop of STACK_BATCH cubes (stack_drop)
+    in float32, printed as a measurement (it does not settle: the JAX
+    package's float32 stack fails the same way), and in float64, held: env
+    0 at test_mesh_contact.py's thresholds, the share of the batch, K1 (n =
+    24) once a replayed step in a trace, K1 against its plain version on a
+    step's operands, timed."""
+    from tds_tpu_torch.world import world_rollout, world_step
+
+    cpu_world, gpu_world = stack_world(torch.float64, "cpu"), stack_world(torch.float64, "cuda")
+    qs, qds = stack_start(cpu_world, 8, 1.299, torch.float64, "cpu", 5)
+    qs[1][1::2, :4] = torch.tensor([0.02, -0.03, 0.01, 1.0], dtype=torch.float64) / math.sqrt(1 + 0.02**2 + 0.03**2 + 0.01**2)
+    gravity = torch.tensor((0.0, 0.0, -9.81), dtype=torch.float64)
+    got = world_rollout(gpu_world, tuple(q.cuda() for q in qs), tuple(q.cuda() for q in qds), gravity.cuda(), 1e-3, EAGER_STEPS)
+    want = world_rollout(cpu_world, qs, qds, gravity, 1e-3, EAGER_STEPS)
+    worst = max((g[1].cpu() - w[1]).abs().max().item() for g, w in zip(got, want))
+    if max(excess(g[1].cpu(), w[1], 1e-10) for g, w in zip(got, want)) > 0:
+        raise AssertionError(f"stack (b): the card and the CPU differ by {worst:.3e}")
+    log(f"stack (b): {EAGER_STEPS} float64 steps of the mesh-cube stack at batch 8 in contact through graphs on the card against "
+        f"the CPU: max |cuda - cpu| = {worst:.3e} (1e-10 abs + rel)")
+    *_, meets32, z32 = stack_drop(torch.float32, "stack (b) float32, a measurement")
+    world, (qs, qds, g64), launches, replay_s, nodes, meets, z = stack_drop(torch.float64, "stack (b) float64")
+    if not bool(meets[0]):
+        raise AssertionError(f"stack (b): env 0 ends at z {z[0].item():.4f}")
+    ops, busy, wall, k1 = k1_launches_trace("stack (b)", lambda: world_rollout(world, qs, qds, g64, 1e-3, PROFILE_STEPS), 1)
+    mid = world_rollout(world, qs, qds, g64, 1e-3, 300)
+    with recorded_pgs_calls() as calls:
+        world_step(world, *mid, None, g64, 1e-3)
+    if [c[1].shape[-1] for c in calls] != [24]:
+        raise AssertionError(f"stack (b): the step's PGS calls have {[c[1].shape[-1] for c in calls]} rows, not [24]")
+    (solve,) = k1_on_calls("the mesh stack", calls, card, "stack (b)")
+    numbers = {"stack_float64_card_vs_cpu": worst, "stack_ms_per_step": replay_s * 1e3 / STACK_STEPS, "stack_graph_nodes": nodes,
+               "stack_env0_z": z[0].item(), "stack_share": meets.double().mean().item(),
+               "stack_float32_share": meets32.double().mean().item(), "stack_float32_env0_z": z32[0].item()}
+    return {"name": "pgs n=24 mesh stack", "launches": launches, "replayed_launches_per_step": k1 / PROFILE_STEPS, **solve,
+            "main_path": f"the mesh-cube stack, {STACK_BATCH} cubes x {STACK_STEPS} float64 steps (phase 18 (b))"}, numbers
+
+
+def raycasts():
+    """(c): cast_rays over examples/raycast_example.py's sphere, box and
+    plane and the unit mesh cube, a RAY_GRID x RAY_GRID grid of downward
+    rays, float64 on the card against the CPU: fractions within 1e-12,
+    geom_index identical; the card's time (median of 5 event spans)."""
+    from tds_tpu_torch.algebra.transform import Transform
+    from tds_tpu_torch.collision.raycast import cast_rays
+    from tds_tpu_torch.model.geometry import Box, Mesh, Plane, Sphere
+
+    shapes = [Sphere(0.5), Box((0.8, 0.8, 0.8)), Plane((0.0, 0.0, 1.0), 0.0), Mesh(file_name=cube_obj())]
+
+    def placed(device):
+        eye = torch.eye(3, dtype=torch.float64, device=device)
+        return [Transform(pos=torch.tensor(p, dtype=torch.float64, device=device), rot=eye)
+                for p in ((-0.8, 0.0, 0.5), (0.8, 0.0, 0.4), (0.0, 0.0, 0.0), (0.0, -1.2, 0.5))]
+
+    xs = torch.linspace(-2.0, 2.0, RAY_GRID, dtype=torch.float64)
+    gx, gy = torch.meshgrid(xs, xs, indexing="xy")
+    origins = torch.stack([gx, gy, torch.full_like(gx, 3.0)], -1).reshape(-1, 3)
+    targets = torch.stack([gx, gy, torch.full_like(gx, -1.0)], -1).reshape(-1, 3)
+    o, t, xf = origins.cuda(), targets.cuda(), placed("cuda")
+    got = cast_rays(o, t, shapes, xf)
+    want = cast_rays(origins, targets, shapes, placed("cpu"))
+    err = (got.fraction.cpu() - want.fraction).abs().max().item()
+    if err > 1e-12 or not torch.equal(got.geom_index.cpu(), want.geom_index):
+        raise AssertionError(f"raycast (c): the card's fractions differ by {err:.3e} or its geom_index differs")
+    ms = span_ms(lambda: cast_rays(o, t, shapes, xf), reps=5)
+    counts = torch.bincount(want.geom_index.long() + 1, minlength=5).tolist()
+    log(f"raycast (c): cast_rays of {RAY_GRID}x{RAY_GRID} rays over a sphere, a box, a plane and a mesh cube, float64: max "
+        f"|cuda - cpu| fraction {err:.3e} (1e-12), geom_index identical (misses, sphere, box, plane, mesh: {counts}); "
+        f"{ms:.3f} ms on the card (event span)")
+    return {"raycast_max_abs": err, "raycast_ms": ms, "raycast_counts": counts}
+
+
+def phase_collision(card, card_line):
+    """Phase 18: the rest of collision on the card. Returns the kernels
+    line's entries of K1 on the Panda push's three solves (n = 3, 24, 3)
+    and on the mesh stack (n = 24), and the numbers."""
+    numbers = {}
+    with sub_phase("panda (a) seconds"):
+        numbers["panda_float64_card_vs_cpu"] = panda_device_vs_cpu()
+        panda, panda_numbers = panda_push_path(card, card_line)
+    numbers.update(panda_numbers)
+    with sub_phase("stack (b) seconds"):
+        stack, stack_numbers = mesh_stack(card)
+    numbers.update(stack_numbers)
+    with sub_phase("raycast (c) seconds"):
+        numbers.update(raycasts())
+    common = {"route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None,
+              "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)"}
+    entries = [{**entry, **common} for entry in (*panda, stack)]
+    for entry in entries:
+        log(f"collision: {json.dumps(entry)}")
+    log(f"collision: {json.dumps(numbers)}")
+    return entries, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -3998,12 +4332,13 @@ def main():
     jvp, ppo_numbers = timed(phase_forward_and_ppo, card, card_line)
     floating, floating_numbers = timed(phase_floating, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
     mpc, mpc_numbers = timed(phase_mpc, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
+    collision, collision_numbers = timed(phase_collision, card, card_line)
     # the paths' numbers on a line of their own, so that the kernels line stays short
     numbers = {f"main_path_{k}": v for k, v in main_path.items() if k != "launches"}
-    for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, timed(phase_graphs, start_s)):
+    for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, collision_numbers, timed(phase_graphs, start_s)):
         numbers.update(part)
     print(json.dumps({"numbers": numbers}))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, *collision, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -3,22 +3,27 @@ tds_tpu/collision/narrowphase.py). Every pair function emits its fixed
 number of candidate points; the ``distance`` field decides activity
 downstream by masking:
 
-- plane-sphere (1 candidate), which the laikago slice collides, and
-  plane-capsule (2: one sphere probe at each end of the axis), which the
-  ant and the hopper collide;
+- sphere-sphere, plane-sphere, sphere-box and capsule-sphere (1
+  candidate each), plane-capsule (2: one sphere probe at each end of the
+  axis), plane-box (8: a shrunk sphere at each corner);
 - the terrains: sphere-heightfield and sphere-mesh (``max_contacts`` each:
   the nearest triangles' closest points), capsule-heightfield and
   capsule-mesh (twice that, the two end probes), plane-mesh (the
-  ``max_contacts`` deepest vertices).
+  ``max_contacts`` deepest vertices);
+- box-mesh (8 ``max_contacts``: the corner spheres against the mesh) and
+  mesh-mesh (``max_contacts`` of the larger per direction, each mesh's
+  vertices probing the other's surface, and ``edge_contacts`` more per
+  direction when both meshes set it: closest points between edges).
 
 Contacts are ``Contact`` tuples with fields shaped (B, k, 3) / (B, k). A
 shape pair's candidates come in the JAX package's order: where it picks
 the k nearest with ``jax.lax.top_k`` (nearest first, the lower index first
 among equal distances), the port takes a stable ``argsort``, whose first k
-come in that order. The row order is the Gauss-Seidel order of the contact
-solve, so it is part of the result. Sphere-sphere, capsule-sphere, every
-box pair and mesh-mesh raise NotImplementedError in
-:func:`compute_contacts` (ROADMAP Queue 1 item 9).
+come in that order, and where it picks one with ``argmin``, the first
+index among equal values wins, as ``torch.argmin``'s does. The row order is
+the Gauss-Seidel order of the contact solve, so it is part of the result.
+Clips and floors are ``torch.maximum``/``torch.minimum``, whose gradient
+splits half and half at a tie as ``jnp.clip``'s and ``jnp.maximum``'s do.
 """
 
 from typing import NamedTuple
@@ -28,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from tds_tpu_torch.algebra.spatial import matvec
+from tds_tpu_torch.algebra.spatial import cross, matvec
 from tds_tpu_torch.algebra.transform import Transform
 from tds_tpu_torch.model.geometry import Box, Capsule, Heightfield, Mesh, Plane, Sphere
 from tds_tpu_torch.utils.obj import mesh_data
@@ -90,6 +95,112 @@ def safe_norm(v):
     sq = (v * v).sum(-1)
     positive = sq > 0
     return torch.where(positive, torch.where(positive, sq, 1.0).sqrt(), 0.0)
+
+
+def at_least(x, floor: float):
+    """``jnp.maximum(x, floor)``: at a tie the gradient splits half and half."""
+    return torch.maximum(x, torch.full_like(x, floor))
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``, ``minimum(maximum(x, lo), hi)`` with its
+    half-and-half gradient at a bound (``torch.clamp`` passes all of it);
+    the bounds are numbers or tensors that broadcast against ``x``."""
+    lo = torch.full_like(x, lo) if isinstance(lo, (int, float)) else lo
+    hi = torch.full_like(x, hi) if isinstance(hi, (int, float)) else hi
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def sphere_sphere(sa: Sphere, xa: Transform, sb: Sphere, xb: Transform) -> Contact:
+    """Two spheres: the normal on b points from b's centre toward a's."""
+    diff = xa.pos - xb.pos
+    length = safe_norm(diff)
+    normal = diff / at_least(length, 1e-12)[..., None]
+    distance = length - (sa.radius + sb.radius)
+    point_a = xa.pos - sa.radius * normal
+    point_b = point_a - distance[..., None] * normal
+    return Contact(
+        normal_on_b=normal[..., None, :],
+        point_a=point_a[..., None, :],
+        point_b=point_b[..., None, :],
+        distance=distance[..., None],
+    )
+
+
+def _box_corners(box: Box, dtype, device):
+    """(the 8 shrunk corners (8, 3) in the box frame, their sphere's radius):
+    spheres of radius r = 1e-2 (the reference's least corner radius; a box
+    carries none of its own) inside the corners, x the outer loop and +
+    before -, the JAX package's order."""
+    r = 1e-2
+    he = [0.5 * e - r for e in box.extents]
+    corners = tuple(
+        (sx * he[0], sy * he[1], sz * he[2]) for sx in (1.0, -1.0) for sy in (1.0, -1.0) for sz in (1.0, -1.0)
+    )
+    return constant(corners, dtype, device), r
+
+
+def plane_box(pa: Plane, xa: Transform, bb: Box, xb: Transform) -> Contact:
+    """Eight corner-sphere probes against the plane."""
+    corners, r = _box_corners(bb, xb.pos.dtype, xb.pos.device)
+    centers = torch.einsum("...ij,kj->...ki", xb.rot, corners) + xb.pos[..., None, :]  # (..., 8, 3)
+    n = constant(tuple(pa.normal), xb.pos.dtype, xb.pos.device)
+    t = (centers * n).sum(-1) - pa.constant
+    point_b = centers - r * n
+    return Contact(
+        normal_on_b=(-n).expand(point_b.shape),
+        point_a=centers - t[..., None] * n,
+        point_b=point_b,
+        distance=t - r,
+    )
+
+
+# the outward normals of a box's faces in the order of sphere_box's face
+# distances: +x, -x, +y, -y, +z, -z
+_FACE_NORMALS = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
+
+
+def sphere_box(sa: Sphere, xa: Transform, bb: Box, xb: Transform) -> Contact:
+    """Branchless sphere-box: the sphere's centre clipped to the box; a
+    centre inside the box is pushed out through its nearest face (the
+    first of +x, -x, +y, -y, +z, -z among equal distances)."""
+    dtype, device = xa.pos.dtype, xa.pos.device
+    he = constant(tuple(0.5 * e for e in bb.extents), dtype, device)
+    rel = xb.apply_inverse_point(xa.pos)
+    closest = clip(rel, -he, he)
+    delta = rel - closest
+    dist_out = safe_norm(delta)
+    outside = dist_out > 1e-12
+    n_out = delta / at_least(dist_out, 1e-12)[..., None]
+    # inside: the distance to each face, the nearest face taken
+    face_d = torch.stack(
+        [he[0] - rel[..., 0], he[0] + rel[..., 0], he[1] - rel[..., 1], he[1] + rel[..., 1], he[2] - rel[..., 2], he[2] + rel[..., 2]],
+        dim=-1,
+    )
+    face = face_d.argmin(-1)
+    n_in = constant(_FACE_NORMALS, dtype, device)[face]
+    d_in = -face_d.gather(-1, face[..., None])[..., 0]
+    closest_in = rel - d_in[..., None] * n_in
+    n_local = torch.where(outside[..., None], n_out, n_in)
+    dist_center = torch.where(outside, dist_out, d_in)
+    closest_local = torch.where(outside[..., None], closest, closest_in)
+    normal = matvec(xb.rot, n_local)
+    return Contact(
+        normal_on_b=normal[..., None, :],
+        point_a=(xa.pos - sa.radius * normal)[..., None, :],
+        point_b=xb.apply_point(closest_local)[..., None, :],
+        distance=(dist_center - sa.radius)[..., None],
+    )
+
+
+def capsule_sphere(ca: Capsule, xa: Transform, sb: Sphere, xb: Transform) -> Contact:
+    """The sphere against the nearest point of the capsule's axis segment,
+    as sphere-sphere."""
+    half = 0.5 * ca.length
+    t = clip(xa.apply_inverse_point(xb.pos)[..., 2], -half, half)
+    zero = torch.zeros_like(t)
+    center = xa.apply_point(torch.stack([zero, zero, t], dim=-1))
+    return sphere_sphere(Sphere(ca.radius), Transform(pos=center, rot=xa.rot), sb, xb)
 
 
 def nearest(distance, k: int):
@@ -316,6 +427,117 @@ def capsule_mesh(ca: Capsule, xa: Transform, mb: Mesh, xb: Transform) -> Contact
     return _capsule_probes(sphere_mesh, ca, xa, mb, xb)
 
 
+def box_mesh(ba: Box, xa: Transform, mb: Mesh, xb: Transform) -> Contact:
+    """Eight shrunk corner-sphere probes against the mesh, as plane-box's:
+    8 max_contacts candidates, corner by corner."""
+    corners, r = _box_corners(ba, xa.pos.dtype, xa.pos.device)
+    sphere = Sphere(r)
+    return Contact.concatenate(
+        [sphere_mesh(sphere, Transform(pos=xa.apply_point(corner), rot=xa.rot), mb, xb) for corner in corners.unbind(0)]
+    )
+
+
+def _triangle_normals(ta, tb, tc):
+    """Unit normals of triangles wound counter-clockwise seen from outside."""
+    n = cross(tb - ta, tc - ta)
+    return n / at_least(safe_norm(n), 1e-12)[..., None]
+
+
+def _probe_points_vs_mesh(p, mesh: Mesh, xs: Transform, k: int):
+    """The k deepest of the probe points ``p`` (..., P, 3) against the
+    surface of ``mesh`` placed by ``xs``: each probe's closest point over
+    the triangles, the nearest triangle's (the first among equal distances)
+    outward normal giving the sign (exact for convex surfaces, a local test
+    for closed meshes wound consistently). Returns the k chosen probes'
+    (points, surface points, outward normals) (..., k, 3) and signed
+    distances (..., k), negative inside."""
+    ta, tb, tc = _world_triangles(mesh, xs)  # (..., T, 3)
+    nrm = _triangle_normals(ta, tb, tc)
+    closest = _closest_point_on_triangles(
+        p[..., :, None, :], ta[..., None, :, :], tb[..., None, :, :], tc[..., None, :, :]
+    )  # (..., P, T, 3)
+    # a static body's points or surface carry no batch axis: give it theirs
+    batch = closest.shape[:-3]
+    p, nrm = p.expand(*batch, *p.shape[-2:]), nrm.expand(*batch, *nrm.shape[-2:])
+    dist = safe_norm(p[..., :, None, :] - closest)  # (..., P, T)
+    tmin = dist.argmin(-1)  # (..., P) the nearest triangle
+    d_near = dist.gather(-1, tmin[..., None])[..., 0]
+    c_near = closest.gather(-2, tmin[..., None, None].expand(*tmin.shape, 1, 3))[..., 0, :]
+    n_near = _take(nrm, tmin)
+    side = torch.sign(((p - c_near) * n_near).sum(-1))
+    side = torch.where(side == 0, 1.0, side)
+    distance, idx = nearest(side * d_near, k)
+    return _take(p, idx), _take(c_near, idx), _take(n_near, idx), distance
+
+
+def _closest_point_segments(p1, q1, p2, q2, eps=1e-12):
+    """Branchless closest points between the segments [p1, q1] and [p2, q2]
+    (Ericson, Real-Time Collision Detection 5.1.9, clamped): s for parallel
+    segments 0, t solved for s and clipped, then s solved again for the
+    clipped t. The inputs broadcast; returns (c1 on segment 1, c2 on 2)."""
+    d1 = q1 - p1
+    d2 = q2 - p2
+    r = p1 - p2
+    a = (d1 * d1).sum(-1)
+    e = (d2 * d2).sum(-1)
+    f = (d2 * r).sum(-1)
+    c = (d1 * r).sum(-1)
+    b = (d1 * d2).sum(-1)
+    denom = a * e - b * b
+    s = torch.where(denom > eps, clip((b * f - c * e) / at_least(denom, eps), 0.0, 1.0), 0.0)
+    t = clip((b * s + f) / at_least(e, eps), 0.0, 1.0)
+    s = clip((b * t - c) / at_least(a, eps), 0.0, 1.0)
+    return p1 + s[..., None] * d1, p2 + t[..., None] * d2
+
+
+@functools.lru_cache(maxsize=64)
+def _mesh_edges(file_name: str, scale, device: torch.device):
+    """The mesh's unique undirected edges: (first, second) vertex indices,
+    each (E,), sorted as ``numpy.unique`` sorts the (low, high) pairs."""
+    _, tris = mesh_data(file_name, scale)
+    e = np.sort(np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]]), axis=1)
+    edges = torch.from_numpy(np.ascontiguousarray(np.unique(e, axis=0).T, dtype=np.int64)).to(device)
+    return edges[0], edges[1]
+
+
+def _world_edge_endpoints(mesh: Mesh, x: Transform):
+    """The endpoints of the mesh's edges, each (..., E, 3), placed by ``x``."""
+    w = _world_vertices(mesh, x)
+    first, second = _mesh_edges(mesh.file_name, mesh.scale, x.pos.device)
+    return w.index_select(-2, first), w.index_select(-2, second)
+
+
+def mesh_mesh(ma: Mesh, xa: Transform, mbb: Mesh, xb: Transform) -> Contact:
+    """Mesh against mesh, both ways: A's vertices probe B's surface, then
+    B's probe A's, k = the larger ``max_contacts`` deepest of each. With
+    ``edge_contacts`` = k_e on both meshes, the closest point of each of A's
+    edges to each of B's probes B's surface and the one on B's edge probes
+    A's, the k_e deepest of each (crossing edges touch where no vertex is:
+    two cubes meeting edge on edge). O(E_a E_b T): for small meshes.
+
+    A probe lying exactly on the other surface (equal cubes side by side,
+    their side faces coincident) measures 0 to that face, which may hide a
+    deeper penetration through another: the signed distance is local."""
+    k = int(max(ma.max_contacts, mbb.max_contacts))
+    pa1, pb1, n1, d1 = _probe_points_vs_mesh(_world_vertices(ma, xa), mbb, xb, k)
+    pb2, pa2, n2, d2 = _probe_points_vs_mesh(_world_vertices(mbb, xb), ma, xa, k)
+    parts = [
+        Contact(normal_on_b=n1, point_a=pa1, point_b=pb1, distance=d1),
+        Contact(normal_on_b=-n2, point_a=pa2, point_b=pb2, distance=d2),  # B's probes: roles swapped back
+    ]
+    k_e = int(min(ma.edge_contacts, mbb.edge_contacts))
+    if k_e > 0:
+        a0, a1 = _world_edge_endpoints(ma, xa)
+        b0, b1 = _world_edge_endpoints(mbb, xb)
+        ca, cb = _closest_point_segments(a0[..., :, None, :], a1[..., :, None, :], b0[..., None, :, :], b1[..., None, :, :])
+        pe1, se1, ne1, de1 = _probe_points_vs_mesh(ca.flatten(-3, -2), mbb, xb, k_e)
+        parts.append(Contact(normal_on_b=ne1, point_a=pe1, point_b=se1, distance=de1))
+        pe2, se2, ne2, de2 = _probe_points_vs_mesh(cb.flatten(-3, -2), ma, xa, k_e)
+        # the probes lie on B's edges here, the surface points on A
+        parts.append(Contact(normal_on_b=-ne2, point_a=se2, point_b=pe2, distance=de2))
+    return Contact.concatenate(parts)
+
+
 def flip(contact: Contact) -> Contact:
     """Swap the roles of a and b."""
     return Contact(
@@ -327,30 +549,31 @@ def flip(contact: Contact) -> Contact:
 
 
 _PAIR_TABLE = {
+    (Sphere, Sphere): (sphere_sphere, False),
     (Plane, Sphere): (plane_sphere, False),
     (Plane, Capsule): (plane_capsule, False),
+    (Plane, Box): (plane_box, False),
+    (Sphere, Box): (sphere_box, False),
+    (Capsule, Sphere): (capsule_sphere, False),
     (Plane, Mesh): (plane_mesh, False),
     (Sphere, Mesh): (sphere_mesh, False),
     (Capsule, Mesh): (capsule_mesh, False),
+    (Box, Mesh): (box_mesh, False),
+    (Mesh, Mesh): (mesh_mesh, False),
     (Sphere, Heightfield): (sphere_heightfield, False),
     (Capsule, Heightfield): (capsule_heightfield, False),
     # reversed pairs
     (Sphere, Plane): (plane_sphere, True),
     (Capsule, Plane): (plane_capsule, True),
+    (Box, Plane): (plane_box, True),
+    (Box, Sphere): (sphere_box, True),
+    (Sphere, Capsule): (capsule_sphere, True),
     (Mesh, Plane): (plane_mesh, True),
     (Mesh, Sphere): (sphere_mesh, True),
     (Mesh, Capsule): (capsule_mesh, True),
+    (Mesh, Box): (box_mesh, True),
     (Heightfield, Sphere): (sphere_heightfield, True),
     (Heightfield, Capsule): (capsule_heightfield, True),
-}
-
-
-# pairs of ported shapes that the JAX package collides and the port does
-# not yet: compute_contacts raises for them rather than skipping the pair
-_UNPORTED_PAIRS = {
-    (Sphere, Sphere), (Capsule, Sphere), (Sphere, Capsule),
-    (Plane, Box), (Box, Plane), (Sphere, Box), (Box, Sphere),
-    (Box, Mesh), (Mesh, Box), (Mesh, Mesh),
 }
 
 
@@ -359,12 +582,6 @@ def supported(shape_a, shape_b) -> bool:
     ``max_contacts <= 0`` collides with nothing (a visual-only mesh)."""
     if any(isinstance(s, (Mesh, Heightfield)) and s.max_contacts <= 0 for s in (shape_a, shape_b)):
         return False
-    key = (type(shape_a), type(shape_b))
-    return key in _PAIR_TABLE or key in _UNPORTED_PAIRS
-
-
-def ported(shape_a, shape_b) -> bool:
-    """Whether :func:`compute_contacts` computes the pair (when it collides)."""
     return (type(shape_a), type(shape_b)) in _PAIR_TABLE
 
 
@@ -372,7 +589,7 @@ def compute_contacts(shape_a, xa: Transform, shape_b, xb: Transform) -> Contact:
     """Dispatch on the static shape types; a and b keep the argument order."""
     key = (type(shape_a), type(shape_b))
     if key not in _PAIR_TABLE:
-        raise NotImplementedError(f"collision pair {key} is not ported to tds_tpu_torch yet")
+        raise KeyError(f"unsupported collision pair {key}")
     fn, reversed_ = _PAIR_TABLE[key]
     if reversed_:
         return flip(fn(shape_b, xb, shape_a, xa))

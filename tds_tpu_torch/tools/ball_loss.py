@@ -1,8 +1,8 @@
 """A ball's shot on the plane and the gradient of where it stops, through
 ``world_step``'s MLCP contact: one ball of ``examples/billiard_optimization.py``
 (radius 6 cm, 0.17 kg, friction 0.2, restitution 0.9, 4 PGS sweeps, dt 2.5
-ms) rolling on the ground, without the second ball (sphere-sphere contact
-is not ported).
+ms) rolling on the ground; the example's second ball, the target it hits,
+is left out of this loss.
 
     python -m tds_tpu_torch.tools.ball_loss [--steps 100] [--device cpu]
 

@@ -7,13 +7,10 @@ quirks:
 - revolute/prismatic axes snap to X/Y/Z only when they are exact unit
   vectors, and other axes are used verbatim (not normalized);
 - URDF joint damping is dropped unless ``use_joint_damping``;
-- collision meshes are visual-only (skipped);
+- collision meshes are visual-only (skipped) unless ``mesh_contacts`` = K
+  > 0 opts them into the mesh narrowphase with K candidates each;
 - each geom carries its link's ``<contact>`` lateral friction and
   restitution, which ``world.gather_pair_contacts`` reads.
-
-Plane, sphere, capsule and box collision shapes are ported (the box as a
-descriptor only: ``collision.narrowphase`` raises on its pairs); cylinders
-and opted-in meshes raise NotImplementedError.
 """
 
 from typing import List, Tuple
@@ -21,7 +18,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tds_tpu_torch.model.geometry import Box, Capsule, GeomAttachment, Plane, Sphere
+from tds_tpu_torch.model.geometry import Box, Capsule, Cylinder, GeomAttachment, Mesh, Plane, Sphere
 from tds_tpu_torch.model.joints import JointType
 from tds_tpu_torch.model.multibody import MultiBodyBuilder, MultiBodyModel, np_rpy
 from tds_tpu_torch.urdf.structures import UrdfStructures
@@ -53,31 +50,32 @@ def _joint_type(urdf_type: str, axis) -> Tuple[JointType, Tuple[float, float, fl
     return general, axis
 
 
-def _shape(geom):
-    if geom.geom_type == "sphere":
+def _shape(geom, mesh_contacts: int = 0):
+    t = geom.geom_type
+    if t == "sphere":
         return Sphere(geom.radius)
-    if geom.geom_type == "plane":
-        return Plane(tuple(geom.normal), geom.constant)
-    if geom.geom_type == "box":
+    if t == "box":
         return Box(tuple(geom.extents))
-    if geom.geom_type == "capsule":
+    if t == "capsule":
         return Capsule(geom.radius, geom.length)
-    raise NotImplementedError(
-        f"{geom.geom_type!r} collision shapes are not ported to tds_tpu_torch yet"
-    )
+    if t == "cylinder":
+        return Cylinder(geom.radius, geom.length)
+    if t == "plane":
+        return Plane(tuple(geom.normal), geom.constant)
+    if t == "mesh":
+        return Mesh(geom.mesh_file, tuple(geom.mesh_scale), max_contacts=mesh_contacts)
+    raise ValueError(f"unknown geometry {t!r}")
 
 
 def _attachments(link_index, link, mesh_contacts) -> List[GeomAttachment]:
     out = []
     for col in link.collisions:
-        if col.geometry.geom_type == "mesh":
-            if mesh_contacts > 0:
-                raise NotImplementedError("URDF mesh contacts are not ported to tds_tpu_torch yet (ROADMAP Queue 1 item 9)")
+        if col.geometry.geom_type == "mesh" and mesh_contacts <= 0:
             continue  # visual-only, as in the reference
         out.append(
             GeomAttachment(
                 link_index=link_index,
-                shape=_shape(col.geometry),
+                shape=_shape(col.geometry, mesh_contacts),
                 pos=tuple(col.origin_xyz),
                 rpy=tuple(col.origin_rpy),
                 friction=link.contact.lateral_friction,

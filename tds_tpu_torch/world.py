@@ -79,20 +79,7 @@ def build_world(
     spring: SpringContactParams = SpringContactParams(),
     friction_mode: str = "geom_min",
 ) -> World:
-    """The world of the given bodies. Raises NotImplementedError on a pair of
-    geoms that :func:`resolve_contacts` would collide and the port cannot
-    yet, here rather than at the first step."""
-    for i, (body_a, geoms_a) in enumerate(bodies_and_geoms):
-        for body_b, geoms_b in bodies_and_geoms[i + 1 :]:
-            if body_a.dof_qd == 0 and body_b.dof_qd == 0:
-                continue
-            for ga in geoms_a:
-                for gb in geoms_b:
-                    if narrowphase.supported(ga.shape, gb.shape) and not narrowphase.ported(ga.shape, gb.shape):
-                        raise NotImplementedError(
-                            f"collision pair {type(ga.shape).__name__}-{type(gb.shape).__name__} is not ported to "
-                            "tds_tpu_torch yet"
-                        )
+    """The world of the given bodies, each with its collision geoms."""
     return World(
         bodies=tuple(b for b, _ in bodies_and_geoms),
         geoms=tuple(tuple(g) for _, g in bodies_and_geoms),

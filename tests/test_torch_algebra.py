@@ -7,6 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -21,6 +22,22 @@ from tds_tpu_torch.algebra import quaternion as t_quat  # noqa: E402
 from tds_tpu_torch.algebra import rotation as t_rot  # noqa: E402
 from tds_tpu_torch.algebra import spatial as t_spatial  # noqa: E402
 from tds_tpu_torch.algebra import transform as t_transform  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
 
 TOL = 1e-12
 B = 7

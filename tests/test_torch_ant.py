@@ -54,6 +54,22 @@ from tds_tpu_torch.model.geometry import Capsule, Plane, Sphere  # noqa: E402
 from tds_tpu_torch.tools import ars_train  # noqa: E402
 from tds_tpu_torch.urdf.cache import construct  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 URDF = "gym/ant_org_xyz_xyzrot.urdf"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,10 +155,18 @@ def test_plane_capsule_matches_jax():
 
 @pytest.mark.parametrize("pair", [(Capsule(0.1, 0.2), Sphere(0.1)), (Sphere(0.1), Capsule(0.1, 0.2))], ids=["capsule-sphere", "sphere-capsule"])
 def test_capsule_sphere_raises_rather_than_skipping(pair):
+    """Capsule-sphere, which the ant's own contacts never pair, is computed
+    now, neither skipped nor refused: a sphere centred 0.05 beyond the
+    capsule's +length/2 end overlaps it 0.15 deep, the normal along the
+    axis."""
     assert narrowphase.supported(*pair)
-    x = Transform(pos=torch.zeros(1, 3, dtype=torch.float64), rot=torch.eye(3, dtype=torch.float64).expand(1, 3, 3))
-    with pytest.raises(NotImplementedError):
-        narrowphase.compute_contacts(pair[0], x, pair[1], x)
+    centre = Transform(pos=torch.zeros(1, 3, dtype=torch.float64), rot=torch.eye(3, dtype=torch.float64).expand(1, 3, 3))
+    end = Transform(pos=torch.tensor([[0.0, 0.0, 0.15]], dtype=torch.float64), rot=centre.rot)
+    xs = (centre, end) if isinstance(pair[0], Capsule) else (end, centre)
+    got = narrowphase.compute_contacts(pair[0], xs[0], pair[1], xs[1])
+    torch.testing.assert_close(got.distance, torch.tensor([[-0.15]], dtype=torch.float64), rtol=0, atol=1e-15)
+    sign = -1.0 if isinstance(pair[0], Capsule) else 1.0  # the normal on b points from b toward a
+    torch.testing.assert_close(got.normal_on_b, torch.tensor([[[0.0, 0.0, sign]]], dtype=torch.float64), rtol=0, atol=1e-15)
 
 
 # -- top_k compaction --------------------------------------------------------

@@ -42,6 +42,34 @@ from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
 from tds_tpu_torch.learn import apg  # noqa: E402
 from tds_tpu_torch.learn.nn import Activation, MLPSpec  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def optimized_jax():
+    """The JAX package's default compiles for one test, whose JAX draws are
+    held bit for bit to recorded ones (this file's reference otherwise
+    compiles without XLA's optimisation passes, which moves a float32 draw
+    by an ulp)."""
+    jax.config.update("jax_disable_most_optimizations", False)
+    jax.clear_caches()  # jit's caches ignore the flag: compile the draws anew
+    yield
+    jax.config.update("jax_disable_most_optimizations", True)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -195,7 +223,7 @@ def test_committed_apg_policy_loads():
         apg_state_from_numpy(flat, (0, np.zeros(3), np.zeros(3)), device="cpu")
 
 
-def test_apg_reset_golden_matches_jax():
+def test_apg_reset_golden_matches_jax(optimized_jax):
     """tests/golden/laikago_apg_reset.json holds the JAX package's
     LaikagoEnv(dtype=float32).reset(PRNGKey(5)), the start of
     test_committed_apg_policy_walks: its joint noise and settled state,

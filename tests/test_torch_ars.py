@@ -33,6 +33,22 @@ from tds_tpu_torch.learn.nn import MLPSpec  # noqa: E402
 from tds_tpu_torch.learn.running_stat import RunningStat  # noqa: E402
 from tds_tpu_torch.tools import ars_train  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 LOGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "logs", "laikago_ars")
 CKPT = os.path.join(LOGS, "policy_r2b.pkl")
 # the parity start: a laikago policy whose obs_stat has a finite m2 (its

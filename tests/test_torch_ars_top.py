@@ -10,9 +10,27 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
 from test_torch_ars import check_port_iteration, jax_iteration  # noqa: E402
 from tds_tpu_torch.convert import load_checkpoint  # noqa: E402
 from tds_tpu_torch.tools import ars_train  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,18 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def unoptimized_jax():
+    """The JAX package's reference compiled without XLA's optimisation
+    passes: its compiles are most of this file's time, and its results
+    agree to rounding."""
+    optimized = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+
+
 def t(x):
     return torch.from_numpy(np.array(x, dtype=np.float64))
 

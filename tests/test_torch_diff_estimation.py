@@ -45,6 +45,22 @@ from tds_tpu_torch.utils.estimation import (  # noqa: E402
     gradient_descent,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 GRAVITY = (0.0, 0.0, -9.81)
 X0 = (0.4, -0.3, 0.2, 0.1)
 
@@ -103,7 +119,9 @@ def test_check_gradient_through_rollout():
 
 
 def test_pendulum_mass_sysid_follows_jax():
-    true_masses, steps, iterations = [0.9, 1.7], 300, 15
+    # 150 steps (0.15 s) of the swing identify the masses as 300 did, at
+    # half the CPU time
+    true_masses, steps, iterations = [0.9, 1.7], 150, 15
     q0, qd0 = (0.8, -0.2), (0.0, 0.0)
     g = torch.tensor(GRAVITY, dtype=torch.float64)
 

@@ -7,6 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -21,6 +22,22 @@ from tds_tpu_torch.dynamics.integrator import integrate_q as t_integrate_q  # no
 from tds_tpu_torch.dynamics.jacobian import point_jacobian_kin as t_jac  # noqa: E402
 from tds_tpu_torch.dynamics.kinematics import fk_links as t_fk  # noqa: E402
 from tds_tpu_torch.urdf.cache import construct as t_construct  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
 
 # tds_tpu.dynamics re-exports a function of this module's name
 j_fd = importlib.import_module("tds_tpu.dynamics.forward_dynamics")

@@ -72,6 +72,18 @@ def _one_thread():
     torch.set_num_threads(saved)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def unoptimized_jax():
+    """The JAX package's reference compiled without XLA's optimisation
+    passes: its compiles are most of this file's time, and its results
+    agree to rounding."""
+    optimized = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+
+
 def _inputs(model, seed):
     """Random states of the floating model (unit base quaternions), torques,
     link and base forces, 3 right-hand sides for M^-1 and a point."""

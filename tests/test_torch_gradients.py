@@ -18,7 +18,8 @@ held above a floor that this horizon clears by a factor of 4 or more.
   2e-4 and eps;
 - one gradient step on a trajectory-matching cost moves the friction
   toward the true value from 0.4 and from 0.9 (the JAX test's
-  ``test_friction_sysid_direction``, through the port alone);
+  ``test_friction_sysid_direction``, through the port alone, over 50
+  steps from a start 3 cm lower, whose feet slide from the first step);
 - ``World.friction_mode`` refuses other values, and ``"world_default"``
   takes the solver's friction where ``"geom_min"`` takes the geoms'.
 """
@@ -45,7 +46,24 @@ from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
 from tds_tpu_torch.tools import contact_loss  # noqa: E402
 from tds_tpu_torch.world import World  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 STEPS = 100
+SYSID_STEPS = 50
 
 
 def _jax_loss(env, steps):
@@ -116,8 +134,12 @@ def test_gradient_matches_central_differences(port, port_gradient):
 
 
 def test_friction_sysid_direction(port):
-    """One gradient step on (loss(mu) - loss(0.7))^2 moves mu toward 0.7."""
-    env, loss, _ = port
+    """One gradient step on (loss(mu) - loss(0.7))^2 moves mu toward 0.7:
+    over SYSID_STEPS steps from a start whose feet touch down at the
+    first step (0.44 m), so that friction acts throughout the shorter run."""
+    env, _, _ = port
+    q0, qd0, link = contact_loss.sliding_start(env, height=0.44)
+    loss = contact_loss.make_loss(env, q0, qd0, link, SYSID_STEPS)
     kp, ms, true_mu = 100.0, 1.0, 0.7
     with torch.no_grad():
         target = loss(*(torch.tensor(v, dtype=torch.float64) for v in (kp, ms, true_mu)))

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_ant import TOL, check_env_matches_jax, check_model_matches_jax, check_trainer, collide_jax, collide_port  # noqa: E402
@@ -20,6 +21,22 @@ from tds_tpu_torch.envs.hopper import HalfCheetahEnv, HopperEnv  # noqa: E402
 from tds_tpu_torch.model.geometry import Capsule  # noqa: E402
 from tds_tpu_torch.tools import ars_train  # noqa: E402
 from tds_tpu_torch.urdf.cache import construct  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
 
 URDF = "hopper_link0_1.urdf"
 CHEETAH_URDF = "cheetah_link0_1.urdf"

@@ -67,6 +67,34 @@ from tds_tpu_torch.envs.humanoid import HumanoidEnv  # noqa: E402
 from tds_tpu_torch.model.geometry import Capsule, Sphere  # noqa: E402
 from tds_tpu_torch.urdf.cache import construct  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def optimized_jax():
+    """The JAX package's default compiles for one test, whose JAX draws are
+    held bit for bit to recorded ones (this file's reference otherwise
+    compiles without XLA's optimisation passes, which moves a float32 draw
+    by an ulp)."""
+    jax.config.update("jax_disable_most_optimizations", False)
+    jax.clear_caches()  # jit's caches ignore the flag: compile the draws anew
+    yield
+    jax.config.update("jax_disable_most_optimizations", True)
+
 URDF = "humanoid_xyz_spherical.urdf"
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -381,7 +409,7 @@ def test_trained_policy_carried_across():
     close(got.numpy(), want, tol=TOL, what="actions")
 
 
-def test_policy_replay_starts_are_the_jax_tests(envs):
+def test_policy_replay_starts_are_the_jax_tests(envs, optimized_jax):
     """chip_smoke.py replays policy_curr2.pkl on the card from
     tests/golden/humanoid_policy_reset_noise.json: the joint noise that the
     JAX env's reset draws for tests/test_humanoid_policy.py's seeds."""

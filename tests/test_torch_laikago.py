@@ -27,6 +27,22 @@ from tds_tpu_torch.contact.mlcp import ContactSolverParams  # noqa: E402
 from tds_tpu_torch.envs.laikago import LaikagoEnv  # noqa: E402
 from tds_tpu_torch.model.geometry import Sphere  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "laikago_pd_contact_trajectory.json")
 TOL = 1e-10
 
@@ -200,8 +216,9 @@ def check_steps_match_jax(steps, seed, **kwargs):
 @pytest.mark.parametrize(
     "kwargs, error",
     [
-        # a terrain whose pair with the toes is not ported (sphere-sphere)
-        (dict(terrain=Sphere(1.0)), NotImplementedError),
+        # a sphere for the ground: ported, the toes collide with it sphere
+        # against sphere
+        (dict(terrain=Sphere(1.0)), None),
         # terrain, height_scan and reset_pool are ported: what they refuse
         (dict(height_scan=((0.0, 0.0),)), ValueError),
         (dict(reset_pool=(np.zeros((1, 17)), np.zeros((1, 18)))), ValueError),
@@ -216,7 +233,12 @@ def test_unported_options_raise(kwargs, error):
     refuses (a height scan without a terrain, a pool of the wrong width).
     Spring contact is ported: 10 steps against the JAX package at TOL (the
     20-step case is tests/test_torch_spring.py's), and the fused step K2,
-    whose source is the MLCP step, refuses it."""
+    whose source is the MLCP step, refuses it. A sphere for the ground is
+    ported: the toes' sphere-sphere contacts with it, gathered by the world
+    of each package from one seeded state, agree at TOL."""
+    if "terrain" in kwargs:
+        check_sphere_terrain_contacts()
+        return
     if error is None:
         check_steps_match_jax(10, 14, **kwargs)
         with pytest.raises(NotImplementedError, match="contact_model='spring'"):
@@ -224,6 +246,31 @@ def test_unported_options_raise(kwargs, error):
         return
     with pytest.raises(error):
         LaikagoEnv(dtype=torch.float64, device="cpu", **kwargs)
+
+
+def check_sphere_terrain_contacts():
+    """The laikago over a 1 m sphere in place of the plane: the candidates
+    of the ground-robot pair of both worlds (eager JAX) at a seeded pose."""
+    from tds_tpu.dynamics.kinematics import fk_links as j_fk_links
+    from tds_tpu.model import geometry as j_geometry
+    from tds_tpu.world import gather_pair_contacts as j_gather
+    from tds_tpu_torch.dynamics.kinematics import fk_links
+    from tds_tpu_torch.world import gather_pair_contacts
+
+    env = LaikagoEnv(dtype=torch.float64, device="cpu", terrain=Sphere(1.0))
+    j_env = JaxLaikago(dtype=jnp.float64, terrain=j_geometry.Sphere(1.0))
+    q, _ = env.initial_state(noise=torch.from_numpy(np.random.default_rng(3).uniform(-0.05, 0.05, (1, env.action_dim))))
+    q[:, :3] += torch.tensor([0.3, -0.2, 0.6], dtype=torch.float64)
+    ground, zero = torch.zeros(1, 0, dtype=torch.float64), torch.zeros_like(q[:, : env.model.dof_qd])
+    got = gather_pair_contacts(env.world, [fk_links(env.world.bodies[0], ground, ground), fk_links(env.model, q, zero)], 0, 1, q)
+    jq = jnp.asarray(q[0].numpy())
+    j_kins = [j_fk_links(j_env.world.bodies[0], jnp.zeros(0), jnp.zeros(0)), j_fk_links(j_env.model, jq, jnp.zeros(j_env.model.dof_qd))]
+    want = j_gather(j_env.world, j_kins, 0, 1, jnp.float64)
+    assert got.link_a == want.link_a and got.link_b == want.link_b and got.contact.count == 4
+    for field in got.contact._fields:
+        np.testing.assert_allclose(getattr(got.contact, field)[0].numpy(), np.asarray(getattr(want.contact, field)), rtol=TOL, atol=TOL,
+                                   err_msg=field)
+    assert float(got.contact.distance.min()) < 0  # the toes overlap the sphere
 
 
 @pytest.mark.parametrize(

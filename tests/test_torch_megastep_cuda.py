@@ -32,7 +32,10 @@ def cuda_device():
 @pytest.fixture(scope="module")
 def standing():
     """float64 states 100 steps after a standing start at batch 130 (every
-    env on the ground), and seeded actions in +-0.4."""
+    env on the ground), and seeded actions in +-0.4. Module-scoped, so set
+    up before ``cuda_device`` skips: it skips first itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the fused step kernel has no CPU mode")
     env = LaikagoEnv(dtype=torch.float64, device="cpu")
     params = fused_step.pack_step_params(env)
     rng = np.random.default_rng(7)

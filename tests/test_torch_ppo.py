@@ -199,6 +199,30 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def unoptimized_jax():
+    """The JAX package's reference compiled without XLA's optimisation
+    passes: its compiles are most of this file's time, and its results
+    agree to rounding."""
+    optimized = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+
+
+@pytest.fixture
+def optimized_jax():
+    """The JAX package's default compiles for one test, whose JAX draws are
+    held bit for bit to recorded ones (this file's reference otherwise
+    compiles without XLA's optimisation passes, which moves a float32 draw
+    by an ulp)."""
+    jax.config.update("jax_disable_most_optimizations", False)
+    jax.clear_caches()  # jit's caches ignore the flag: compile the draws anew
+    yield
+    jax.config.update("jax_disable_most_optimizations", True)
+
+
 def _eval_deterministic(env, nets, state, starts=8, n=300):
     """The mean policy's 300-step return, averaged over 8 starts drawn from
     a generator seeded 123."""
@@ -290,7 +314,7 @@ def test_trainer_command_line(tmp_path):
         assert hidden == 8 and all(torch.isfinite(v).all() for v in params.values()), metadata
 
 
-def test_ant_replay_starts_are_the_jax_tests():
+def test_ant_replay_starts_are_the_jax_tests(optimized_jax):
     with open(os.path.join(REPO, "tests", "golden", "ant_ppo_policy_reset_noise.json")) as f:
         recorded = json.load(f)
     assert recorded["seeds"] == [0, 7, 123, 42]

@@ -26,6 +26,22 @@ from tds_tpu_torch.convert import ppo_state_from_numpy  # noqa: E402
 from tds_tpu_torch.envs.ant import AntEnv  # noqa: E402
 from tds_tpu_torch.learn import ppo  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def cpu_settings():
+    """Torch on one thread: its many small operations gain nothing from
+    more, and the test workers' threads would contend for the cores. The
+    JAX package's reference compiled without XLA's optimisation passes:
+    its compiles are most of these tests' time, and its results agree to
+    rounding."""
+    threads, optimized = torch.get_num_threads(), jax.config.read("jax_disable_most_optimizations")
+    torch.set_num_threads(1)
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", optimized)
+    jax.clear_caches()  # jit's caches ignore the flag: drop the unoptimised executables
+    torch.set_num_threads(threads)
+
 TOL = 1e-8
 HIDDEN = (16, 16)
 CONFIG = dict(num_envs=2, unroll_length=4, num_minibatches=2, num_epochs=1, learning_rate=1e-3, init_log_std=-1.0)
