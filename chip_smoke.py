@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port, ``tds_tpu_torch``, on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rest-only    # phases 1, 2 and 19 alone, no result lines
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
@@ -11,8 +12,12 @@ and APG through K1's backward kernel), forward mode (jacfwd through K1's
 JVP kernel), PPO on the ant, floating bases (the floating laikago,
 balls through ``world_step`` and a ball's gradient), control and the
 rest of dynamics (the MPC trot walk of 4096 laikagos, spring contact, the
-CRBA and bf16 contact options), and the rest of collision (4096 Pandas
-pushing boxes, the mesh-cube stack, raycasts) through them.
+CRBA and bf16 contact options), the rest of collision (4096 Pandas
+pushing boxes, the mesh-cube stack, raycasts), and the rest of the port
+(4096 laikagos tracking the mocap dance through K2 and through K1, ARS
+split over ranks under NCCL and gloo and the trainer under torchrun, a
+pytinydiffsim-style script through the compat shim, a rendered frame)
+through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -38,7 +43,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    stores), with its launch shape there (lanes per env, envs per block,
    shared memory per block, resident warps per SM from the CUDA occupancy
    calculator, waves);
-4. device against CPU: 50 float64 ``sim_step``s at batch 8 on the card
+4. device against CPU: 20 float64 ``sim_step``s at batch 8 on the card
    (through the kernel) against the same on the CPU (plain version);
 5. main path: ``LaikagoEnv`` in float32 on the card, ``reset`` at batch 4096
    and a 100-step ``rollout`` of the zero linear policy through graphs,
@@ -53,7 +58,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``tests/test_trained_policy.py``, with the kernel's wrapper launches
    counted;
 7. mega step: the fused step kernel K2 (``tds_tpu_torch/envs/fused_step.py``)
-   against its plain version, 50 float64 steps at batch 8 on the card
+   against its plain version, 20 float64 steps at batch 8 on the card
    against the CPU and one float32 step at batch 16384 against the plain
    version and the eager ``sim_step`` on the card, all from states with
    active contact rows, with the margin left under each tolerance and both
@@ -95,7 +100,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    the plain version there, K1 on its operands against the plain
    version; (b) the ant's main path as phase 5's, with
    ``bench.py``'s ``ant_scan_rollout_env_steps_per_s`` (500 steps), then a
-   50-step hopper rollout; (c) 50 float64 ant steps at batch 16 on the
+   50-step hopper rollout; (c) 20 float64 ant steps at batch 16 on the
    card against the CPU, half the envs started with the torso on the
    ground, where the compaction drops candidates; (d)
    ``logs/ant_ars/policy.pkl`` replayed in float32 through ``rollout``
@@ -117,7 +122,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    humanoid's main path as phase 5's at batch 1024 for 200 steps, with
    ``bench.py``'s ``humanoid_scan_rollout_env_steps_per_s`` (200 steps,
    the timed replay), and the same number at ``top_k=8`` (24 rows, 50
-   steps, one timed run) as a measurement; (c) 50 float64 humanoid steps at batch 8 on the card
+   steps, one timed run) as a measurement; (c) 20 float64 humanoid steps at batch 8 on the card
    against the CPU, the feet in the ground, within 1e-9 abs + rel; (d)
    ``logs/humanoid_ars/policy_curr2.pkl`` replayed in float32 through
    graphs for 3000 steps from the 4 starts of
@@ -141,7 +146,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``laikago_terrain_scan_rollout_env_steps_per_s`` (500 steps, one timed
    run) and its eager counterpart, device operations, busy ms and idle share
    per step, one K1 a replayed step, then 50 steps on the ``Mesh`` form of
-   the terrain as a measurement; (c) 50 float64 steps at batch 8 on the
+   the terrain as a measurement; (c) 20 float64 steps at batch 8 on the
    card against the CPU on the heightfield and the mesh, q, qd and the
    observation within 1e-9 abs + rel; (d) ``policy_b4c.pkl`` and
    ``policy_r2b.pkl`` in float32 through graphs for 3000 steps on the +-4
@@ -177,7 +182,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    seconds and memory, and one backward kernel a replayed step in a trace;
    (d) ``logs/laikago_apg/policy_h100.pkl`` replayed for 500 steps from the
    JAX package's reset (``tests/golden/laikago_apg_reset.json``) at
-   ``test_committed_apg_policy_walks``'s thresholds; (e) 25 APG
+   ``test_committed_apg_policy_walks``'s thresholds; (e) 15 APG
    iterations of ``test_apg_through_laikago_contact``'s setup: finite
    grad norms, the last 5 returns' mean above the first;
 15. forward mode and PPO, run before phase 11: (a) K1's forward-mode
@@ -231,7 +236,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    operands, timed;
 17. control and the rest of dynamics, run before phase 11: (a) float64,
    card against CPU within 1e-9 abs + rel: the MPC walk
-   (``tds_tpu_torch.tools.mpc_walk``'s build) at batch 8 over 10 ticks of
+   (``tds_tpu_torch.tools.mpc_walk``'s build) at batch 8 over 4 ticks of
    5 substeps through graphs (q, qd, and the controller's torques at the
    start and the end), the spring laikago and the laikago under
    ``minv_method="crba"`` over 50 seeded steps, and one CRBA step against
@@ -249,7 +254,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    phase 5's MLCP figure; no PGS launch) and
    ``tests/test_spring_contact.py``'s ball: d(final z)/d(z0) over 400
    steps through the scan's VJP graph, within 1e-9 of the CPU's and at
-   rtol 1e-3 of central differences; (d) the laikago at batch 4096 for 200
+   rtol 1e-3 of central differences; (d) the laikago at batch 4096 for 100
    replayed steps under "aba", "crba" and "bf16" (ms/step each), K1
    against its plain version on the bf16 and the CRBA operands, timed, and
    the humanoid under "aba" and "crba" at batch 1024 (ms/step);
@@ -279,6 +284,42 @@ prints no final line (each phase and sub-phase prints its seconds):
    examples/raycast_example.py's sphere, box and plane and the unit mesh
    cube, 1024 x 1024 rays, float64 on the card against the CPU: fractions
    within 1e-12, ``geom_index`` identical, and its time;
+19. the rest of the port, run before phase 11: (a) ``tools/mocap_track.py``
+   as a user runs it, 4096 laikagos x
+   2500 float32 steps of ``laikago_dance_sidestep0.txt``, each at its own
+   speed in [0.8, 1.2] (env 0 at 1.0), a step a replayed graph, once
+   through K2 and once through the eager step (K1 at 12 rows): the
+   kernel's wrapper launches counted from 0 just before and read just
+   after, env-steps/s, the graph's nodes, env 0 held to the example's
+   criterion (joint RMS after the first fifth < 0.25 rad, base height >
+   0.2 m, up.z > 0.8) and the share of the batch that meets it, the
+   kernel in a trace of 20 replayed steps (20), and the kernel against its
+   plain version on the operands of a step from the final states, timed
+   (K2 held over every env but the ties: a toe within K2_TIE of the
+   plane and the float64 step nearer K2 or between the two); then 20
+   float64 steps of the tracking at batch 8 through the eager step (K1,
+   the toes touching) and graphs on the card against the CPU within 1e-9
+   abs + rel; (b) bench.py's ARS recipe with its directions split over
+   ranks, after a check that ARS's policy of per-env weights gives each
+   env the same bits at batch 256 as at 128 (einsum's difference
+   printed): (i) world size 1 under NCCL, joined in this process from the variables torchrun
+   sets, equal to the one-process iteration bit for bit; (ii) two
+   processes on the one card under gloo (this script with ``--ars-rank``),
+   64 directions each, in float32 and float64: both ranks equal bit for
+   bit, and within 1e-5 (float32) and 1e-12 (float64) abs + rel of one
+   process; (iii) ``torchrun --standalone --nproc_per_node=1 -m
+   tds_tpu_torch.tools.ars_train`` for 2 iterations writes its checkpoint
+   and its Experiment logs; s/iteration of (i) and (ii); (c) a
+   pytinydiffsim-style script through ``tds_tpu_torch.compat``: the
+   laikago through ``UrdfParser`` and ``TinyWorld`` (K1 at n = 12, B = 1 in
+   each ``world.step``), 100 float64 steps of tests/test_compat.py's loop
+   on the card within 1e-9 of the CPU, K1's launches (one a step) and its
+   count in a trace, K1 against its plain version, timed; then env 0 of
+   the mocap run rendered by ``visualizer.renderer`` from the card's state
+   and on the CPU, at most 0.1% of the pixels differing. A CPU process
+   beside (a) runs (a)'s float64 check on the CPU, (c)'s CPU run and the
+   frame's rasterisation; (ii)'s ranks start beside (a), use the card once
+   (i) is done, and run with (iii)'s trainer beside (c);
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -292,7 +333,8 @@ mode at n = 12, the other row counts inside it; K1 on the floating
 laikago (n = 12) and on the balls (n = 3) and K1's backward under the
 ball loss (n = 3); K1 on the MPC walk and on the bf16 Delassus operands
 (n = 12); K1 on the Panda push's three solves (n = 3, 24, 3, 10 sweeps)
-and on the mesh stack (n = 24); K2, K3, K4); the last
+and on the mesh stack (n = 24); K2 and K1 on the mocap dance and K1 on the
+compat script (n = 12, B = 1); K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -302,11 +344,14 @@ import functools
 import json
 import math
 import os
+import pickle
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from tds_tpu_torch.utils.timing import counted_trace, device_ms, device_trace, wall_ms
@@ -385,11 +430,11 @@ K1_ROWS, K1_BATCHES = (3, 6, 8, 9, 12, 24, 48, 51, 105), (1, 37, 4096)
 # (horizon 30, batch 2, truncation 10), and test_committed_apg_policy_walks's
 # replay of policy_h100.pkl (500 steps from the JAX package's reset)
 GRAD_ROWS = ((12, 4096), (24, 4096), (48, 4096), (105, 1024))
-CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 100
+CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 50
 APG_RECIPE = {"horizon": 100, "truncation": 20}
 APG_BATCHES, APG_TIMED_ITERATIONS = (4, 4096), 1
 APG_TEST = {"horizon": 30, "batch": 2, "truncation": 10}
-APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 25, 500
+APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 15, 500
 APG_CHECKPOINT = REPO / "logs" / "laikago_apg" / "policy_h100.pkl"
 APG_RESET = REPO / "tests" / "golden" / "laikago_apg_reset.json"
 # phase 15: jacfwd through a 20-step laikago contact rollout; PPO at
@@ -426,19 +471,50 @@ BREAKDOWN_STEPS, CHUNK_RUNS, TOP_K_STEPS, TOP_K_REPEATS, MEGA_EAGER_STEPS = 1, 2
 # graphs to, bit for bit (the path's whole rollout before: 100 steps, 200
 # on the humanoid's)
 EAGER_STEPS = 20
+# cut to make room for phase 19: the main paths' eager comparisons (20 steps
+# before), and the humanoid replay stops once every env is done (checked
+# every HUMANOID_REPLAY_CHUNK steps; 3000 steps always before)
+MAIN_EAGER_STEPS, HUMANOID_REPLAY_CHUNK = 10, 250
+# cut to make room for phase 19 (50 steps before; the contact loss's CPU
+# gradient 100, the MPC walk's check 10 ticks): the float64 card-against-CPU
+# comparisons' depth, whose CPU side runs the plain versions eagerly
+CARD_CPU_STEPS = 20  # and APG's learning check 15 iterations (25 before)
 # phase 17: examples/laikago_mpc_walk.py's walk at tests/test_mpc_walk.py's
 # 400 ticks x 5 substeps, env 0 from that test's start (the JAX package's
 # reset draws for its key, recorded in the JSON file); the card against the
-# CPU over 10 ticks at batch 8; the spring laikago's rollout and
+# CPU over 4 ticks at batch 8; the spring laikago's rollout and
 # tests/test_spring_contact.py's ball gradient (400 steps); the CRBA and
-# bf16 options over 200 replayed steps, the humanoid under CRBA over 50
+# bf16 options over 100 replayed steps (200 before phase 19), the humanoid
+# under CRBA over 50
 MPC_START = REPO / "tests" / "golden" / "laikago_mpc_walk_start.json"
-MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 10, 4
-SPRING_BALL_STEPS, OPTION_STEPS, HUMANOID_CRBA_STEPS = 400, 200, 50
+MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 4, 4
+SPRING_BALL_STEPS, OPTION_STEPS, HUMANOID_CRBA_STEPS = 400, 100, 50
 # phase 18: tools/panda_push.py's 1000 steps at batch 4096 (float64 card
 # against CPU at batch 8), tests/test_mesh_contact.py's mesh-cube stack
 # (1200 steps at batch 4096), cast_rays over a 1024 x 1024 grid
 PANDA_BATCH, PANDA_CHECK_BATCH, STACK_BATCH, STACK_STEPS, RAY_GRID = 4096, 8, 4096, 1200, 1024
+# phase 19: tools/mocap_track.py's 4096 laikagos x 2500 steps of the dance
+# through K2 and through the eager step (K1), float64 card against CPU at
+# batch 8; bench.py's ARS recipe split over ranks (2 processes on the one
+# card under gloo), all drawing from a generator seeded ARS_SHARD_SEED; a
+# pytinydiffsim-style script through compat (100 steps, B = 1); a rendered
+# frame. ARS_SHARD_TOL_*: abs + rel against one process: float32 per-env
+# results may differ in the last bit where a batched product runs at
+# another batch size
+MOCAP_BATCH, MOCAP_CHECK_BATCH = 4096, 8
+ARS_RANKS, ARS_SHARD_SEED, ARS_SHARD_TOL_F32, ARS_SHARD_TOL_F64 = 2, 19, 1e-5, 1e-12
+# K2_TIE: a contact sphere this close to the plane (m) may be a tie for
+# float32: the K2 and plain versions' roundings of its distance (their FK
+# sums in other orders) may decide its row differently, and the step then
+# differs by the contact impulse. An env with such a sphere that differs
+# beyond MEGA_TOL is a tie only where the float64 step sides with K2 (nearer
+# it than the plain step) or lies between the two (within MEGA_TOL); every
+# other env is held at MEGA_TOL (on the dance's final states, resting feet
+# put 426 of 4096 envs within 1e-6 m; 4 of them differed, the worst at
+# -1.3e-8 m by 2.0e-3 in q, K2 nearer the float64 step than the plain one)
+K2_TIE = 1e-6
+TORCHRUN_VARIABLES = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+COMPAT_URDF, COMPAT_STEPS, COMPAT_TRACE_STEPS, RENDER_TOL = "laikago/laikago_toes_zup_xyz_xyzrot.urdf", 100, 5, 1e-3
 
 
 def log(msg):
@@ -747,7 +823,7 @@ def phase_device_vs_cpu():
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.envs.laikago import LaikagoEnv
 
-    batch, steps, tol = 8, 50, 1e-9
+    batch, steps, tol = 8, CARD_CPU_STEPS, 1e-9
     # started 3 cm lower than the env's default, so that the toes touch the
     # ground from the first step and every step runs a contact solve
     start = (0.0, 0.0, 0.45)
@@ -913,7 +989,7 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
     wrapper launches counted from 0 just before and read just after (the
     warm-ups and the captures); every env must be alive with q[:, z_index]
     in ``z_range``. Then: the same rollout replayed again (graph ms/step),
-    and its first EAGER_STEPS steps replayed and run eagerly
+    and its first MAIN_EAGER_STEPS steps replayed and run eagerly
     (``graphs.eager()``, eager ms/step), which must agree bit for bit; PROFILE_STEPS replayed steps under torch.profiler (device
     operations, busy ms, and K1 kernels, exactly one a step); the graphs'
     statistics; with ``stages``, BREAKDOWN_STEPS eager steps' stage
@@ -945,7 +1021,7 @@ def drive_main_path(env, label, steps, z_index, z_range, card_line, bench=None, 
         raise AssertionError(f"{label}: the zero policy should stand: {int(alive.sum())}/{batch} alive, "
                              f"q[:, {z_index}] in [{z.min():.3f}, {z.max():.3f}]")
     _, graph_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, steps))
-    eager_steps = min(steps, EAGER_STEPS)
+    eager_steps = min(steps, MAIN_EAGER_STEPS)
     again = rollout(env, policy, None, state0, obs0, eager_steps)
     with graphs.eager():
         eager, eager_s = timed_call(lambda: rollout(env, policy, None, state0, obs0, eager_steps))
@@ -1095,7 +1171,7 @@ def phase_mega_step(card):
     from tds_tpu_torch.utils import op_count
 
     # float64, card against CPU, from phase 4's lowered start and actions
-    batch, steps, tol = 8, 50, 1e-9
+    batch, steps, tol = 8, CARD_CPU_STEPS, 1e-9
     start = (0.0, 0.0, 0.45)
     cpu_env = LaikagoEnv(dtype=torch.float64, device="cpu", start_base_position=start)
     cpu_params = fused_step.pack_step_params(cpu_env)
@@ -1718,7 +1794,7 @@ def penetrating(env, q):
 
 
 def ant_device_vs_cpu():
-    """(c): 50 float64 ant steps at batch 16, K1 on the card against the
+    """(c): CARD_CPU_STEPS float64 ant steps at batch 16, K1 on the card against the
     plain PGS on the CPU, within 1e-9 abs + rel. Half the envs start with
     the torso on the ground, where all 17 candidates penetrate and the
     compaction drops 9; the other half stand on their feet. The joint
@@ -1727,7 +1803,7 @@ def ant_device_vs_cpu():
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.envs.ant import AntEnv
 
-    batch, steps, tol = 16, 50, 1e-9
+    batch, steps, tol = 16, CARD_CPU_STEPS, 1e-9
     cpu_env = AntEnv(dtype=torch.float64, device="cpu")
     gpu_env = AntEnv(dtype=torch.float64)
     gen = torch.Generator(device="cpu").manual_seed(10)
@@ -2012,14 +2088,14 @@ def humanoid_kernel(card):
 
 
 def humanoid_device_vs_cpu():
-    """(c): 50 float64 humanoid steps at batch 8, K1 (n = 105) on the card
+    """(c): CARD_CPU_STEPS float64 humanoid steps at batch 8, K1 (n = 105) on the card
     against the plain PGS on the CPU, within 1e-9 abs + rel, from states 8 to
     10 cm below the standing start (the feet in the ground) with seeded
     actions. Returns the largest difference."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.envs.humanoid import HumanoidEnv
 
-    batch, steps, tol = 8, 50, 1e-9
+    batch, steps, tol = 8, CARD_CPU_STEPS, 1e-9
     cpu_env = HumanoidEnv(dtype=torch.float64, device="cpu")
     gpu_env = HumanoidEnv(dtype=torch.float64)
     gen = torch.Generator(device="cpu").manual_seed(14)
@@ -2051,7 +2127,8 @@ def humanoid_device_vs_cpu():
 
 def humanoid_replay():
     """(d): logs/humanoid_ars/policy_curr2.pkl in float32 on the card for
-    HUMANOID_REPLAY_STEPS steps through graphs (``utils.graphs.scan``), 8
+    HUMANOID_REPLAY_STEPS steps through graphs (``utils.graphs.scan``; in
+    chunks of HUMANOID_REPLAY_CHUNK, stopping when every env is done), 8
     envs: 4 from the starts of tests/test_humanoid_policy.py (the JAX
     package's reset draws for its seeds 0, 7, 123 and 42, read from
     tests/golden/humanoid_policy_reset_noise.json), each held to its
@@ -2096,7 +2173,14 @@ def humanoid_replay():
     with torch.no_grad():
         carry = (state.q, state.qd, state.t, obs, zero, zero + 1.0, zero, zero)
         consts = (policy.weight, policy.bias, stat.mean, stat.scale())
-        _, _, _, _, total, alive, steps, x = graphs.scan(body, carry, consts, HUMANOID_REPLAY_STEPS, key=("humanoid replay", env))
+        # in chunks, stopping once every env is done: the sums freeze at
+        # done, so the rest of the HUMANOID_REPLAY_STEPS steps change nothing
+        replayed = 0
+        while replayed < HUMANOID_REPLAY_STEPS and bool(carry[5].any()):
+            length = min(HUMANOID_REPLAY_CHUNK, HUMANOID_REPLAY_STEPS - replayed)
+            carry = graphs.scan(body, carry, consts, length, key=("humanoid replay", env))
+            replayed += length
+        total, alive, steps, x = carry[4:]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = pgs.launches
@@ -2113,7 +2197,8 @@ def humanoid_replay():
             failed.append(seed)
     if failed or not bool(torch.isfinite(total).all()):
         raise AssertionError(f"the trained humanoid policy failed tests/test_humanoid_policy.py's thresholds for seeds {failed}")
-    log(f"humanoid (d): {HUMANOID_CHECKPOINT.name} replayed through graphs for {HUMANOID_REPLAY_STEPS} steps at batch "
+    log(f"humanoid (d): {HUMANOID_CHECKPOINT.name} replayed through graphs for {replayed} of {HUMANOID_REPLAY_STEPS} steps "
+        f"(every env done by then) at batch "
         f"{noise.shape[0]} in {seconds:.1f} s (the reset and the captures included); the JAX test's 4 starts walk past all "
         f"three thresholds; K1 wrapper launches {launches} (warm-ups and captures)")
     graph_lines("humanoid (d)", env, "humanoid replay")
@@ -2279,14 +2364,14 @@ def mesh_rollout(obj_dir):
 
 
 def terrain_device_vs_cpu(obj_dir):
-    """(c): 50 float64 steps at batch 8 on the heightfield and on the mesh,
+    """(c): CARD_CPU_STEPS float64 steps at batch 8 on the heightfield and on the mesh,
     K1 on the card against the plain PGS on the CPU, within 1e-9 abs + rel
     (q, qd and the observation with its 9 scan columns), from a base 5 cm
     below the standing start (the toes in the ground). Returns the largest
     difference."""
     from tds_tpu_torch.contact import pgs
 
-    batch, steps, tol = 8, 50, 1e-9
+    batch, steps, tol = 8, CARD_CPU_STEPS, 1e-9
     worst = 0.0
     for kind in ("heightfield", "mesh"):
         cpu_env = terrain_env(TERRAIN_BUMP, 9, kind, obj_dir, torch.float64, "cpu")
@@ -2608,7 +2693,7 @@ def gradients_contact_loss(card_line):
     """(b): tools/contact_loss.py's loss, tests/test_contact_gradients.py's,
     over 500 float64 steps on the card through graphs: its gradient against
     central differences on the card (rtol 2e-4, the test's eps); then over
-    the CPU test's 100 steps, the card's gradient within 1e-9 relative of
+    CONTACT_LOSS_CPU_STEPS steps, the card's gradient within 1e-9 relative of
     the CPU's; K1's backward kernels in a trace of a replayed 5-step
     gradient (one a step)."""
     from tds_tpu_torch.contact import pgs
@@ -2802,7 +2887,7 @@ def gradients_apg_policy():
 
 
 def gradients_apg_learning():
-    """(e): 25 APG iterations of test_learn.py's
+    """(e): APG_LEARN_ITERATIONS APG iterations of test_learn.py's
     test_apg_through_laikago_contact setup (float32, horizon 30, batch 2,
     truncation 10, learning rate 5e-3) on the card: every grad norm
     finite, the mean of the last 5 returns above the first."""
@@ -3205,14 +3290,14 @@ def phase_forward_and_ppo(card, card_line):
 
 # -- phase 16 --------------------------------------------------------------
 def floating_device_vs_cpu():
-    """(a): 50 float64 steps of the floating laikago at batch 8 on the card
+    """(a): CARD_CPU_STEPS float64 steps of the floating laikago at batch 8 on the card
     (K1, n = 12) against the CPU from a start 3 cm lower than the env's
     (the toes touch from the first steps), with seeded actions, within 1e-9
     abs + rel; one K1 launch a step. Returns the largest difference."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.envs.laikago import LaikagoEnv
 
-    batch, steps, tol, start = 8, 50, 1e-9, (0.0, 0.0, 0.45)
+    batch, steps, tol, start = 8, CARD_CPU_STEPS, 1e-9, (0.0, 0.0, 0.45)
     cpu_env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float64, device="cpu", start_base_position=start)
     gpu_env = LaikagoEnv(urdf=FLOATING_URDF, is_floating=True, dtype=torch.float64, start_base_position=start)
     gen = torch.Generator(device="cpu").manual_seed(16)
@@ -3563,7 +3648,7 @@ def mpc_device_vs_cpu():
     return max(worst.values())
 
 
-def env_device_vs_cpu(label, steps=50, **kwargs):
+def env_device_vs_cpu(label, steps=CARD_CPU_STEPS, **kwargs):
     """(a): ``steps`` float64 laikago sim_steps at batch 8 under a seeded
     action held through the run, from a start 3 cm lower than the env's
     (the toes touch from the first step): on the card through
@@ -4243,6 +4328,635 @@ def phase_collision(card, card_line):
     return entries, numbers
 
 
+# -- phase 19 --------------------------------------------------------------
+def k2_on_operands(label, params, operands, got, card, prefix):
+    """K2 against its plain version on the card on the operands (q, qd,
+    action) that a path handed it and the results it gave there, held at
+    MEGA_TOL over every env but the ties (K2_TIE: a sphere within K2_TIE of
+    the plane, and the float64 step nearer K2 than the plain step or between
+    the two; their number and difference are printed); K2's device time,
+    the plain version's and the bound (bytes, and the operations the step
+    needs on these states by ``utils/op_count.py``). Returns the numbers of
+    a kernels-line entry."""
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.utils import op_count
+
+    q, qd, action = operands
+    plain = fused_step.mega_step_reference(params, q, qd, action)
+    params64 = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, action_limit=float(params.action_limit)))
+    exact = fused_step.mega_step_reference(params64, q.double(), qd.double(), action.double())
+    near = (fused_step.sphere_distances(params, q).abs() < K2_TIE).any(-1)
+    pairs = [(name, g.double(), e.double(), x) for name, g, e, x in (("q", got[0], plain[0], exact[0]),
+                                                                   ("qd", got[1], plain[1], exact[1]))]
+    bad = torch.zeros_like(near)
+    sides = torch.ones_like(near)  # the float64 step nearer K2 than the plain step, or between the two
+    for name, g, e, x in pairs:
+        tol = MEGA_TOL[name] * (1 + e.abs())
+        bad |= ((g - e).abs() - tol).amax(-1) > 0
+        nearer = (g - x).abs().amax(-1) <= (e - x).abs().amax(-1)
+        between = ((x >= torch.minimum(g, e) - tol) & (x <= torch.maximum(g, e) + tol)).all(-1)
+        sides &= nearer | between
+    tie = bad & near & sides
+    worst = 0.0
+    for name, g, e, x in pairs:
+        err = (g - e).abs()
+        worst = max(worst, err[~tie].max().item())
+        log(f"{prefix}: K2 on {label}: max |K2 - plain| on {name} {err[~tie].max().item():.3e} over {int((~tie).sum())} "
+            f"envs (tolerance {MEGA_TOL[name]} abs + rel; {int(near.sum())} of them with a sphere within {K2_TIE} m of the "
+            f"plane), {err[tie].max().item() if bool(tie.any()) else 0.0:.3e} over the {int(tie.sum())} ties; max |K2 - "
+            f"float64 plain| {(g - x).abs().max().item():.3e}, max |plain - float64 plain| {(e - x).abs().max().item():.3e}")
+    if bool((bad & ~tie).any()) or not bool(torch.isfinite(got[0]).all() & torch.isfinite(got[1]).all()):
+        raise AssertionError(f"{prefix}: K2 on {label} differs from its plain version beyond MEGA_TOL in "
+                             f"{int((bad & ~tie).sum())} envs that are not ties ({int((bad & ~near).sum())} with no sphere "
+                             f"within {K2_TIE} m of the plane)")
+    batch = q.shape[0]
+    ms = device_ms(lambda: fused_step.mega_step(params, q, qd, action), rounds=5, per_round=20)
+    profile = device_profile(lambda: fused_step.mega_step_reference(params, q, qd, action), calls=1)
+    plain_ms = None if profile is None else profile[1]
+    n_bytes = batch * q.element_size() * (4 * q.shape[1] + params.pd_q.numel()) + sum(
+        getattr(params, f).numel() * getattr(params, f).element_size() for f in fused_step.POINTER_FIELDS
+    )
+    n_ops = op_count.needed_flops(fused_step.mega_step_reference, params, q, qd, action)
+    bandwidth, f32_rate, f64_rate = card
+    t_bytes, t_ops = n_bytes / bandwidth * 1e3, n_ops / (f32_rate if q.dtype == torch.float32 else f64_rate) * 1e3
+    contacts = int((fused_step.sphere_distances(params, q) < 0).sum())
+    shape = fused_step.launch_shape(params, batch)
+    log(f"{prefix}: K2 on {label} B={batch} {str(q.dtype)[6:]}, {contacts} contacts active: max |K2 - plain| {worst:.3e} "
+        f"(tolerance {MEGA_TOL['q']} on q, {MEGA_TOL['qd']} on qd, abs + rel); {ms * 1e3:.2f} us on the device, plain "
+        f"{'not measured' if plain_ms is None else f'{plain_ms * 1e3:.1f} us of device time'}, bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")
+    log_launch_shape(f"{prefix}: K2 B={batch}", shape)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "contacts_active": contacts,
+            "shape": f"B={batch} links=22 dof=18 spheres=4 {str(q.dtype)[6:]}", **launch_fields(shape)}
+
+
+def mocap_check_run(device):
+    """EAGER_STEPS float64 steps of the mocap tracking at batch
+    MOCAP_CHECK_BATCH through the eager step (K1) on ``device`` (None: the
+    card, through graphs), from the tool's start lowered 2.5 cm so that the
+    toes touch; the tool's outputs on the CPU."""
+    from tds_tpu_torch.tools import mocap_track
+
+    env = mocap_track.make_env(torch.float64, device, fused=False)
+    q0, qd0 = mocap_track.start_state(mocap_track.make_env(torch.float64, "cpu", fused=False), MOCAP_CHECK_BATCH, seed=1)
+    q0[:, 2] -= 0.025
+    speed = mocap_track.speedups(MOCAP_CHECK_BATCH, dtype=torch.float64)
+    out = mocap_track.track(env, mocap_track.load_motion(torch.float64, env.device), speed.to(env.device), steps=EAGER_STEPS,
+                            start=(q0.to(env.device), qd0.to(env.device)))
+    return {key: out[key].cpu() for key in ("q", "qd", "rms", "height_min", "up_min")}
+
+
+def mocap_device_vs_cpu(tmp):
+    """(a): :func:`mocap_check_run` on the card against the CPU process's
+    run; within 1e-9 abs + rel."""
+    got_all = mocap_check_run(None)
+    wait_for(os.path.join(tmp, "mocap_cpu.pt"))
+    want_all = torch.load(os.path.join(tmp, "mocap_cpu.pt"))
+    worst = 0.0
+    for key, want in want_all.items():
+        got = got_all[key]
+        worst = max(worst, (got - want).abs().max().item())
+        if excess(got, want, 1e-9) > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"mocap (a): the card and the CPU differ beyond 1e-9 in {key}")
+    log(f"mocap (a): {EAGER_STEPS} float64 steps of the tracking at batch {MOCAP_CHECK_BATCH} (K1, toes in contact) through "
+        f"graphs on the card against the CPU process's: max |cuda - cpu| = {worst:.3e} over q, qd and the three criterion "
+        "numbers (1e-9 abs + rel)")
+    return worst
+
+
+def mocap_path(card, card_line, fused):
+    """(a): tools/mocap_track.py as a user runs it: MOCAP_BATCH laikagos x
+    2500 float32 steps of the dance, each at its own speed (env 0 at 1.0),
+    a step a replayed graph, through K2 (``fused``) or the eager step (K1);
+    the kernel's wrapper launches counted from 0 just before and read just
+    after (the warm-up and the capture), env 0 held to the example's
+    criterion, the share of the batch that meets it, env-steps/s, the
+    graph's nodes, a trace of PROFILE_STEPS replayed steps (device
+    operations, the kernel once a step); then the kernel against its plain
+    version on the operands of a step from the final states, timed.
+    Returns (the kernels-line entry, numbers, the final q)."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.tools import mocap_track
+    from tds_tpu_torch.utils import graphs
+
+    kind = "K2" if fused else "eager"
+    prefix = f"mocap (a) {kind}"
+    env = mocap_track.make_env(torch.float32, None, fused)
+    motion = mocap_track.load_motion(torch.float32, env.device)
+    speed = mocap_track.speedups(MOCAP_BATCH, dtype=torch.float32, device=env.device)
+    counter = fused_step if fused else pgs
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    counter.launches = 0
+    _, first_s = timed_call(lambda: mocap_track.track(env, motion, speed, steps=2))
+    out, run_s = timed_call(lambda: mocap_track.track(env, motion, speed))
+    launches = counter.launches
+    check_wrapper_launches(prefix, "K2" if fused else "K1", launches, cached)
+    steps = mocap_track.STEPS
+    rate = MOCAP_BATCH * steps / run_s
+    rms, height, up, ok = (out[k].cpu() for k in ("rms", "height_min", "up_min", "ok"))
+    share = ok.double().mean().item()
+    nodes = [g.nodes for g in graph_lines(prefix, "mocap track", env) if g.batch == MOCAP_BATCH]
+    log(f"{prefix}: {MOCAP_BATCH} laikagos x {steps} float32 steps of the dance at speedups {mocap_track.SPEEDUP_RANGE} "
+        f"through {'K2' if fused else 'the eager step (K1 at 12 rows)'} in {run_s:.2f} s = {run_s * 1e3 / steps:.3f} ms/step, "
+        f"{rate:.1f} env-steps/s, {card_line} (the 2-step call that captures the graph {first_s:.2f} s); graph {nodes} nodes a "
+        f"step; {'K2' if fused else 'K1'} wrapper launches {launches} (the warm-up and the capture)")
+    log(f"{prefix}: env 0 (speedup 1.0): joint RMS after the first fifth {rms[0]:.4f} rad (< {mocap_track.RMS_MAX}), base "
+        f"height min {height[0]:.3f} m (> {mocap_track.HEIGHT_MIN}), up.z min {up[0]:.3f} (> {mocap_track.UP_MIN}): "
+        f"{'tracking OK' if ok[0] else 'tracking FAILED'}; {int(ok.sum())} of {MOCAP_BATCH} envs ({100 * share:.1f}%) meet "
+        f"the criterion; RMS {rms.min():.4f}-{rms.max():.4f}, height min {height.min():.3f}, up.z min {up.min():.3f}")
+    if not bool(ok[0]):
+        raise AssertionError(f"{prefix}: env 0 fails the example's criterion")
+    kernel = "megastep_kernel" if fused else "pgs_kernel"
+    with sub_phase(f"{prefix} seconds: the {PROFILE_STEPS}-step trace"):
+        profile = device_profile(lambda: mocap_track.track(env, motion, speed, steps=PROFILE_STEPS), calls=1, kernel=kernel,
+                                 expected=PROFILE_STEPS)
+    if profile is None or profile[3] != PROFILE_STEPS:
+        raise AssertionError(f"{prefix}: {kernel} ran {None if profile is None else profile[3]} times in {PROFILE_STEPS} "
+                             "replayed steps")
+    ops, busy, wall, count = profile
+    log(f"{prefix}: {PROFILE_STEPS} replayed steps: {kernel} {count:.0f} times (torch.profiler), {ops / PROFILE_STEPS:.0f} "
+        f"device operations a step, {100 * (1 - busy / wall):.1f}% idle under the profiler")
+    k = torch.full_like(speed, float(steps))
+    common = {"route": "cuda", "launches": launches, "replayed_launches_per_step": count / PROFILE_STEPS,
+              "main_path": f"the mocap dance through {'K2' if fused else 'the eager step'}, {MOCAP_BATCH} envs x {steps} "
+                           "steps (phase 19 (a))", "library_ms": None}
+    if fused:
+        with recorded_k2_calls({0}) as calls:
+            mocap_track.track_step(env, motion, out["q"], out["qd"], k, speed)
+        q, qd, action, got = calls[0]
+        entry = {"name": "megastep mocap", "source": "tds_tpu_torch/csrc/megastep.cu",
+                 "replaces": "tools/pallas_megastep_experiment.py:76 (main.<locals>.kernel)", **common,
+                 **k2_on_operands("the mocap step", env.step_params, (q, qd, action), got, card, prefix)}
+    else:
+        with graphs.eager(), recorded_pgs_calls() as calls:
+            mocap_track.track_step(env, motion, out["q"], out["qd"], k, speed)
+        (solve,) = k1_on_calls("the mocap step", calls, card, prefix)
+        entry = {"name": "pgs n=12 mocap", "source": "tds_tpu_torch/csrc/pgs.cu",
+                 "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", **common, **solve}
+    numbers = {f"mocap_{kind}_env_steps_per_s": rate, f"mocap_{kind}_ms_per_step": run_s * 1e3 / steps,
+               f"mocap_{kind}_graph_nodes": nodes, f"mocap_{kind}_env0": [rms[0].item(), height[0].item(), up[0].item()],
+               f"mocap_{kind}_share": share, f"mocap_{kind}_device_ops_per_step": ops / PROFILE_STEPS}
+    return entry, numbers, out["q"]
+
+
+def ars_state(dtype, device="cuda"):
+    """policy_r2b.pkl's params and statistics in ``dtype``, the generator
+    seeded ARS_SHARD_SEED: every rank and the one-process run draw alike."""
+    from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint
+
+    saved, _ = load_checkpoint(str(CHECKPOINT))
+    return ars_state_from_numpy(saved["params"], saved["obs_stat"], ARS_SHARD_SEED, dtype, device)
+
+
+def ars_results(state, metrics):
+    """An iteration's outputs as a flat dict of CPU tensors."""
+    out = {"params": state.params, "total_timesteps": state.total_timesteps}
+    out.update({f"obs_stat.{f}": getattr(state.obs_stat, f) for f in ("count", "mean", "m2")})
+    out.update(metrics)
+    return {k: torch.as_tensor(v).detach().cpu() for k, v in out.items()}
+
+
+def ars_rank(rank, world, store, out_dir):
+    """(b) (ii)'s rank: joins a gloo group on the one card through the file
+    store, waits for (b)'s go file, then per dtype an iteration of the
+    recipe split over the ranks that captures the graphs and a timed one
+    from the same start, and saves the timed one's results and seconds."""
+    import torch.distributed as dist
+
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.learn.nn import MLPSpec
+    from tds_tpu_torch.parallel.distributed import initialize_distributed
+    from tds_tpu_torch.parallel.mesh import make_mesh
+
+    device = initialize_distributed(f"file://{store}", world, rank, backend="gloo", device="cuda:0")
+    mesh = make_mesh(device)
+    wait_for(os.path.join(out_dir, "go"))
+    saved = {}
+    for dtype in (torch.float32, torch.float64):
+        env = LaikagoEnv(dtype=dtype, fused_step=True)
+        step = ars.make_train_step(env, MLPSpec(36, [12]), ars.ARSConfig(**ARS_RECIPE), mesh=mesh)
+        step(ars_state(dtype))
+        dist.barrier()
+        (new, metrics), seconds = timed_call(lambda: step(ars_state(dtype)))
+        saved[str(dtype)] = {**ars_results(new, metrics), "seconds": seconds}
+    torch.save(saved, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def compare_results(label, got, want, tol):
+    """Raises where ``got`` and ``want`` differ beyond tol (1 + |want|) (0:
+    bit for bit), or hold NaN in other places (policy_r2b.pkl's m2 is NaN
+    throughout); returns the largest difference elsewhere."""
+    worst = 0.0
+    for key, w in want.items():
+        g, w = got[key].double(), w.double()
+        nan = w.isnan()
+        if not torch.equal(g.isnan(), nan):
+            raise AssertionError(f"{label}: {key} holds NaN in other places")
+        g, w = g[~nan], w[~nan]
+        if not w.numel():
+            continue
+        worst = max(worst, (g - w).abs().max().item())
+        if excess(g, w, tol) > 0 or (tol == 0 and not torch.equal(g, w)):
+            raise AssertionError(f"{label}: {key} differs by {(g - w).abs().max().item():.3e}")
+    return worst
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def policy_batch_check():
+    """(b): ARS's policy with a weight matrix per env (``MLPSpec.apply``, a
+    product and a sum) gives each env the same bits at batch 256 as in its
+    half computed alone, in both dtypes, which (ii)'s bit-equality needs;
+    ``einsum`` (cuBLAS's batched product) does not, and its difference is
+    printed. Returns {dtype: einsum's largest difference}."""
+    from tds_tpu_torch.learn.nn import MLPSpec
+
+    policy, out = MLPSpec(36, [12]), {}
+    for dtype in (torch.float32, torch.float64):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = torch.randn(2 * ARS_RECIPE["num_directions"], policy.num_parameters, generator=g, device="cuda", dtype=dtype)
+        x = torch.randn(params.shape[0], 36, generator=g, device="cuda", dtype=dtype)
+        half = params.shape[0] // ARS_RANKS
+        if not torch.equal(policy.apply(params, x)[:half], policy.apply(params[:half], x[:half])):
+            raise AssertionError(f"ARS ranks (b): MLPSpec.apply of per-env weights depends on the batch in {dtype}")
+        w = policy.unflatten(params)[0][0]
+        einsum = torch.einsum("...ij,...j->...i", w, x)
+        out[str(dtype)[6:]] = (einsum[:half] - torch.einsum("...ij,...j->...i", w[:half], x[:half])).abs().max().item()
+    log(f"ARS ranks (b): the policy of per-env weights at batch {params.shape[0]} equals its first {half} envs computed "
+        f"alone bit for bit in float32 and float64; einsum there differs by {out['float32']:.3e} (float32) and "
+        f"{out['float64']:.3e} (float64)")
+    return out
+
+
+def ars_one_card(card_line):
+    """(b) (i): bench.py's ARS recipe (ARS_RECIPE, float32, from
+    policy_r2b.pkl) at world size 1 under NCCL, joined in this process from
+    the variables torchrun sets: the split iteration equals the one-process
+    iteration on the same draws bit for bit; s/iteration of both. Then the
+    one-process float64 iteration that (ii) is held to. Returns (numbers,
+    the one-process results by dtype)."""
+    import torch.distributed as dist
+
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+    from tds_tpu_torch.learn import ars
+    from tds_tpu_torch.learn.nn import MLPSpec
+    from tds_tpu_torch.parallel.distributed import initialize_distributed
+    from tds_tpu_torch.parallel.mesh import make_mesh
+
+    policy, config = MLPSpec(36, [12]), ars.ARSConfig(**ARS_RECIPE)
+    saved_env = {k: os.environ.get(k) for k in TORCHRUN_VARIABLES}
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    try:
+        mesh = make_mesh(initialize_distributed())
+        backend = dist.get_backend()
+        env = LaikagoEnv(dtype=torch.float32, fused_step=True)
+        one = ars.make_train_step(env, policy, config)
+        split = ars.make_train_step(env, policy, config, mesh=mesh)
+        one(ars_state(torch.float32))  # captures the graphs
+        split(ars_state(torch.float32))  # and NCCL's communicator at its first all_reduce
+        results, seconds = {}, {}
+        for label, fn in (("one process", one), ("world size 1", split)):
+            (new, metrics), seconds[label] = timed_call(lambda: fn(ars_state(torch.float32)))
+            results[label] = ars_results(new, metrics)
+        dist.destroy_process_group()
+    finally:
+        for key, value in saved_env.items():
+            os.environ.pop(key, None) if value is None else os.environ.__setitem__(key, value)
+    compare_results("ARS ranks (b) (i)", results["world size 1"], results["one process"], 0.0)
+    log(f"ARS ranks (b) (i): the recipe ({config.num_directions} directions x {config.rollout_length} steps, top "
+        f"{config.top_directions}, float32) at world size 1 under {backend} (joined from MASTER_ADDR/MASTER_PORT/"
+        f"WORLD_SIZE/RANK/LOCAL_RANK as torchrun sets them) equals the one-process iteration on the same draws bit for bit "
+        f"over params, obs_stat and metrics; {seconds['world size 1']:.3f} s an iteration split, "
+        f"{seconds['one process']:.3f} s one process, {card_line}")
+    env64 = LaikagoEnv(dtype=torch.float64, fused_step=True)
+    one64 = ars.make_train_step(env64, policy, config)
+    one64(ars_state(torch.float64))
+    (new, metrics), seconds64 = timed_call(lambda: one64(ars_state(torch.float64)))
+    numbers = {"ars_world1_s_per_iteration": seconds["world size 1"], "ars_one_process_s_per_iteration": seconds["one process"],
+               "ars_one_process_float64_s_per_iteration": seconds64}
+    return numbers, {"torch.float32": results["one process"], "torch.float64": ars_results(new, metrics)}
+
+
+def wait_for(path, timeout_s=600):
+    """Returns once ``path`` exists; raises after ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.05)
+
+
+def child_env():
+    """This process's environment for a process of this script or of the
+    port: the checkout on PYTHONPATH, no torchrun variables."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    for key in TORCHRUN_VARIABLES:
+        env.pop(key, None)
+    return env
+
+
+def ars_ranks_start(tmp):
+    """Starts (b) (ii)'s ARS_RANKS rank processes: they import and join
+    their group beside (a), and wait for :func:`ars_go` before they use the
+    card; returns them."""
+    return [subprocess.Popen([sys.executable, __file__, "--ars-rank", str(r), str(ARS_RANKS), os.path.join(tmp, "store"), tmp],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(REPO), env=child_env())
+            for r in range(ARS_RANKS)]
+
+
+def ars_go(tmp):
+    """Lets (b) (ii)'s ranks use the card and starts (iii)'s torchrun of the
+    trainer (``torchrun --standalone --nproc_per_node=1 -m
+    tds_tpu_torch.tools.ars_train``, 2 iterations from policy_r2b.pkl, its
+    checkpoint and Experiment logs under ``tmp``); returns the trainer."""
+    with open(os.path.join(tmp, "go"), "w"):
+        pass
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+                             "tds_tpu_torch.tools.ars_train", "--resume", str(CHECKPOINT), "--iterations", "2",
+                             "--eval_interval", "2", "--rollout_length", "400", "--checkpoint",
+                             os.path.join(tmp, "trainer", "policy.pkl")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=str(REPO), env=child_env())
+
+
+def ars_jobs_finish(tmp, ranks, trainer, want, card_line):
+    """(b) (ii): both ranks' results equal bit for bit, and within
+    ARS_SHARD_TOL_* of the one-process iteration (``want``); (iii): the
+    trainer's checkpoint at iteration 2 and its Experiment run (settings
+    and 2 metrics rows). Returns the numbers."""
+    from tds_tpu_torch.convert import load_checkpoint
+
+    numbers = {}
+    for r, proc in enumerate(ranks):
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"ARS ranks (b) (ii): rank {r} exited {proc.returncode}:\n{out.decode()[-4000:]}")
+    got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(ARS_RANKS)]
+    for dtype, tol in (("torch.float32", ARS_SHARD_TOL_F32), ("torch.float64", ARS_SHARD_TOL_F64)):
+        per_rank = [{k: v for k, v in g[dtype].items() if k != "seconds"} for g in got]
+        compare_results(f"ARS ranks (b) (ii) {dtype} ranks", per_rank[1], per_rank[0], 0.0)
+        worst = compare_results(f"ARS ranks (b) (ii) {dtype}", per_rank[0], want[dtype], tol)
+        ranks_s = [g[dtype]["seconds"] for g in got]
+        log(f"ARS ranks (b) (ii): {dtype[6:]}: {ARS_RANKS} processes on the one card under gloo, "
+            f"{ARS_RECIPE['num_directions'] // ARS_RANKS} directions each: both ranks' params, obs_stat and metrics equal "
+            f"bit for bit; against one process max |diff| {worst:.3e} ({tol} abs + rel); {max(ranks_s):.3f} s an iteration "
+            f"(ranks {', '.join(f'{s:.3f}' for s in ranks_s)}; beside (c) and (iii), which share the card and the host), "
+            f"{card_line}")
+        numbers[f"ars_{ARS_RANKS}_ranks_{dtype[6:]}_s_per_iteration"] = max(ranks_s)
+        numbers[f"ars_{ARS_RANKS}_ranks_{dtype[6:]}_max_diff"] = worst
+    out, _ = trainer.communicate(timeout=300)
+    if trainer.returncode != 0:
+        raise AssertionError(f"ARS ranks (b) (iii): torchrun exited {trainer.returncode}:\n{out.decode()[-4000:]}")
+    folder = os.path.join(tmp, "trainer")
+    saved, meta = load_checkpoint(os.path.join(folder, "policy.pkl"))
+    runs = [d for d in os.listdir(folder) if os.path.isdir(os.path.join(folder, d))]
+    rows = []
+    if len(runs) == 1 and os.path.exists(os.path.join(folder, runs[0], "settings.json")):
+        with open(os.path.join(folder, runs[0], "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    if meta.get("iteration") != 2 or [r["step"] for r in rows] != [0, 1] or \
+            not all(math.isfinite(float(x)) for x in saved["params"].reshape(-1)):
+        raise AssertionError(f"ARS ranks (b) (iii): checkpoint {meta}, runs {runs}, logged steps {[r['step'] for r in rows]}")
+    log(f"ARS ranks (b) (iii): torchrun --standalone --nproc_per_node=1 -m tds_tpu_torch.tools.ars_train --resume "
+        f"policy_r2b.pkl --iterations 2: checkpoint at iteration {meta['iteration']}, Experiment run {runs[0]} with "
+        f"settings.json and {len(rows)} metrics rows (eval_reward_min {rows[-1].get('eval_reward_min', float('nan')):.2f})")
+    return numbers
+
+
+def compat_run(device, steps, record=None):
+    """The pytinydiffsim-style script on ``device`` in float64: the laikago
+    through compat.UrdfParser and a TinyWorld, its 12 leg joints servoed
+    (TinyServoActuator: kp 100, kd 2, 50 N m) to the initial poses from a
+    base lowered to 0.45 m, ``steps`` steps of tests/test_compat.py's loop
+    (forward_dynamics, the velocity update, the world's contact pass, the
+    position update); every step's (q, qd)."""
+    from tds_tpu_torch import compat
+    from tds_tpu_torch.dynamics.integrator import integrate_q
+    from tds_tpu_torch.envs.laikago import LAIKAGO_INITIAL_POSES
+
+    mb = compat.UrdfParser.load_urdf(COMPAT_URDF, device=device)
+    world = compat.TinyWorld(device=device)
+    world.bodies.append(mb)
+    targets = compat.VectorX(LAIKAGO_INITIAL_POSES, device=device)
+    q = mb.q.clone()
+    q[2], q[6:] = 0.45, targets
+    mb.set_q(q)
+    servo = compat.TinyServoActuator(12, kp=100.0, kd=2.0, min_force=-50.0, max_force=50.0)
+    base = mb.q.new_zeros(6)
+    out = []
+    for _ in range(steps):
+        mb.set_tau(torch.cat([base, servo.compute_torques(mb.q[6:], mb.qd[6:], targets)]))
+        compat.forward_dynamics(mb, world.gravity)
+        mb.qd = mb.qd + mb.qdd * 1e-3
+        mb.qdd = torch.zeros_like(mb.qdd)
+        world.step(1e-3)
+        q, qd = integrate_q(mb.model, mb.q[None], mb.qd[None], 1e-3)
+        mb.q, mb.qd = q[0], qd[0]
+        out.append((mb.q, mb.qd))
+    return out, (mb, world)
+
+
+def compat_cpu_start(tmp):
+    """Starts phase 19's CPU process (this script with ``--compat-cpu``):
+    (a)'s float64 check and compat_run on the CPU, then both renders of
+    :func:`render_check`. It runs beside (a), whose replays leave the host
+    idle."""
+    return subprocess.Popen([sys.executable, __file__, "--compat-cpu", tmp], cwd=str(REPO), env=child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def compat_cpu(tmp):
+    """Phase 19's CPU process: (a)'s float64 check on the CPU and (c)'s
+    compat script on the CPU, saved; then, once
+    (a) has saved the poses of the mocap's env 0 from the card, that frame
+    rasterised from them and from the same state's poses on the CPU."""
+    torch.set_num_threads(1)
+    torch.save(mocap_check_run("cpu"), os.path.join(tmp, "mocap_cpu.pt.part"))
+    os.replace(os.path.join(tmp, "mocap_cpu.pt.part"), os.path.join(tmp, "mocap_cpu.pt"))  # whole when it appears
+    torch.save([(q, qd) for q, qd in compat_run("cpu", COMPAT_STEPS)[0]], os.path.join(tmp, "compat_cpu.pt"))
+    wait_for(os.path.join(tmp, "render_card.pkl"))
+    with open(os.path.join(tmp, "render_card.pkl"), "rb") as f:
+        q, card_instances = pickle.load(f)
+    images, seconds = [], []
+    for instances in (card_instances, render_instances(q, "cpu")[0]):
+        t0 = time.perf_counter()
+        images.append(render_frame(q, instances))
+        seconds.append(time.perf_counter() - t0)
+    np.savez(os.path.join(tmp, "render.npz"), card=images[0], cpu=images[1], seconds=np.array(seconds))
+
+
+def compat_path(card, reference):
+    """(c): the compat script on the card (K1 at n = 12, B = 1 in each
+    world.step) against the CPU in float64 over COMPAT_STEPS steps within
+    1e-9 abs + rel, K1's wrapper launches (one a step) and its count in a
+    trace of COMPAT_TRACE_STEPS steps (a B = 1 step is ~150 ms of host
+    dispatch), K1 against its plain version on a step's
+    operands, timed. Returns (the entry, numbers)."""
+    from tds_tpu_torch import compat
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.envs import fused_step
+    from tds_tpu_torch.envs.laikago import LaikagoEnv
+
+    proc, path = reference
+    out, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"compat (c): the CPU run exited {proc.returncode}:\n{out.decode()[-4000:]}")
+    want = torch.load(path)
+    pgs.launches = 0
+    (got, (mb, world)), seconds = timed_call(lambda: compat_run(None, COMPAT_STEPS))
+    launches = pgs.launches
+    if launches != COMPAT_STEPS:
+        raise AssertionError(f"compat (c): {COMPAT_STEPS} card steps launched K1 {launches} times")
+    worst = 0.0
+    for k, ((gq, gqd), (wq, wqd)) in enumerate(zip(got, want)):
+        for g, w in ((gq, wq), (gqd, wqd)):
+            worst = max(worst, (g.cpu() - w).abs().max().item())
+            if excess(g.cpu(), w, 1e-9) > 0 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"compat (c): the card and the CPU differ beyond 1e-9 at step {k + 1}")
+    params = fused_step.pack_step_params(LaikagoEnv(dtype=torch.float64, device="cpu"))
+    touching = sum(int((fused_step.sphere_distances(params, w[0][None]) < 0).sum()) for w in want)
+    if touching == 0:
+        raise AssertionError("compat (c): no toe touched the ground")
+
+    def steps(n):
+        for _ in range(n):
+            compat.forward_dynamics(mb, world.gravity)
+            world.step(1e-3)
+
+    profile = device_profile(lambda: steps(COMPAT_TRACE_STEPS), calls=1, kernel="pgs_kernel", expected=COMPAT_TRACE_STEPS)
+    if profile is None or profile[3] != COMPAT_TRACE_STEPS:
+        raise AssertionError(f"compat (c): K1 ran {None if profile is None else profile[3]} times in {COMPAT_TRACE_STEPS} steps")
+    with recorded_pgs_calls() as calls:
+        world.step(1e-3)
+    (solve,) = k1_on_calls("the compat world's step", calls, card, "compat (c)")
+    log(f"compat (c): the laikago through compat.UrdfParser and TinyWorld, {COMPAT_STEPS} float64 steps of the "
+        f"pytinydiffsim loop on the card in {seconds:.2f} s ({seconds * 1e3 / COMPAT_STEPS:.1f} ms/step, B = 1, host-paced) "
+        f"against the CPU: max |cuda - cpu| = {worst:.3e} (1e-9 abs + rel), {touching} toe-steps in contact; K1 wrapper "
+        f"launches {launches} (one a world.step), {profile[3]:.0f} K1 kernels in a trace of {COMPAT_TRACE_STEPS} steps")
+    entry = {"name": "pgs n=12 compat", "route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu",
+             "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", "library_ms": None, "launches": launches,
+             "main_path": f"the compat script, the laikago at B = 1 for {COMPAT_STEPS} steps (phase 19 (c))", **solve}
+    return entry, {"compat_float64_card_vs_cpu": worst, "compat_ms_per_step": seconds * 1e3 / COMPAT_STEPS}
+
+
+RENDER_URDF = "laikago/laikago_toes_zup_xyz_xyzrot.urdf"
+
+
+def render_instances(q, device):
+    """The laikago's renderer instances at ``q`` from ``device``'s
+    kinematics (the card's in float32, the CPU's in float64) and the
+    seconds it took."""
+    from tds_tpu_torch.urdf.cache import construct, load_document
+    from tds_tpu_torch.utils.file_utils import find_file
+    from tds_tpu_torch.visualizer import renderer
+
+    t0 = time.perf_counter()
+    model = construct(RENDER_URDF)[0]
+    if device != "cpu":
+        model, q = model.to(device, torch.float32), q.to(device, torch.float32)
+    instances = renderer.scene_instances_from_urdf(load_document(RENDER_URDF), model, q, os.path.dirname(find_file(RENDER_URDF)))
+    return instances, time.perf_counter() - t0
+
+
+def render_frame(q, instances):
+    """The 320x240 frame of ``instances`` and the plane, the camera beside
+    the base at ``q``."""
+    from tds_tpu_torch.visualizer import renderer
+
+    base = q[:3].double().cpu().numpy()
+    cam = renderer.Camera.look_at(eye=base + (0.9, -0.8, 0.3), target=base + (0.0, 0.0, -0.1), width=320, height=240)
+    pv, pf = renderer.plane_mesh()
+    return renderer.render_scene(cam, [*instances, renderer.Instance(pv, pf, np.zeros(3), np.eye(3), (0.5, 0.5, 0.55))])
+
+
+def render_poses(q_card, tmp):
+    """(c), first half: the mocap's env 0 after its run, its instances
+    from the card's float32 kinematics, saved with the state for the CPU
+    process to rasterise; returns the seconds."""
+    instances, seconds = render_instances(q_card, "cuda")
+    with open(os.path.join(tmp, "render_card.pkl.part"), "wb") as f:
+        pickle.dump((q_card.double().cpu(), instances), f)
+    os.replace(os.path.join(tmp, "render_card.pkl.part"), os.path.join(tmp, "render_card.pkl"))  # whole when it appears
+    return seconds
+
+
+def render_check(tmp, pose_s):
+    """(c), second half: the frame rasterised from the card's poses and
+    from the CPU's (float64) for the same state, by the CPU process: at
+    most RENDER_TOL of the pixels may differ."""
+    with np.load(os.path.join(tmp, "render.npz")) as saved:
+        card, cpu, seconds = saved["card"], saved["cpu"], saved["seconds"]
+    differ = (card != cpu).any(-1).mean()
+    robot = (cpu != cpu[0, 0]).any(-1).mean()
+    log(f"render (c): env 0 of the mocap run rendered at 320x240 from the card's float32 poses ({pose_s:.2f} s on the card) "
+        f"and from the CPU's float64 ones, rasterised by the CPU process beside (a) ({seconds[0]:.2f} and {seconds[1]:.2f} "
+        f"s): {100 * differ:.3f}% of the pixels differ (at most {100 * RENDER_TOL}%), {100 * robot:.1f}% of the frame not "
+        "background")
+    if differ > RENDER_TOL or robot < 0.02:
+        raise AssertionError(f"render (c): {differ:.4f} of the pixels differ, {robot:.4f} of the frame drawn")
+    return {"render_pixels_differing": differ, "render_s": [pose_s, *seconds.tolist()]}
+
+
+def phase_rest(card, card_line):
+    """Phase 19: the rest of the port on the card. The CPU process ((a)'s
+    float64 check and the compat script on the CPU, then the frame's two
+    renders) and (b) (ii)'s ranks start first and run beside (a) (the ranks wait to use the card
+    until (b) (i) is done); (iii)'s trainer and the ranks run beside (c).
+    Returns the kernels line's entries (K2 and K1 on the mocap dance, K1 on
+    the compat script) and the numbers."""
+    import shutil
+    import tempfile
+
+    numbers = {}
+    tmp = tempfile.mkdtemp(prefix="rest_")
+    procs = [compat_cpu_start(tmp)]
+    try:
+        ranks = ars_ranks_start(tmp)
+        procs += ranks
+        with sub_phase("mocap (a) seconds"):
+            fused, fused_numbers, q_final = mocap_path(card, card_line, fused=True)
+            pose_s = render_poses(q_final[0], tmp)
+            eager, eager_numbers = mocap_path(card, card_line, fused=False)[:2]
+            numbers["mocap_float64_card_vs_cpu"] = mocap_device_vs_cpu(tmp)
+        numbers.update(fused_numbers)
+        numbers.update(eager_numbers)
+        with sub_phase("ARS ranks (b) (i) seconds"):
+            numbers["ars_einsum_batch_dependence"] = policy_batch_check()
+            one_numbers, want = ars_one_card(card_line)
+        numbers.update(one_numbers)
+        trainer = ars_go(tmp)
+        procs.append(trainer)
+        with sub_phase("compat (c) seconds"):
+            compat_entry, compat_numbers = compat_path(card, (procs[0], os.path.join(tmp, "compat_cpu.pt")))
+            numbers.update(compat_numbers)
+            numbers.update(render_check(tmp, pose_s))
+        with sub_phase("ARS ranks (b) (ii), (iii) seconds, after (c)"):
+            numbers.update(ars_jobs_finish(tmp, ranks, trainer, want, card_line))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries = [fused, eager, compat_entry]
+    for entry in entries:
+        log(f"rest: {json.dumps(entry)}")
+    log(f"rest: {json.dumps(numbers)}")
+    return entries, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -4333,14 +5047,26 @@ def main():
     floating, floating_numbers = timed(phase_floating, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
     mpc, mpc_numbers = timed(phase_mpc, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
     collision, collision_numbers = timed(phase_collision, card, card_line)
+    rest, rest_numbers = timed(phase_rest, card, card_line)
     # the paths' numbers on a line of their own, so that the kernels line stays short
     numbers = {f"main_path_{k}": v for k, v in main_path.items() if k != "launches"}
-    for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, collision_numbers, timed(phase_graphs, start_s)):
+    for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, collision_numbers, rest_numbers,
+                 timed(phase_graphs, start_s)):
         numbers.update(part)
     print(json.dumps({"numbers": numbers}))
-    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, *collision, mega, *probes]}))
+    print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, *collision, *rest,
+                                  mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ars-rank"]:  # a rank of phase 19 (b) (ii), started by ars_ranks_start
+        ars_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--compat-cpu"]:  # phase 19's CPU process, started by compat_cpu_start
+        compat_cpu(sys.argv[2])
+    elif sys.argv[1:2] == ["--rest-only"]:  # phase 19 alone, after phases 1 and 2; prints no result line
+        card_name, card_text = phase_device()
+        timed(phase_build)
+        timed(phase_rest, card_peaks(card_name), card_text)
+    else:
+        main()

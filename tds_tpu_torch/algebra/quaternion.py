@@ -51,6 +51,33 @@ def to_matrix(q):
     )
 
 
+def from_matrix(m):
+    """Rotation matrix -> xyzw quaternion (Shepperd's method without
+    branches: four candidates, each stable in one regime, and the one with
+    the largest pivot kept)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(x.clamp_min(1e-30))
+
+    t_w = 1.0 + tr
+    t_x = 1.0 + m00 - m11 - m22
+    t_y = 1.0 - m00 + m11 - m22
+    t_z = 1.0 - m00 - m11 + m22
+    qw = torch.stack([t_w, m21 - m12, m02 - m20, m10 - m01], dim=-1) / (2.0 * safe_sqrt(t_w))[..., None]
+    qx = torch.stack([m21 - m12, t_x, m01 + m10, m02 + m20], dim=-1) / (2.0 * safe_sqrt(t_x))[..., None]
+    qy = torch.stack([m02 - m20, m01 + m10, t_y, m12 + m21], dim=-1) / (2.0 * safe_sqrt(t_y))[..., None]
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, t_z], dim=-1) / (2.0 * safe_sqrt(t_z))[..., None]
+    pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    best = pivots.argmax(-1)
+    cand = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, wxyz)
+    sel = torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]
+    return torch.cat([sel[..., 1:4], sel[..., 0:1]], dim=-1)
+
+
 def from_axis_angle(axis, angle):
     """Quaternion for a rotation of ``angle`` (...,) about the unit
     ``axis`` (..., 3)."""

@@ -87,7 +87,7 @@ class GymEnv(gymnasium.Env if gymnasium else object):
         return _numpy(obs[0]).astype(np.float32), float(reward[0]), bool(done[0]), self._steps >= self._max_steps, {}
 
     def render(self):
-        raise NotImplementedError("the port has no renderer")
+        raise NotImplementedError("use tds_tpu_torch.visualizer.renderer for offscreen frames")
 
 
 class GymVectorEnv:

@@ -22,6 +22,12 @@
 - Update: w += step_size * g_hat, g_hat = mean((r+ - r-) / sigma_R * delta)
   * delta_std over all directions or the top_directions by max(r+, r-),
   sigma_R the population std of the rewards used (at least 1e-6).
+- With a ``mesh`` (``tds_tpu_torch.parallel.mesh``) every rank draws the
+  same deltas and reset noise, rolls out its contiguous slice of the
+  directions (both signs) and gathers the rollouts' rewards, steps and
+  observation sums back into direction order; the update that follows is
+  the same on every rank, and equal to the one-process update whenever a
+  rollout's results do not depend on the batch it ran in.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -31,10 +37,11 @@ import torch
 from tds_tpu_torch.envs.base import EnvState
 from tds_tpu_torch.learn.nn import MLPSpec
 from tds_tpu_torch.learn.running_stat import RunningStat
+from tds_tpu_torch.parallel.mesh import batch_sharding, gather_batch
 from tds_tpu_torch.utils.graphs import scan
 
-# steps per CUDA graph of a rollout through the fused step (K2 and ~33
-# small operations a step, so ~3,300 nodes a replay); a rollout through the
+# steps per CUDA graph of a rollout through the fused step (K2 and ~31
+# small operations a step, so ~3,200 nodes a replay); a rollout through the
 # eager contact step (~3,600 nodes a step) takes one step a graph. On the
 # H100, ten alternating runs of the recipe's rollout at each (chip_smoke.py
 # phase 9 (c)) set it (PERF.md)
@@ -87,7 +94,6 @@ def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noi
         state, obs = env.reset(noise=noise)
     else:
         state, obs = env.reset(noise=noise, pool_draws=pool_draws)
-    dtype = obs.dtype
     shift = config.shift
 
     def body(carry, consts):
@@ -97,7 +103,10 @@ def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noi
         # gate the rollout as terminated and keep the statistics finite
         finite = torch.isfinite(obs)
         obs_safe = torch.where(finite, obs, 0.0)
-        alive = alive * finite.all(-1).to(dtype)
+        # a float times a bool, and a where below: alive (0 or 1) times
+        # finite and times (1 - done) as floats, bit for bit, in 3 device
+        # operations fewer
+        alive = alive * finite.all(-1)
         weighted = obs_safe * alive[:, None]
         s1 = s1 + weighted
         s2 = s2 + obs_safe * weighted
@@ -108,7 +117,7 @@ def _rollout_with_stats(env, policy: MLPSpec, params, obs_stat: RunningStat, noi
             reward = reward - shift
         total = total + reward * alive
         steps = steps + alive
-        alive = alive * (1.0 - done.to(dtype))
+        alive = torch.where(done, 0.0, alive)
         return state.q, state.qd, state.t, obs, total, alive, steps, s1, s2
 
     batch = obs.shape[:-1]
@@ -133,22 +142,32 @@ def _batch_stat(s1, s2, steps, count_dtype) -> RunningStat:
 
 
 @torch.no_grad()
-def ars_iteration(env, policy: MLPSpec, config: ARSConfig, state: ARSState, deltas, noise, pool_draws=None):
+def ars_iteration(env, policy: MLPSpec, config: ARSConfig, state: ARSState, deltas, noise, pool_draws=None, mesh=None):
     """One ARS iteration from given draws: ``deltas`` (n, p), the unit
     perturbations, ``noise`` (n, ...), the reset noise of direction i's
     two rollouts, and for an env with a reset pool ``pool_draws`` (use
     (n,), index (n,)), their pool draws. Returns (new state, metrics), the
     metrics 0-dim tensors on the env's device; the state's generator is
-    passed on untouched."""
+    passed on untouched. With a ``mesh`` of several ranks each rolls out
+    its slice of the n directions (n must divide by the world size) and
+    the results are gathered before the update."""
     n = config.num_directions
     if deltas.shape != (n, state.params.shape[0]) or noise.shape[0] != n:
         raise ValueError(f"deltas {tuple(deltas.shape)} and noise {tuple(noise.shape)} do not fit {n} directions")
-    w = torch.cat([state.params + config.delta_std * deltas, state.params - config.delta_std * deltas])
+    lo, hi = (0, n) if mesh is None else batch_sharding(mesh).bounds(n)
+    local, local_noise = deltas[lo:hi], noise[lo:hi]
+    w = torch.cat([state.params + config.delta_std * local, state.params - config.delta_std * local])
     if pool_draws is not None:
-        pool_draws = tuple(torch.cat([d, d]) for d in pool_draws)
+        pool_draws = tuple(torch.cat([d[lo:hi], d[lo:hi]]) for d in pool_draws)
     rewards, steps, (s1, s2) = _rollout_with_stats(
-        env, policy, w, state.obs_stat, torch.cat([noise, noise]), config, pool_draws=pool_draws
+        env, policy, w, state.obs_stat, torch.cat([local_noise, local_noise]), config, pool_draws=pool_draws
     )
+    if mesh is not None:
+        # each rank's + and - halves back into direction order
+        m = hi - lo
+        parts = [(x[:m], x[m:]) for x in (rewards, steps, s1, s2)]
+        gathered = gather_batch(parts, mesh)
+        rewards, steps, s1, s2 = (torch.cat(pair) for pair in gathered)
     r_pos, r_neg = rewards[:n], rewards[n:]
 
     weights = r_pos - r_neg
@@ -200,12 +219,16 @@ def draw_directions(env, state: ARSState, num_directions: int):
     return deltas.to(env.device), noise, pool
 
 
-def make_train_step(env, policy: MLPSpec, config: ARSConfig) -> Callable:
+def make_train_step(env, policy: MLPSpec, config: ARSConfig, mesh=None) -> Callable:
     """Returns state -> (state, metrics): one iteration with its draws
-    taken from the state's generator."""
+    taken from the state's generator. With ``mesh`` the directions are
+    split over its ranks (:func:`ars_iteration`); every rank's state must
+    start equal, its generator seeded alike."""
+    if mesh is not None:
+        batch_sharding(mesh).bounds(config.num_directions)  # raises when the directions do not split
 
     def step(state: ARSState):
-        return ars_iteration(env, policy, config, state, *draw_directions(env, state, config.num_directions))
+        return ars_iteration(env, policy, config, state, *draw_directions(env, state, config.num_directions), mesh=mesh)
 
     return step
 
@@ -239,6 +262,7 @@ def train(
     eval_fn_num_rollouts: int = 16,
     state: Optional[ARSState] = None,
     eval_env=None,
+    mesh=None,
 ):
     """The training loop: ``num_iterations`` iterations from ``state`` (None:
     :func:`init_ars` with ``seed``), and after every ``config.eval_interval``-th
@@ -247,9 +271,11 @@ def train(
     laikago trainer seeds its evals. ``log_fn(it, state, metrics)`` runs after each
     iteration. The metrics stay 0-dim tensors on the env's device: nothing
     here waits for the device, so the iterations queue back to back.
+    With ``mesh`` the iterations split their directions over its ranks;
+    the evals run whole on every rank.
     Returns (state, history: the metrics of every iteration)."""
     state = init_ars(env, policy, seed) if state is None else state
-    step_fn = make_train_step(env, policy, config)
+    step_fn = make_train_step(env, policy, config, mesh)
     eval_env = env if eval_env is None else eval_env
     eval_fn = make_eval(eval_env, policy, config, eval_fn_num_rollouts)
     history = []

@@ -91,9 +91,16 @@ class MLPSpec:
 
     def apply(self, params, x):
         """Forward pass from a flat parameter vector; broadcasts over
-        leading batch dims of params and x."""
+        leading batch dims of params and x. With a weight matrix per env
+        (ARS's perturbed params) each layer is a product and a sum over the
+        inputs, whose roundings do not depend on the batch: a batched GEMM's
+        do on the card (cuBLAS picks its kernel by the batch count), which
+        would make an env's rollout depend on how many run beside it."""
         for (w, b), act in zip(self.unflatten(params), self.activations):
-            x = torch.einsum("...ij,...j->...i", w, x)
+            if w.dim() > 2:
+                x = (w * x[..., None, :]).sum(-1)
+            else:
+                x = torch.einsum("...ij,...j->...i", w, x)
             if b is not None:
                 x = x + b
             x = _ACT_FNS[act](x)

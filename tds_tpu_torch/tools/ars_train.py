@@ -5,7 +5,18 @@ the port's counterpart of the JAX package's ``examples/laikago_ars_train.py``.
         [--num_directions 64] [--rollout_length 400] [--iterations 50] [--eval_interval 10] \\
         [--checkpoint PATH] [--resume PATH] [--device cpu] [--height_bonus 0] \\
         [--crouch_penalty 0] [--crouch_ref 1.2] [--z_damping 0] [--alive_bonus 0] \\
-        [--terrain_bump 0] [--terrain_scan 0] [--reset_pool POOL.npz] [--reset_pool_prob 0.5]
+        [--terrain_bump 0] [--terrain_scan 0] [--reset_pool POOL.npz] [--reset_pool_prob 0.5] \
+        [--log_root DIR]
+
+Across processes, one device each:
+
+    torchrun --standalone --nproc_per_node=N -m tds_tpu_torch.tools.ars_train ...
+
+With ``WORLD_SIZE`` above 1 every rank joins the process group
+(``parallel.distributed.initialize_distributed``: NCCL on cards, gloo on
+the CPU), draws the same directions and rolls out its slice of them
+(``learn.ars``'s ``mesh``); the update is the same on every rank. Only the
+primary rank (rank 0) prints, writes checkpoints and logs.
 
 Every env steps in float32, on the card unless ``--device`` names another.
 Laikago steps through the fused step kernel K2
@@ -30,6 +41,10 @@ is written, and ``<checkpoint>.best`` too when the eval's
 ``eval_reward_min`` beats the best so far (an existing ``.best`` file's
 included). ``--resume`` starts from the params and obs_stat of a
 checkpoint of either package. Checkpoints are the JAX package's format.
+Each run logs through ``utils.experiment.Experiment``: the flags in
+``<stamp>/settings.json`` beside the checkpoint (or under
+``<log_root>/<env>_ars/``) and every iteration's
+metrics in ``metrics.jsonl`` beside it, written at each eval.
 """
 
 import argparse
@@ -105,24 +120,45 @@ def parse_args(argv=None):
     parser.add_argument("--terrain_scan", type=int, default=0, help="laikago on terrain: height-scan points in the observation")
     parser.add_argument("--reset_pool", default="", help="humanoid: .npz of q and qd states to reset from")
     parser.add_argument("--reset_pool_prob", type=float, default=0.5, help="the probability of a pool reset")
+    parser.add_argument("--log_root", default=None, help="the Experiment logs go to <log_root>/<env>_ars/<stamp>/ "
+                        "(default: the checkpoint's directory, <dir>/<stamp>/)")
     args = parser.parse_args(argv)
     if args.checkpoint is None:
         args.checkpoint = f"./logs/{args.env}_ars/policy_torch.pkl"
     return args
 
 
+def join_ranks(args):
+    """(mesh, device) under torchrun with WORLD_SIZE above 1: this rank in
+    the process group on its device (``--device``, else cuda:LOCAL_RANK);
+    (None, ``--device``) alone."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, args.device
+    from tds_tpu_torch.parallel.distributed import initialize_distributed
+    from tds_tpu_torch.parallel.mesh import make_mesh
+
+    device = initialize_distributed(device=args.device)
+    return make_mesh(device), device
+
+
 def main(argv=None):
+    import torch.distributed as dist
+
     from tds_tpu_torch.convert import ars_state_from_numpy, load_checkpoint, save_checkpoint
     from tds_tpu_torch.learn.ars import ARSConfig, train
     from tds_tpu_torch.learn.nn import MLPSpec
+    from tds_tpu_torch.utils.experiment import trainer_experiment
 
     args = parse_args(argv)
+    mesh, args.device = join_ranks(args)
+    primary = mesh is None or mesh.rank == 0
+    say = print if primary else (lambda *a, **k: None)  # only rank 0 reports
     shaping = {k: getattr(args, k) for k in SHAPING} if args.env == "humanoid" else {}
     if args.terrain_bump > 0.0:
         if args.env != "laikago":
             raise SystemExit("--terrain_bump is laikago-only for now")
         env = make_terrain_env(args.terrain_bump, args.terrain_scan, device=args.device)
-        print(f"terrain mode: +-{args.terrain_bump * 100:.0f} cm heightfield, {args.terrain_scan} height-scan observations")
+        say(f"terrain mode: +-{args.terrain_bump * 100:.0f} cm heightfield, {args.terrain_scan} height-scan observations")
     else:
         env = make_env(args.env, args.device, **shaping)
     eval_env = env
@@ -134,7 +170,7 @@ def main(argv=None):
         with np.load(args.reset_pool) as pool:
             pool = (pool["q"], pool["qd"])
         env = make_env(args.env, args.device, **shaping, reset_pool=pool, reset_pool_prob=args.reset_pool_prob)
-        print(f"reset pool: {pool[0].shape[0]} brink states (p={args.reset_pool_prob})")
+        say(f"reset pool: {pool[0].shape[0]} brink states (p={args.reset_pool_prob})")
     policy = MLPSpec(env.observation_dim, [env.action_dim])
     config = ARSConfig(
         num_directions=args.num_directions,
@@ -144,11 +180,14 @@ def main(argv=None):
         top_directions=args.top_directions,
         eval_interval=args.eval_interval,
     )
+    if mesh is not None:
+        say(f"{mesh.size} ranks ({dist.get_backend()}), {config.num_directions // mesh.size} directions each")
+    exp = trainer_experiment(f"{args.env}_ars", vars(args), args.checkpoint, args.log_root).start() if primary else None
     state = None  # train starts from init_ars
     if args.resume:
         saved, meta = load_checkpoint(args.resume)
         state = ars_state_from_numpy(saved["params"], saved["obs_stat"], args.seed, env.dtype, env.device)
-        print(f"resumed from {args.resume} (iteration {meta.get('iteration')})")
+        say(f"resumed from {args.resume} (iteration {meta.get('iteration')})")
 
     # a crash-resume must not clobber an earlier peak: an existing .best
     # file sets the bar its first eval has to beat
@@ -158,7 +197,7 @@ def main(argv=None):
         previous = load_checkpoint(best_path)[1].get("eval_reward_min")
         if previous is not None:
             best_eval = float(previous)
-            print(f"existing {best_path}: eval_reward_min={best_eval:.3f}")
+            say(f"existing {best_path}: eval_reward_min={best_eval:.3f}")
 
     # metrics stay on the device until an eval: reading one back every
     # iteration would wait for the device each time
@@ -166,13 +205,16 @@ def main(argv=None):
 
     def flush():
         for it, metrics in buffered:
-            print(it, {k: round(float(v), 3) for k, v in metrics.items()}, flush=True)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if exp is not None:
+                exp.log_metrics(it, metrics)
+            say(it, {k: round(v, 3) for k, v in metrics.items()}, flush=True)
         buffered.clear()
 
     def log(it, state, metrics):
         nonlocal best_eval
         buffered.append((it, metrics))
-        if "eval_reward_min" in metrics:
+        if "eval_reward_min" in metrics and primary:
             saved = {"params": state.params, "obs_stat": state.obs_stat}
             save_checkpoint(args.checkpoint, saved, metadata={"iteration": it + 1})
             score = float(metrics["eval_reward_min"])
@@ -182,9 +224,14 @@ def main(argv=None):
             flush()
 
     state, history = train(
-        env, policy, config, args.iterations, args.seed, log, eval_fn_num_rollouts=8, state=state, eval_env=eval_env
+        env, policy, config, args.iterations, args.seed, log, eval_fn_num_rollouts=8, state=state, eval_env=eval_env,
+        mesh=mesh,
     )
     flush()
+    if exp is not None:
+        exp.finish()
+    if mesh is not None:
+        dist.destroy_process_group()
     return state, history
 
 

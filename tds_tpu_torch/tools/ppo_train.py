@@ -4,7 +4,7 @@
     python -m tds_tpu_torch.tools.ppo_train [--env ant|laikago|humanoid|hopper|halfcheetah|cartpole] \\
         [--num_envs 256] [--unroll 128] [--num_minibatches 8] [--num_epochs 4] [--learning_rate 3e-4] \\
         [--entropy_cost 1e-3] [--init_log_std -1] [--hidden 64] [--iterations 1500] [--lr_anneal 0] \\
-        [--eval_interval 50] [--eval_length 1000] [--checkpoint PATH] [--seed 0] [--device cpu]
+        [--eval_interval 50] [--eval_length 1000] [--checkpoint PATH] [--seed 0] [--device cpu] [--log_root DIR]
 
 The env steps in float32 on the card unless ``--device`` names another
 (``cartpole``, beside the JAX example's envs, trains at a tiny size on the
@@ -19,8 +19,12 @@ iterations a deterministic eval runs the mean policy in 8 envs for
 writes the checkpoint when the eval's ``eval_reward_mean`` beats the best
 so far; at the end ``<checkpoint>.final`` holds the last policy. The
 checkpoint (default ``./logs/<env>_ppo/policy_torch.pkl``) is the JAX
-package's PPO format, ``{"params", "obs_stat", "hidden"}``. The JAX
-example's multi-chip and ``Experiment`` logging are not ported.
+package's PPO format, ``{"params", "obs_stat", "hidden"}``. Each run logs
+through ``utils.experiment.Experiment``, as the JAX example does: the flags
+in ``<stamp>/settings.json`` beside the checkpoint (or under
+``<log_root>/<env>_ppo/``) and every iteration's
+metrics in ``metrics.jsonl``, written at each eval. (The JAX example has
+no multi-chip path to port.)
 """
 
 import argparse
@@ -109,6 +113,8 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint", default=None, help="default: ./logs/<env>_ppo/policy_torch.pkl")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="default: the CUDA device")
+    parser.add_argument("--log_root", default=None, help="the Experiment logs go to <log_root>/<env>_ppo/<stamp>/ "
+                        "(default: the checkpoint's directory, <dir>/<stamp>/)")
     args = parser.parse_args(argv)
     if args.checkpoint is None:
         args.checkpoint = f"./logs/{args.env}_ppo/policy_torch.pkl"
@@ -119,8 +125,10 @@ def main(argv=None):
     """Trains; returns (the last state, the metrics of every iteration)."""
     from tds_tpu_torch.convert import ppo_checkpoint
     from tds_tpu_torch.learn.ppo import PPOConfig, PPONetworks, make_ppo
+    from tds_tpu_torch.utils.experiment import trainer_experiment
 
     args = parse_args(argv)
+    exp = trainer_experiment(f"{args.env}_ppo", vars(args), args.checkpoint, args.log_root).start()
     env = make_env(args.env, device=args.device)
     nets = PPONetworks(env.observation_dim, env.action_dim, hidden=(args.hidden, args.hidden))
     config = PPOConfig(
@@ -147,10 +155,13 @@ def main(argv=None):
                 ppo_checkpoint(args.checkpoint, state.params, state.obs_stat, args.hidden,
                                {"iteration": it + 1, "eval_reward_mean": score})
             for i, m in buffered:
-                print(i, {k: round(float(v), 3) for k, v in m.items()}, flush=True)
+                m = {k: float(v) for k, v in m.items()}
+                exp.log_metrics(i, m)
+                print(i, {k: round(v, 3) for k, v in m.items()}, flush=True)
             buffered.clear()
             print(f"{it + 1} iterations in {time.perf_counter() - t0:.1f} s", flush=True)
     ppo_checkpoint(args.checkpoint + ".final", state.params, state.obs_stat, args.hidden, {"iteration": args.iterations})
+    exp.finish()
     return state, history
 
 

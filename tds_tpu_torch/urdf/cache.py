@@ -8,7 +8,16 @@ from tds_tpu_torch.urdf.converter import convert_to_multibody
 from tds_tpu_torch.urdf.parser import parse_urdf_file, parse_urdf_string
 from tds_tpu_torch.utils.file_utils import find_file
 
+_DOC_CACHE: Dict[str, object] = {}
 _MODEL_CACHE: Dict[Tuple, object] = {}
+
+
+def load_document(name: str):
+    """The parsed URDF document (its links' visuals too), cached by path."""
+    path = find_file(name)
+    if path not in _DOC_CACHE:
+        _DOC_CACHE[path] = parse_urdf_file(path)
+    return _DOC_CACHE[path]
 
 
 def construct(name: str, is_floating: bool = False, dtype=torch.float64, mesh_contacts: int = 0):

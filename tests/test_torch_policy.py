@@ -167,6 +167,7 @@ assert set(("tds_tpu_torch.envs.ant", "tds_tpu_torch.envs.hopper")) <= set(names
 assert set(("tds_tpu_torch.utils.obj", "tds_tpu_torch.utils.terrain", "tds_tpu_torch.collision.raycast")) <= set(names), names
 assert set(("tds_tpu_torch.learn.apg", "tds_tpu_torch.utils.diff", "tds_tpu_torch.utils.estimation", "tds_tpu_torch.model.pendulum", "tds_tpu_torch.tools.apg_train", "tds_tpu_torch.tools.contact_loss")) <= set(names), names
 assert set(("tds_tpu_torch.learn.ppo", "tds_tpu_torch.tools.ppo_train", "tds_tpu_torch.utils.neural_augmentation", "tds_tpu_torch.envs.vectorized", "tds_tpu_torch.envs.reacher", "tds_tpu_torch.envs.domain_randomization", "tds_tpu_torch.envs.gym_wrapper")) <= set(names), names
+assert set(("tds_tpu_torch.compat", "tds_tpu_torch.parallel.distributed", "tds_tpu_torch.parallel.mesh", "tds_tpu_torch.utils.experiment", "tds_tpu_torch.utils.motion_import", "tds_tpu_torch.utils.profiling", "tds_tpu_torch.utils.debug", "tds_tpu_torch.utils.dataset", "tds_tpu_torch.visualizer.renderer", "tds_tpu_torch.visualizer.meshcat", "tds_tpu_torch.tools.mocap_track")) <= set(names), names
 print("ok", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
