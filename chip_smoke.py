@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rest-only    # phases 1, 2 and 19 alone, no result lines
+    python3 chip_smoke.py --api-only     # phases 1, 2 and 20 alone, no result lines
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
@@ -13,11 +14,12 @@ JVP kernel), PPO on the ant, floating bases (the floating laikago,
 balls through ``world_step`` and a ball's gradient), control and the
 rest of dynamics (the MPC trot walk of 4096 laikagos, spring contact, the
 CRBA and bf16 contact options), the rest of collision (4096 Pandas
-pushing boxes, the mesh-cube stack, raycasts), and the rest of the port
+pushing boxes, the mesh-cube stack, raycasts), the rest of the port
 (4096 laikagos tracking the mocap dance through K2 and through K1, ARS
 split over ranks under NCCL and gloo and the trainer under torchrun, a
-pytinydiffsim-style script through the compat shim, a rendered frame)
-through them.
+pytinydiffsim-style script through the compat shim, a rendered frame),
+and the rest of the API (K1 from a warm start, PPO on 256 humanoids from
+their reset pool) through them.
 On the card the rollouts, the resets' settle steps and ARS's rollouts
 replay CUDA graphs (``tds_tpu_torch.utils.graphs.scan``); where a phase says "eager" it runs
 the same loop inside ``graphs.eager()``, as ``scan_reference``, the Python
@@ -43,7 +45,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    stores), with its launch shape there (lanes per env, envs per block,
    shared memory per block, resident warps per SM from the CUDA occupancy
    calculator, waves);
-4. device against CPU: 20 float64 ``sim_step``s at batch 8 on the card
+4. device against CPU: 50 float64 ``sim_step``s at batch 8 on the card
    (through the kernel) against the same on the CPU (plain version);
 5. main path: ``LaikagoEnv`` in float32 on the card, ``reset`` at batch 4096
    and a 100-step ``rollout`` of the zero linear policy through graphs,
@@ -58,7 +60,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``tests/test_trained_policy.py``, with the kernel's wrapper launches
    counted;
 7. mega step: the fused step kernel K2 (``tds_tpu_torch/envs/fused_step.py``)
-   against its plain version, 20 float64 steps at batch 8 on the card
+   against its plain version, 50 float64 steps at batch 8 on the card
    against the CPU and one float32 step at batch 16384 against the plain
    version and the eager ``sim_step`` on the card, all from states with
    active contact rows, with the margin left under each tolerance and both
@@ -100,7 +102,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    the plain version there, K1 on its operands against the plain
    version; (b) the ant's main path as phase 5's, with
    ``bench.py``'s ``ant_scan_rollout_env_steps_per_s`` (500 steps), then a
-   50-step hopper rollout; (c) 20 float64 ant steps at batch 16 on the
+   50-step hopper rollout; (c) 50 float64 ant steps at batch 16 on the
    card against the CPU, half the envs started with the torso on the
    ground, where the compaction drops candidates; (d)
    ``logs/ant_ars/policy.pkl`` replayed in float32 through ``rollout``
@@ -122,7 +124,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    humanoid's main path as phase 5's at batch 1024 for 200 steps, with
    ``bench.py``'s ``humanoid_scan_rollout_env_steps_per_s`` (200 steps,
    the timed replay), and the same number at ``top_k=8`` (24 rows, 50
-   steps, one timed run) as a measurement; (c) 20 float64 humanoid steps at batch 8 on the card
+   steps, one timed run) as a measurement; (c) 50 float64 humanoid steps at batch 8 on the card
    against the CPU, the feet in the ground, within 1e-9 abs + rel; (d)
    ``logs/humanoid_ars/policy_curr2.pkl`` replayed in float32 through
    graphs for 3000 steps from the 4 starts of
@@ -146,7 +148,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    ``laikago_terrain_scan_rollout_env_steps_per_s`` (500 steps, one timed
    run) and its eager counterpart, device operations, busy ms and idle share
    per step, one K1 a replayed step, then 50 steps on the ``Mesh`` form of
-   the terrain as a measurement; (c) 20 float64 steps at batch 8 on the
+   the terrain as a measurement; (c) 50 float64 steps at batch 8 on the
    card against the CPU on the heightfield and the mesh, q, qd and the
    observation within 1e-9 abs + rel; (d) ``policy_b4c.pkl`` and
    ``policy_r2b.pkl`` in float32 through graphs for 3000 steps on the +-4
@@ -182,7 +184,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    seconds and memory, and one backward kernel a replayed step in a trace;
    (d) ``logs/laikago_apg/policy_h100.pkl`` replayed for 500 steps from the
    JAX package's reset (``tests/golden/laikago_apg_reset.json``) at
-   ``test_committed_apg_policy_walks``'s thresholds; (e) 15 APG
+   ``test_committed_apg_policy_walks``'s thresholds; (e) 25 APG
    iterations of ``test_apg_through_laikago_contact``'s setup: finite
    grad norms, the last 5 returns' mean above the first;
 15. forward mode and PPO, run before phase 11: (a) K1's forward-mode
@@ -236,7 +238,7 @@ prints no final line (each phase and sub-phase prints its seconds):
    operands, timed;
 17. control and the rest of dynamics, run before phase 11: (a) float64,
    card against CPU within 1e-9 abs + rel: the MPC walk
-   (``tds_tpu_torch.tools.mpc_walk``'s build) at batch 8 over 4 ticks of
+   (``tds_tpu_torch.tools.mpc_walk``'s build) at batch 8 over 10 ticks of
    5 substeps through graphs (q, qd, and the controller's torques at the
    start and the end), the spring laikago and the laikago under
    ``minv_method="crba"`` over 50 seeded steps, and one CRBA step against
@@ -320,6 +322,26 @@ prints no final line (each phase and sub-phase prints its seconds):
    beside (a) runs (a)'s float64 check on the CPU, (c)'s CPU run and the
    frame's rasterisation; (ii)'s ranks start beside (a), use the card once
    (i) is done, and run with (iii)'s trainer beside (c);
+20. the rest of the JAX package's API, run before phase 11: (a) K1 from a
+   warm start (``contact.mlcp.solve_pgs``, the JAX package's public PGS,
+   and ``contact.pgs.solve_pgs(..., x0=)``): the warm-start instances of
+   the forward, the backward (with x0-bar) and the JVP (with x0') against
+   their plain versions at n = 3, 12, 24, 48, 105 and 340 (every form;
+   340 past the streaming thresholds), float32 and float64, 1 and 3
+   sweeps, x0 nonzero with entries outside their bounds (float32 held to
+   the plain versions run in float64 on the same operands); the public
+   path at B = 1024, n = 105 under grad and ``torch.func.jvp`` with the
+   warm-start counters set to 0 just before and read just after; K1 with
+   and without x0 at n = 12 (B = 4096) and n = 105 (B = 1024), the zero
+   start beside PERF.md's times; (b) PPO on the humanoid from
+   ``logs/humanoid_ars/pool_r5.npz`` (p = 0.5) at the ant recipe's shape
+   (256 envs x 128 steps, float32), 3 iterations through the graphs, K1 at
+   105 rows in its blocked form: s/iteration, env-steps/s, K1's wrapper
+   launches and a trace of a short collect, the auto-resets' pool share
+   against 0.5 (within 4 sigma), K1 on a collect step's operands against
+   its plain version, timed; one float64 iteration at 4 envs x 8 steps on
+   the card against the CPU's (a process of its own beside the phase)
+   within 1e-9, one reset from the pool and one not;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -334,7 +356,8 @@ laikago (n = 12) and on the balls (n = 3) and K1's backward under the
 ball loss (n = 3); K1 on the MPC walk and on the bf16 Delassus operands
 (n = 12); K1 on the Panda push's three solves (n = 3, 24, 3, 10 sweeps)
 and on the mesh stack (n = 24); K2 and K1 on the mocap dance and K1 on the
-compat script (n = 12, B = 1); K2, K3, K4); the last
+compat script (n = 12, B = 1); K1's warm-start forward, backward and JVP
+and K1 on the humanoid PPO path (n = 105, B = 256); K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -430,11 +453,11 @@ K1_ROWS, K1_BATCHES = (3, 6, 8, 9, 12, 24, 48, 51, 105), (1, 37, 4096)
 # (horizon 30, batch 2, truncation 10), and test_committed_apg_policy_walks's
 # replay of policy_h100.pkl (500 steps from the JAX package's reset)
 GRAD_ROWS = ((12, 4096), (24, 4096), (48, 4096), (105, 1024))
-CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 50
+CONTACT_LOSS_STEPS, CONTACT_LOSS_CPU_STEPS = 500, 100
 APG_RECIPE = {"horizon": 100, "truncation": 20}
 APG_BATCHES, APG_TIMED_ITERATIONS = (4, 4096), 1
 APG_TEST = {"horizon": 30, "batch": 2, "truncation": 10}
-APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 15, 500
+APG_LEARN_ITERATIONS, APG_REPLAY_STEPS = 25, 500
 APG_CHECKPOINT = REPO / "logs" / "laikago_apg" / "policy_h100.pkl"
 APG_RESET = REPO / "tests" / "golden" / "laikago_apg_reset.json"
 # phase 15: jacfwd through a 20-step laikago contact rollout; PPO at
@@ -471,23 +494,24 @@ BREAKDOWN_STEPS, CHUNK_RUNS, TOP_K_STEPS, TOP_K_REPEATS, MEGA_EAGER_STEPS = 1, 2
 # graphs to, bit for bit (the path's whole rollout before: 100 steps, 200
 # on the humanoid's)
 EAGER_STEPS = 20
-# cut to make room for phase 19: the main paths' eager comparisons (20 steps
-# before), and the humanoid replay stops once every env is done (checked
-# every HUMANOID_REPLAY_CHUNK steps; 3000 steps always before)
-MAIN_EAGER_STEPS, HUMANOID_REPLAY_CHUNK = 10, 250
-# cut to make room for phase 19 (50 steps before; the contact loss's CPU
-# gradient 100, the MPC walk's check 10 ticks): the float64 card-against-CPU
-# comparisons' depth, whose CPU side runs the plain versions eagerly
-CARD_CPU_STEPS = 20  # and APG's learning check 15 iterations (25 before)
+# the main paths' eager comparisons (cut to 10 steps for phase 19, back to
+# 20 since phase 20), and the humanoid replay stops once every env is done
+# (checked every HUMANOID_REPLAY_CHUNK steps; 3000 steps always before)
+MAIN_EAGER_STEPS, HUMANOID_REPLAY_CHUNK = 20, 250
+# the float64 card-against-CPU comparisons' depth, whose CPU side runs the
+# plain versions eagerly: cut to 20 steps for phase 19 (the contact loss's
+# CPU gradient to 50 steps, the MPC walk's check to 4 ticks, APG's learning
+# check to 15 iterations), all back since phase 20
+CARD_CPU_STEPS = 50
 # phase 17: examples/laikago_mpc_walk.py's walk at tests/test_mpc_walk.py's
 # 400 ticks x 5 substeps, env 0 from that test's start (the JAX package's
 # reset draws for its key, recorded in the JSON file); the card against the
-# CPU over 4 ticks at batch 8; the spring laikago's rollout and
+# CPU over 10 ticks at batch 8; the spring laikago's rollout and
 # tests/test_spring_contact.py's ball gradient (400 steps); the CRBA and
 # bf16 options over 100 replayed steps (200 before phase 19), the humanoid
 # under CRBA over 50
 MPC_START = REPO / "tests" / "golden" / "laikago_mpc_walk_start.json"
-MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 4, 4
+MPC_BATCH, MPC_TICKS, MPC_CONTROL_EVERY, MPC_CHECK_BATCH, MPC_CHECK_TICKS, MPC_TIMED_TICKS = 4096, 400, 5, 8, 10, 4
 SPRING_BALL_STEPS, OPTION_STEPS, HUMANOID_CRBA_STEPS = 400, 100, 50
 # phase 18: tools/panda_push.py's 1000 steps at batch 4096 (float64 card
 # against CPU at batch 8), tests/test_mesh_contact.py's mesh-cube stack
@@ -515,6 +539,16 @@ ARS_RANKS, ARS_SHARD_SEED, ARS_SHARD_TOL_F32, ARS_SHARD_TOL_F64 = 2, 19, 1e-5, 1
 K2_TIE = 1e-6
 TORCHRUN_VARIABLES = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 COMPAT_URDF, COMPAT_STEPS, COMPAT_TRACE_STEPS, RENDER_TOL = "laikago/laikago_toes_zup_xyz_xyzrot.urdf", 100, 5, 1e-3
+# phase 20: K1's warm start against its plain versions at these (rows,
+# batch), 340 past the streaming forms' thresholds (335 forward, 328
+# backward, 236 JVP in float32); timed with and without x0 at WARM_TIMED,
+# the zero start beside its times in PERF.md (us, float32, one sweep); the
+# public path (mlcp.solve_pgs) at WARM_PATH; PPO on the humanoid from
+# pool_r5.npz at the ant recipe's shape, its pool share against POOL_PROB
+WARM_ROWS = ((3, 37), (12, 37), (24, 37), (48, 37), (105, 9), (340, 5))
+WARM_TIMED, WARM_PATH = ((12, 4096), (105, 1024)), (105, 1024)
+ZERO_START_US = {12: (6.88, 7.42), 105: (29.09, 29.12)}
+POOL_PROB, HUMANOID_PPO_ITERATIONS, HUMANOID_PPO_TRACE_STEPS = 0.5, 3, 2
 
 
 def log(msg):
@@ -3243,7 +3277,7 @@ def ppo_card_against_cpu():
         state = ppo.make_ppo(env, nets, cfg)[0](0)
         state = state._replace(env_state=EnvState(q.to(device), start.qd.to(device), start.t.to(device)),
                                obs=cpu_env.observation(q, start.qd).to(device))
-        new, metrics = ppo.ppo_iteration(env, nets, cfg, state, ppo.PPODraws(*(d.to(device) for d in draws)))
+        new, metrics = ppo.ppo_iteration(env, nets, cfg, state, draws.to(device))
         flat = [new.params[k] for k in ("policy", "value", "log_std")] + [new.opt_state.mu[k] for k in ("policy", "value")]
         flat += [new.env_state.q, new.env_state.qd, new.obs, *new.obs_stat, *metrics.values()]
         results.append([t.cpu() for t in flat])
@@ -4957,6 +4991,405 @@ def phase_rest(card, card_line):
     return entries, numbers
 
 
+# -- phase 20 --------------------------------------------------------------
+def warm_bounds(b, iterations, card):
+    """(ms for the bytes, ms for the flops) of K1's forward, backward and
+    JVP from a warm start, on operands whose b is ``b``: each as its zero
+    start's bound (``pgs_bound``, ``k1_backward_bound``, ``k1_jvp_bound``)
+    with the first sweep taking every column, as the later sweeps do (A and
+    A' read whole; 2 flops for each off-diagonal product and sum, 6 in the
+    JVP, 5 in the backward), and x0 (and x0', and x0-bar) read or written
+    once."""
+    bsz, n = b.shape
+    size = b.element_size()
+    bandwidth, f32_rate, f64_rate = card
+    rate = f32_rate if b.dtype == torch.float32 else f64_rate
+    forward = (size * (bsz * n * n + 5 * bsz * n) + 4 * n, bsz * iterations * n * (2 * (n - 1) + 4))
+    backward = (size * bsz * (2 * n * n + 8 * n + (iterations - 1) * n) + 4 * n, bsz * iterations * n * (5 * (n - 1) + 20))
+    jvp = (size * bsz * (2 * n * n + 10 * n) + 4 * n, bsz * iterations * n * (6 * (n - 1) + 30))
+    return {k: (v[0] / bandwidth * 1e3, v[1] / rate * 1e3) for k, v in
+            (("forward", forward), ("backward", backward), ("jvp", jvp))}
+
+
+def warm_problem(batch, n, dtype, gen):
+    """random_rows_problem's operands, its dependencies and a warm start x0
+    of standard normal draws: some entries below a normal row's 0 and
+    some outside a friction row's +-0.5 x_n."""
+    operands, dep = random_rows_problem(batch, n, dtype, gen)
+    x0 = torch.randn(batch, n, generator=gen, dtype=torch.float64, device=gen.device)
+    return operands, dep, x0.to(dtype)
+
+
+def over_tol(got, want, rtol, atol):
+    """(max |got - want|, how far the worst entry lies past atol + rtol
+    |want|: negative inside)."""
+    err = (got - want).abs()
+    return err.max().item(), (err - (atol + rtol * want.abs())).max().item()
+
+
+def k1_warm_case(label, operands, dep, x0, it, gen):
+    """K1's forward, backward and JVP from the warm start x0 against their
+    plain versions on the same operands: x within pgs_tol (float64 1e-12
+    relative), the five gradients (x0-bar among them) of a random
+    cotangent within rtol 1e-4, atol 1e-5 max|grad| in float32 (1e-12 in
+    float64), x and x' for random tangents of all five within rtol 1e-5,
+    atol 1e-6 max|x'| (1e-12); raises past any. Returns the largest
+    difference of each. In float32 the plain versions run in float64 on
+    the same float32 operands: from a warm start the first sweep sums every
+    column, and the float32 plain sweep's own rounding (a row's sum of all
+    its products less the diagonal's, in float32) then exceeds the float32
+    tolerance at n >= 48 (5.7e-6 from float64 at n = 48, 3 sweeps, x0 of
+    scale 2, on the CPU), where the blocked kernels sum in double."""
+    from tds_tpu_torch.contact import pgs
+
+    a, b, lo, hi = operands
+    n = b.shape[-1]
+    f32 = b.dtype == torch.float32
+    dep = tuple(dep)
+    plain = [t.double() for t in (a, b, lo, hi, x0)]
+    x = pgs._launch(a, b, lo, hi, dep, it, x0)
+    ref = pgs.solve_pgs_reference(*plain[:4], dep, it, plain[4])
+    rtol, atol = pgs_tol(b.dtype, n) if f32 else (1e-12, 1e-12)
+    worst = {"forward": over_tol(x.double(), ref, rtol, atol)}
+    x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0)
+    inputs = [t.clone().requires_grad_() for t in plain]
+    with torch.enable_grad():
+        want = torch.autograd.grad(pgs.solve_pgs_reference(*inputs[:4], dep, it, inputs[4]), inputs, x_bar.double())
+    errs = []
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        errs.append(over_tol(g.double(), w, *((1e-4, 1e-5 * scale) if f32 else (1e-12, 1e-12 * scale))))
+    worst["backward"] = (max(e[0] for e in errs), max(e[1] for e in errs))
+    worst["x0_bar"] = errs[4]
+    tangents = [torch.randn(t.shape, generator=gen, dtype=t.dtype, device=t.device) for t in (a, b, lo, hi, x0)]
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, it, plain[4])
+    got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, it, x0, tangents[4])
+    scale = max(1.0, want_dot.abs().max().item())
+    x_err = over_tol(got_x.double(), want_x, rtol, atol)
+    dot_err = over_tol(got_dot.double(), want_dot, *((1e-5, 1e-6 * scale) if f32 else (1e-12, 1e-12 * scale)))
+    worst["jvp"] = (max(x_err[0], dot_err[0]), max(x_err[1], dot_err[1]))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in (x, *got, got_x, got_dot))
+    bad = [k for k, (_, over) in worst.items() if over > 0]
+    if bad or not finite:
+        raise AssertionError(f"K1 from a warm start disagrees with its plain version on {label} in {bad or 'finiteness'}: "
+                             f"{ {k: v[0] for k, v in worst.items()} }")
+    return {k: v[0] for k, v in worst.items()}
+
+
+def warm_timing(card):
+    """K1 with and without the warm start at WARM_TIMED (float32, one
+    sweep, random problems): forward, backward and JVP device times (median
+    of 100 launches), the plain versions' (event spans, host-paced), the
+    bounds, and the zero start's time beside PERF.md's figures."""
+    from tds_tpu_torch.contact import pgs
+
+    gen = torch.Generator(device="cuda").manual_seed(201)
+    rows = {}
+    for n, batch in WARM_TIMED:
+        (a, b, lo, hi), dep, x0 = warm_problem(batch, n, torch.float32, gen)
+        dep = tuple(dep)
+        x = pgs._launch(a, b, lo, hi, dep, 1, x0)
+        x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
+        tangents = [torch.randn(t.shape, generator=gen, dtype=t.dtype, device=t.device) for t in (a, b, lo, hi, x0)]
+        times = {
+            "zero_start": lambda: pgs._launch(a, b, lo, hi, dep, 1),
+            "forward": lambda: pgs._launch(a, b, lo, hi, dep, 1, x0),
+            "backward": lambda: pgs._launch_backward(a, b, lo, hi, dep, 1, x, x_bar, x0),
+            "jvp": lambda: pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, 1, x0, tangents[4]),
+        }
+        ms = {k: device_ms(fn, rounds=5, per_round=20) for k, fn in times.items()}
+        inputs = [t.clone().requires_grad_() for t in (a, b, lo, hi, x0)]
+        with torch.enable_grad():
+            ref_x = pgs.solve_pgs_reference(*inputs[:4], dep, 1, inputs[4])
+        plain = {
+            "forward": span_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, 1, x0), reps=3),
+            "backward": span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=3),
+            "jvp": span_ms(lambda: pgs.solve_pgs_jvp_reference(a, b, lo, hi, tangents, dep, 1, x0), reps=3),
+        }
+        bounds = warm_bounds(b, 1, card)
+        low, high = ZERO_START_US[n]
+        moved = ms["zero_start"] * 1e3 / high - 1 if ms["zero_start"] * 1e3 > high else (
+            ms["zero_start"] * 1e3 / low - 1 if ms["zero_start"] * 1e3 < low else 0.0)
+        log(f"rest of the API (a): K1 B={batch} n={n} it=1 float32 ({pgs.form(torch.float32, n)}): zero start "
+            f"{ms['zero_start'] * 1e3:.2f} us (PERF.md {low}-{high} us: {100 * moved:+.1f}% outside that band, 5% allowed); "
+            f"warm start forward {ms['forward'] * 1e3:.2f} us, backward {ms['backward'] * 1e3:.2f} us, JVP "
+            f"{ms['jvp'] * 1e3:.2f} us; plain {plain['forward'] * 1e3:.1f}, {plain['backward'] * 1e3:.1f}, "
+            f"{plain['jvp'] * 1e3:.1f} us (event spans, host-paced); bounds "
+            + ", ".join(f"{k} {max(v) * 1e3:.3f} us ({'bytes' if v[0] >= v[1] else 'operations'})" for k, v in bounds.items()))
+        rows[n] = {"ms": ms, "plain_ms": plain, "bounds": bounds, "zero_start_outside_band": moved,
+                   "shape": f"B={batch} n={n} iterations=1 float32"}
+    return rows
+
+
+def warm_public_path():
+    """mlcp.solve_pgs, the JAX package's public PGS, as a user calls it on
+    the card at WARM_PATH (float32, one sweep, x0 and b requiring grad):
+    its value, torch.autograd.grad of a loss and torch.func.jvp with
+    tangents of x0 and b, with the warm-start counters set to 0 just before
+    and read just after: one launch of each kernel. Returns the counts."""
+    from tds_tpu_torch.contact import mlcp, pgs
+
+    gen = torch.Generator(device="cuda").manual_seed(202)
+    n, batch = WARM_PATH
+    (a, b, lo, hi), dep, x0 = warm_problem(batch, n, torch.float32, gen)
+    x0_grad, b_grad = x0.clone().requires_grad_(), b.clone().requires_grad_()
+    pgs.warm_launches = pgs.warm_backward_launches = pgs.warm_jvp_launches = 0
+    x = mlcp.solve_pgs(a, b_grad, lo, hi, dep, x0_grad, 1)
+    grads = torch.autograd.grad((x * x).sum(), (x0_grad, b_grad))
+    _, x_dot = torch.func.jvp(lambda s, bb: mlcp.solve_pgs(a, bb, lo, hi, dep, s, 1), (x0, b),
+                              (torch.ones_like(x0), torch.zeros_like(b)))
+    torch.cuda.synchronize()
+    counts = {"forward": pgs.warm_launches, "backward": pgs.warm_backward_launches, "jvp": pgs.warm_jvp_launches}
+    with torch.enable_grad():
+        inputs = (x0.clone().requires_grad_(), b.clone().requires_grad_())
+        ref = pgs.solve_pgs_reference(a, inputs[1], lo, hi, dep, 1, inputs[0])
+        want = torch.autograd.grad((ref * ref).sum(), inputs)
+    err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item()) for g, w in zip(grads, want))
+    log(f"rest of the API (a): mlcp.solve_pgs B={batch} n={n} float32 from x0 under grad and torch.func.jvp: warm-start "
+        f"launches {counts} (forward, backward, JVP); its gradient in x0 and b {err:.3e} from the plain version's "
+        f"(relative to max |grad|); x' finite {bool(torch.isfinite(x_dot).all())}")
+    if counts["forward"] < 1 or counts["backward"] != 1 or counts["jvp"] != 1 or err > 1e-4 \
+            or not bool(torch.isfinite(x_dot).all()):
+        raise AssertionError(f"rest of the API (a): mlcp.solve_pgs launched the warm-start kernels {counts} times (at least "
+                             f"1, 1, 1 expected: the forward, the backward, the JVP), or its gradient is {err:.3e} off")
+    return counts
+
+
+def warm_kernels(card):
+    """(a): K1's warm-start instances against their plain versions at
+    WARM_ROWS, float32 and float64, 1 and 3 sweeps, all three forms of
+    each; the public path's launches; the times. Returns the kernels
+    line's three entries."""
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    worst = {"forward": 0.0, "backward": 0.0, "x0_bar": 0.0, "jvp": 0.0}
+    for n, batch in WARM_ROWS:
+        for dtype in (torch.float32, torch.float64):
+            for it in (1, 3):
+                operands, dep, x0 = warm_problem(batch, n, dtype, gen)
+                errs = k1_warm_case(f"random B={batch} n={n} it={it} {dtype}", operands, dep, x0, it, gen)
+                worst = {k: max(v, errs[k]) for k, v in worst.items()}
+                log(f"rest of the API (a): K1 from x0, random B={batch} n={n} it={it} {str(dtype)[6:]} (forms "
+                    f"{pgs_forms(dtype, n)}): max |kernel - plain| forward {errs['forward']:.3e}, backward "
+                    f"{errs['backward']:.3e} (x0-bar {errs['x0_bar']:.3e}), JVP {errs['jvp']:.3e}")
+    counts = warm_public_path()
+    rows = warm_timing(card)
+    n = WARM_PATH[0]
+    row = rows[n]
+    entries = []
+    for kind, name in (("forward", "pgs warm start"), ("backward", "pgs warm start backward"), ("jvp", "pgs warm start jvp")):
+        t_bytes, t_ops = row["bounds"][kind]
+        entries.append({
+            "name": name, "route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu",
+            "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel from x0: tds_tpu/contact/mlcp.py:94 solve_pgs"
+                        + ("" if kind == "forward" else f", its {'VJP' if kind == 'backward' else 'JVP'}") + ")",
+            "launches": counts[kind], "max_abs_err": worst[kind], "ms": row["ms"][kind], "plain_ms": row["plain_ms"][kind],
+            "plain_timing": "event span, host-paced", "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "shape": row["shape"],
+            "main_path": f"mlcp.solve_pgs at B={WARM_PATH[1]} n={n}, under grad and torch.func.jvp (a)",
+            "zero_start_ms": row["ms"]["zero_start"],
+            "other_row_counts": [{"rows": m, "ms": r["ms"][kind], "zero_start_ms": r["ms"]["zero_start"],
+                                  "plain_ms": r["plain_ms"][kind], "bound_ms": max(r["bounds"][kind]),
+                                  "zero_start_outside_band": r["zero_start_outside_band"]}
+                                 for m, r in sorted(rows.items()) if m != n],
+        })
+        if kind == "backward":
+            entries[-1]["x0_bar_max_abs_err"] = worst["x0_bar"]
+    return entries
+
+
+def pgs_forms(dtype, n):
+    from tds_tpu_torch.contact import pgs
+
+    return "/".join(pgs.form(dtype, n, **kw) for kw in ({}, {"backward": True}, {"jvp": True}))
+
+
+def humanoid_pool_env(dtype, device=None):
+    from tds_tpu_torch.envs.humanoid import HumanoidEnv
+
+    with np.load(POOL) as pool:
+        return HumanoidEnv(dtype=dtype, device=device, reset_pool=(pool["q"], pool["qd"]), reset_pool_prob=POOL_PROB)
+
+
+def humanoid_ppo(card, card_line, cpu):
+    """(b): PPO on the humanoid from logs/humanoid_ars/pool_r5.npz (p =
+    POOL_PROB) at the ant recipe's shape (float32, PPO_RECIPE),
+    HUMANOID_PPO_ITERATIONS iterations from seed 0 through the graphs, K1
+    at n = 105 in its blocked form; K1's wrapper launches counted from 0
+    just before and read just after, the auto-resets' pool share against
+    POOL_PROB (binomial bounds), s/iteration and env-steps/s; K1 in a
+    trace of a short collect; K1 on a collect step's operands against its
+    plain version, timed; a float64 iteration against the CPU process's
+    (``cpu``). Returns the kernels line's entry and numbers."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.learn import ppo
+    from tds_tpu_torch.utils import graphs
+
+    env = humanoid_pool_env(torch.float32)
+    nets = ppo.PPONetworks(env.observation_dim, env.action_dim, hidden=(64, 64))
+    cfg = ppo.PPOConfig(num_envs=PPO_RECIPE["num_envs"], unroll_length=PPO_RECIPE["unroll"], num_minibatches=8, num_epochs=4,
+                        init_log_std=-1.0)
+    init_fn, step_fn = ppo.make_ppo(env, nets, cfg)
+    state = init_fn(0)
+    if pgs.form(torch.float32, 105) != "blocked":
+        raise AssertionError("humanoid PPO (b): K1 would not run its blocked form at 105 rows")
+    torch.cuda.synchronize()
+    cached = graphs.stats()
+    pgs.launches = 0
+    rows = []
+    for _ in range(HUMANOID_PPO_ITERATIONS):
+        (state, metrics), seconds = timed_call(lambda: step_fn(state))
+        rows.append((seconds, {k: v.item() for k, v in metrics.items()}))
+    launches = pgs.launches
+    check_wrapper_launches("humanoid PPO (b)", "PGS", launches, cached)
+    if not all(bool(torch.isfinite(p).all()) for p in state.params.values()):
+        raise AssertionError("humanoid PPO (b): a parameter is not finite")
+    steps = cfg.num_envs * cfg.unroll_length
+    resets = sum(m["resets"] for _, m in rows)
+    pooled = sum(m["pool_resets"] for _, m in rows)
+    share = pooled / max(resets, 1)
+    sigma = math.sqrt(POOL_PROB * (1 - POOL_PROB) / max(resets, 1))
+    for i, (seconds, m) in enumerate(rows):
+        log(f"humanoid PPO (b): iteration {i + 1} ({cfg.num_envs} envs x {cfg.unroll_length} steps, float32, K1 at 105 rows, "
+            f"blocked): {seconds:.3f} s{' with the captures' if i == 0 else ''}, {steps / seconds:.1f} env-steps/s; "
+            f"{m['resets']:.0f} auto-resets, {m['pool_resets']:.0f} from the pool, at most {m['env_resets_max']:.0f} of one "
+            f"env, {m['reset_slots']:.0f} slots; reward_mean {m['reward_mean']:.4f}, episode_done_rate "
+            f"{m['episode_done_rate']:.4f} ({card_line})")
+    log(f"humanoid PPO (b): {pooled:.0f} of {resets:.0f} auto-resets took a pool state: {share:.3f} against p = {POOL_PROB} "
+        f"(binomial sigma {sigma:.3f}); K1 wrapper launches over {HUMANOID_PPO_ITERATIONS} iterations {launches} "
+        "(warm-ups and captures)")
+    if resets < 20 or abs(share - POOL_PROB) > 4 * sigma:
+        raise AssertionError(f"humanoid PPO (b): {pooled} of {resets} auto-resets from the pool, outside 4 sigma of "
+                             f"{POOL_PROB} (or fewer than 20 resets)")
+    seconds = rows[-1][0]
+    bench_line("ppo_humanoid_pool_env_steps_per_s", steps / seconds, "steps/s", card_line, num_envs=cfg.num_envs,
+               unroll=cfg.unroll_length, iteration_s=seconds, pool_share=share)
+    # the trace: a collect of HUMANOID_PPO_TRACE_STEPS steps with one reset
+    # slot, K1 once a collect step and once a settle step of its resets
+    short = cfg._replace(unroll_length=HUMANOID_PPO_TRACE_STEPS)
+    draws = ppo.draw_iteration(env, short, state.generator, torch.float32, reset_slots=1)
+    profile = device_profile(lambda: ppo.collect(env, nets, short, state, draws), calls=1, kernel="pgs_kernel",
+                             expected=HUMANOID_PPO_TRACE_STEPS + env.settle_steps)
+    if profile is None or profile[3] != HUMANOID_PPO_TRACE_STEPS + env.settle_steps:
+        raise AssertionError(f"humanoid PPO (b): {None if profile is None else profile[3]} K1 kernels in a traced collect of "
+                             f"{HUMANOID_PPO_TRACE_STEPS} steps and {env.settle_steps} settle steps")
+    ops, busy, wall, count = profile
+    log(f"humanoid PPO (b): a traced {HUMANOID_PPO_TRACE_STEPS}-step collect with {env.settle_steps} settle steps: "
+        f"{ops:.0f} device operations, busy {busy:.3f} of {wall:.3f} ms ({100 * (1 - busy / wall):.1f}% idle), K1 "
+        f"{count:.0f} times")
+    # K1 on the operands of a collect step at the recipe's batch
+    gen = torch.Generator(device="cuda").manual_seed(203)
+    with graphs.eager(), recorded_pgs_calls() as calls:
+        env.step(state.env_state, torch.zeros(cfg.num_envs, env.action_dim, device="cuda"))
+    a, b, lo, hi, dep, it = calls[0]
+    if tuple(b.shape) != (cfg.num_envs, 105):
+        raise AssertionError(f"humanoid PPO (b): the step's MLCP has shape {tuple(b.shape)}, not ({cfg.num_envs}, 105)")
+    err, _ = k1_against_plain("the humanoid PPO step", [a, b, lo, hi], dep, it)
+    timing = k1_timing("humanoid PPO step", [a, b, lo, hi], dep, it, card, prefix="humanoid PPO (b)")
+    entry = {"name": "pgs n=105 humanoid PPO", "route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu",
+             "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel)", "library_ms": None, "launches": launches,
+             "replayed_launches_per_step": count / (HUMANOID_PPO_TRACE_STEPS + env.settle_steps), "max_abs_err": err,
+             "main_path": "PPO on the humanoid from pool_r5.npz (b)", **timing}
+    numbers = {"humanoid_ppo_iteration_s": [r[0] for r in rows], "humanoid_ppo_env_steps_per_s": steps / seconds,
+               "humanoid_ppo_resets": resets, "humanoid_ppo_pool_resets": pooled, "humanoid_ppo_pool_share": share,
+               "humanoid_ppo_launches": launches, "humanoid_ppo_collect_device_ops": ops,
+               "humanoid_ppo_collect_idle_share": 1 - busy / wall}
+    numbers["humanoid_ppo_float64_card_against_cpu"] = humanoid_ppo_card_against_cpu(cpu)
+    return entry, numbers
+
+
+def humanoid_ppo_run(device):
+    """One float64 PPO iteration on the pool humanoid on ``device`` (4 envs x
+    8 steps, 2 minibatches, 1 epoch, the torso of envs 0 and 1 dropped below
+    the done height so that they reset in the unroll, env 0 from the pool
+    and env 1 not): (the params, Adam's moments, the envs' states, the
+    statistics and the metrics on the CPU, resets, pool resets)."""
+    from tds_tpu_torch.envs.base import EnvState
+    from tds_tpu_torch.learn import ppo
+
+    cfg = ppo.PPOConfig(num_envs=4, unroll_length=8, num_minibatches=2, num_epochs=1, learning_rate=1e-3, init_log_std=-1.0)
+    cpu_env = humanoid_pool_env(torch.float64, "cpu")
+    start, _ = cpu_env.reset(torch.Generator().manual_seed(1), batch_size=cfg.num_envs,
+                             pool_draws=(torch.zeros(cfg.num_envs, dtype=torch.bool), torch.zeros(cfg.num_envs, dtype=torch.int64)))
+    q = start.q.clone()
+    q[:2, 2] = 0.5  # below the torso's done height of 0.8 m
+    draws = ppo.draw_iteration(cpu_env, cfg, torch.Generator().manual_seed(2), torch.float64, reset_slots=cfg.unroll_length)
+    draws = draws._replace(reset_pool=(torch.tensor([[True, False, True, False]] * draws.reset_noise.shape[0]),
+                                       draws.reset_pool[1]))
+    env = cpu_env if device == "cpu" else humanoid_pool_env(torch.float64, device)
+    nets = ppo.PPONetworks(env.observation_dim, env.action_dim, hidden=(16, 16))
+    state = ppo.make_ppo(env, nets, cfg)[0](0)
+    state = state._replace(env_state=EnvState(q.to(device), start.qd.to(device), start.t.to(device)),
+                           obs=cpu_env.observation(q, start.qd).to(device))
+    new, metrics = ppo.ppo_iteration(env, nets, cfg, state, draws.to(device))
+    flat = [new.params[k] for k in ("policy", "value", "log_std")] + [new.opt_state.mu[k] for k in ("policy", "value")]
+    flat += [new.env_state.q, new.env_state.qd, new.obs, *new.obs_stat, *metrics.values()]
+    return [t.cpu() for t in flat], int(metrics["resets"]), int(metrics["pool_resets"])
+
+
+def api_cpu_start(tmp):
+    """Starts phase 20's CPU process (this script with ``--api-cpu``): (b)'s
+    float64 iteration on the CPU, beside (a) and (b) on the card."""
+    return subprocess.Popen([sys.executable, __file__, "--api-cpu", tmp], cwd=str(REPO), env=child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def api_cpu(tmp):
+    """Phase 20's CPU process: humanoid_ppo_run on the CPU, saved."""
+    torch.set_num_threads(1)
+    torch.save(humanoid_ppo_run("cpu"), os.path.join(tmp, "ppo_cpu.pt.part"))
+    os.replace(os.path.join(tmp, "ppo_cpu.pt.part"), os.path.join(tmp, "ppo_cpu.pt"))  # whole when it appears
+
+
+def humanoid_ppo_card_against_cpu(cpu):
+    """humanoid_ppo_run on the card against the CPU's (``cpu``: the CPU
+    process and its results' path), from the same draws, within 1e-9
+    relative (abs below 1); both branches of the reset taken."""
+    card, resets, pooled = humanoid_ppo_run("cuda")
+    proc, path = cpu
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            raise AssertionError(f"humanoid PPO (b): the CPU process ended without its results:\n{proc.stdout.read().decode()}")
+        time.sleep(0.05)
+    want, cpu_resets, cpu_pooled = torch.load(path)
+    worst = max(((g - w).abs() / w.abs().clamp_min(1.0)).max().item() for g, w in zip(card, want))
+    log(f"humanoid PPO (b): one float64 iteration (4 envs x 8 steps, {resets} auto-resets, {pooled} from the pool) on the "
+        "card against the CPU's (its own process) from the same draws: largest difference "
+        f"{worst:.3e} relative (abs below 1; 1e-9)")
+    if worst > 1e-9 or not 0 < pooled < resets or (resets, pooled) != (cpu_resets, cpu_pooled):
+        raise AssertionError(f"humanoid PPO (b): the card's float64 iteration differs from the CPU's by {worst:.3e}, or its "
+                             f"{resets} resets did not take both branches ({pooled} from the pool)")
+    return worst
+
+
+def phase_api(card, card_line):
+    """Phase 20: the rest of the JAX package's API on the card: (a) K1's
+    warm-start instances, (b) PPO on the humanoid from its reset pool. A
+    CPU process beside them runs (b)'s float64 iteration on the CPU.
+    Returns the kernels line's entries and the numbers."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="api_")
+    proc = api_cpu_start(tmp)
+    try:
+        with sub_phase("rest of the API (a) seconds"):
+            entries = warm_kernels(card)
+        with sub_phase("humanoid PPO (b) seconds"):
+            entry, numbers = humanoid_ppo(card, card_line, (proc, os.path.join(tmp, "ppo_cpu.pt")))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    entries.append(entry)
+    for e in entries:
+        log(f"rest of the API: {json.dumps({k: v for k, v in e.items() if k != 'other_row_counts'})}")
+    log(f"rest of the API: {json.dumps(numbers)}")
+    return entries, numbers
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -5048,14 +5481,15 @@ def main():
     mpc, mpc_numbers = timed(phase_mpc, card, card_line, main_path["laikago_scan_rollout_env_steps_per_s"])
     collision, collision_numbers = timed(phase_collision, card, card_line)
     rest, rest_numbers = timed(phase_rest, card, card_line)
+    api, api_numbers = timed(phase_api, card, card_line)
     # the paths' numbers on a line of their own, so that the kernels line stays short
     numbers = {f"main_path_{k}": v for k, v in main_path.items() if k != "launches"}
     for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, collision_numbers, rest_numbers,
-                 timed(phase_graphs, start_s)):
+                 api_numbers, timed(phase_graphs, start_s)):
         numbers.update(part)
     print(json.dumps({"numbers": numbers}))
     print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, *collision, *rest,
-                                  mega, *probes]}))
+                                  *api, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 
@@ -5064,9 +5498,15 @@ if __name__ == "__main__":
         ars_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--compat-cpu"]:  # phase 19's CPU process, started by compat_cpu_start
         compat_cpu(sys.argv[2])
+    elif sys.argv[1:2] == ["--api-cpu"]:  # phase 20's CPU process, started by api_cpu_start
+        api_cpu(sys.argv[2])
     elif sys.argv[1:2] == ["--rest-only"]:  # phase 19 alone, after phases 1 and 2; prints no result line
         card_name, card_text = phase_device()
         timed(phase_build)
         timed(phase_rest, card_peaks(card_name), card_text)
+    elif sys.argv[1:2] == ["--api-only"]:  # phase 20 alone, after phases 1 and 2; prints no result line
+        card_name, card_text = phase_device()
+        timed(phase_build)
+        timed(phase_api, card_peaks(card_name), card_text)
     else:
         main()

@@ -4,3 +4,7 @@
 have no counterpart: their call sites are ``@``/``torch.einsum`` and
 out-of-place writes here.
 """
+
+from tds_tpu_torch.algebra import quaternion, rotation, spatial
+from tds_tpu_torch.algebra.inertia import ArticulatedBodyInertia, RigidBodyInertia
+from tds_tpu_torch.algebra.transform import Transform

@@ -21,6 +21,15 @@ class RigidBodyInertia(NamedTuple):
     h: torch.Tensor  # (..., 3) first moment of mass m*com
     inertia: torch.Tensor  # (..., 3, 3) about the body-frame origin
 
+    @staticmethod
+    def from_mass_com_inertia(mass, com, inertia_about_com):
+        """From the mass, the centre of mass and the inertia about it, by the
+        parallel-axis rule: I_origin = I_com + m cx cx^T, h = m com."""
+        mass, com, inertia = (torch.as_tensor(t) for t in (mass, com, inertia_about_com))
+        cx = spatial.cross_matrix(com)
+        i_o = inertia + mass[..., None, None] * (cx @ cx.transpose(-1, -2))
+        return RigidBodyInertia(mass=mass, h=mass[..., None] * com, inertia=i_o)
+
     def mul_motion(self, m):
         """Spatial momentum I v = [I w + h x v, m v - h x w]."""
         w, v = m[..., :3], m[..., 3:]
@@ -42,6 +51,11 @@ class ArticulatedBodyInertia(NamedTuple):
             H=spatial.cross_matrix(rbi.h),
             M=rbi.mass[..., None, None] * eye,
         )
+
+    @staticmethod
+    def zero(dtype=None, batch_shape=(), device=None):
+        z = torch.zeros(tuple(batch_shape) + (3, 3), dtype=dtype, device=device)
+        return ArticulatedBodyInertia(z, z, z)
 
     def __add__(self, other):
         return ArticulatedBodyInertia(
@@ -97,6 +111,12 @@ class ArticulatedBodyInertia(NamedTuple):
         return ArticulatedBodyInertia(
             I=a_inv - ainv_h_sinv @ (h @ a_inv), H=-ainv_h_sinv, M=s_inv
         )
+
+    def inv_mul(self, f):
+        """The motion vector a with Ia a = f."""
+        inv = self.inverse()
+        n, lin = f[..., :3], f[..., 3:]
+        return spatial.mv(matvec(inv.I, n) + matvec(inv.H, lin), matvec(inv.M, lin) + matTvec(inv.H, n))
 
     @staticmethod
     def outer_ff(a, b):

@@ -10,6 +10,24 @@ def identity(dtype=torch.float64, device=None):
     return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
 
+def from_xyzw(x, y, z, w):
+    return torch.stack([x, y, z, w], dim=-1)
+
+
+def split(q):
+    """(vec, w) parts of an xyzw quaternion."""
+    return q[..., :3], q[..., 3]
+
+
+def rotate(q, v):
+    """v rotated by q (active, local -> world)."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    if qv.shape != v.shape:
+        qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
+
+
 def mul(a, b):
     """Hamilton product a ⊗ b (both xyzw)."""
     av, aw = a[..., :3], a[..., 3:4]

@@ -29,6 +29,15 @@ def rotation_z(angle):
     return _rot(angle.cos(), angle.sin(), 2)
 
 
+def from_axis_angle(axis, angle):
+    """Rodrigues' formula: the rotation by ``angle`` about the unit ``axis``."""
+    from tds_tpu_torch.algebra.spatial import cross_matrix
+
+    k = cross_matrix(axis)
+    eye = torch.eye(3, dtype=k.dtype, device=k.device)
+    return eye + angle.sin()[..., None, None] * k + (1.0 - angle.cos())[..., None, None] * (k @ k)
+
+
 def from_rpy(roll, pitch, yaw):
     """URDF rpy: R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
     return rotation_z(yaw) @ rotation_y(pitch) @ rotation_x(roll)

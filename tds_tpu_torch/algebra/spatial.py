@@ -19,6 +19,18 @@ def mv(top, bottom):
 fv = mv  # force vectors share the container
 
 
+def top(v):
+    return v[..., :3]
+
+
+def bottom(v):
+    return v[..., 3:]
+
+
+def zero(dtype=None, batch_shape=(), device=None):
+    return torch.zeros(tuple(batch_shape) + (6,), dtype=dtype, device=device)
+
+
 def cross(a, b):
     """3-vector cross product over the last axis, broadcasting."""
     if a.shape != b.shape:
@@ -57,6 +69,21 @@ def cross_matrix(v):
         ],
         dim=-2,
     )
+
+
+def safe_norm(v, axis=-1):
+    """|v| with a zero gradient at v = 0 (the double-where trick: a plain
+    norm backpropagates NaN there)."""
+    sq = (v * v).sum(axis)
+    positive = sq > 0
+    safe = torch.where(positive, sq, torch.ones_like(sq))
+    return torch.where(positive, safe.sqrt(), torch.zeros_like(sq))
+
+
+def safe_normalize(v, axis=-1, eps=1e-12):
+    """(v / |v|, |v|), zero with a finite gradient at v = 0."""
+    n = safe_norm(v, axis=axis)
+    return v / torch.maximum(n, torch.full_like(n, eps)).unsqueeze(-1), n
 
 
 def matvec(m, v):

@@ -16,7 +16,8 @@ Gauss-Seidel (counterpart of tds_tpu/contact/mlcp.py).
   ``jax.lax.top_k`` breaks them);
 - PGS with friction bounds scaled by the current normal impulse, through
   :func:`tds_tpu_torch.contact.pgs.solve_pgs` (the CUDA kernel on the card,
-  the plain version on the CPU);
+  the plain version on the CPU) from x = 0; :func:`solve_pgs` is the JAX
+  package's public PGS, from a warm start;
 - impulse qd_a += M_a^-1 J_a^T p, qd_b -= M_b^-1 J_b^T p.
 
 The friction plane-space vectors are normalized, as in the JAX package.
@@ -50,6 +51,20 @@ class ContactSolverParams(NamedTuple):
     minv_method: str = "aba"
     top_k: int = 0
     delassus_dtype: str = "f32"
+
+
+def solve_pgs(a_mat, b, lo, hi, limit_dependency, x0, iterations: int):
+    """Projected Gauss-Seidel from the warm start ``x0``, with
+    impulse-coupled bounds (``limit_dependency[i] >= 0`` scales row i's
+    bounds by max(x[dep], 0)): the JAX package's signature. a_mat
+    (..., n, n), b/lo/hi/x0 (..., n), the leading dims folded into one
+    batch for :func:`tds_tpu_torch.contact.pgs.solve_pgs` (K1's warm-start
+    instances on the card, the plain sweep on the CPU)."""
+    n = b.shape[-1]
+    lead = b.shape[:-1]
+    flat = [t.reshape(-1, n).contiguous() for t in (b, lo, hi, x0)]
+    x = pgs.solve_pgs(a_mat.reshape(-1, n, n).contiguous(), *flat[:3], limit_dependency, iterations, x0=flat[3])
+    return x.reshape(lead + (n,))
 
 
 def plane_space(n):

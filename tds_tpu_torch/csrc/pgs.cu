@@ -90,6 +90,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "pgs_sweep.cuh"
 
 namespace {
@@ -139,12 +141,13 @@ pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict
   if (active && lane < N) x_out[e * N + lane] = mine;
 }
 
-// n < N: rows n..N-1 are identity rows in registers.
-template <typename T, int N, int G>
+// n < N: rows n..N-1 are identity rows in registers. With Warm (any
+// n <= N) the sweeps start from x0 (B, n), the padding rows from 0.
+template <typename T, int N, int G, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                   const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                  int batch, int n, int iterations) {
+                  int batch, int n, int iterations, const T* __restrict__ x0) {
   const int lane = threadIdx.x % G;
   const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const bool active = env < batch;
@@ -165,7 +168,14 @@ pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __r
   row.hi = real ? hi[e * n + r] : T(0);
   row.dep = real ? dep[r] : -1;
   T x[N];
-  const T mine = pgs_sweeps<T, N, G>(x, row, iterations);
+  T start = T(0), start_dep = T(0);  // x0 of the lane's row and of its dependency
+  if (Warm) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = j < n ? x0[e * n + j] : T(0);
+    start = real ? x0[e * n + r] : T(0);
+    start_dep = row.dep >= 0 ? x0[e * n + row.dep] : T(0);
+  }
+  const T mine = pgs_sweeps<T, N, G, Warm>(x, row, iterations, start, start_dep);
   if (active && lane < n) x_out[e * n + lane] = mine;
 }
 
@@ -183,8 +193,9 @@ struct WarpRow {
   int cols;          // the columns the row needs: all but in the first sweep
 };
 
-// Row i in sweep `it` of one env: the first sweep has x_j = 0 for j >= i,
-// so it needs the columns up to the end of i's block of 32.
+// Row i in sweep `it` of one env: the first sweep from x = 0 has x_j = 0
+// for j >= i, so it needs the columns up to the end of i's block of 32 (a
+// warm start passes it = 1: every column).
 template <typename T>
 __device__ __forceinline__ void load_warp_row(WarpRow<T>& r, const T* a_env, const T* b_env, const T* lo_env,
                                               const T* hi_env, const int* dep, int i, int it, int n, int lane) {
@@ -202,14 +213,23 @@ __device__ __forceinline__ void load_warp_row(WarpRow<T>& r, const T* a_env, con
   r.dep = dep[i];
 }
 
+// The type a streaming form's row sums run in: T from x = 0 (the zero
+// start's instances as they were), double from a warm start, whose first
+// sweep sums every column: in float32 a 340-column sum strayed from the
+// plain sweep's in float64 by 6.6e-6, past the float32 tolerance (on an
+// H100 80GB HBM3), as the blocked forms' sums did at n = 97 before they ran
+// in double.
+template <typename T, bool Warm>
+using StreamAcc = typename std::conditional<Warm, double, T>::type;
+
 // n > 32: one warp per env, envs_per_block warps a block, x in shared
 // memory (n values a warp). Each row's loads are issued while the row
 // before it is reduced and clipped, so the chain of dependent rows waits on
 // a shuffle reduction and a divide a row, not on a memory round trip.
-template <typename T>
+template <typename T, bool Warm = false>
 __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                     const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                                    int batch, int n, int iterations) {
+                                    int batch, int n, int iterations, const T* __restrict__ x0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -217,36 +237,37 @@ __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict
   const bool active = env < batch;
   const long long e = active ? env : batch - 1;  // a valid env to read from
   T* x = reinterpret_cast<T*>(smem_raw) + (long long)warp * n;
-  for (int j = lane; j < n; j += kWarp) x[j] = T(0);
+  for (int j = lane; j < n; j += kWarp) x[j] = Warm ? x0[e * n + j] : T(0);
   __syncwarp();
   const T* a_env = a + e * n * n;
   const T* b_env = b + e * n;
   const T* lo_env = lo + e * n;
   const T* hi_env = hi + e * n;
   WarpRow<T> cur;
-  load_warp_row(cur, a_env, b_env, lo_env, hi_env, dep, 0, 0, n, lane);
+  load_warp_row(cur, a_env, b_env, lo_env, hi_env, dep, 0, Warm ? 1 : 0, n, lane);
   for (int it = 0; it < iterations; ++it) {
     for (int i = 0; i < n; ++i) {
       // the next row's loads (row 0 of the next sweep after the last row)
       WarpRow<T> next;
       const bool wrap = i + 1 == n;
-      load_warp_row(next, a_env, b_env, lo_env, hi_env, dep, wrap ? 0 : i + 1, wrap ? it + 1 : it, n, lane);
+      load_warp_row(next, a_env, b_env, lo_env, hi_env, dep, wrap ? 0 : i + 1, Warm ? 1 : (wrap ? it + 1 : it), n, lane);
       // this lane's columns in increasing j, then a butterfly over the warp
-      T partial = T(0);
+      using Acc = StreamAcc<T, Warm>;
+      Acc partial = Acc(0);
 #pragma unroll
       for (int k = 0; k < kHeld; ++k) {
         const int j = lane + kWarp * k;
-        if (j < cur.cols && j != i) partial += cur.a[k] * x[j];
+        if (j < cur.cols && j != i) partial += Acc(cur.a[k]) * Acc(x[j]);
       }
       const T* a_row = a_env + (long long)i * n;
       for (int j = lane + kWarp * kHeld; j < cur.cols; j += kWarp) {
-        if (j != i) partial += a_row[j] * x[j];
+        if (j != i) partial += Acc(a_row[j]) * Acc(x[j]);
       }
 #pragma unroll
       for (int offset = kWarp / 2; offset > 0; offset /= 2) {
         partial += __shfl_xor_sync(0xffffffffu, partial, offset);
       }
-      T xi = (cur.b - partial) / cur.aii;
+      T xi = T((Acc(cur.b) - partial) / Acc(cur.aii));
       const int d = cur.dep;
       const T s = d >= 0 ? (x[d] > T(0) ? x[d] : T(0)) : T(1);
       // clip(xi, lo*s, hi*s) = min(max(xi, lo*s), hi*s), as jnp.clip
@@ -315,11 +336,11 @@ struct Resident {
   static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
 };
 
-template <typename T>
+template <typename T, bool Warm = false>
 __global__ void __launch_bounds__(kThreads, Resident<T>::kBlocks)
 pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                    const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                   int batch, int n, int iterations) {
+                   int batch, int n, int iterations, const T* __restrict__ x0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -341,7 +362,7 @@ pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __
     copy_async(los + j, lo + e * n + j);
     copy_async(his + j, hi + e * n + j);
     copy_async(deps + j, dep + j);
-    x[j] = T(0);
+    x[j] = Warm ? x0[e * n + j] : T(0);
   }
   stage_rows(tri, a_env, n, 0, min(n, kWarp), lane, kWarp);
   copy_commit();
@@ -368,8 +389,8 @@ pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __
       double sum = 0.0;
 #pragma unroll 4
       for (int j = 0; j < k0; ++j) sum += double(trow[j]) * double(x[j]);
-      if (it > 0) {
-        // the previous sweep's x after the row: A's upper part from L2
+      if (Warm || it > 0) {
+        // the previous sweep's x (or x0) after the row: A's upper part from L2
         const T* a_row = a_env + (long long)rr * n;
         for (int j = rr + 1; j < n; ++j) sum += double(a_row[j]) * double(x[j]);
       }
@@ -442,34 +463,36 @@ struct Plan {
   long long smem = 0;
 };
 
-template <typename T, int N>
+template <typename T, int N, bool Warm>
 const void* row_kernel(int n) {
-  if (n == N) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G>);
-  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G>);
+  if (n == N && !Warm) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G>);
+  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G, Warm>);
 }
 
-template <typename T>
+// With Warm the plan of the warm-start instances: the same forms and
+// shapes, the row-per-lane form through pgs_kernel_padded for every n.
+template <typename T, bool Warm = false>
 Plan forward_plan(int n) {
   Plan p;
   const int rows = instance_rows(n);
   if (rows != 0) {
     switch (rows) {
-      case 8: p.fn = row_kernel<T, 8>(n); break;
-      case 12: p.fn = row_kernel<T, 12>(n); break;
-      case 16: p.fn = row_kernel<T, 16>(n); break;
-      case 24: p.fn = row_kernel<T, 24>(n); break;
-      default: p.fn = row_kernel<T, 32>(n); break;
+      case 8: p.fn = row_kernel<T, 8, Warm>(n); break;
+      case 12: p.fn = row_kernel<T, 12, Warm>(n); break;
+      case 16: p.fn = row_kernel<T, 16, Warm>(n); break;
+      case 24: p.fn = row_kernel<T, 24, Warm>(n); break;
+      default: p.fn = row_kernel<T, 32, Warm>(n); break;
     }
     p.form = kRowPerLane;
     p.lanes = rows <= 16 ? 16 : 32;
     p.envs = kThreads / p.lanes;
   } else if (blocked_fits<T>(n)) {
-    p.fn = reinterpret_cast<const void*>(&pgs_kernel_blocked<T>);
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_blocked<T, Warm>);
     p.form = kBlocked;
     p.lanes = kWarp;
     staged_shape(blocked_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
   } else if (n > 32) {
-    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T>);
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T, Warm>);
     p.form = kStreaming;
     p.lanes = kWarp;
     streaming_shape((long long)n * sizeof(T), &p.envs, &p.smem);  // x
@@ -486,7 +509,7 @@ void launch_rows(const T* a, const T* b, const T* lo, const T* hi, const int* de
   if (n == N) {
     pgs_kernel<T, N, G><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, iterations);
   } else {
-    pgs_kernel_padded<T, N, G><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, n, iterations);
+    pgs_kernel_padded<T, N, G><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, n, iterations, nullptr);
   }
 }
 
@@ -514,12 +537,46 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
       if (err != cudaSuccess) return static_cast<int>(err);
       const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
       if (p.form == kBlocked) {
-        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations);
+        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations,
+                                                                    nullptr);
       } else {
-        pgs_kernel_per_warp<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations);
+        pgs_kernel_per_warp<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations,
+                                                                     nullptr);
       }
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 from the warm start x0 (B, n): the forward's three forms, each
+// instantiated with Warm (the zero start's instances above are untouched).
+template <typename T>
+int launch_warm(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* x0,
+                void* x, int batch, int n, int iterations, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = forward_plan<T, true>(n);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(p.fn, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+  const int threads = p.envs * p.lanes;
+#define TDS_WARM_ARGS static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(lo), \
+    static_cast<const T*>(hi), static_cast<const int*>(dep), static_cast<T*>(x), batch, n, iterations, \
+    static_cast<const T*>(x0)
+  if (p.form == kBlocked) {
+    pgs_kernel_blocked<T, true><<<blocks, threads, p.smem, s>>>(TDS_WARM_ARGS);
+  } else if (p.form == kStreaming) {
+    pgs_kernel_per_warp<T, true><<<blocks, threads, p.smem, s>>>(TDS_WARM_ARGS);
+  } else {
+    switch (instance_rows(n)) {
+      case 8: pgs_kernel_padded<T, 8, Lanes<8>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
+      case 12: pgs_kernel_padded<T, 12, Lanes<12>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
+      case 16: pgs_kernel_padded<T, 16, Lanes<16>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
+      case 24: pgs_kernel_padded<T, 24, Lanes<24>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
+      default: pgs_kernel_padded<T, 32, Lanes<32>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
+    }
+  }
+#undef TDS_WARM_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,7 +603,11 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
 // Saved state: x after every sweep, xs (iterations, B, n), which the
 // wrapper (contact/pgs.py) fills from the forward's output and, for
 // iterations > 1, from forward launches of 1 .. iterations-1 sweeps, which
-// compute the same sweeps bit for bit. Each row's p_i is recomputed from
+// compute the same sweeps bit for bit. x before sweep 0 is 0, or a warm
+// start x0 (B, n): the Warm instances read it where the zero start's read
+// 0 (and the first sweep's columns above the diagonal, which a zero start
+// skips), and write x0-bar, the adjoint of x left when sweep 0 is undone:
+// the x-bar "of sweep -1". Each row's p_i is recomputed from
 // xs; its sum runs in another order than the forward's, so p_i may differ
 // from the forward's by rounding, which moves A-bar_ii by as much and picks
 // another branch of the clip only where p_i lies within rounding of a
@@ -609,12 +670,13 @@ bool linearised_fits(int n) {
   return n >= 1 && linearised_env_bytes<T>(n) <= kSmemMax;
 }
 
-template <typename T, int G>
+template <typename T, int G, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                         const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
                         const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
-                        T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations) {
+                        T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations,
+                        const T* __restrict__ x0, T* __restrict__ x0_bar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % G;
   const int group = threadIdx.x / G;
@@ -626,6 +688,9 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
     if (active) {
       for (int q = lane; q < n * n; q += G) abar_env[q] = T(0);
       for (int j = lane; j < n; j += G) b_bar[e * n + j] = lo_bar[e * n + j] = hi_bar[e * n + j] = T(0);
+      if (Warm) {
+        for (int j = lane; j < n; j += G) x0_bar[e * n + j] = x_bar[e * n + j];
+      }
     }
     return;
   }
@@ -657,7 +722,7 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
     if (iterations > 1) {
       copy_async(xp + j, xs + (iterations - 2) * sweep + e * n + j);
     } else {
-      xp[j] = T(0);
+      xp[j] = Warm ? x0[e * n + j] : T(0);
     }
   }
   stage_rows(tri, a_env, n, (blocks - 1) * G, n, lane, G);
@@ -670,7 +735,7 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
       __syncwarp();
       for (int j = lane; j < n; j += G) {
         xt[j] = xs[t * sweep + e * n + j];
-        xp[j] = t > 0 ? xs[(t - 1) * sweep + e * n + j] : T(0);
+        xp[j] = t > 0 ? xs[(t - 1) * sweep + e * n + j] : (Warm ? x0[e * n + j] : T(0));
       }
       __syncwarp();
     }
@@ -692,7 +757,7 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
 #pragma unroll 4
       for (int j = 0; j < k0; ++j) sum += trow[j] * xt[j];
       for (int j = k0; j < k0 + G; ++j) sum += j < rr ? trow[j] * xt[j] : T(0);
-      if (t > 0) {
+      if (Warm || t > 0) {
         const T* a_row = a_env + (long long)rr * n;
         for (int j = rr + 1; j < n; ++j) sum += a_row[j] * xp[j];
       }
@@ -748,8 +813,9 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
         }
       }
     }
-    if (t > 0) {
-      // x-bar of sweep t - 1: A's upper part from L2, a row at a time
+    if (Warm || t > 0) {
+      // x-bar of sweep t - 1 (of x0 at t = 0): A's upper part from L2, a
+      // row at a time
       for (int j0 = 0; j0 < n; j0 += G) {
         const int j = min(j0 + lane, n - 1);
         T v = T(0);
@@ -761,14 +827,19 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
       }
     }
   }
+  if (Warm && active) {
+    __syncwarp();
+    for (int j = lane; j < n; j += G) x0_bar[e * n + j] = xbar[j];
+  }
 }
 
-template <typename T>
+template <typename T, bool Warm = false>
 __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                       const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
                                       const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
                                       T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n,
-                                      int iterations) {
+                                      int iterations, const T* __restrict__ x0,
+                                      T* __restrict__ x0_bar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -790,13 +861,13 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
     __syncwarp();
     for (int j = lane; j < n; j += kWarp) {
       xt[j] = xs[((long long)t * batch + e) * n + j];
-      xp[j] = t > 0 ? xs[((long long)(t - 1) * batch + e) * n + j] : T(0);
+      xp[j] = t > 0 ? xs[((long long)(t - 1) * batch + e) * n + j] : (Warm ? x0[e * n + j] : T(0));
     }
     __syncwarp();
     for (int i = n - 1; i >= 0; --i) {
       const T* a_row = a_env + (long long)i * n;
-      // in the first sweep x_j = 0 for j > i: those columns add nothing
-      const int cols = t == 0 ? i : n;
+      // in the first sweep from x = 0, x_j = 0 for j > i: those columns add nothing
+      const int cols = !Warm && t == 0 ? i : n;
       T partial = T(0);
       for (int j = lane; j < cols; j += kWarp) {
         if (j != i) partial += a_row[j] * (j < i ? xt[j] : xp[j]);
@@ -822,7 +893,7 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
         if (j == i) {
           v = c * p;
           xbar[j] = T(0);
-        } else if (j < i || t > 0) {
+        } else if (j < i || Warm || t > 0) {
           v = c * (j < i ? xt[j] : xp[j]);
           xbar[j] += c * a_row[j];
         } else {
@@ -840,20 +911,24 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
       __syncwarp();
     }
   }
+  if (Warm && active) {
+    __syncwarp();
+    for (int j = lane; j < n; j += kWarp) x0_bar[e * n + j] = xbar[j];
+  }
 }
 
-template <typename T>
+template <typename T, bool Warm = false>
 Plan backward_plan(int n) {
   Plan p;
   if (linearised_fits<T>(n)) {
-    p.fn = n <= 16 ? reinterpret_cast<const void*>(&pgs_backward_linearised<T, 16>)
-                   : reinterpret_cast<const void*>(&pgs_backward_linearised<T, 32>);
+    p.fn = n <= 16 ? reinterpret_cast<const void*>(&pgs_backward_linearised<T, 16, Warm>)
+                   : reinterpret_cast<const void*>(&pgs_backward_linearised<T, 32, Warm>);
     p.form = kLinearised;
     p.lanes = n <= 16 ? 16 : 32;
     // n <= 16 needs under 2 KB an env: its blocks keep 8 envs, whole warps
     staged_shape(linearised_env_bytes<T>(n), kThreads / p.lanes, &p.envs, &p.smem);
   } else if (n >= 1) {
-    p.fn = reinterpret_cast<const void*>(&pgs_backward_per_warp<T>);
+    p.fn = reinterpret_cast<const void*>(&pgs_backward_per_warp<T, Warm>);
     p.form = kStreaming;
     p.lanes = kWarp;
     streaming_shape(3LL * n * sizeof(T), &p.envs, &p.smem);  // x after both sweeps, x-bar
@@ -861,12 +936,13 @@ Plan backward_plan(int n) {
   return p;
 }
 
-template <typename T>
+// x0 and x0_bar (B, n) with Warm (a warm start and its adjoint), else null.
+template <typename T, bool Warm = false>
 int backward(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* xs,
              const void* x_bar, void* a_bar, void* b_bar, void* lo_bar, void* hi_bar, int batch, int n,
-             int iterations, void* stream) {
+             int iterations, void* stream, const void* x0 = nullptr, void* x0_bar = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = backward_plan<T>(n);
+  const Plan p = backward_plan<T, Warm>(n);
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(p.fn, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -883,15 +959,20 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
   T* bbar_t = static_cast<T*>(b_bar);
   T* lobar_t = static_cast<T*>(lo_bar);
   T* hibar_t = static_cast<T*>(hi_bar);
+  const T* x0_t = static_cast<const T*>(x0);
+  T* x0bar_t = static_cast<T*>(x0_bar);
   if (p.form == kStreaming) {
-    pgs_backward_per_warp<T><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t, bbar_t,
-                                                             lobar_t, hibar_t, batch, n, iterations);
+    pgs_backward_per_warp<T, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
+                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations,
+                                                                   x0_t, x0bar_t);
   } else if (p.lanes == 16) {
-    pgs_backward_linearised<T, 16><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
-                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations);
+    pgs_backward_linearised<T, 16, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t,
+                                                                         abar_t, bbar_t, lobar_t, hibar_t, batch, n,
+                                                                         iterations, x0_t, x0bar_t);
   } else {
-    pgs_backward_linearised<T, 32><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
-                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations);
+    pgs_backward_linearised<T, 32, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t,
+                                                                         abar_t, bbar_t, lobar_t, hibar_t, batch, n,
+                                                                         iterations, x0_t, x0bar_t);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -931,13 +1012,16 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
 // - past a block's 227 KB (n > 236 in f32, > 165 in f64), "streaming": one
 //   warp per env streams both rows from global memory, x and x' in shared
 //   memory, each row's two sums a butterfly over the warp.
+// Each form has Warm instances, which start x from x0 and x' from its
+// tangent x0' (B, n) and take every column from the first sweep on.
 
-template <typename T, int N, int G>
+template <typename T, int N, int G, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
              const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
              const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
-             T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+             T* __restrict__ x_dot_out, int batch, int n, int iterations, const T* __restrict__ x0,
+             const T* __restrict__ x0_dot) {
   const int lane = threadIdx.x % G;
   const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const bool active = env < batch;
@@ -966,7 +1050,21 @@ pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restri
   tangent.dep = -1;
   T x[N], xd[N];
   T mine, mined;
-  pgs_jvp_sweeps<T, N, G>(x, xd, row, tangent, iterations, mine, mined);
+  T start_dep = T(0), start_dep_dot = T(0);  // x0 and x0' of the row's dependency
+  if (Warm) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      x[j] = j < n ? x0[e * n + j] : T(0);
+      xd[j] = j < n ? x0_dot[e * n + j] : T(0);
+    }
+    mine = real ? x0[k] : T(0);
+    mined = real ? x0_dot[k] : T(0);
+    if (row.dep >= 0) {
+      start_dep = x0[e * n + row.dep];
+      start_dep_dot = x0_dot[e * n + row.dep];
+    }
+  }
+  pgs_jvp_sweeps<T, N, G, Warm>(x, xd, row, tangent, iterations, mine, mined, start_dep, start_dep_dot);
   if (active && lane < n) {
     x_out[e * n + lane] = mine;
     x_dot_out[e * n + lane] = mined;
@@ -986,12 +1084,13 @@ bool jvp_blocked_fits(int n) {
   return n > 32 && jvp_env_bytes<T>(n) <= kSmemMax;
 }
 
-template <typename T>
+template <typename T, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
                 const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
                 const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
-                T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+                T* __restrict__ x_dot_out, int batch, int n, int iterations, const T* __restrict__ x0,
+                const T* __restrict__ x0_dot) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -1021,7 +1120,8 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
     copy_async(his + j, hi + k);
     copy_async(hids + j, hi_dot + k);
     copy_async(deps + j, dep + j);
-    x[j] = xd[j] = T(0);
+    x[j] = Warm ? x0[k] : T(0);
+    xd[j] = Warm ? x0_dot[k] : T(0);
   }
   stage_rows(tri, a_env, n, 0, min(n, kWarp), lane, kWarp);
   stage_rows(trid, ad_env, n, 0, min(n, kWarp), lane, kWarp);
@@ -1051,8 +1151,8 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
         sum += double(trow[j]) * double(x[j]);
         sumd += double(trowd[j]) * double(x[j]) + double(trow[j]) * double(xd[j]);
       }
-      if (it > 0) {
-        // the previous sweep's x after the row: the upper parts from L2
+      if (Warm || it > 0) {
+        // the previous sweep's x (or x0) after the row: the upper parts from L2
         const T* a_row = a_env + (long long)rr * n;
         const T* ad_row = ad_env + (long long)rr * n;
         for (int j = rr + 1; j < n; ++j) {
@@ -1108,11 +1208,12 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
   }
 }
 
-template <typename T>
+template <typename T, bool Warm = false>
 __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                  const T* __restrict__ hi, const T* __restrict__ a_dot, const T* __restrict__ b_dot,
                                  const T* __restrict__ lo_dot, const T* __restrict__ hi_dot, const int* __restrict__ dep,
-                                 T* __restrict__ x_out, T* __restrict__ x_dot_out, int batch, int n, int iterations) {
+                                 T* __restrict__ x_out, T* __restrict__ x_dot_out, int batch, int n, int iterations,
+                                 const T* __restrict__ x0, const T* __restrict__ x0_dot) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -1121,7 +1222,10 @@ __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ 
   const long long e = active ? env : batch - 1;  // a valid env to read from
   T* x = reinterpret_cast<T*>(smem_raw) + (long long)warp * 2 * n;
   T* xd = x + n;
-  for (int j = lane; j < n; j += kWarp) x[j] = xd[j] = T(0);
+  for (int j = lane; j < n; j += kWarp) {
+    x[j] = Warm ? x0[e * n + j] : T(0);
+    xd[j] = Warm ? x0_dot[e * n + j] : T(0);
+  }
   __syncwarp();
   const T* a_env = a + e * n * n;
   const T* ad_env = a_dot + e * n * n;
@@ -1129,13 +1233,14 @@ __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ 
     for (int i = 0; i < n; ++i) {
       const T* a_row = a_env + (long long)i * n;
       const T* ad_row = ad_env + (long long)i * n;
-      // in the first sweep x_j = x'_j = 0 for j > i
-      const int cols = it == 0 ? i : n;
-      T partial = T(0), partiald = T(0);
+      // in the first sweep from x = 0, x_j = x'_j = 0 for j > i
+      const int cols = !Warm && it == 0 ? i : n;
+      using Acc = StreamAcc<T, Warm>;
+      Acc partial = Acc(0), partiald = Acc(0);
       for (int j = lane; j < cols; j += kWarp) {
         if (j != i) {
-          partial += a_row[j] * x[j];
-          partiald += ad_row[j] * x[j] + a_row[j] * xd[j];
+          partial += Acc(a_row[j]) * Acc(x[j]);
+          partiald += Acc(ad_row[j]) * Acc(x[j]) + Acc(a_row[j]) * Acc(xd[j]);
         }
       }
 #pragma unroll
@@ -1144,9 +1249,10 @@ __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ 
         partiald += __shfl_xor_sync(0xffffffffu, partiald, offset);
       }
       const long long k = e * n + i;
-      const T aii = a_row[i], aiid = ad_row[i];
-      const T u = (b[k] - partial) / aii;
-      const T ud = (b_dot[k] - partiald - u * aiid) / aii;
+      const Acc aii = a_row[i], aiid = ad_row[i];
+      const Acc ua = (Acc(b[k]) - partial) / aii;
+      const T u = T(ua);
+      const T ud = T((Acc(b_dot[k]) - partiald - ua * aiid) / aii);
       const int d = dep[i];
       const T s = d >= 0 ? (x[d] > T(0) ? x[d] : T(0)) : T(1);
       const T sd = d >= 0 ? xd[d] * relu_slope(x[d]) : T(0);
@@ -1173,33 +1279,33 @@ __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ 
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool Warm>
 const void* jvp_row_kernel() {
-  return reinterpret_cast<const void*>(&pgs_jvp_rows<T, N, Lanes<N>::G>);
+  return reinterpret_cast<const void*>(&pgs_jvp_rows<T, N, Lanes<N>::G, Warm>);
 }
 
-template <typename T>
+template <typename T, bool Warm = false>
 Plan jvp_plan(int n) {
   Plan p;
   const int rows = instance_rows(n);
   if (rows != 0) {
     switch (rows) {
-      case 8: p.fn = jvp_row_kernel<T, 8>(); break;
-      case 12: p.fn = jvp_row_kernel<T, 12>(); break;
-      case 16: p.fn = jvp_row_kernel<T, 16>(); break;
-      case 24: p.fn = jvp_row_kernel<T, 24>(); break;
-      default: p.fn = jvp_row_kernel<T, 32>(); break;
+      case 8: p.fn = jvp_row_kernel<T, 8, Warm>(); break;
+      case 12: p.fn = jvp_row_kernel<T, 12, Warm>(); break;
+      case 16: p.fn = jvp_row_kernel<T, 16, Warm>(); break;
+      case 24: p.fn = jvp_row_kernel<T, 24, Warm>(); break;
+      default: p.fn = jvp_row_kernel<T, 32, Warm>(); break;
     }
     p.form = kRowPerLane;
     p.lanes = rows <= 16 ? 16 : 32;
     p.envs = kThreads / p.lanes;
   } else if (jvp_blocked_fits<T>(n)) {
-    p.fn = reinterpret_cast<const void*>(&pgs_jvp_blocked<T>);
+    p.fn = reinterpret_cast<const void*>(&pgs_jvp_blocked<T, Warm>);
     p.form = kBlocked;
     p.lanes = kWarp;
     staged_shape(jvp_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
   } else if (n > 32) {
-    p.fn = reinterpret_cast<const void*>(&pgs_jvp_per_warp<T>);
+    p.fn = reinterpret_cast<const void*>(&pgs_jvp_per_warp<T, Warm>);
     p.form = kStreaming;
     p.lanes = kWarp;
     streaming_shape(2LL * n * sizeof(T), &p.envs, &p.smem);  // x and x'
@@ -1207,12 +1313,13 @@ Plan jvp_plan(int n) {
   return p;
 }
 
-template <typename T>
+// x0 and x0_dot (B, n) with Warm (a warm start and its tangent), else null.
+template <typename T, bool Warm = false>
 int jvp(const void* a, const void* b, const void* lo, const void* hi, const void* a_dot, const void* b_dot,
         const void* lo_dot, const void* hi_dot, const void* dep, void* x, void* x_dot, int batch, int n, int iterations,
-        void* stream) {
+        void* stream, const void* x0 = nullptr, const void* x0_dot = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = jvp_plan<T>(n);
+  const Plan p = jvp_plan<T, Warm>(n);
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(p.fn, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1224,18 +1331,21 @@ int jvp(const void* a, const void* b, const void* lo, const void* hi, const void
   const int* dep_t = static_cast<const int*>(dep);
   T* x_t = static_cast<T*>(x);
   T* xd_t = static_cast<T*>(x_dot);
-#define TDS_JVP_ARGS args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7], dep_t, x_t, xd_t, batch, n, iterations
+  const T* x0_t = static_cast<const T*>(x0);
+  const T* x0d_t = static_cast<const T*>(x0_dot);
+#define TDS_JVP_ARGS args[0], args[1], args[2], args[3], args[4], args[5], args[6], args[7], dep_t, x_t, xd_t, batch, n, \
+    iterations, x0_t, x0d_t
   if (p.form == kBlocked) {
-    pgs_jvp_blocked<T><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
+    pgs_jvp_blocked<T, Warm><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
   } else if (p.form == kStreaming) {
-    pgs_jvp_per_warp<T><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
+    pgs_jvp_per_warp<T, Warm><<<blocks, threads, p.smem, s>>>(TDS_JVP_ARGS);
   } else {
     switch (instance_rows(n)) {
-      case 8: pgs_jvp_rows<T, 8, Lanes<8>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
-      case 12: pgs_jvp_rows<T, 12, Lanes<12>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
-      case 16: pgs_jvp_rows<T, 16, Lanes<16>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
-      case 24: pgs_jvp_rows<T, 24, Lanes<24>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
-      default: pgs_jvp_rows<T, 32, Lanes<32>::G><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 8: pgs_jvp_rows<T, 8, Lanes<8>::G, Warm><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 12: pgs_jvp_rows<T, 12, Lanes<12>::G, Warm><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 16: pgs_jvp_rows<T, 16, Lanes<16>::G, Warm><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      case 24: pgs_jvp_rows<T, 24, Lanes<24>::G, Warm><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
+      default: pgs_jvp_rows<T, 32, Lanes<32>::G, Warm><<<blocks, threads, 0, s>>>(TDS_JVP_ARGS); break;
     }
   }
 #undef TDS_JVP_ARGS
@@ -1284,6 +1394,18 @@ extern "C" int tds_pgs_solve_f64(const void* a, const void* b, const void* lo,
   return launch<double>(a, b, lo, hi, dep, x, batch, n, iterations, stream);
 }
 
+// K1 from a warm start: tds_pgs_solve_*'s operands and x0 (B, n), the x
+// the first sweep starts from.
+extern "C" int tds_pgs_solve_warm_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                      const void* x0, void* x, int batch, int n, int iterations, void* stream) {
+  return launch_warm<float>(a, b, lo, hi, dep, x0, x, batch, n, iterations, stream);
+}
+
+extern "C" int tds_pgs_solve_warm_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                      const void* x0, void* x, int batch, int n, int iterations, void* stream) {
+  return launch_warm<double>(a, b, lo, hi, dep, x0, x, batch, n, iterations, stream);
+}
+
 // The launch shape of the kernel for n rows in float32 (f64 = 0) or
 // float64 (f64 = 1), on the current device: out[0] lanes per env, out[1]
 // envs per block, out[2] threads per block, out[3] shared memory per block
@@ -1312,6 +1434,25 @@ extern "C" int tds_pgs_backward_f64(const void* a, const void* b, const void* lo
   return backward<double>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream);
 }
 
+// K1's backward from a warm start: tds_pgs_backward_*'s arguments, xs
+// from forward launches that started from x0 (B, n), and x0_bar (B, n),
+// written whole: the adjoint of x0.
+extern "C" int tds_pgs_backward_warm_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                         const void* xs, const void* x_bar, const void* x0, void* a_bar, void* b_bar,
+                                         void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n, int iterations,
+                                         void* stream) {
+  return backward<float, true>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream,
+                               x0, x0_bar);
+}
+
+extern "C" int tds_pgs_backward_warm_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                         const void* xs, const void* x_bar, const void* x0, void* a_bar, void* b_bar,
+                                         void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n, int iterations,
+                                         void* stream) {
+  return backward<double, true>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations,
+                                stream, x0, x0_bar);
+}
+
 // The backward's launch shape, in tds_pgs_launch_shape's fields.
 extern "C" int tds_pgs_backward_launch_shape(int f64, int n, int* out) {
   return launch_shape(f64 ? backward_plan<double>(n) : backward_plan<float>(n), out);
@@ -1331,6 +1472,25 @@ extern "C" int tds_pgs_jvp_f64(const void* a, const void* b, const void* lo, con
                                const void* b_dot, const void* lo_dot, const void* hi_dot, const void* dep, void* x,
                                void* x_dot, int batch, int n, int iterations, void* stream) {
   return jvp<double>(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, x, x_dot, batch, n, iterations, stream);
+}
+
+// K1's forward mode from a warm start: the operands with x0 (B, n) after
+// hi, their tangents with x0_dot after hi_dot (x0 and x0_dot: the start of
+// x and of its tangent), then tds_pgs_jvp_*'s other arguments.
+extern "C" int tds_pgs_jvp_warm_f32(const void* a, const void* b, const void* lo, const void* hi, const void* x0,
+                                    const void* a_dot, const void* b_dot, const void* lo_dot, const void* hi_dot,
+                                    const void* x0_dot, const void* dep, void* x, void* x_dot, int batch, int n,
+                                    int iterations, void* stream) {
+  return jvp<float, true>(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, x, x_dot, batch, n, iterations, stream, x0,
+                          x0_dot);
+}
+
+extern "C" int tds_pgs_jvp_warm_f64(const void* a, const void* b, const void* lo, const void* hi, const void* x0,
+                                    const void* a_dot, const void* b_dot, const void* lo_dot, const void* hi_dot,
+                                    const void* x0_dot, const void* dep, void* x, void* x_dot, int batch, int n,
+                                    int iterations, void* stream) {
+  return jvp<double, true>(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, x, x_dot, batch, n, iterations, stream, x0,
+                           x0_dot);
 }
 
 // The forward mode's launch shape, in tds_pgs_launch_shape's fields.

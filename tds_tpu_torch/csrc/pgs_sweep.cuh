@@ -3,9 +3,9 @@
 // kernel (pgs.cu, K1) and the fused step kernel (megastep.cu, K2), so that
 // both do the same arithmetic.
 //
-// `iterations` sweeps over the N rows of A x = b, continuing from the x[]
-// the caller passes (the callers start from x = 0); rows are visited in
-// order and each uses the already-updated x[j < i]; row i is clipped to
+// `iterations` sweeps over the N rows of A x = b, from x = 0 or (Warm)
+// from the x[] the caller passes; rows are visited in order and each uses
+// the already-updated x[j < i]; row i is clipped to
 // [lo_i * s, hi_i * s] with s = max(x[dep_i], 0) when dep_i >= 0 (the
 // Coulomb coupling of a friction row to its normal row), else s = 1.
 //
@@ -36,27 +36,31 @@ struct LaneRow {
   int dep;
 };
 
-// Fills x[] from x = 0 and returns x[lane] on lanes below N.
+// Fills x[] from x = 0 and returns x[lane] on lanes below N. With Warm
+// the sweeps start from the x[] the caller filled (the warm start x0),
+// `mine` its x[lane] and `x_dep` its x[row.dep] (0 without a dependency);
+// the zero start's instantiations (Warm false, K1's and K2's) take neither.
 //
 // Each lane keeps a running sum of its row over the columns already done
 // in this sweep, so that row i waits only for x_{i-1}: lane i's delta is
-// that prefix, in increasing j, then (after the first sweep, where every
-// x_j with j > i is still 0) the columns j > i in increasing j: the
-// order of the plain sweep.
-template <typename T, int N, int G>
-__device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int iterations) {
+// that prefix, in increasing j, then (after the first sweep, where from
+// x = 0 every x_j with j > i is still 0, or from a warm start) the
+// columns j > i in increasing j: the order of the plain sweep.
+template <typename T, int N, int G, bool Warm = false>
+__device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int iterations, T mine = T(0),
+                                        T x_dep = T(0)) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   const int lane = threadIdx.x % G;
-  T mine = T(0);   // x[lane]
-  T x_dep = T(0);  // x[row.dep]
+  if (!Warm) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) x[j] = T(0);
+    for (int j = 0; j < N; ++j) x[j] = T(0);
+  }
   for (int it = 0; it < iterations; ++it) {
     T prefix = T(0);  // sum of A_lane,j x_j over the columns j < lane done so far
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       T delta = prefix;
-      if (it > 0) {
+      if (Warm || it > 0) {
 #pragma unroll
         for (int j = i + 1; j < N; ++j) delta += row.a[j] * x[j];
       }
@@ -105,23 +109,27 @@ __device__ __forceinline__ void clip_factors(T p, T l, T h, T& mp, T& ml, T& mh)
 // s = max(x_dep, 0) with s' = x'_dep max'(x_dep), l = lo_i s,
 // l' = lo'_i s + lo_i s', h likewise, and x'_i = mp u' + ml l' + mh h'
 // (clip_factors): at a tie each side takes half, as jax.jvp of the
-// unrolled sweep gives. Fills x[] and xd[] from 0 and returns (x, x') of
-// the lane's row in (mine, mined) on lanes below N.
-template <typename T, int N, int G>
+// unrolled sweep gives. Fills x[] and xd[] from 0 (with Warm from the x0
+// and x0' the caller filled them with, and x_dep, xd_dep their entries at
+// row.dep) and returns (x, x') of the lane's row in (mine, mined) on
+// lanes below N (with Warm the caller sets both to x0 and x0' of the row).
+template <typename T, int N, int G, bool Warm = false>
 __device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], T (&xd)[N], const LaneRow<T, N>& row,
-                                               const LaneRow<T, N>& tangent, int iterations, T& mine, T& mined) {
+                                               const LaneRow<T, N>& tangent, int iterations, T& mine, T& mined,
+                                               T x_dep = T(0), T xd_dep = T(0)) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   const int lane = threadIdx.x % G;
-  T x_dep = T(0), xd_dep = T(0);
-  mine = mined = T(0);
+  if (!Warm) {
+    mine = mined = T(0);
 #pragma unroll
-  for (int j = 0; j < N; ++j) x[j] = xd[j] = T(0);
+    for (int j = 0; j < N; ++j) x[j] = xd[j] = T(0);
+  }
   for (int it = 0; it < iterations; ++it) {
     T prefix = T(0), prefixd = T(0);  // the row's sums over the columns j < lane done so far
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       T delta = prefix, deltad = prefixd;
-      if (it > 0) {
+      if (Warm || it > 0) {
 #pragma unroll
         for (int j = i + 1; j < N; ++j) {
           delta += row.a[j] * x[j];

@@ -61,3 +61,47 @@ def point_jacobian_kin(
         i = model.parents[i]
     zero = point.new_zeros(point.shape)
     return torch.stack([cols.get(c, zero) for c in range(model.dof_qd)], dim=-1)
+
+
+def point_jacobian_fd(model: MultiBodyModel, q, link_index: int, start_point, eps: float = 1e-3):
+    """A finite-difference Jacobian, for tests: each velocity DoF moves q by
+    ``eps`` (a floating base's and a spherical joint's quaternion through
+    the integrator's world- and local-frame increments) and the world
+    motion of the material point at ``start_point`` (world frame) on link
+    ``link_index`` (-1: the base) is tracked; (..., 3, dof_qd) for q
+    (..., dof_q)."""
+    from tds_tpu_torch.algebra import quaternion
+    from tds_tpu_torch.model.joints import qd_width
+
+    base_x_world, links_x_world, _ = forward_kinematics_q(model, q)
+    start_point = torch.as_tensor(start_point, dtype=q.dtype, device=q.device)
+    frame = links_x_world[link_index] if link_index >= 0 else base_x_world
+    local_point = frame.apply_inverse_point(start_point)
+
+    def unit(k):
+        w = q.new_zeros(q.shape[:-1] + (3,))
+        w[..., k] = 1.0
+        return w
+
+    cols = []
+    for i in range(model.dof_qd):
+        q_x = q.clone()
+        if model.is_floating and i < 3:
+            q_x[..., 0:4] = quaternion.integrate_world(q[..., 0:4], unit(i), eps)
+        elif model.is_floating and i < 6:
+            q_x[..., i + 1] += eps
+        else:
+            for li in range(model.num_links):
+                jt = JointType(model.joint_types[li])
+                off = model.qd_offsets[li]
+                if jt != JointType.FIXED and off <= i < off + qd_width(jt):
+                    qo = model.q_offsets[li]
+                    if jt == JointType.SPHERICAL:
+                        q_x[..., qo:qo + 4] = quaternion.integrate_local(q[..., qo:qo + 4], unit(i - off), eps)
+                    else:
+                        q_x[..., qo + (i - off)] += eps
+                    break
+        bxw, lxw, _ = forward_kinematics_q(model, q_x)
+        world_point = (lxw[link_index] if link_index >= 0 else bxw).apply_point(local_point)
+        cols.append((world_point - start_point) / eps)
+    return torch.stack(cols, dim=-1)

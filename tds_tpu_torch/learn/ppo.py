@@ -23,7 +23,11 @@ JAX package's; ``make_ppo``'s ``step_fn`` draws them from the state's
   fixed before the unroll starts). An env that finishes more than R times
   raises :class:`ResetsExhausted`; ``step_fn`` then draws more reset slots
   and runs the iteration again from the same start. It draws R a power of
-  two, at least the most the last iteration needed.
+  two, at least the most the last iteration needed. With a reset pool
+  (``LocomotionEnv(reset_pool=...)``) each slot also holds its pool draws
+  (``env.draw_reset_pool``: whether the reset takes a pool state, and
+  which), drawn beside its noise, so that a reset settles and then is
+  replaced by its pool state, as the JAX package's ``env.reset`` does.
 - GAE is a reverse loop over the unroll; the epochs and minibatches are
   plain torch operations (small MLP products), each minibatch's gradient
   from autograd, clipped by its global norm and applied with optax's Adam
@@ -105,6 +109,15 @@ class PPONetworks:
         std = params["log_std"].exp()
         return (0.5 * math.log(2 * math.pi * math.e) + std.log()).sum()
 
+    def sample(self, params, obs, generator: torch.Generator):
+        """(action, log-prob): the Gaussian policy sampled on ``obs`` with
+        eps drawn from ``generator`` (on its device, moved to the
+        observation's)."""
+        mean, std = self.dist(params, obs)
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=generator.device).to(mean.device)
+        action = mean + std * eps
+        return action, _log_prob(mean, std, action)
+
 
 def _log_prob(mean, std, action):
     z = (action - mean) / std
@@ -135,11 +148,18 @@ class Transition(NamedTuple):
 class PPODraws(NamedTuple):
     """An iteration's draws: ``action_noise`` (T, B, A) standard normal,
     ``reset_noise`` (R, B, ...) the noise of each env's r-th reset in the
-    unroll (``env.draw_reset_noise``'s), ``permutations`` (E, T B) int64."""
+    unroll (``env.draw_reset_noise``'s), ``permutations`` (E, T B) int64,
+    and with a reset pool ``reset_pool`` = (use (R, B) bool, index (R, B)
+    int64), each reset's ``env.draw_reset_pool`` draws (None without)."""
 
     action_noise: torch.Tensor
     reset_noise: torch.Tensor
     permutations: torch.Tensor
+    reset_pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def to(self, device) -> "PPODraws":
+        pool = None if self.reset_pool is None else tuple(t.to(device) for t in self.reset_pool)
+        return PPODraws(*(t.to(device) for t in self[:3]), pool)
 
 
 class ResetsExhausted(RuntimeError):
@@ -164,28 +184,51 @@ def learning_rate(config: PPOConfig, count: int) -> float:
     return float(np.float32(np.float32(config.learning_rate) * frac))
 
 
+def _reset_slots(env, config: PPOConfig, generator: torch.Generator, slots: int):
+    """``slots`` reset slots' draws from ``generator``: (noise (R, B, ...),
+    pool draws ((R, B), (R, B)) or None without a reset pool), each slot's
+    noise and pool draws in turn, on the env's device."""
+    pooled = getattr(env, "reset_pool", None) is not None
+    noise, use, index = [], [], []
+    for _ in range(slots):
+        noise.append(env.draw_reset_noise(generator, config.num_envs).to(env.device))
+        if pooled:
+            u, i = env.draw_reset_pool(generator, config.num_envs)
+            use.append(u)
+            index.append(i)
+    pool = (torch.stack(use), torch.stack(index)) if pooled and slots else None
+    return torch.stack(noise), pool
+
+
 def draw_iteration(env, config: PPOConfig, generator: torch.Generator, dtype, reset_slots: int = RESET_SLOTS) -> PPODraws:
     """An iteration's draws from ``generator``, on the env's device."""
     shape = (config.unroll_length, config.num_envs, env.action_dim)
     noise = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
-    resets = torch.stack([env.draw_reset_noise(generator, config.num_envs) for _ in range(reset_slots)])
+    resets, pool = _reset_slots(env, config, generator, reset_slots)
     n = config.unroll_length * config.num_envs
     perms = torch.stack([torch.randperm(n, generator=generator, device=generator.device) for _ in range(config.num_epochs)])
-    return PPODraws(noise.to(env.device), resets.to(env.device), perms.to(env.device))
+    return PPODraws(noise.to(env.device), resets, perms.to(env.device), pool)
 
 
 def more_resets(env, config: PPOConfig, draws: PPODraws, generator: torch.Generator, needed: int) -> PPODraws:
     """``draws`` with reset slots appended from ``generator`` up to
-    ``needed``."""
-    extra = [env.draw_reset_noise(generator, config.num_envs).to(env.device) for _ in range(needed - draws.reset_noise.shape[0])]
-    return draws._replace(reset_noise=torch.cat([draws.reset_noise, torch.stack(extra)]))
+    ``needed`` (their noise and, with a reset pool, their pool draws)."""
+    noise, pool = _reset_slots(env, config, generator, needed - draws.reset_noise.shape[0])
+    if pool is not None:
+        pool = tuple(torch.cat([old, new]) for old, new in zip(draws.reset_pool, pool))
+    return draws._replace(reset_noise=torch.cat([draws.reset_noise, noise]), reset_pool=pool)
 
 
-def fresh_resets(env, reset_noise):
+def fresh_resets(env, reset_noise, reset_pool=None):
     """(q, qd, obs) of the R B resets that ``reset_noise`` (R, B, ...)
     starts, each (R B, ...): one batched ``reset``, its settle steps one
-    scan."""
-    state, obs = env.reset(noise=reset_noise.reshape((-1,) + tuple(reset_noise.shape[2:])))
+    scan, then the pool states where ``reset_pool`` ((R, B) use and index)
+    takes them."""
+    noise = reset_noise.reshape((-1,) + tuple(reset_noise.shape[2:]))
+    if reset_pool is None:
+        state, obs = env.reset(noise=noise)
+    else:
+        state, obs = env.reset(noise=noise, pool_draws=tuple(t.reshape(-1) for t in reset_pool))
     return state.q, state.qd, obs
 
 
@@ -225,7 +268,7 @@ def collect(env, networks: PPONetworks, config: PPOConfig, state: PPOState, draw
     # buffers of T B rows, R B of them filled, so that one graph serves every R
     slots = draws.reset_noise.shape[0]
     fresh = [torch.cat([x, x.new_zeros((max(steps - slots, 0) * batch,) + tuple(x.shape[1:]))])
-             for x in fresh_resets(env, draws.reset_noise)]
+             for x in fresh_resets(env, draws.reset_noise, draws.reset_pool)]
     buffers = (
         obs.new_zeros((steps, batch, obs.shape[-1])),
         obs.new_zeros((steps, batch, env.action_dim)),
@@ -327,6 +370,10 @@ def ppo_iteration(env, networks: PPONetworks, config: PPOConfig, state: PPOState
     metrics = {"reward_mean": traj.reward.mean(), "episode_done_rate": traj.done.mean(), "value_mean": traj.value.mean(),
                "resets": resets.sum(), "env_resets_max": torch.tensor(needed, device=obs.device),
                "reset_slots": torch.tensor(draws.reset_noise.shape[0], device=obs.device)}
+    if draws.reset_pool is not None:
+        # the resets that took a pool state: slot r of env b ran where r < its resets
+        used = torch.arange(draws.reset_noise.shape[0], device=obs.device)[:, None] < resets[None]
+        metrics["pool_resets"] = (used & draws.reset_pool[0]).sum()
     return new_state, metrics
 
 
@@ -340,8 +387,6 @@ def make_ppo(env, networks: PPONetworks, config: PPOConfig) -> Tuple[Callable, C
     generator seeded ``seed`` and the first resets from the state's
     generator, on the env's device, seeded ``seed + 1``; ``step_fn`` takes
     its draws from the state's generator unless ``draws`` are given."""
-    if getattr(env, "reset_pool", None) is not None:
-        raise NotImplementedError("PPO's auto-reset draws no reset-pool draws; use an env without a reset pool")
 
     def init_fn(seed: int = 0, dtype: Optional[torch.dtype] = None) -> PPOState:
         dtype = dtype or env.dtype

@@ -36,6 +36,12 @@ PRISMATIC_TYPES = (
     JointType.PRISMATIC_Z,
     JointType.PRISMATIC_AXIS,
 )
+REVOLUTE_TYPES = (
+    JointType.REVOLUTE_X,
+    JointType.REVOLUTE_Y,
+    JointType.REVOLUTE_Z,
+    JointType.REVOLUTE_AXIS,
+)
 
 _AXIS_OF = {
     JointType.PRISMATIC_X: 0,

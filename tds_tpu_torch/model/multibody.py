@@ -18,7 +18,7 @@ only: its index is the qd index less 6 on a floating base.
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +89,10 @@ class MultiBodyModel:
     def num_links(self) -> int:
         return len(self.joint_types)
 
+    @property
+    def dof(self) -> int:
+        return self.dof_q
+
     @functools.cached_property
     def subspaces(self) -> torch.Tensor:
         """(nl, 6) motion subspaces of the fixed and 1-DoF joints, derived
@@ -110,6 +114,10 @@ class MultiBodyModel:
         if self.joint_types[i] == JointType.SPHERICAL:
             return self._spherical_subspace
         return self.subspaces[i]
+
+    def motion_subspace(self, i: int) -> torch.Tensor:
+        """Link i's motion subspace, the JAX package's name for :meth:`subspace`."""
+        return self.subspace(i)
 
     def x_t(self, i: int) -> Transform:
         return Transform(pos=self.x_t_pos[i], rot=self.x_t_rot[i])
@@ -176,6 +184,13 @@ class MultiBodyModel:
         return mask
 
 
+class MultiBodyState(NamedTuple):
+    """Generalized coordinates, the only state carried between steps."""
+
+    q: torch.Tensor
+    qd: torch.Tensor
+
+
 class MultiBodyBuilder:
     """Imperative model construction, links appended in topological order
     (parent index < link index). Host-side numpy until ``finalize``."""
@@ -219,10 +234,12 @@ class MultiBodyBuilder:
         *,
         x_t_pos=(0.0, 0.0, 0.0),
         x_t_rpy=None,
+        x_t_rot=None,
         axis=(1.0, 0.0, 0.0),
         mass=0.0,
         com=(0.0, 0.0, 0.0),
         inertia_about_com=None,
+        stiffness=0.0,
         damping=0.0,
         link_name: str = "",
         joint_name: str = "",
@@ -235,7 +252,11 @@ class MultiBodyBuilder:
         self.joint_types.append(JointType(joint_type))
         self.parents.append(int(parent))
         self.x_t_pos.append(np.asarray(x_t_pos, dtype=float))
-        self.x_t_rot.append(np.eye(3) if x_t_rpy is None else np_rpy(*x_t_rpy))
+        # the rotation as given, else from rpy, else the identity
+        if x_t_rot is not None:
+            self.x_t_rot.append(np.asarray(x_t_rot, dtype=float))
+        else:
+            self.x_t_rot.append(np.eye(3) if x_t_rpy is None else np_rpy(*x_t_rpy))
         # not normalized: URDF axes are used verbatim, as in the JAX package
         self.joint_axes.append(ax)
         mass = float(mass)
@@ -247,7 +268,7 @@ class MultiBodyBuilder:
         self.masses.append(mass)
         self.coms.append(mass * com)
         self.inertias.append(icom + mass * (cx @ cx.T))
-        self.stiffnesses.append(0.0)
+        self.stiffnesses.append(float(stiffness))
         self.dampings.append(float(damping))
         self.link_names.append(link_name)
         self.joint_names.append(joint_name)

@@ -1,7 +1,7 @@
-"""The compound pendulum (counterpart of
-tds_tpu/model/pendulum.py::compound_pendulum): an n-link chain of
-revolute-X joints, link i hanging one link length below its parent joint,
-a point mass at the end of each rod."""
+"""Pendulums (counterpart of tds_tpu/model/pendulum.py): the compound
+pendulum, an n-link chain of revolute-X joints, link i hanging one link
+length below its parent joint, a point mass at the end of each rod; the
+spherical pendulum; the double pendulum's closed-form accelerations."""
 
 from typing import Optional, Sequence
 
@@ -41,3 +41,49 @@ def compound_pendulum(
             joint_name=f"joint{i}",
         )
     return b.finalize(dtype=dtype, device=device)
+
+
+def spherical_pendulum(
+    num_links: int = 2,
+    masses: Optional[Sequence[float]] = None,
+    link_length: float = 0.5,
+    dtype=torch.float64,
+    device=None,
+) -> MultiBodyModel:
+    """An n-link chain of spherical joints, each link hanging
+    ``link_length`` below its parent's joint with a near-point mass at the
+    rod's end."""
+    masses = [1.0] * num_links if masses is None else list(masses)
+    b = MultiBodyBuilder(is_floating=False, name=f"spherical_pendulum{num_links}")
+    for i in range(num_links):
+        b.add_link(
+            JointType.SPHERICAL,
+            parent=i - 1,
+            x_t_pos=(0.0, 0.0, 0.0) if i == 0 else (0.0, 0.0, -link_length),
+            mass=masses[i],
+            com=np.array([0.0, 0.0, -link_length]),
+            inertia_about_com=np.diag([1e-6, 1e-6, 1e-6]),
+            link_name=f"link{i}",
+        )
+    return b.finalize(dtype=dtype, device=device)
+
+
+def double_pendulum_qdd(q, qd, m1=1.0, m2=1.0, l1=0.5, l2=0.5, g=9.81):
+    """The planar double pendulum's accelerations in closed form (point
+    masses), the analytic check of the dynamics: angles from straight down,
+    q2 relative to link 1, as compound_pendulum's joints."""
+    t1, t2 = q[..., 0], q[..., 1]
+    w1, w2 = qd[..., 0], qd[..., 1]
+    d = t2  # the relative angle between the rods
+    den = m1 + m2 * d.sin() ** 2
+    a1 = (
+        m2 * l1 * w1**2 * d.sin() * d.cos()
+        + m2 * g * (t1 + d).sin() * d.cos()
+        + m2 * l2 * (w1 + w2) ** 2 * d.sin()
+        - (m1 + m2) * g * t1.sin()
+    ) / (l1 * den)
+    a2 = (
+        -m2 * l2 * (w1 + w2) ** 2 * d.sin() * d.cos()
+        - (m1 + m2) * (g * t1.sin() * d.cos() - g * (t1 + d).sin() + l1 * w1**2 * d.sin())
+    ) / (l2 * den) - a1
+    return torch.stack([a1, a2], dim=-1)

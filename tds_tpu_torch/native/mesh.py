@@ -2,7 +2,10 @@
 signed-distance grid (counterparts of ``mesh_mass_properties`` and
 ``marching_cubes`` in tds_tpu/native/mesh.py, whose C++ source
 ``tds_tpu/native/src/mesh_native.cpp`` these compute the same values as),
-in numpy: no native library. OBJ files are read by ``utils.obj``.
+in numpy: no native library. ``load_obj`` and ``load_obj_file`` read OBJ
+text and files through ``utils.obj``'s reader (the JAX package's
+``get_lib``, its ctypes build of that source, has no counterpart: the port
+builds nothing but its CUDA kernels).
 
 Each triangle (a, b, c), wound counter-clockwise seen from outside, and the
 origin span a tetrahedron of signed volume det[a, b, c] / 6; the sums of
@@ -12,6 +15,19 @@ by the parallel-axis theorem.
 """
 
 import numpy as np
+
+from tds_tpu_torch.utils import obj
+
+
+def load_obj(text: str):
+    """(vertices (n, 3) float64, triangles (m, 3) int32) of OBJ ``text``."""
+    return obj.load_obj(text)
+
+
+def load_obj_file(path: str):
+    """:func:`load_obj` of the file at ``path``."""
+    with open(path) as f:
+        return obj.load_obj(f.read())
 
 
 def mesh_mass_properties(vertices, triangles, density: float = 1000.0):

@@ -36,3 +36,9 @@ def construct(name: str, is_floating: bool = False, dtype=torch.float64, mesh_co
 def construct_from_string(text: str, is_floating: bool = False, dtype=torch.float64, mesh_contacts: int = 0):
     """:func:`construct` of a URDF document given as text, not cached."""
     return convert_to_multibody(parse_urdf_string(text), is_floating, dtype, mesh_contacts=mesh_contacts)
+
+
+def clear_cache():
+    """Drops every cached document and model."""
+    _DOC_CACHE.clear()
+    _MODEL_CACHE.clear()

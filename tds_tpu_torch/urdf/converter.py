@@ -3,7 +3,9 @@ tds_tpu/urdf/converter.py), keeping the JAX package's deliberate reference
 quirks:
 
 - only the DIAGONAL inertia entries are read, and the inertial frame's
-  rotation maps I -> R^T I R and com -> R^T com (note the transpose);
+  rotation maps I -> R^T I R and com -> R^T com (note the transpose), by
+  default; ``inertia_convention="urdf"`` reads the specification's way
+  instead: the full tensor, R I R^T, the COM left in the link frame;
 - revolute/prismatic axes snap to X/Y/Z only when they are exact unit
   vectors, and other axes are used verbatim (not normalized);
 - URDF joint damping is dropped unless ``use_joint_damping``;
@@ -26,11 +28,22 @@ from tds_tpu_torch.urdf.structures import UrdfStructures
 _UNIT_AXES = {(1.0, 0.0, 0.0): 0, (0.0, 1.0, 0.0): 1, (0.0, 0.0, 1.0): 2}
 
 
-def _inertia_com_and_matrix(inertial):
-    """(com, inertia about the com) in the link frame, reference convention."""
+def _inertia_com_and_matrix(inertial, convention: str = "reference"):
+    """(com, inertia about the com) in the link frame: "reference" reads the
+    diagonal and applies R^T to both, as the C++ converter does; "urdf" the
+    full tensor rotated R I R^T, the COM as given."""
     rot = np_rpy(*inertial.origin_rpy)
     com = np.asarray(inertial.origin_xyz, dtype=float)
-    return rot.T @ com, rot.T @ np.diag(inertial.inertia_xxyyzz) @ rot
+    if convention == "reference":
+        return rot.T @ com, rot.T @ np.diag(inertial.inertia_xxyyzz) @ rot
+    if convention != "urdf":
+        raise ValueError(f"unknown inertia convention {convention!r}")
+    if inertial.inertia_full is not None:
+        ixx, ixy, ixz, iyy, iyz, izz = inertial.inertia_full
+        i = np.array([[ixx, ixy, ixz], [ixy, iyy, iyz], [ixz, iyz, izz]])
+    else:
+        i = np.diag(inertial.inertia_xxyyzz)
+    return com, rot @ i @ rot.T
 
 
 def _joint_type(urdf_type: str, axis) -> Tuple[JointType, Tuple[float, float, float]]:
@@ -90,6 +103,7 @@ def convert_to_multibody(
     is_floating: bool = False,
     dtype=torch.float64,
     use_joint_damping: bool = False,
+    inertia_convention: str = "reference",
     mesh_contacts: int = 0,
 ) -> Tuple[MultiBodyModel, Tuple[GeomAttachment, ...]]:
     """Returns (model on the CPU, collision attachments); base shapes use
@@ -97,12 +111,12 @@ def convert_to_multibody(
     moves with it, a fixed one holds it still."""
     b = MultiBodyBuilder(is_floating=is_floating, name=urdf.robot_name)
     base = urdf.base_links[0]
-    b.set_base_inertia(base.inertial.mass, *_inertia_com_and_matrix(base.inertial))
+    b.set_base_inertia(base.inertial.mass, *_inertia_com_and_matrix(base.inertial, inertia_convention))
     geoms = _attachments(-1, base, mesh_contacts)
     for i, joint in enumerate(urdf.joints):
         link = urdf.links[i]
         jt, axis = _joint_type(joint.joint_type, joint.axis_xyz)
-        com, inertia = _inertia_com_and_matrix(link.inertial)
+        com, inertia = _inertia_com_and_matrix(link.inertial, inertia_convention)
         b.add_link(
             jt,
             parent=link.parent_index,
@@ -118,3 +132,11 @@ def convert_to_multibody(
         )
         geoms += _attachments(i, link, mesh_contacts)
     return b.finalize(dtype=dtype), tuple(geoms)
+
+
+def load_urdf(path: str, is_floating: bool = False, dtype=torch.float64):
+    """Parse and convert in one call: (model on the CPU, collision
+    attachments), uncached (``urdf.cache.construct`` caches)."""
+    from tds_tpu_torch.urdf.parser import parse_urdf_file
+
+    return convert_to_multibody(parse_urdf_file(path), is_floating, dtype)

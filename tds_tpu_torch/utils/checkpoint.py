@@ -12,14 +12,21 @@ refuses every other ``tds_tpu`` global. Arrays come back as numpy arrays.
 the port's ``RunningStat`` among them, as a plain tuple, so the file
 unpickles without ``tds_tpu_torch`` or ``tds_tpu``: the JAX package's
 trainer reads its ``obs_stat`` as ``RunningStat(*obs_stat)``.
+
+:func:`save_policy_weights` and :func:`load_policy_weights` write and read
+the JAX package's flat policy dump: the weights as raw float64 in a
+``.bin`` file, with ``<path>.json`` beside it holding their count (and the
+reward when given), so that each package reads the other's.
 """
 
 import importlib
+import json
 import os
 import pickle
 import tempfile
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from tds_tpu_torch.learn.running_stat import RunningStat
@@ -76,3 +83,21 @@ def save_checkpoint(path: str, state: Any, metadata: Optional[dict] = None):
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def save_policy_weights(path: str, params, reward: Optional[float] = None):
+    """The flat weights ``params`` (a tensor or an array) as raw float64 at
+    ``path``, and ``{"size": n[, "reward": r]}`` at ``path + ".json"``."""
+    arr = (params.detach().cpu().numpy() if isinstance(params, torch.Tensor) else np.asarray(params)).astype(np.float64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    arr.tofile(path)
+    meta = {"size": int(arr.size)}
+    if reward is not None:
+        meta["reward"] = float(reward)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+
+
+def load_policy_weights(path: str) -> np.ndarray:
+    """The flat float64 weights at ``path``."""
+    return np.fromfile(path, dtype=np.float64)

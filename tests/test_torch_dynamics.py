@@ -17,7 +17,7 @@ from tds_tpu.dynamics.jacobian import point_jacobian_kin as j_jac  # noqa: E402
 from tds_tpu.dynamics.kinematics import fk_links as j_fk  # noqa: E402
 from tds_tpu.urdf.cache import construct as j_construct  # noqa: E402
 from tds_tpu_torch.control.pd import pd_tau as t_pd_tau  # noqa: E402
-from tds_tpu_torch.dynamics import forward_dynamics as t_fd  # noqa: E402
+t_fd = importlib.import_module("tds_tpu_torch.dynamics.forward_dynamics")  # the module: the package's name is its function
 from tds_tpu_torch.dynamics.integrator import integrate_q as t_integrate_q  # noqa: E402
 from tds_tpu_torch.dynamics.jacobian import point_jacobian_kin as t_jac  # noqa: E402
 from tds_tpu_torch.dynamics.kinematics import fk_links as t_fk  # noqa: E402

@@ -398,7 +398,9 @@ def test_golden_floating_contact_trajectory_under_the_quirk():
 def test_the_quirk_is_a_graph_switch():
     """The quirk is read through graphs.switched, so it enters every scan
     signature; outside the block it is off again."""
-    from tds_tpu_torch.dynamics import forward_dynamics as fd
+    import importlib
+
+    fd = importlib.import_module("tds_tpu_torch.dynamics.forward_dynamics")  # the module, not the package's function
 
     assert not graphs.switched(fd.QUIRK)
     with reference_base_abi_quirk():

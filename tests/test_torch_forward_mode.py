@@ -186,17 +186,20 @@ class _Kernels:
     def __init__(self):
         self.calls = []
 
-    def forward(self, a, b, lo, hi, dep, it):
+    def forward(self, a, b, lo, hi, dep, it, x0=None):
+        assert x0 is None, "these rules run from the zero start"
         _plain(a, b, lo, hi)
         self.calls.append(("forward", b.shape[0]))
         return pgs.solve_pgs_reference(a, b, lo, hi, dep, it)
 
-    def jvp(self, a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, it):
+    def jvp(self, a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, it, x0=None, x0_dot=None):
+        assert x0 is None and x0_dot is None, "these rules run from the zero start"
         _plain(a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot)
         self.calls.append(("jvp", b.shape[0]))
         return pgs.solve_pgs_jvp_reference(a, b, lo, hi, (a_dot, b_dot, lo_dot, hi_dot), dep, it)
 
-    def backward(self, a, b, lo, hi, dep, it, x, x_bar):
+    def backward(self, a, b, lo, hi, dep, it, x, x_bar, x0=None):
+        assert x0 is None, "these rules run from the zero start"
         _plain(a, b, lo, hi, x, x_bar)
         self.calls.append(("backward", b.shape[0]))
         inputs = [t.detach().requires_grad_() for t in (a, b, lo, hi)]

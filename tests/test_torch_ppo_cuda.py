@@ -60,7 +60,7 @@ def _start(device):
     obs = cpu_env.observation(q, start.qd)
     state = state._replace(env_state=type(start)(q.to(device), start.qd.to(device), start.t.to(device)), obs=obs.to(device))
     draws = ppo.draw_iteration(cpu_env, CONFIG, torch.Generator().manual_seed(2), torch.float64, reset_slots=2)
-    return env, nets, state, ppo.PPODraws(*(d.to(device) for d in draws))
+    return env, nets, state, draws.to(device)
 
 
 def _flat(state, metrics):
