@@ -2063,7 +2063,7 @@ def k1_timing(label, operands, dep, it, card, prefix="humanoid (a)"):
         plain_how = "event span, host-paced"
     sweepless_ms = device_ms(lambda: pgs.solve_pgs(*operands, dep, 0), rounds=5, per_round=20)
     t_bytes, t_ops, n_bytes, n_ops = pgs_bound(b, it, card)
-    shape = pgs.launch_shape(b.dtype, n, bsz)
+    shape = pgs.launch_shape(b.dtype, n, bsz, iterations=it)  # the instance these sweeps launch
     log(f"{prefix}: K1 {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us on the device, "
         f"{sweepless_ms * 1e3:.2f} us with 0 sweeps, plain {plain_ms * 1e3:.1f} us ({plain_how}), bound "
         f"{max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), {ms / max(t_bytes, t_ops):.1f}x the bound")

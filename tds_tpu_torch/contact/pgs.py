@@ -28,8 +28,10 @@ and the tangent reach x0 too. ``x0=None`` launches the zero start's
 instances, which are as they were.
 
 Forward mode runs through the kernel's JVP in the same file
-(``tds_pgs_jvp_*``: x and its tangent carried through the sweeps together,
-in the forward's three forms): ``PGSFunction.jvp`` launches it, for
+(``tds_pgs_jvp_*``: x and its tangent computed sweep by sweep, in the
+forward's three forms, "linearised": each sweep's primal chain fixes the
+clip's factors, A' enters off the chain, and the tangent chain is linear):
+``PGSFunction.jvp`` launches it, for
 forward AD (``torch.autograd.forward_ad``) and ``torch.func.jvp``. Its
 ``vmap`` rule folds a vmapped dimension into the batch B (K1 is batched
 over B already, so ``vmap`` of K1 is K1 on T B rows), and so do the rules
@@ -48,7 +50,7 @@ The kernels are compiled with ``nvcc`` for ``sm_90a`` at their first launch
 :func:`tds_tpu_torch.utils.cuda_build.build`, and loaded with ctypes.
 Importing this module builds nothing. :func:`launch_shape` reports a
 kernel's form, lanes per env, envs per block and resident warps per SM on
-the card for any n.
+the card for any n, start and sweep count.
 
 ``launches`` counts the forward kernel's launches, ``backward_launches``
 the backward kernel's and ``jvp_launches`` the forward mode's, from the
@@ -388,16 +390,17 @@ def form(dtype: torch.dtype, n: int, backward: bool = False, jvp: bool = False) 
     return FORMS[_library().tds_pgs_form(int(dtype == torch.float64), n, _WHICH[which])]
 
 
-def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False, jvp: bool = False) -> dict:
+def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False, jvp: bool = False,
+                 warm: bool = False, iterations: int = 1) -> dict:
     """How the kernel (with ``backward``, its backward; with ``jvp``, its
     forward mode) launches for n rows in ``dtype`` at ``batch`` envs on
-    ``device``: its ``form`` and ``cuda_build.launch_shape``'s fields,
-    resident warps per SM and waves among them."""
+    ``device``, from a warm start with ``warm``, at ``iterations`` sweeps
+    (the forward from x = 0 has instances for one sweep and for more): its
+    ``form`` and ``cuda_build.launch_shape``'s fields, resident warps per SM
+    and waves among them."""
     name = form(dtype, n, backward, jvp)
-    lib = _library()
-    fn = {"forward": lib.tds_pgs_launch_shape, "backward": lib.tds_pgs_backward_launch_shape,
-          "jvp": lib.tds_pgs_jvp_launch_shape}[_which(backward, jvp)]
-    return {"form": name, **cuda_build.launch_shape(fn, (int(dtype == torch.float64), n), batch, device)}
+    args = (int(dtype == torch.float64), n, _WHICH[_which(backward, jvp)], int(warm), iterations)
+    return {"form": name, **cuda_build.launch_shape(_library().tds_pgs_instance_launch_shape, args, batch, device)}
 
 
 def _which(backward: bool, jvp: bool) -> str:
@@ -429,15 +432,10 @@ def bind(lib):
     for fn in (lib.tds_pgs_backward_f32, lib.tds_pgs_backward_f64):
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn in (lib.tds_pgs_launch_shape, lib.tds_pgs_backward_launch_shape):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
     if hasattr(lib, "tds_pgs_jvp_f32"):  # an earlier commit's library may have no forward mode
         for fn in (lib.tds_pgs_jvp_f32, lib.tds_pgs_jvp_f64):
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.tds_pgs_jvp_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.tds_pgs_jvp_launch_shape.restype = ctypes.c_int
     if hasattr(lib, "tds_pgs_solve_warm_f32"):  # nor a warm start
         for fns, pointers in (((lib.tds_pgs_solve_warm_f32, lib.tds_pgs_solve_warm_f64), 7),
                               ((lib.tds_pgs_backward_warm_f32, lib.tds_pgs_backward_warm_f64), 13),
@@ -445,4 +443,7 @@ def bind(lib):
             for fn in fns:
                 fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+    if hasattr(lib, "tds_pgs_instance_launch_shape"):  # nor each instance's launch shape
+        lib.tds_pgs_instance_launch_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        lib.tds_pgs_instance_launch_shape.restype = ctypes.c_int
     return lib

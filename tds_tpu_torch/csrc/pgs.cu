@@ -67,10 +67,13 @@
 // offsets r (r + 1) / 2 + j, and the triangular numbers of 32 consecutive
 // rows are distinct mod 32 (mod 16 within a half-warp for 8-byte values);
 // a row read across consecutive columns is contiguous. After the first
-// sweep (iterations > 1) a row's columns above the diagonal come from
-// global memory (L2), a lane walking its own row: every path runs one
-// sweep. A row's sum runs in double in both types: in float32 a sum of up
-// to n products in order, in float32, strayed from the plain sweep's by
+// sweep (iterations > 1, or from a warm start) a row's columns above the
+// diagonal come from global memory (L2), a lane walking its own row: every
+// path runs one sweep. (The forward mode's warp-cooperative pass over the
+// rows, row_sums, coalesced and 32 rows at a time, measured slower here:
+// 53.5 against 47.5 us from a warm start at n = 105, B = 1024, f32 on an
+// H100 80GB HBM3.) A row's sum runs in double in both types: in float32 a
+// sum of up to n products in order, in float32, strayed from the plain sweep's by
 // more than the float32 tolerance at n = 97 and 3 sweeps, where the
 // butterfly of the streaming form did not. The summation order differs
 // from the plain sweep's, and x_r is (b - sum) times 1 / A_rr, so float64
@@ -106,6 +109,20 @@ struct Lanes {
   static constexpr int G = N <= 16 ? 16 : 32;
 };
 
+// The minimum resident blocks the row-per-lane kernels are built for: 0
+// (no minimum) for the zero start's one-sweep instances (Split false),
+// which compile as they did; 1 for the float64 instances that split the
+// sweeps (Split: more sweeps, a warm start, the forward mode), with which
+// ptxas keeps every value in registers (without it, to fit more blocks, it
+// spilled 8-24 B a thread in N = 12 and 16). Float32 keeps no minimum: the
+// N = 24 forward mode then takes 118 registers and 16 warps an SM, and
+// 20.35 us at B = 4096, against 149 registers, 12 warps and 22.4 us with
+// a minimum of 1 (on an H100 80GB HBM3).
+template <typename T, bool Split>
+struct RowBlocks {
+  static constexpr int kMin = Split && sizeof(T) == 8 ? 1 : 0;
+};
+
 // The row-per-lane instance N for n <= 32 rows: the smallest of 8, 12, 16,
 // 24, 32 that holds them (0 for other n). (An instance of N = 4 kept 32 B of
 // local memory per thread in float64; n <= 8 pads to 8 instead.)
@@ -117,9 +134,10 @@ inline int instance_rows(int n) {
 }
 
 // n == N: the instance for exactly N rows (n = 12 and 24 among them), the
-// row-per-lane kernel as it was before padding existed.
-template <typename T, int N, int G>
-__global__ void __launch_bounds__(kThreads)
+// row-per-lane kernel as it was before padding existed; Split as in
+// pgs_sweeps (K1 launches the instance without it for at most one sweep).
+template <typename T, int N, int G, bool Split = false>
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split>::kMin)
 pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
            const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
            int batch, int iterations) {
@@ -137,14 +155,14 @@ pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict
   row.hi = hi[e * N + i];
   row.dep = dep[i];
   T x[N];
-  const T mine = pgs_sweeps<T, N, G>(x, row, iterations);
+  const T mine = pgs_sweeps<T, N, G, false, Split>(x, row, iterations);
   if (active && lane < N) x_out[e * N + lane] = mine;
 }
 
 // n < N: rows n..N-1 are identity rows in registers. With Warm (any
 // n <= N) the sweeps start from x0 (B, n), the padding rows from 0.
-template <typename T, int N, int G, bool Warm = false>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split>::kMin)
 pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                   const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
                   int batch, int n, int iterations, const T* __restrict__ x0) {
@@ -169,13 +187,18 @@ pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __r
   row.dep = real ? dep[r] : -1;
   T x[N];
   T start = T(0), start_dep = T(0);  // x0 of the lane's row and of its dependency
+  T upper = T(0);                    // the row's columns after it against x0
   if (Warm) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = j < n ? x0[e * n + j] : T(0);
+    for (int j = 0; j < N; ++j) {
+      const T v = j < n ? x0[e * n + j] : T(0);
+      x[j] = v;
+      if (j > lane) upper += row.a[j] * v;
+    }
     start = real ? x0[e * n + r] : T(0);
     start_dep = row.dep >= 0 ? x0[e * n + row.dep] : T(0);
   }
-  const T mine = pgs_sweeps<T, N, G, Warm>(x, row, iterations, start, start_dep);
+  const T mine = pgs_sweeps<T, N, G, Warm, Split>(x, row, iterations, start, start_dep, upper);
   if (active && lane < n) x_out[e * n + lane] = mine;
 }
 
@@ -213,20 +236,21 @@ __device__ __forceinline__ void load_warp_row(WarpRow<T>& r, const T* a_env, con
   r.dep = dep[i];
 }
 
-// The type a streaming form's row sums run in: T from x = 0 (the zero
-// start's instances as they were), double from a warm start, whose first
-// sweep sums every column: in float32 a 340-column sum strayed from the
-// plain sweep's in float64 by 6.6e-6, past the float32 tolerance (on an
-// H100 80GB HBM3), as the blocked forms' sums did at n = 97 before they ran
-// in double.
-template <typename T, bool Warm>
-using StreamAcc = typename std::conditional<Warm, double, T>::type;
+// The type a streaming form's row sums run in: T for one sweep from x = 0
+// (the zero start's instances as they were), double when a sweep sums every
+// column (Split: from a warm start or past the first sweep): in float32 a
+// 340-column sum strayed from the plain sweep's in float64 by 6.6e-6 from a
+// warm start, and at n = 336 after 10 sweeps from x = 0 by 1.1e-6 more
+// than the float32 tolerance allows (on an H100 80GB HBM3), as the blocked
+// forms' sums did at n = 97 before they ran in double.
+template <typename T, bool Split>
+using StreamAcc = typename std::conditional<Split, double, T>::type;
 
 // n > 32: one warp per env, envs_per_block warps a block, x in shared
 // memory (n values a warp). Each row's loads are issued while the row
 // before it is reduced and clipped, so the chain of dependent rows waits on
 // a shuffle reduction and a divide a row, not on a memory round trip.
-template <typename T, bool Warm = false>
+template <typename T, bool Warm = false, bool Split = Warm>
 __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                     const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
                                     int batch, int n, int iterations, const T* __restrict__ x0) {
@@ -252,7 +276,7 @@ __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict
       const bool wrap = i + 1 == n;
       load_warp_row(next, a_env, b_env, lo_env, hi_env, dep, wrap ? 0 : i + 1, Warm ? 1 : (wrap ? it + 1 : it), n, lane);
       // this lane's columns in increasing j, then a butterfly over the warp
-      using Acc = StreamAcc<T, Warm>;
+      using Acc = StreamAcc<T, Split>;
       Acc partial = Acc(0);
 #pragma unroll
       for (int k = 0; k < kHeld; ++k) {
@@ -308,6 +332,84 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 __host__ __device__ __forceinline__ int triangle(int r) { return r * (r + 1) / 2; }
+
+// One exchange step of transposed_sum on doubles: of the 2 Half values
+// left, each lane keeps the half its lane bit `Offset` names and adds its
+// partner's copy of it; then the next step.
+template <int R, int Half, int Offset>
+__device__ __forceinline__ void halve(double (&v)[R], int lane) {
+  if constexpr (Half >= 1) {
+    const bool high = lane & Offset;
+#pragma unroll
+    for (int m = 0; m < Half; ++m) {
+      const double keep = high ? v[m + Half] : v[m];
+      v[m] = keep + __shfl_xor_sync(0xffffffffu, high ? v[m] : v[m + Half], Offset);
+    }
+    halve<R, Half / 2, Offset / 2>(v, lane);
+  }
+}
+
+// The totals over the warp's 32 lanes of R values a lane (R = 8 or 16):
+// lane l gets the total of v[l / (32 / R)]. The exchanges (halve) take
+// R - 1 shuffles, butterfly steps log2(32 / R) more, where a butterfly each
+// takes 5 R. v is consumed.
+template <int R>
+__device__ __forceinline__ double transposed_sum(double (&v)[R], int lane) {
+  static_assert(R == 8 || R == 16, "8 or 16 values a lane");
+  halve<R, R / 2, 16>(v, lane);
+#pragma unroll
+  for (int offset = 16 / R; offset >= 1; offset /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], offset);
+  return v[0];
+}
+
+// Row sums of the rows r = k0 + lane of a block of 32: out[q] = sum over
+// the columns j in [c0, c1) of A_rj z(q, r, j), with A's rows read from
+// global memory by the whole warp, R rows at a time, lane l taking the
+// columns j = c0 + l (mod 32) of each in increasing j (a warp's load is
+// one row's 32 consecutive values, and the R of a column chunk are issued
+// together), and transposed_sum handing row k0 + R g + m's totals to lane
+// R g + m. The sums run in double. z(q, r, j) is the value column j meets
+// in row r's sum q (0 where the sum skips it). The warp calls it together
+// (the shuffles name every lane); lanes past n get 0.
+template <int V, int R, typename T, typename Z>
+__device__ __forceinline__ void row_sums(const T* a_env, int n, int k0, int c0, int c1, Z z, double (&out)[V],
+                                         int lane) {
+#pragma unroll
+  for (int q = 0; q < V; ++q) out[q] = 0.0;
+  const int rows = min(32, n - k0);
+  for (int g = 0; R * g < rows; ++g) {
+    double p[V][R];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) p[q][m] = 0.0;
+    }
+#pragma unroll 1
+    for (int j0 = c0; j0 < c1; j0 += 32) {
+      // the R loads first, unconditionally (clamped into the matrix; the
+      // terms past its edge are dropped), so that all are in flight at once
+      const int j = j0 + lane;
+      const int jc = min(j, c1 - 1);
+      T arj[R];
+#pragma unroll
+      for (int m = 0; m < R; ++m) arj[m] = a_env[(long long)min(k0 + R * g + m, n - 1) * n + jc];
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int r = k0 + R * g + m;
+        if (r < n && j < c1) {
+#pragma unroll
+          for (int q = 0; q < V; ++q) p[q][m] += double(arj[m]) * double(z(q, r, j));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const double total = transposed_sum(p[q], lane);
+      const double mine = __shfl_sync(0xffffffffu, total, (lane % R) * (32 / R));
+      out[q] = lane / R == g ? mine : out[q];
+    }
+  }
+}
 
 // Rows [r0, r1) of an env's A, columns 0..r, into the packed triangle,
 // G lanes walking each row.
@@ -463,25 +565,26 @@ struct Plan {
   long long smem = 0;
 };
 
-template <typename T, int N, bool Warm>
+template <typename T, int N, bool Warm, bool Split>
 const void* row_kernel(int n) {
-  if (n == N && !Warm) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G>);
-  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G, Warm>);
+  if (n == N && !Warm) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G, Split>);
+  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G, Warm, Split>);
 }
 
 // With Warm the plan of the warm-start instances: the same forms and
 // shapes, the row-per-lane form through pgs_kernel_padded for every n.
-template <typename T, bool Warm = false>
+// Split: the instances for more than one sweep (always with Warm).
+template <typename T, bool Warm = false, bool Split = Warm>
 Plan forward_plan(int n) {
   Plan p;
   const int rows = instance_rows(n);
   if (rows != 0) {
     switch (rows) {
-      case 8: p.fn = row_kernel<T, 8, Warm>(n); break;
-      case 12: p.fn = row_kernel<T, 12, Warm>(n); break;
-      case 16: p.fn = row_kernel<T, 16, Warm>(n); break;
-      case 24: p.fn = row_kernel<T, 24, Warm>(n); break;
-      default: p.fn = row_kernel<T, 32, Warm>(n); break;
+      case 8: p.fn = row_kernel<T, 8, Warm, Split>(n); break;
+      case 12: p.fn = row_kernel<T, 12, Warm, Split>(n); break;
+      case 16: p.fn = row_kernel<T, 16, Warm, Split>(n); break;
+      case 24: p.fn = row_kernel<T, 24, Warm, Split>(n); break;
+      default: p.fn = row_kernel<T, 32, Warm, Split>(n); break;
     }
     p.form = kRowPerLane;
     p.lanes = rows <= 16 ? 16 : 32;
@@ -492,7 +595,7 @@ Plan forward_plan(int n) {
     p.lanes = kWarp;
     staged_shape(blocked_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
   } else if (n > 32) {
-    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T, Warm>);
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T, Warm, Split>);
     p.form = kStreaming;
     p.lanes = kWarp;
     streaming_shape((long long)n * sizeof(T), &p.envs, &p.smem);  // x
@@ -500,17 +603,47 @@ Plan forward_plan(int n) {
   return p;
 }
 
-template <typename T, int N>
+template <typename T, int N, bool Split>
 void launch_rows(const T* a, const T* b, const T* lo, const T* hi, const int* dep, T* x, int batch, int n,
                  int iterations, cudaStream_t s) {
   constexpr int G = Lanes<N>::G;
   constexpr int envs = kThreads / G;
   const int blocks = (batch + envs - 1) / envs;
   if (n == N) {
-    pgs_kernel<T, N, G><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, iterations);
+    pgs_kernel<T, N, G, Split><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, iterations);
   } else {
-    pgs_kernel_padded<T, N, G><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, n, iterations, nullptr);
+    pgs_kernel_padded<T, N, G, false, Split><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, n, iterations,
+                                                                       nullptr);
   }
+}
+
+// K1 from x = 0: the instances without Split for at most one sweep (the
+// paths' launches, as they were), with Split for more.
+template <typename T, bool Split>
+int launch_split(const T* a, const T* b, const T* lo, const T* hi, const int* dep, T* x, int batch, int n,
+                 int iterations, cudaStream_t s) {
+  switch (instance_rows(n)) {
+    case 8: launch_rows<T, 8, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
+    case 12: launch_rows<T, 12, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
+    case 16: launch_rows<T, 16, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
+    case 24: launch_rows<T, 24, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
+    case 32: launch_rows<T, 32, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
+    default: {
+      const Plan p = forward_plan<T, false, Split>(n);
+      if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      const cudaError_t err = allow_smem(p.fn, p.smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+      if (p.form == kBlocked) {
+        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n, iterations,
+                                                                    nullptr);
+      } else {
+        pgs_kernel_per_warp<T, false, Split><<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n,
+                                                                                  iterations, nullptr);
+      }
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -524,28 +657,8 @@ int launch(const void* a, const void* b, const void* lo, const void* hi,
   const T* hi_t = static_cast<const T*>(hi);
   const int* dep_t = static_cast<const int*>(dep);
   T* x_t = static_cast<T*>(x);
-  switch (instance_rows(n)) {
-    case 8: launch_rows<T, 8>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
-    case 12: launch_rows<T, 12>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
-    case 16: launch_rows<T, 16>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
-    case 24: launch_rows<T, 24>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
-    case 32: launch_rows<T, 32>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s); break;
-    default: {
-      const Plan p = forward_plan<T>(n);
-      if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      const cudaError_t err = allow_smem(p.fn, p.smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
-      if (p.form == kBlocked) {
-        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations,
-                                                                    nullptr);
-      } else {
-        pgs_kernel_per_warp<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations,
-                                                                     nullptr);
-      }
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (iterations > 1) return launch_split<T, true>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s);
+  return launch_split<T, false>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s);
 }
 
 // K1 from the warm start x0 (B, n): the forward's three forms, each
@@ -997,26 +1110,48 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
 // hi and their tangents, and writes x and x'; per row and column about 6
 // flops against the forward's 2.
 //
+// "Linearised", the dual of the backward's design: once a sweep's x is
+// known, every u, s and clip factor is fixed, so x' is linear in the
+// tangents. Per sweep t, (1) the primal chain over A alone, as the
+// forward's, each lane keeping u and x_dep of its row; (2) off the chain,
+// c_i = sum_{j < i} A'_ij x_j + sum_{j > i} A'_ij x_j(t - 1) + u_i A'_ii, a
+// mat-vec of A' against vectors now known, so A' is read once a sweep
+// from global memory and never held through a chain; (3) the tangent
+// chain over A, x'_i = mp (b'_i - c_i - sum_{j != i} A_ij x'_j) / A_ii +
+// ml l'_i + mh h'_i with l' = lo'_i s + lo_i s', s' = x'_dep max'(x_dep):
+// one shuffle and one FMA a row, as the primal's. (The first design carried
+// A' through the chain beside A: two sums a row on the chain, A' in
+// registers for n <= 32 (8 B of stack at n = 12, 280 B in the float64
+// N = 32 warm instance) and both triangles staged for n > 32, 4 warps an
+// SM at n = 105: 97.6 us there at B = 1024, f32 on an H100 80GB HBM3.)
+//
 // Its three forms are the forward's:
 // - n <= 32, "row per lane" (pgs_jvp_sweeps in pgs_sweep.cuh): lane i
-//   holds row i of A and of A' in registers, and the whole x and x'; each
-//   row's x_i and x'_i are two shuffles. Every n runs the padded instance
-//   of the next N of 8, 12, 16, 24, 32 (identity rows with zero tangents
-//   keep x = x' = 0 past n).
-// - n > 32, "blocked": one warp per env, both lower triangles and the
-//   vectors staged in shared memory with cp.async (jvp_env_bytes: 48,304
-//   B an env at n = 105 in f32), the rows in blocks of 32; each lane first
-//   sums its row over the columns outside the block's triangle, then the
-//   chain broadcasts x_m and x'_m and every later lane adds its terms. The
-//   sums run in double in both types, as the blocked forward's.
-// - past a block's 227 KB (n > 236 in f32, > 165 in f64), "streaming": one
-//   warp per env streams both rows from global memory, x and x' in shared
-//   memory, each row's two sums a butterfly over the warp.
+//   holds row i of A in registers and the whole x; A''s row stays in
+//   global memory. Every n runs the padded instance of the next N of 8,
+//   12, 16, 24, 32 (identity rows with zero tangents keep x = x' = 0 past
+//   n).
+// - n > 32, "blocked": one warp per env, A's lower triangle and the
+//   vectors staged in shared memory with cp.async as the forward stages
+//   them (jvp_env_bytes: 26,048 B an env at n = 105 in f32), the rows in
+//   blocks of 32. Per block: each lane sums its row over the columns
+//   outside the block's triangle against x and x' (the columns after the
+//   row through row_sums, when the sweep reads them), the primal chain,
+//   c through row_sums over A''s rows (coalesced, 16 rows at a time), then
+//   the tangent chain. The sums run in double in both types, as the
+//   blocked forward's. (Fetching the next block's rows into L2 ahead of
+//   row_sums made it slower: 57.4 against 54.0 us at n = 48, B = 4096, f32,
+//   128.6 against 119.0 from x0 at n = 105, B = 1024, on an H100 80GB HBM3.)
+// - past a block's 227 KB (n > 331 in f32, > 232 in f64), "streaming": one
+//   warp per env streams A's and A''s rows from global memory, x and x' in
+//   shared memory, each row's sums a butterfly over the warp. Its A'
+//   products already sit off the chain (the butterfly sums them with A's,
+//   in the same shuffles), so the split would save it nothing.
 // Each form has Warm instances, which start x from x0 and x' from its
 // tangent x0' (B, n) and take every column from the first sweep on.
 
 template <typename T, int N, int G, bool Warm = false>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, true>::kMin)
 pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
              const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
              const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
@@ -1030,32 +1165,34 @@ pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restri
   // a padding row (i >= n) reads row 0 and keeps none of it
   const bool real = i < n;
   const int r = real ? i : 0;
-  LaneRow<T, N> row, tangent;
+  LaneRow<T, N> row;
   const long long q = (e * n + r) * n;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const T v = j < n ? a[q + j] : T(0);
-    const T vd = j < n ? a_dot[q + j] : T(0);
     row.a[j] = real ? v : (j == i ? T(1) : T(0));
-    tangent.a[j] = real ? vd : T(0);
   }
   const long long k = e * n + r;
   row.b = real ? b[k] : T(0);
   row.lo = real ? lo[k] : T(0);
   row.hi = real ? hi[k] : T(0);
   row.dep = real ? dep[r] : -1;
-  tangent.b = real ? b_dot[k] : T(0);
-  tangent.lo = real ? lo_dot[k] : T(0);
-  tangent.hi = real ? hi_dot[k] : T(0);
-  tangent.dep = -1;
-  T x[N], xd[N];
+  const LaneTangent<T> tangent{a_dot + q, real ? n : 0, real ? b_dot[k] : T(0), real ? lo_dot[k] : T(0),
+                               real ? hi_dot[k] : T(0)};
+  T x[N];
   T mine, mined;
   T start_dep = T(0), start_dep_dot = T(0);  // x0 and x0' of the row's dependency
+  UpperSums<T> upper = {T(0), T(0), T(0)};   // the row's columns after it: A x0, A' x0, A x0'
   if (Warm) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      x[j] = j < n ? x0[e * n + j] : T(0);
-      xd[j] = j < n ? x0_dot[e * n + j] : T(0);
+      const T v = j < n ? x0[e * n + j] : T(0);
+      x[j] = v;
+      if (j > lane && j < tangent.cols) {
+        upper.x += row.a[j] * v;
+        upper.a_dot_x += tangent.a[j] * v;
+        upper.x_dot += row.a[j] * x0_dot[e * n + j];
+      }
     }
     mine = real ? x0[k] : T(0);
     mined = real ? x0_dot[k] : T(0);
@@ -1064,18 +1201,18 @@ pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restri
       start_dep_dot = x0_dot[e * n + row.dep];
     }
   }
-  pgs_jvp_sweeps<T, N, G, Warm>(x, xd, row, tangent, iterations, mine, mined, start_dep, start_dep_dot);
+  pgs_jvp_sweeps<T, N, G, Warm>(x, row, tangent, iterations, mine, mined, start_dep, start_dep_dot, upper);
   if (active && lane < n) {
     x_out[e * n + lane] = mine;
     x_dot_out[e * n + lane] = mined;
   }
 }
 
-// Bytes of shared memory of one env of the blocked JVP: both triangles,
-// x, x', b, b', lo, lo', hi, hi' and dep, rounded up to 16.
+// Bytes of shared memory of one env of the blocked JVP: A's triangle, x,
+// x', b, b', lo, lo', hi, hi' and dep, rounded up to 16.
 template <typename T>
 __host__ __device__ __forceinline__ long long jvp_env_bytes(int n) {
-  const long long bytes = (2LL * triangle(n) + 8LL * n) * sizeof(T) + 4LL * n;
+  const long long bytes = ((long long)triangle(n) + 8LL * n) * sizeof(T) + 4LL * n;
   return (bytes + 15) / 16 * 16;
 }
 
@@ -1098,8 +1235,7 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
   const bool active = env < batch;
   const long long e = active ? env : batch - 1;  // a valid env to read from
   T* tri = reinterpret_cast<T*>(smem_raw + warp * jvp_env_bytes<T>(n));
-  T* trid = tri + triangle(n);
-  T* x = trid + triangle(n);
+  T* x = tri + triangle(n);
   T* xd = x + n;
   T* bs = xd + n;
   T* bds = bs + n;
@@ -1124,20 +1260,18 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
     xd[j] = Warm ? x0_dot[k] : T(0);
   }
   stage_rows(tri, a_env, n, 0, min(n, kWarp), lane, kWarp);
-  stage_rows(trid, ad_env, n, 0, min(n, kWarp), lane, kWarp);
   copy_commit();
   stage_rows(tri, a_env, n, kWarp, min(n, 2 * kWarp), lane, kWarp);
-  stage_rows(trid, ad_env, n, kWarp, min(n, 2 * kWarp), lane, kWarp);
   copy_commit();
   const int sweeps = iterations > 0 ? iterations : 1;
   for (int it = 0; it < sweeps; ++it) {
+    const bool upper = Warm || it > 0;  // the sweep reads the columns after each row
     for (int k = 0; k < blocks; ++k) {
       const int k0 = k * kWarp;
       if (it == 0) {
         copy_wait<1>();  // block k's rows have landed; block k + 1's may not have
         __syncwarp();
         stage_rows(tri, a_env, n, min(n, k0 + 2 * kWarp), min(n, k0 + 3 * kWarp), lane, kWarp);
-        stage_rows(trid, ad_env, n, min(n, k0 + 2 * kWarp), min(n, k0 + 3 * kWarp), lane, kWarp);
         copy_commit();
       }
       if (iterations == 0) continue;
@@ -1145,54 +1279,74 @@ pgs_jvp_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __res
       const bool row = r < n;
       const int rr = row ? r : n - 1;  // lanes past n shadow the last row
       const T* trow = tri + triangle(rr);
-      const T* trowd = trid + triangle(rr);
+      // A's columns outside the block's triangle against x and x': this
+      // sweep's before the block, the previous sweep's after the row
       double sum = 0.0, sumd = 0.0;
+#pragma unroll 4
       for (int j = 0; j < k0; ++j) {
         sum += double(trow[j]) * double(x[j]);
-        sumd += double(trowd[j]) * double(x[j]) + double(trow[j]) * double(xd[j]);
+        sumd += double(trow[j]) * double(xd[j]);
       }
-      if (Warm || it > 0) {
-        // the previous sweep's x (or x0) after the row: the upper parts from L2
-        const T* a_row = a_env + (long long)rr * n;
-        const T* ad_row = ad_env + (long long)rr * n;
-        for (int j = rr + 1; j < n; ++j) {
-          sum += double(a_row[j]) * double(x[j]);
-          sumd += double(ad_row[j]) * double(x[j]) + double(a_row[j]) * double(xd[j]);
-        }
+      if (upper) {
+        double up[2];
+        row_sums<2, 8>(a_env, n, k0, k0, n,
+                        [&](int q, int r2, int j) { return j > r2 ? (q == 0 ? x[j] : xd[j]) : T(0); }, up, lane);
+        sum += up[0];
+        sumd += up[1];
       }
-      const double bi = bs[rr], bdi = bds[rr];
-      const T loi = los[rr], hii = his[rr], lodi = lods[rr], hidi = hids[rr];
-      const double aii = trow[rr], aiid = trowd[rr];
+      const double bi = bs[rr];
+      const T loi = los[rr], hii = his[rr];
+      const double inv = 1.0 / double(trow[rr]);
       const int d = deps[rr];
+      // (1) the primal chain, as the blocked forward's
       T xdep = d >= 0 ? x[d] : T(0);  // x_dep now: replaced below when dep is an earlier row of the block
-      T xddep = d >= 0 ? xd[d] : T(0);
-      T mine = T(0), mined = T(0);
+      T mine = T(0), u = T(0), dep_at = T(0);
       const int rows = min(kWarp, n - k0);
+#pragma unroll 4
       for (int m = 0; m < rows; ++m) {
-        const double u = (bi - sum) / aii;
-        const T ut = T(u);
-        const T udt = T((bdi - sumd - u * aiid) / aii);
+        const T um = T((bi - sum) * inv);
         const T s = d >= 0 ? (xdep > T(0) ? xdep : T(0)) : T(1);
-        const T sd = d >= 0 ? xddep * relu_slope(xdep) : T(0);
-        const T l = loi * s, h = hii * s;
-        const T ld = lodi * s + loi * sd, hd = hidi * s + hii * sd;
-        T xi = ut < l ? l : ut;
+        const T l = loi * s;
+        const T h = hii * s;
+        T xi = um < l ? l : um;
         xi = xi > h ? h : xi;
-        T mp, ml, mh;
-        clip_factors(ut, l, h, mp, ml, mh);
-        const T xdi = mp * udt + ml * ld + mh * hd;
         const T xm = __shfl_sync(0xffffffffu, xi, m);
-        const T xdm = __shfl_sync(0xffffffffu, xdi, m);
+        u = lane == m ? um : u;
+        dep_at = lane == m ? xdep : dep_at;
         mine = lane == m ? xm : mine;
-        mined = lane == m ? xdm : mined;
         xdep = d == k0 + m ? xm : xdep;
-        xddep = d == k0 + m ? xdm : xddep;
-        const T am = lane > m ? trow[k0 + m] : T(0);
-        const T amd = lane > m ? trowd[k0 + m] : T(0);
-        sum += double(am) * double(xm);
-        sumd += double(amd) * double(xm) + double(am) * double(xdm);
+        sum += double(lane > m ? trow[k0 + m] : T(0)) * double(xm);
       }
-      __syncwarp();  // every lane has read the x it needs of this block
+      // (2) c of the block's rows from A''s rows: column j meets this
+      // sweep's x before the row (the block's own from the lanes), u at the
+      // row, the previous sweep's after it (none in the first sweep from 0)
+      const T before = x[k0 + lane < n ? k0 + lane : n - 1];  // the block's x of the previous sweep, lane by lane
+      double c[1];
+      row_sums<1, 16>(ad_env, n, k0, 0, upper ? n : min(n, k0 + kWarp),
+                      [&](int, int r2, int j) {
+                        if (j < k0 || j >= k0 + kWarp) return x[j];
+                        return j < r2 ? mine : (j == r2 ? u : before);
+                      },
+                      c, lane);
+      const T s = d >= 0 ? (dep_at > T(0) ? dep_at : T(0)) : T(1);
+      T mp, ml, mh;
+      clip_factors(u, loi * s, hii * s, mp, ml, mh);
+      const double k1 = double(mp) * inv;
+      const double bc = double(bds[rr]) - c[0];
+      const double k0c = double((ml * lods[rr] + mh * hids[rr]) * s);
+      const double k2 = d >= 0 ? double((ml * loi + mh * hii) * relu_slope(dep_at)) : 0.0;
+      // (3) the tangent chain
+      T xddep = d >= 0 ? xd[d] : T(0);
+      T mined = T(0);
+#pragma unroll 4
+      for (int m = 0; m < rows; ++m) {
+        const T xdi = T(k1 * (bc - sumd) + (k0c + k2 * double(xddep)));
+        const T xdm = __shfl_sync(0xffffffffu, xdi, m);
+        mined = lane == m ? xdm : mined;
+        xddep = d == k0 + m ? xdm : xddep;
+        sumd += double(lane > m ? trow[k0 + m] : T(0)) * double(xdm);
+      }
+      __syncwarp();  // every lane has read the x and x' it needs of this block
       if (row) {
         x[r] = mine;
         xd[r] = mined;
@@ -1235,7 +1389,7 @@ __global__ void pgs_jvp_per_warp(const T* __restrict__ a, const T* __restrict__ 
       const T* ad_row = ad_env + (long long)i * n;
       // in the first sweep from x = 0, x_j = x'_j = 0 for j > i
       const int cols = !Warm && it == 0 ? i : n;
-      using Acc = StreamAcc<T, Warm>;
+      using Acc = double;
       Acc partial = Acc(0), partiald = Acc(0);
       for (int j = lane; j < cols; j += kWarp) {
         if (j != i) {
@@ -1352,8 +1506,17 @@ int jvp(const void* a, const void* b, const void* lo, const void* hi, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch-shape query shared by the forward, the backward and the
-// forward mode (see tds_pgs_launch_shape below).
+// The plan of the instance a launch takes (see
+// tds_pgs_instance_launch_shape below).
+template <typename T>
+Plan instance_plan(int n, int which, bool warm, int iterations) {
+  if (which == 2) return warm ? jvp_plan<T, true>(n) : jvp_plan<T>(n);
+  if (which == 1) return warm ? backward_plan<T, true>(n) : backward_plan<T>(n);
+  if (warm) return forward_plan<T, true>(n);
+  return iterations > 1 ? forward_plan<T, false, true>(n) : forward_plan<T>(n);
+}
+
+// The launch-shape query behind tds_pgs_instance_launch_shape below.
 int launch_shape(const Plan& p, int* out) {
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(p.fn, p.smem);
@@ -1406,17 +1569,6 @@ extern "C" int tds_pgs_solve_warm_f64(const void* a, const void* b, const void* 
   return launch_warm<double>(a, b, lo, hi, dep, x0, x, batch, n, iterations, stream);
 }
 
-// The launch shape of the kernel for n rows in float32 (f64 = 0) or
-// float64 (f64 = 1), on the current device: out[0] lanes per env, out[1]
-// envs per block, out[2] threads per block, out[3] shared memory per block
-// (bytes, static and dynamic), out[4] resident blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] registers per
-// thread and out[6] local memory per thread (bytes; stack frame and
-// spills), both from cudaFuncGetAttributes. Returns a cudaError_t.
-extern "C" int tds_pgs_launch_shape(int f64, int n, int* out) {
-  return launch_shape(f64 ? forward_plan<double>(n) : forward_plan<float>(n), out);
-}
-
 // K1's backward: a, b, lo, hi (the forward's operands), dep, xs
 // (iterations, B, n): x after each sweep, the last the forward's output,
 // and x_bar (B, n), all contiguous on the current device; writes a_bar
@@ -1451,11 +1603,6 @@ extern "C" int tds_pgs_backward_warm_f64(const void* a, const void* b, const voi
                                          void* stream) {
   return backward<double, true>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations,
                                 stream, x0, x0_bar);
-}
-
-// The backward's launch shape, in tds_pgs_launch_shape's fields.
-extern "C" int tds_pgs_backward_launch_shape(int f64, int n, int* out) {
-  return launch_shape(f64 ? backward_plan<double>(n) : backward_plan<float>(n), out);
 }
 
 // K1's forward mode: a, b, lo, hi (B, n, n) / (B, n), their tangents
@@ -1493,9 +1640,19 @@ extern "C" int tds_pgs_jvp_warm_f64(const void* a, const void* b, const void* lo
                            x0_dot);
 }
 
-// The forward mode's launch shape, in tds_pgs_launch_shape's fields.
-extern "C" int tds_pgs_jvp_launch_shape(int f64, int n, int* out) {
-  return launch_shape(f64 ? jvp_plan<double>(n) : jvp_plan<float>(n), out);
+// The launch shape of the instance that runs for n rows in float32
+// (f64 = 0) or float64 (f64 = 1), of the forward (which = 0), the backward
+// (1) or the forward mode (2), from a warm start (warm = 1) or from x = 0,
+// at `iterations` sweeps (the forward from x = 0 has instances for at most
+// one sweep and for more), on the current device: out[0] lanes per env,
+// out[1] envs per block, out[2] threads per block, out[3] shared memory per
+// block (bytes, static and dynamic), out[4] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] registers per
+// thread and out[6] local memory per thread (bytes; stack frame and
+// spills), both from cudaFuncGetAttributes. Returns a cudaError_t.
+extern "C" int tds_pgs_instance_launch_shape(int f64, int n, int which, int warm, int iterations, int* out) {
+  return launch_shape(f64 ? instance_plan<double>(n, which, warm, iterations)
+                          : instance_plan<float>(n, which, warm, iterations), out);
 }
 
 // The form that runs for n rows in float32 (f64 = 0) or float64 (f64 = 1),

@@ -20,9 +20,10 @@
 // N is a template parameter so that the row loops unroll fully and x[]
 // stays in registers, indexed only by constants: each lane keeps x[dep] of
 // its own row in a scalar, taken from x[j] as each x_j is broadcast (a
-// select over x by a run-time index would move x to local memory). Each row sums
-// A_ij x_j over j != i in increasing j, as the per-thread sweep of the
-// first version did, so float64 results differ from it by nothing.
+// select over x by a run-time index would move x to local memory). The
+// first sweep from x = 0 sums A_ij x_j over j < i in increasing j, as the
+// per-thread sweep of the first version did, so float64 results differ
+// from it by nothing.
 
 #pragma once
 
@@ -36,19 +37,41 @@ struct LaneRow {
   int dep;
 };
 
+// Makes v opaque to the compiler at no cost. The sweeps below that
+// change x_dep (and x'_dep) pass it through here at every row: else the
+// compiler may rebuild x_dep at each row from x[] by a select over
+// row.dep, a run-time index (an N-way select a row, and in float64 at
+// N = 8 x[] in local memory: 56.96 us at n = 3, B = 4096, 10 sweeps, f32,
+// against 26.18 with it, on an H100 80GB HBM3).
+__device__ __forceinline__ void opaque(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void opaque(double& v) { asm volatile("" : "+d"(v)); }
+
 // Fills x[] from x = 0 and returns x[lane] on lanes below N. With Warm
 // the sweeps start from the x[] the caller filled (the warm start x0),
 // `mine` its x[lane] and `x_dep` its x[row.dep] (0 without a dependency);
 // the zero start's instantiations (Warm false, K1's and K2's) take neither.
 //
 // Each lane keeps a running sum of its row over the columns already done
-// in this sweep, so that row i waits only for x_{i-1}: lane i's delta is
-// that prefix, in increasing j, then (after the first sweep, where from
-// x = 0 every x_j with j > i is still 0, or from a warm start) the
-// columns j > i in increasing j: the order of the plain sweep.
-template <typename T, int N, int G, bool Warm = false>
+// in this sweep, so that row i waits only for x_{i-1}: one shuffle and one
+// FMA a row. A sweep that reads A's upper triangle (every sweep after the
+// first from x = 0, where every x_j with j > i is still 0, and every sweep
+// from a warm start) needs each row's columns j > i against the previous
+// sweep's x (or x0) as well. With Split, each lane sums its row over its
+// columns j > lane against this sweep's x as they are broadcast, one FMA a
+// row off the chain, and the next sweep's chain starts from that sum
+// (`upper`, from the caller's x0 with Warm): row i's delta is its columns
+// j > i, then its columns j < i, each in increasing j.
+// Without Split every lane sums row i's columns j > i at each row i, in
+// increasing j after the prefix, the plain sweep's order: N^2 / 2 FMAs a
+// sweep on every lane (144.4 us at n = 24, B = 4096, 10 sweeps, f32 on an
+// H100 80GB HBM3). That is the code of K2 (whose one sweep skips it) and
+// of K1's zero-start instances for one sweep, which K1 launches for at most
+// one sweep from x = 0; K1 launches the Split instances for every other
+// start and count, so that the one-sweep paths compile to what they were.
+
+template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
 __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int iterations, T mine = T(0),
-                                        T x_dep = T(0)) {
+                                        T x_dep = T(0), T upper = T(0)) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   const int lane = threadIdx.x % G;
   if (!Warm) {
@@ -56,11 +79,14 @@ __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int
     for (int j = 0; j < N; ++j) x[j] = T(0);
   }
   for (int it = 0; it < iterations; ++it) {
-    T prefix = T(0);  // sum of A_lane,j x_j over the columns j < lane done so far
+    // the lane's row over the columns done so far: with Split, those after
+    // it (the previous sweep's x) first, then those before it
+    T prefix = Split ? upper : T(0);
+    T next = T(0);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       T delta = prefix;
-      if (Warm || it > 0) {
+      if (!Split && (Warm || it > 0)) {
 #pragma unroll
         for (int j = i + 1; j < N; ++j) delta += row.a[j] * x[j];
       }
@@ -74,8 +100,11 @@ __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int
       x[i] = __shfl_sync(0xffffffffu, xi, i, G);
       mine = lane == i ? x[i] : mine;
       x_dep = row.dep == i ? x[i] : x_dep;
+      if (Split) opaque(x_dep);
       prefix = lane > i ? prefix + row.a[i] * x[i] : prefix;
+      if (Split) next = lane < i ? next + row.a[i] * x[i] : next;
     }
+    upper = next;
   }
   return mine;
 }
@@ -101,63 +130,116 @@ __device__ __forceinline__ void clip_factors(T p, T l, T h, T& mp, T& ml, T& mh)
   ml = mm * (T(1) - split);
 }
 
+// The tangents of a lane's row for pgs_jvp_sweeps: A''s row stays in
+// global memory, read once a sweep off the chain (cols values; a padding
+// row has cols = 0 and reads nothing), never held through one.
+template <typename T>
+struct LaneTangent {
+  const T* a;
+  int cols;
+  T b, lo, hi;
+};
+
+// A lane's row's sums over its columns j > lane that a sweep of
+// pgs_jvp_sweeps starts from: A against x, A' against x, A against x'.
+template <typename T>
+struct UpperSums {
+  T x, a_dot_x, x_dot;
+};
+
 // The forward-mode (JVP) counterpart of pgs_sweeps: the same sweeps over
-// (x, x') together, x' the tangent of x for the tangents (A', b', lo',
-// hi') that `tangent` holds in a LaneRow's fields (its dep is unused). Per
-// row, with u = (b_i - delta_i) / A_ii the unclipped value,
-//   u' = (b'_i - delta'_i - u A'_ii) / A_ii,  delta'_i = sum_{j != i} A'_ij x_j + A_ij x'_j,
-// s = max(x_dep, 0) with s' = x'_dep max'(x_dep), l = lo_i s,
-// l' = lo'_i s + lo_i s', h likewise, and x'_i = mp u' + ml l' + mh h'
-// (clip_factors): at a tie each side takes half, as jax.jvp of the
-// unrolled sweep gives. Fills x[] and xd[] from 0 (with Warm from the x0
-// and x0' the caller filled them with, and x_dep, xd_dep their entries at
-// row.dep) and returns (x, x') of the lane's row in (mine, mined) on
+// (x, x') together, x' the tangent of x for the tangents (A', b', lo', hi')
+// of `tangent`, "linearised" as K1's backward is. Per row, with
+// u = (b_i - delta_i) / A_ii the unclipped value, s = max(x_dep, 0) and
+// the clip's factors (mp, ml, mh) = clip_factors(u, lo_i s, hi_i s) (at a
+// tie each side takes half, as jax.jvp of the unrolled sweep gives),
+//   x'_i = mp (b'_i - c_i - sum_{j != i} A_ij x'_j) / A_ii + ml l'_i + mh h'_i,
+//   c_i = sum_{j < i} A'_ij x_j + sum_{j > i} A'_ij x_j(prev) + u_i A'_ii,
+// l' = lo'_i s + lo_i s', h' likewise, s' = x'_dep max'(x_dep). Once a
+// sweep's x is known, u, s and so the factors are fixed and x' is linear:
+// (1) the primal chain over A, as pgs_sweeps with Split, each lane keeping
+// u and x_dep of its own row; (2) off the chain, one pass over A''s row in
+// global memory against this sweep's x: the columns before the row for c,
+// those after it for the next sweep's c; and the factors; (3) the tangent
+// chain over A, x'_i = k1 (b'_i - c_i - sum) + k0 + k2 x'_dep with
+// k1 = mp / A_ii, k0 = (ml lo'_i + mh hi'_i) s, k2 = (ml lo_i + mh hi_i)
+// max'(x_dep): one shuffle and one FMA a row, as the primal's. Neither x'
+// nor A''s row is held: the sums over the columns after each row (of A
+// against x and x', of A' against x) are taken for the next sweep as the
+// values are known. Fills x[] from 0 (with Warm from the x0 the caller
+// filled it with, x_dep and xd_dep the entries of x0 and x0' at row.dep,
+// and `upper` the lane's row's sums over its columns j > lane: A x0, A' x0
+// and A x0') and returns (x, x') of the lane's row in (mine, mined) on
 // lanes below N (with Warm the caller sets both to x0 and x0' of the row).
 template <typename T, int N, int G, bool Warm = false>
-__device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], T (&xd)[N], const LaneRow<T, N>& row,
-                                               const LaneRow<T, N>& tangent, int iterations, T& mine, T& mined,
-                                               T x_dep = T(0), T xd_dep = T(0)) {
+__device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], const LaneRow<T, N>& row, const LaneTangent<T>& tangent,
+                                               int iterations, T& mine, T& mined, T x_dep = T(0), T xd_dep = T(0),
+                                               UpperSums<T> upper = {T(0), T(0), T(0)}) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   const int lane = threadIdx.x % G;
   if (!Warm) {
     mine = mined = T(0);
 #pragma unroll
-    for (int j = 0; j < N; ++j) x[j] = xd[j] = T(0);
+    for (int j = 0; j < N; ++j) x[j] = T(0);
   }
+  T aii = T(0);
+#pragma unroll
+  for (int i = 0; i < N; ++i) aii = lane == i ? row.a[i] : aii;
+  const T aii_dot = lane < tangent.cols ? tangent.a[lane] : T(0);
+  const bool has_dep = row.dep >= 0;
   for (int it = 0; it < iterations; ++it) {
-    T prefix = T(0), prefixd = T(0);  // the row's sums over the columns j < lane done so far
+    const bool last = it + 1 == iterations;
+    // (1) the primal chain, from the row's columns after it
+    T sum = upper.x, next = T(0);
+    T u = T(0), dep_at = T(0);  // u and x_dep of the lane's row, as its row saw them
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      T delta = prefix, deltad = prefixd;
-      if (Warm || it > 0) {
-#pragma unroll
-        for (int j = i + 1; j < N; ++j) {
-          delta += row.a[j] * x[j];
-          deltad += tangent.a[j] * x[j] + row.a[j] * xd[j];
-        }
-      }
-      const T u = (row.b - delta) / row.a[i];
-      const T ud = (tangent.b - deltad - u * tangent.a[i]) / row.a[i];
-      const bool dep = row.dep >= 0;
-      const T s = dep ? (x_dep > T(0) ? x_dep : T(0)) : T(1);
-      const T sd = dep ? xd_dep * relu_slope(x_dep) : T(0);
-      const T l = row.lo * s, h = row.hi * s;
-      const T ld = tangent.lo * s + row.lo * sd, hd = tangent.hi * s + row.hi * sd;
-      T xi = u < l ? l : u;
+      const T ui = (row.b - sum) / row.a[i];
+      const T s = has_dep ? (x_dep > T(0) ? x_dep : T(0)) : T(1);
+      const T l = row.lo * s;
+      const T h = row.hi * s;
+      T xi = ui < l ? l : ui;
       xi = xi > h ? h : xi;
-      T mp, ml, mh;
-      clip_factors(u, l, h, mp, ml, mh);
-      const T xdi = mp * ud + ml * ld + mh * hd;
       x[i] = __shfl_sync(0xffffffffu, xi, i, G);
-      xd[i] = __shfl_sync(0xffffffffu, xdi, i, G);
+      u = lane == i ? ui : u;
+      dep_at = lane == i ? x_dep : dep_at;
       mine = lane == i ? x[i] : mine;
-      mined = lane == i ? xd[i] : mined;
       x_dep = row.dep == i ? x[i] : x_dep;
-      xd_dep = row.dep == i ? xd[i] : xd_dep;
-      if (lane > i) {
-        prefix += row.a[i] * x[i];
-        prefixd += tangent.a[i] * x[i] + row.a[i] * xd[i];
-      }
+      opaque(x_dep);
+      sum = lane > i ? sum + row.a[i] * x[i] : sum;
+      next = lane < i ? next + row.a[i] * x[i] : next;
     }
+    upper.x = next;
+    // (2) c: A''s columns after the row (the previous sweep's x), then
+    // before it, and u A'_ii; the columns after it for the next sweep
+    T c = upper.a_dot_x, c_next = T(0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j < lane && j < tangent.cols) c += tangent.a[j] * x[j];
+      if (j > lane && j < tangent.cols && !last) c_next += tangent.a[j] * x[j];
+    }
+    c += u * aii_dot;
+    upper.a_dot_x = c_next;
+    const T s = has_dep ? (dep_at > T(0) ? dep_at : T(0)) : T(1);
+    T mp, ml, mh;
+    clip_factors(u, row.lo * s, row.hi * s, mp, ml, mh);
+    const T k1 = mp / aii;
+    const T bc = tangent.b - c;
+    const T k0 = (ml * tangent.lo + mh * tangent.hi) * s;
+    const T k2 = has_dep ? (ml * row.lo + mh * row.hi) * relu_slope(dep_at) : T(0);
+    // (3) the tangent chain, from the row's columns after it (the previous
+    // sweep's x')
+    T sumd = upper.x_dot, nextd = T(0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T xdi = k1 * (bc - sumd) + (k0 + k2 * xd_dep);
+      const T xdm = __shfl_sync(0xffffffffu, xdi, i, G);
+      mined = lane == i ? xdm : mined;
+      xd_dep = row.dep == i ? xdm : xd_dep;
+      opaque(xd_dep);
+      sumd = lane > i ? sumd + row.a[i] * xdm : sumd;
+      nextd = lane < i ? nextd + row.a[i] * xdm : nextd;
+    }
+    upper.x_dot = nextd;
   }
 }

@@ -1,22 +1,32 @@
-"""K1 (``csrc/pgs.cu``), or with ``--backward`` its backward kernel, of this
-checkout against the same kernel built from another copy of ``csrc/`` (an
-earlier commit's), on the card:
+"""K1 (``csrc/pgs.cu``), its backward or its forward mode, from x = 0 or from a
+warm start, of this checkout against the same kernel built from another copy
+of ``csrc/`` (an earlier commit's), on the card:
 
-    python -m tds_tpu_torch.tools.pgs_ab --other PATH/TO/tds_tpu_torch/csrc [--backward] [--rows 12 24 48 105] [--batch B]
+    python -m tds_tpu_torch.tools.pgs_ab --other PATH/TO/tds_tpu_torch/csrc [--backward | --jvp] [--warm]
+        [--iterations 1] [--rows 12 24 48 105] [--batch B] [--panda]
 
 Each row count runs at its path's batch (4096; the humanoid's 105 rows at
 1024) unless ``--batch`` names one. Both libraries solve the same random
-problems (``chip_smoke.py``'s layout) in float32 and float64, one and two
-sweeps. Where the form that runs has the same source in both (the forward
-at n <= 32, row per lane) the tool holds the two to each other bit for bit;
-elsewhere it holds each library to the plain version (``chip_smoke.py``'s
-tolerances: the forward's ``pgs_tol``, the backward's rtol 1e-4 and atol
-1e-5 max|grad| in float32, 1e-12 relative in float64) and reports each
-one's largest difference. It then times both on the one-sweep float32
-problem in turns (other, this, this, other), each turn the median of 100
-CUDA-event-timed launches, and the same launch with 0 sweeps (the forward:
-A staged or loaded and x written; the backward: the gradients zeroed). It
-prints one JSON line per row count and exits 1 when a pair differs in a bit
+problems (``chip_smoke.py``'s layout; with ``--warm`` an x0 of normal draws
+and, for the forward mode, its tangent) in float32 and float64, at
+``--iterations`` sweeps. ``--panda`` takes instead the operands of the
+three solves of a Panda push step mid-stroke (``tools/panda_push.py``,
+4096 scenes in float32, step 401, after 400 replayed steps: n = 3, 24, 3 at
+their own 10 sweeps). Where the design promises the same bits (the zero
+start's first sweep, forward and backward, every n) the tool holds the
+two libraries to each other bit for bit; elsewhere it holds each to the
+plain version (``chip_smoke.py``'s tolerances: the forward's ``pgs_tol``,
+the backward's rtol 1e-4 and atol 1e-5 max|grad| in float32, 1e-12
+relative in float64, the forward mode's rtol 1e-5 and atol 1e-6 max|x'|
+in float32; from a warm start the float32 cases against the plain
+version in float64, and past the first sweep every float32 case so)
+and prints each one's largest difference and verdict, beside the
+float32 plain version's own difference from the float64 one. It then
+times both on the float32 problem in turns (other, this, this, other),
+each turn the median of 100 CUDA-event-timed launches, and the same
+launch with 0 sweeps (the forward: A staged or loaded and x written; the
+backward: the gradients zeroed), beside each library's launch shape. It
+prints one JSON line per problem and exits 1 when a pair differs in a bit
 or a library lies past its tolerance. Both libraries are built with nvcc
 into ``build/kernels/``.
 """
@@ -35,11 +45,13 @@ from tds_tpu_torch.utils import cuda_build
 from tds_tpu_torch.utils.timing import device_ms
 
 PATH_BATCH = {105: 1024}  # the humanoid's; every other row count's path runs 4096 envs
+PANDA_BATCH, PANDA_STEP = 4096, 400
 
 
-def problem(batch, n, dtype, generator):
+def problem(batch, n, dtype, generator, warm):
     """chip_smoke.py's random_rows_problem: SPD A = J J^T + 1e-3 I, normal
-    rows then friction rows bounded by +-0.5 times their normal's impulse."""
+    rows then friction rows bounded by +-0.5 times their normal's impulse;
+    with ``warm`` an x0 of normal draws after them."""
     n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
     dev = generator.device
     j = torch.randn(batch, n, 8, generator=generator, dtype=torch.float64, device=dev)
@@ -47,41 +59,134 @@ def problem(batch, n, dtype, generator):
     b = torch.randn(batch, n, generator=generator, dtype=torch.float64, device=dev)
     lo = torch.cat([torch.zeros(batch, n_c, device=dev), torch.full((batch, n - n_c), -0.5, device=dev)], -1)
     hi = torch.cat([torch.full((batch, n_c), 1e5, device=dev), torch.full((batch, n - n_c), 0.5, device=dev)], -1)
+    ops = [a, b, lo, hi] + ([torch.randn(batch, n, generator=generator, dtype=torch.float64, device=dev)] if warm else [])
     dep = [-1] * n_c + [k % n_c for k in range(n - n_c)]
-    return [t.to(dtype).contiguous() for t in (a, b, lo, hi)], dep
+    return [t.to(dtype).contiguous() for t in ops], dep
 
 
-def solve(lib, operands, dep_t, iterations):
-    """One launch of ``lib``'s K1 on the current stream; ``dep_t`` is the
-    (n,) int32 dependency table on the card."""
-    a, b, lo, hi = operands
-    x = torch.empty_like(b)
-    fn = lib.tds_pgs_solve_f32 if b.dtype == torch.float32 else lib.tds_pgs_solve_f64
-    rc = fn(a.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), dep_t.data_ptr(), x.data_ptr(),
-            b.shape[0], b.shape[1], iterations, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"PGS kernel launch failed with CUDA error {rc}")
-    return x
+def panda_problems():
+    """The operands of the PGS solves of a Panda push step mid-stroke:
+    [(operands, dep, iterations)] of tools/panda_push.py's float32 scene
+    at PANDA_BATCH scenes, step PANDA_STEP + 1."""
+    from tds_tpu_torch.tools import panda_push
+
+    world, arm, _ = panda_push.build_scene(dtype=torch.float32)
+    q0, q1 = panda_push.ik_waypoints(arm)
+    box_x = panda_push.box_starts(PANDA_BATCH, 0, torch.float32, "cuda")
+    qs, qds, _ = panda_push.push(world, q0, q1, box_x, steps=PANDA_STEP, report=())
+    step = panda_push.make_step(world)
+    calls, solve = [], pgs.solve_pgs
+
+    def recording_solve(*args):
+        calls.append(args)
+        return solve(*args)
+
+    pgs.solve_pgs = recording_solve
+    try:
+        step((*qs, *qds, torch.full_like(box_x, float(PANDA_STEP))), (q0, q1, torch.tensor(panda_push.GRAVITY, device="cuda")))
+    finally:
+        pgs.solve_pgs = solve
+    return [([t.contiguous() for t in c[:4]], list(c[4]), int(c[5])) for c in calls]
 
 
-def sweeps(lib, operands, dep_t, iterations):
-    """x after each of ``iterations`` sweeps from ``lib``'s K1, the saved
-    state of its backward ((1, B, n) of zeros for 0 sweeps)."""
-    if iterations == 0:
-        return torch.zeros_like(operands[1])[None]
-    return torch.stack([solve(lib, operands, dep_t, t) for t in range(1, iterations + 1)])
+class Kernel:
+    """One of K1's kernels (``kind``: forward, backward or jvp; ``warm``:
+    the warm-start instance) of a library, on one problem: its operands,
+    and for the backward the cotangent, for the forward mode the
+    tangents."""
 
+    def __init__(self, kind, warm, operands, dep, generator):
+        self.kind, self.warm = kind, warm
+        self.operands, self.dep = operands, dep
+        b = operands[1]
+        self.dep_t = torch.tensor(dep, dtype=torch.int32, device=b.device)
+        self.x_bar = torch.randn(b.shape, generator=generator, dtype=b.dtype, device=b.device)
+        self.tangents = [torch.randn(t.shape, generator=generator, dtype=t.dtype, device=t.device) for t in operands]
+        self.saved = {}
 
-def backward(lib, operands, dep_t, iterations, xs, x_bar):
-    """One launch of ``lib``'s backward kernel: (A-bar, b-bar, lo-bar, hi-bar)."""
-    a, b, lo, hi = operands
-    grads = [torch.empty_like(t) for t in operands]
-    fn = lib.tds_pgs_backward_f32 if b.dtype == torch.float32 else lib.tds_pgs_backward_f64
-    rc = fn(a.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), dep_t.data_ptr(), xs.data_ptr(), x_bar.data_ptr(),
-            *(g.data_ptr() for g in grads), b.shape[0], b.shape[1], iterations, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"PGS backward kernel launch failed with CUDA error {rc}")
-    return grads
+    def _sizes(self, iterations):
+        b = self.operands[1]
+        return b.shape[0], b.shape[1], iterations, torch.cuda.current_stream().cuda_stream
+
+    def solve(self, lib, iterations):
+        """x after ``iterations`` sweeps of ``lib``'s forward."""
+        a, b, lo, hi, *warm = self.operands
+        x = torch.empty_like(b)
+        suffix = "f32" if b.dtype == torch.float32 else "f64"
+        if warm:
+            rc = getattr(lib, f"tds_pgs_solve_warm_{suffix}")(
+                a.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), self.dep_t.data_ptr(), warm[0].data_ptr(),
+                x.data_ptr(), *self._sizes(iterations))
+        else:
+            rc = getattr(lib, f"tds_pgs_solve_{suffix}")(
+                a.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), self.dep_t.data_ptr(), x.data_ptr(),
+                *self._sizes(iterations))
+        if rc != 0:
+            raise RuntimeError(f"PGS kernel launch failed with CUDA error {rc}")
+        return x
+
+    def sweeps(self, lib, iterations):
+        """x after each of ``iterations`` sweeps of ``lib``'s forward, the
+        backward's saved state ((1, B, n) of zeros for 0 sweeps), kept."""
+        key = (id(lib), iterations)
+        if key not in self.saved:
+            if iterations == 0:
+                self.saved[key] = torch.zeros_like(self.operands[1])[None]
+            else:
+                self.saved[key] = torch.stack([self.solve(lib, t) for t in range(1, iterations + 1)])
+        return self.saved[key]
+
+    def run(self, lib, iterations):
+        """One launch of the kernel: x, the gradients, or (x, x')."""
+        if self.kind == "forward":
+            return [self.solve(lib, iterations)]
+        a, b, lo, hi, *warm = self.operands
+        suffix = ("warm_" if warm else "") + ("f32" if b.dtype == torch.float32 else "f64")
+        if self.kind == "backward":
+            grads = [torch.empty_like(t) for t in self.operands]
+            xs = self.sweeps(lib, iterations)
+            head = [a, b, lo, hi, self.dep_t, xs, self.x_bar] + warm
+            rc = getattr(lib, f"tds_pgs_backward_{suffix}")(*(t.data_ptr() for t in head + grads), *self._sizes(iterations))
+            out = grads
+        else:
+            x, x_dot = torch.empty_like(b), torch.empty_like(b)
+            primal = [a, b, lo, hi] + warm
+            rc = getattr(lib, f"tds_pgs_jvp_{suffix}")(
+                *(t.data_ptr() for t in primal + self.tangents), self.dep_t.data_ptr(), x.data_ptr(), x_dot.data_ptr(),
+                *self._sizes(iterations))
+            out = [x, x_dot]
+        if rc != 0:
+            raise RuntimeError(f"PGS {self.kind} kernel launch failed with CUDA error {rc}")
+        return out
+
+    def plain(self, iterations, dtype=None):
+        """The plain version's results on the same operands, in ``dtype``:
+        by default float64 for more than one sweep or from a warm start
+        (where the float32 plain sweep's own rounding strays past the
+        float32 tolerances, as the card tests find), else the operands'."""
+        if dtype is None:
+            dtype = torch.float64 if iterations > 1 or self.warm else self.operands[1].dtype
+        ops = [t.to(dtype) for t in self.operands]
+        x0 = ops[4] if self.warm else None
+        if self.kind == "forward":
+            return [pgs.solve_pgs_reference(*ops[:4], self.dep, iterations, x0)]
+        if self.kind == "backward":
+            inputs = [t.clone().requires_grad_() for t in ops]
+            x = pgs.solve_pgs_reference(*inputs[:4], self.dep, iterations, inputs[4] if self.warm else None)
+            return list(torch.autograd.grad(x, inputs, self.x_bar.to(dtype), allow_unused=True, materialize_grads=True))
+        tangents = [t.to(dtype) for t in self.tangents]
+        return list(pgs.solve_pgs_jvp_reference(*ops[:4], tangents, self.dep, iterations, x0))
+
+    def tolerance(self, n, index, want):
+        """(rtol, atol) of result ``index`` (``want`` its plain value)."""
+        f32 = self.operands[1].dtype == torch.float32
+        if self.kind == "backward":
+            scale = want.abs().max().item()
+            return (1e-4, 1e-5 * scale) if f32 else (1e-12, 1e-12 * scale)
+        if self.kind == "jvp" and index == 1:
+            scale = max(1.0, want.abs().max().item())
+            return (1e-5, 1e-6 * scale) if f32 else (1e-12, 1e-12 * scale)
+        return pgs_tol(self.operands[1].dtype, n) if f32 or not self.warm else (1e-12, 1e-12)
 
 
 def pgs_tol(dtype, n):
@@ -93,85 +198,93 @@ def pgs_tol(dtype, n):
 
 def excess(got, want, rtol, atol):
     """(max |got - want|, the most it passes atol + rtol |want| by)."""
-    err = (got - want).abs()
+    err = (got.to(want.dtype) - want).abs()
     return err.max().item(), (err - (atol + rtol * want.abs())).max().item()
 
 
-def forward_case(libs, n, batch, gen):
-    """The forward's agreement: bit for bit between the libraries for
-    n <= 32, else each library's largest difference from the plain version.
+def agreement(libs, kernels, iterations):
+    """The libraries' agreement on each kernel: bit for bit where the design
+    promises it (the zero start's first sweep of the forward and the
+    backward), else each library's largest difference from the plain
+    version and whether it lies within the tolerance; where a float32
+    kernel is held to the plain version in float64, the float32 plain
+    version's own largest difference from it and its verdict beside them.
     Returns (the report, whether it passes)."""
-    same, errs, ok = {}, {name: 0.0 for name in libs}, True
-    for dtype in (torch.float32, torch.float64):
-        for iterations in (1, 2):
-            operands, dep = problem(batch, n, dtype, gen)
-            dep_t = torch.tensor(dep, dtype=torch.int32, device=gen.device)
-            x = {name: solve(lib, operands, dep_t, iterations) for name, lib in libs.items()}
-            if n <= 32:
-                same[f"{str(dtype)[6:]} it={iterations}"] = bool(torch.equal(x["this"], x["other"]))
-                continue
-            ref = pgs.solve_pgs_reference(*operands, dep, iterations)
-            for name in libs:
-                err, over = excess(x[name], ref, *pgs_tol(dtype, n))
+    same, errs, within = {}, {name: 0.0 for name in libs}, {name: True for name in libs}
+    own_err, own_within, checked = 0.0, True, False
+    for kernel in kernels:
+        got = {name: kernel.run(lib, iterations) for name, lib in libs.items()}
+        b = kernel.operands[1]
+        n = b.shape[1]
+        if iterations == 1 and not kernel.warm and kernel.kind != "jvp":
+            same[str(b.dtype)[6:]] = all(torch.equal(g, o) for g, o in zip(got["this"], got["other"]))
+            continue
+        want = kernel.plain(iterations)
+        for name in libs:
+            for index, (g, w) in enumerate(zip(got[name], want)):
+                err, over = excess(g, w, *kernel.tolerance(n, index, w))
                 errs[name] = max(errs[name], err)
-                ok = ok and over <= 0 and bool(torch.isfinite(x[name]).all())
-    if n <= 32:
-        return {"bit_for_bit": same}, all(same.values())
-    return {"max_abs_err_vs_plain": errs}, ok
+                within[name] = within[name] and over <= 0 and bool(torch.isfinite(g).all())
+        if b.dtype == torch.float32 and want[0].dtype == torch.float64:
+            checked = True
+            for index, (g, w) in enumerate(zip(kernel.plain(iterations, torch.float32), want)):
+                err, over = excess(g, w, *kernel.tolerance(n, index, w))
+                own_err, own_within = max(own_err, err), own_within and over <= 0
+    report, ok = {}, all(same.values())
+    if same:
+        report["bit_for_bit"] = same
+    if len(same) < len(kernels):
+        report["max_abs_err_vs_plain"] = errs
+        report["within_tolerance"] = within
+        ok = ok and all(within.values())
+    if checked:
+        report["plain_float32_vs_float64"] = {"max_abs_err": own_err, "within_tolerance": own_within}
+    return report, ok
 
 
-def backward_case(libs, n, batch, gen):
-    """Each library's backward against the plain version's autograd: the
-    largest difference over A, b, lo and hi. Returns (the report, whether
-    it passes)."""
-    errs, ok = {name: 0.0 for name in libs}, True
-    for dtype in (torch.float32, torch.float64):
-        for iterations in (1, 2):
-            operands, dep = problem(batch, n, dtype, gen)
-            dep_t = torch.tensor(dep, dtype=torch.int32, device=gen.device)
-            x_bar = torch.randn(operands[1].shape, generator=gen, dtype=dtype, device=gen.device)
-            inputs = [t.clone().requires_grad_() for t in operands]
-            want = torch.autograd.grad(pgs.solve_pgs_reference(*inputs, dep, iterations), inputs, x_bar)
-            for name, lib in libs.items():
-                got = backward(lib, operands, dep_t, iterations, sweeps(lib, operands, dep_t, iterations), x_bar)
-                for g, w in zip(got, want):
-                    scale = w.abs().max().item()
-                    rtol, atol = (1e-4, 1e-5 * scale) if dtype == torch.float32 else (1e-12, 1e-12 * scale)
-                    err, over = excess(g, w, rtol, atol)
-                    errs[name] = max(errs[name], err)
-                    ok = ok and over <= 0 and bool(torch.isfinite(g).all())
-    return {"max_abs_err_vs_plain": errs}, ok
+def shapes(libs, kernel, n, batch, iterations):
+    """Each library's launch shape of the kernel (an earlier commit's
+    library without the instance query reports the zero start's only)."""
+    f64 = int(kernel.operands[1].dtype == torch.float64)
+    which = {"forward": 0, "backward": 1, "jvp": 2}[kernel.kind]
+    out = {}
+    for name, lib in libs.items():
+        if hasattr(lib, "tds_pgs_instance_launch_shape"):
+            fn, args = lib.tds_pgs_instance_launch_shape, (f64, n, which, int(kernel.warm), iterations)
+        elif kernel.warm:
+            continue
+        else:
+            fn = (lib.tds_pgs_launch_shape, lib.tds_pgs_backward_launch_shape, lib.tds_pgs_jvp_launch_shape)[which]
+            fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+            args = (f64, n)
+        shape = cuda_build.launch_shape(fn, args, batch, "cuda")
+        out[f"{name}_shape"] = {k: shape[k] for k in ("registers", "local_bytes", "resident_warps_per_sm", "waves",
+                                                      "smem_per_block")}
+    return out
 
 
-def timed(libs, n, batch, gen, is_backward):
-    """Both libraries' times on the one-sweep float32 problem in turns
-    (other, this, this, other), and with 0 sweeps."""
-    operands, dep = problem(batch, n, torch.float32, gen)
-    dep_t = torch.tensor(dep, dtype=torch.int32, device=gen.device)
-    if is_backward:
-        x_bar = torch.randn(operands[1].shape, generator=gen, device=gen.device)
-        saved = {(name, it): sweeps(lib, operands, dep_t, it) for name, lib in libs.items() for it in (0, 1)}
-
-        def call(name, iterations):
-            return lambda: backward(libs[name], operands, dep_t, iterations, saved[name, iterations], x_bar)
-    else:
-        def call(name, iterations):
-            return lambda: solve(libs[name], operands, dep_t, iterations)
-    times = {"other": [], "this": []}
-    floor = {"other": [], "this": []}
+def timed(libs, kernel, iterations):
+    """Both libraries' times on the kernel in turns (other, this, this,
+    other), at ``iterations`` sweeps and at 0."""
+    times = {(name, it): [] for name in libs for it in (iterations, 0)}
     for name in ("other", "this", "this", "other"):
-        times[name].append(device_ms(call(name, 1), rounds=5, per_round=20))
-        floor[name].append(device_ms(call(name, 0), rounds=5, per_round=20))
-    return {"this_ms": times["this"], "other_ms": times["other"], "this_0_sweeps_ms": floor["this"],
-            "other_0_sweeps_ms": floor["other"]}
+        for it in (iterations, 0):
+            times[name, it].append(device_ms(lambda: kernel.run(libs[name], it), rounds=5, per_round=20))
+    return {"this_ms": times["this", iterations], "other_ms": times["other", iterations],
+            "this_0_sweeps_ms": times["this", 0], "other_0_sweeps_ms": times["other", 0]}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="another copy of tds_tpu_torch/csrc")
-    parser.add_argument("--backward", action="store_true", help="the backward kernel instead of the forward")
+    kind = parser.add_mutually_exclusive_group()
+    kind.add_argument("--backward", action="store_true", help="the backward kernel instead of the forward")
+    kind.add_argument("--jvp", action="store_true", help="the forward-mode kernel instead of the forward")
+    parser.add_argument("--warm", action="store_true", help="the warm-start instances, from a random x0")
+    parser.add_argument("--iterations", type=int, default=1, help="sweeps (default 1)")
     parser.add_argument("--rows", type=int, nargs="+", default=[12, 24, 48, 105])
     parser.add_argument("--batch", type=int, default=None, help="one batch for every row count (default: the path's)")
+    parser.add_argument("--panda", action="store_true", help="the Panda push's operands instead of random problems")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("pgs_ab needs a CUDA device")
@@ -179,16 +292,25 @@ def main(argv=None):
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     libs = {"this": pgs.bind(ctypes.CDLL(str(cuda_build.build("pgs.cu")))),
             "other": pgs.bind(ctypes.CDLL(str(cuda_build.build("pgs.cu", Path(args.other)))))}
+    name = "backward" if args.backward else "jvp" if args.jvp else "forward"
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.panda:
+        cases = [(ops[1].shape[1], ops[1].shape[0], it, [(ops, dep)], f"panda solve {k}")
+                 for k, (ops, dep, it) in enumerate(panda_problems())]
+    else:
+        cases = []
+        for n in args.rows:
+            batch = args.batch or PATH_BATCH.get(n, 4096)
+            problems = [problem(batch, n, dtype, gen, args.warm) for dtype in (torch.float32, torch.float64)]
+            cases.append((n, batch, args.iterations, problems, "random"))
     failed = False
-    for n in args.rows:
-        batch = args.batch or PATH_BATCH.get(n, 4096)
-        report, ok = (backward_case if args.backward else forward_case)(libs, n, batch, gen)
+    for n, batch, iterations, problems, operands in cases:
+        kernels = [Kernel(name, args.warm, ops, dep, gen) for ops, dep in problems]
+        report, ok = agreement(libs, kernels, iterations)
         failed = failed or not ok
-        dtype = torch.float32
-        line = {"kernel": "backward" if args.backward else "forward", "rows": n, "batch": batch,
-                "form": pgs.form(dtype, n, args.backward), **report, "ok": ok,
-                **timed(libs, n, batch, gen, args.backward), "card": card}
+        line = {"kernel": name, "warm": args.warm, "operands": operands, "iterations": iterations, "rows": n,
+                "batch": batch, "form": pgs.form(torch.float32, n, args.backward, args.jvp), **report, "ok": ok,
+                **timed(libs, kernels[0], iterations), **shapes(libs, kernels[0], n, batch, iterations), "card": card}
         print(json.dumps(line), flush=True)
     return 1 if failed else 0
 

@@ -17,6 +17,12 @@ included: float64 within 1e-12 relative, float32 within rtol 1e-5 and atol
 1e-6 max|x'|; ``torch.func.jvp``, ``jacfwd``, ``jacrev``, ``vmap`` and
 forward AD through ``solve_pgs`` launch the kernels (the vmap rules fold
 the vmapped dimension into the batch), equal to the plain version's.
+The sweeps past the first (the forward's columns after each row summed
+off the chain) and the linearised forward mode at every form, on both
+sides of the row-per-lane and the staged forms' limits, 1, 3 and 10
+sweeps, ties included, at the same tolerances; no forward or forward-mode
+instance, zero start or warm, has local memory, and the blocked forward
+mode keeps at least the blocked forward's resident warps at n = 105.
 Every test here needs the card and skips without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -420,3 +426,93 @@ def test_torch_func_transforms_launch_the_kernels(cuda_device):
     with fwAD.dual_level():
         x_dot = fwAD.unpack_dual(kernel(fwAD.make_dual(b, tangents[1]), a)).tangent
     close([x_dot], [torch.func.jvp(lambda bb: plain(bb, a), (b,), (tangents[1],))[1]])
+
+
+# the row-per-lane forms (3, 12, 24, 32: N = 8, 12, 24, 32), both sides of
+# n = 32, the paths' blocked n (48, 105) and a block edge (65)
+SPLIT_ROWS = (3, 12, 24, 32, 33, 48, 65, 105)
+
+
+def _staged_limit(dtype, jvp):
+    """The largest n whose staging fits a block in the forward's blocked
+    form (with ``jvp``, the forward mode's)."""
+    return max(n for n in range(33, 400) if pgs.form(dtype, n, jvp=jvp) == "blocked")
+
+
+@pytest.mark.parametrize("iterations", [1, 3, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", SPLIT_ROWS)
+def test_later_sweeps_and_forward_mode_match_plain(cuda_device, n, dtype, iterations):
+    """K1 and its forward mode from x = 0 through 1, 3 and 10 sweeps (the
+    sweeps after the first sum each row's columns after it off the chain;
+    the forward mode's primal chain fixes the clip's factors and its
+    tangent chain is linear) against the plain version and torch.func.jvp
+    of it, on the interleaved layout (dependencies before and after their
+    rows) with ties in envs 1 and 2, at the tolerances above. The float32
+    kernels are held to the plain versions run in float64 on the same
+    float32 operands, as tests/test_torch_pgs_warm_cuda.py holds the warm
+    ones: after the first sweep every row sums all its columns, and the
+    float32 plain sweep's own rounding then strays past those tolerances."""
+    operands, tangents, dep = _jvp_problem(37, n, 7 * n + iterations, dtype, "interleaved", cuda_device)
+    plain, plain_tangents = [t.double() for t in operands], [t.double() for t in tangents]
+    want = pgs.solve_pgs_reference(*plain, dep, iterations)
+    got = pgs._launch(*operands, tuple(dep), iterations)
+    torch.testing.assert_close(got.cpu().double(), want.cpu(), **_tolerance(dtype, n))
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain, plain_tangents, dep, iterations)
+    got_x, got_dot = pgs._launch_jvp(*operands, *tangents, tuple(dep), iterations)
+    torch.testing.assert_close(got_x.cpu().double(), want_x.cpu(), **_tolerance(dtype, n))
+    _assert_tangent_close(got_dot.double(), want_dot, dtype)
+
+
+@pytest.mark.parametrize("iterations", [1, 3, 10])
+@pytest.mark.parametrize("jvp", [False, True], ids=["forward", "jvp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_both_sides_of_the_staged_limit_through_many_sweeps(cuda_device, dtype, jvp, iterations):
+    """The last n whose staging fits a block (blocked) and the next
+    (streaming), 1, 3 and 10 sweeps, B = 5 with ties in envs 1 and 2,
+    against the plain version (with ``jvp``, torch.func.jvp of it) in
+    float64, as above."""
+    last = _staged_limit(dtype, jvp)
+    for n, form in ((last, "blocked"), (last + 1, "streaming")):
+        assert pgs.form(dtype, n, jvp=jvp) == form
+        operands, tangents, dep = _jvp_problem(5, n, n + iterations, dtype, "interleaved", cuda_device)
+        plain, plain_tangents = [t.double() for t in operands], [t.double() for t in tangents]
+        if not jvp:
+            want = pgs.solve_pgs_reference(*plain, dep, iterations)
+            torch.testing.assert_close(pgs._launch(*operands, tuple(dep), iterations).cpu().double(), want.cpu(),
+                                       **_tolerance(dtype, n))
+            continue
+        want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain, plain_tangents, dep, iterations)
+        got_x, got_dot = pgs._launch_jvp(*operands, *tangents, tuple(dep), iterations)
+        torch.testing.assert_close(got_x.cpu().double(), want_x.cpu(), **_tolerance(dtype, n))
+        _assert_tangent_close(got_dot.double(), want_dot, dtype)
+
+
+# the forward's zero-start instances for one sweep compile as they did
+# before the sweeps after the first were split off the chain, and two of
+# them spill a little (the float32 N = 16 padded instance, n = 13 to 15,
+# and the float32 N = 32 one at n = 32): bytes of local memory a thread
+ONE_SWEEP_SPILLS = {(torch.float32, 14): 8, (torch.float32, 32): 16}
+
+
+def test_no_forward_or_forward_mode_instance_has_local_memory(cuda_device):
+    """Every instance of the forward and the forward mode, zero start (one
+    sweep and more) and warm, float32 and float64 (each row-per-lane N,
+    exact and padded, the
+    blocked form on both sides of a block edge, both sides of each staged
+    limit) has 0 bytes of local memory, but for ONE_SWEEP_SPILLS; the
+    blocked forward mode keeps at
+    least the blocked forward's resident warps per SM at n = 105 in float32
+    (the humanoid's), and at least 8."""
+    for dtype in (torch.float32, torch.float64):
+        for jvp in (False, True):
+            last = _staged_limit(dtype, jvp)
+            for n in (3, 8, 9, 12, 14, 16, 20, 24, 28, 32, 33, 48, 65, 105, last, last + 1):
+                for warm, iterations in ((False, 1), (False, 3), (True, 1)):
+                    shape = pgs.launch_shape(dtype, n, 4096, jvp=jvp, warm=warm, iterations=iterations)
+                    local = ONE_SWEEP_SPILLS.get((dtype, n), 0) if not (jvp or warm) and iterations == 1 else 0
+                    assert shape["local_bytes"] == local and shape["blocks_per_sm"] >= 1, (dtype, n, jvp, warm, shape)
+    forward = pgs.launch_shape(torch.float32, 105, 1024)
+    for warm in (False, True):
+        jvp = pgs.launch_shape(torch.float32, 105, 1024, jvp=True, warm=warm)
+        assert jvp["form"] == "blocked" and jvp["resident_warps_per_sm"] >= max(8, forward["resident_warps_per_sm"]), jvp

@@ -2,9 +2,12 @@
 device against the port's plain versions: the forward, the backward
 (x0-bar among its gradients) and the JVP (x0' among its tangents), in all
 three forms of each (row per lane, blocked or linearised, streaming: n = 3,
-12, 24, 33, 48, 105 and 340), float32 and float64, 0, 1 and 3 sweeps, on
-random problems with x0 nonzero and some of its entries outside their
-rows' bounds, at batches that fill no whole block. Float64 within 1e-12
+12, 24, 33, 48, 105 and 340), float32 and float64, 0, 1, 3 and 10 sweeps,
+on random problems with x0 nonzero and some of its entries outside their
+rows' bounds, at batches that fill no whole block; the forward and the JVP
+again with envs at the kinks (every normal impulse pulled to 0, and b =
+x0 = 0), and the float32 row per lane form at n = 24 on 4096 envs.
+Float64 within 1e-12
 relative; float32 within rtol 1e-5 / atol 1e-6 (x), rtol 1e-4 / atol 1e-5
 max|grad| (the backward), rtol 1e-5 / atol 1e-6 max|x'| (the JVP), held to
 the plain versions run in float64 on the same float32 operands (from a
@@ -59,7 +62,7 @@ def _assert_within(got, want, rtol, atol, label):
     assert (err - (atol + rtol * want.abs())).max().item() <= 0, f"{label}: max |kernel - plain| {err.max().item():.3e}"
 
 
-@pytest.mark.parametrize("iterations", (0, 1, 3))
+@pytest.mark.parametrize("iterations", (0, 1, 3, 10))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 @pytest.mark.parametrize("n,batch", ROWS)
 def test_warm_kernels_match_the_plain_versions(cuda_device, n, batch, dtype, iterations):
@@ -86,6 +89,52 @@ def test_warm_kernels_match_the_plain_versions(cuda_device, n, batch, dtype, ite
     scale = max(1.0, want_dot.abs().max().item())
     _assert_within(got_x, want_x, *((1e-5, 1e-6) if f32 else (1e-12, 1e-12)), "jvp x")
     _assert_within(got_dot, want_dot, *((1e-5, 1e-6 * scale) if f32 else (1e-12, 1e-12 * scale)), "x'")
+
+
+@pytest.mark.parametrize("iterations", (1, 3, 10))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("n,batch", ROWS)
+def test_warm_forward_and_jvp_at_the_kinks(cuda_device, n, batch, dtype, iterations):
+    """The warm forward and JVP with env 1's normal rows pulled apart (its
+    normal impulses 0 after the first sweep, its friction rows then at
+    s = max(0, 0) and lo s = hi s = 0) and env 2 at b = x0 = 0 (every row
+    on its bound from the start), against the plain versions in float64 at
+    the tolerances above."""
+    ops, dep, gen = _problem(batch, n, dtype, 2000 * n + iterations, cuda_device)
+    a, b, lo, hi, x0 = ops
+    normals = [i for i, d in enumerate(dep) if d < 0]
+    b[1, normals] = -10.0 * b[1, normals].abs() - 50.0 * a[1][normals][:, normals].abs().sum(-1) - 1.0
+    b[2] = 0.0
+    x0[2] = 0.0
+    plain = [t.double() for t in ops]
+    f32 = dtype == torch.float32
+    x = pgs._launch(a, b, lo, hi, dep, iterations, x0)
+    want = pgs.solve_pgs_reference(*plain[:4], dep, iterations, plain[4])
+    _assert_within(x, want, *((1e-5, 1e-6) if f32 else (1e-12, 1e-12)), "x")
+    assert bool((want[2] == 0).all()) and bool((want[1, normals] == 0).all())
+    tangents = [torch.randn(t.shape, generator=gen, dtype=dtype, device=cuda_device) for t in ops]
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, iterations, plain[4])
+    got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, iterations, x0, tangents[4])
+    scale = max(1.0, want_dot.abs().max().item())
+    _assert_within(got_x, want_x, *((1e-5, 1e-6) if f32 else (1e-12, 1e-12)), "jvp x")
+    _assert_within(got_dot, want_dot, *((1e-5, 1e-6 * scale) if f32 else (1e-12, 1e-12 * scale)), "x'")
+
+
+def test_warm_row_per_lane_float32_at_a_paths_batch(cuda_device):
+    """The float32 warm forward and JVP at n = 24 on 4096 envs (the row per
+    lane form at a path's batch, whose tail of rounding errors B = 37 does
+    not reach), one sweep, against the plain versions in float64 at the
+    tolerances above."""
+    ops, dep, gen = _problem(4096, 24, torch.float32, 24_4096, cuda_device)
+    a, b, lo, hi, x0 = ops
+    plain = [t.double() for t in ops]
+    _assert_within(pgs._launch(a, b, lo, hi, dep, 1, x0), pgs.solve_pgs_reference(*plain[:4], dep, 1, plain[4]),
+                   1e-5, 1e-6, "x")
+    tangents = [torch.randn(t.shape, generator=gen, dtype=torch.float32, device=cuda_device) for t in ops]
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, 1, plain[4])
+    got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, 1, x0, tangents[4])
+    _assert_within(got_x, want_x, 1e-5, 1e-6, "jvp x")
+    _assert_within(got_dot, want_dot, 1e-5, 1e-6 * max(1.0, want_dot.abs().max().item()), "x'")
 
 
 def test_the_public_path_launches_the_warm_kernels(cuda_device):
