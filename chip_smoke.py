@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --rest-only    # phases 1, 2 and 19 alone, no result lines
     python3 chip_smoke.py --api-only     # phases 1, 2 and 20 alone, no result lines
+    python3 chip_smoke.py --sweeps-only  # phases 1, 2 and 21 alone, no result lines
 
 It builds the port's kernels from the sources in this checkout and drives
 the laikago contact rollout, the fused step, the probes, ARS, the ant and
@@ -342,6 +343,22 @@ prints no final line (each phase and sub-phase prints its seconds):
    its plain version, timed; one float64 iteration at 4 envs x 8 steps on
    the card against the CPU's (a process of its own beside the phase)
    within 1e-9, one reset from the pool and one not;
+21. K1 past its first sweep, run before phase 11: (a) K1's backward for
+   two sweeps or more ("linearised sweeps": A's upper part staged whole or
+   streamed from L2) at n = 3 (4 sweeps), 12, 48 and 105 (from x0 at 1
+   and 3 sweeps, from zero at 10) at the paths' batches, on the operands
+   it is timed on: float64 against the plain version's autograd, float32
+   against the plain version in float64 along the kernel's own sweeps
+   (``tools/pgs_ab.py``'s ``plain_backward_along``) on the envs with no
+   clip near a tie; timed in float32 alone and through the wrapper; and on
+   the Panda push's three solves of phase 18 (10 sweeps); (b) the public
+   paths, each wrapper's count set to 0 just before and read just after:
+   the ball loss's gradient and ``mlcp.solve_pgs`` from x0 at 3 sweeps
+   (n = 24 and 105) under grad, its x0-bar held as in (a), and
+   ``torch.func.jvp``; (c) the float32 warm
+   row-per-lane forward and JVP on ``tools/pgs_ab.py --warm``'s n = 24,
+   B = 4096 problem within rtol 1e-5, atol 1e-6 of float64, and the
+   blocked forward from x0 and at 10 sweeps, timed;
 11. graphs: every graph left alive by the run (nodes, capture and
    instantiate seconds), the VJP graphs, the card's peak and reserved
    memory with all of them, and the script's seconds against its 1200 s
@@ -549,6 +566,26 @@ WARM_ROWS = ((3, 37), (12, 37), (24, 37), (48, 37), (105, 9), (340, 5))
 WARM_TIMED, WARM_PATH = ((12, 4096), (105, 1024)), (105, 1024)
 ZERO_START_US = {12: (6.88, 7.42), 105: (29.09, 29.12)}
 POOL_PROB, HUMANOID_PPO_ITERATIONS, HUMANOID_PPO_TRACE_STEPS = 0.5, 3, 2
+# phase 21: K1's backward past its first sweep ("linearised sweeps"; one
+# sweep from x0 keeps the first design) against the plain version's
+# autograd: (rows, batch, sweeps, from x0) of each case, float32 (timed)
+# and float64 at the paths' batches, float32 on the envs with no clip near
+# a tie, of which at most SWEEPS_NEAR_TIE of the envs may be; the Panda push's
+# solves at their 10 sweeps on phase 18's operands; the blocked forward
+# from x0 and at 10 sweeps; the float32 warm row-per-lane instances on
+# tools/pgs_ab.py --warm's n = 24 problem; the public paths those
+# instances run on: the ball loss's gradient (n = 3, 4 sweeps) and
+# mlcp.solve_pgs from x0 at SWEEPS_PATHS, SWEEPS_PATH_SWEEPS sweeps
+SWEEPS_CASES = ((3, 4096, 4, False), (3, 2, 4, False), (12, 4096, 1, True), (48, 4096, 1, True), (105, 1024, 1, True),
+                (12, 4096, 3, True), (48, 4096, 3, True), (105, 1024, 3, True), (12, 4096, 10, False),
+                (48, 4096, 10, False), (105, 1024, 10, False))
+SWEEPS_NEAR_TIE, SWEEPS_PATHS, SWEEPS_PATH_SWEEPS = 0.05, ((24, 4096), (105, 1024)), 3
+BLOCKED_CASES = ((48, 4096, 1, True), (105, 1024, 1, True), (48, 4096, 10, False), (105, 1024, 10, False))
+
+
+# PGS calls an earlier phase recorded for a later one (phase 18's Panda push
+# step for phase 21)
+RECORDED = {}
 
 
 def log(msg):
@@ -2677,7 +2714,7 @@ def k1_backward_case(label, operands, dep, it, card, gen, timing=True, prefix="g
     sweepless_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, 0, x, x_bar), rounds=5, per_round=20)
     plain_ms = span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=5)
     t_bytes, t_ops, n_bytes, n_ops = k1_backward_bound(b, it, card)
-    shape = pgs.launch_shape(b.dtype, n, bsz, backward=True)
+    shape = pgs.launch_shape(b.dtype, n, bsz, backward=True, iterations=it)
     log(f"{prefix}: K1 backward {label} B={bsz} n={n} it={it} {str(b.dtype)[6:]} ({shape['form']}): {ms * 1e3:.2f} us "
         f"on the device, {sweepless_ms * 1e3:.2f} us with 0 sweeps, plain backward {plain_ms * 1e3:.1f} us (event span, "
         f"host-paced), bound {max(t_bytes, t_ops) * 1e3:.3f} us ({n_bytes} bytes, {n_ops} flops), "
@@ -4170,6 +4207,7 @@ def panda_push_path(card, card_line):
     if [c[1].shape[-1] for c in calls] != [3, 24, 3]:
         raise AssertionError(f"panda (a): the step's PGS calls have {[c[1].shape[-1] for c in calls]} rows, not [3, 24, 3]")
     solves = k1_on_calls("the Panda push", calls, card, "panda (a)")
+    RECORDED["panda_calls"] = calls
     common = {"launches": launches, "replayed_launches_per_step": k1 / PROFILE_STEPS,
               "main_path": f"the Panda push, {PANDA_BATCH} scenes x {panda_push.STEPS} steps (phase 18 (a))"}
     numbers = {"panda_push_env_steps_per_s": rate, "panda_push_ms_per_step": push_s * 1e3 / panda_push.STEPS,
@@ -5390,6 +5428,300 @@ def phase_api(card, card_line):
     return entries, numbers
 
 
+# -- phase 21 --------------------------------------------------------------
+def backward_against_plain(label, operands, dep, it, x0, x, x_bar, got):
+    """K1's backward ``got`` (the gradients, x0-bar last from x0, for the
+    cotangent ``x_bar`` of x = the forward's output on ``operands``) against
+    the plain version in float64 on the same operands. Float64: its
+    autograd, 1e-12 relative, every env. Float32: along the kernel's own
+    sweeps (the forward relaunched as the wrapper does; tools/pgs_ab.py's
+    plain_backward_along), rtol 1e-4 and atol 1e-5 max|grad|, on the envs
+    with no clip near a tie (where the float32 forward's rounding may
+    decide a clip the other way and move a gradient by a whole term), of
+    which at most SWEEPS_NEAR_TIE of the envs may be. Raises past any.
+    Returns the largest difference, the envs near a tie and (float32) the
+    largest difference from the plain autograd in float64 over every env."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import pgs_ab
+
+    a, b, lo, hi = operands
+    ops = list(operands) + ([x0] if x0 is not None else [])
+    plain = [t.double().clone().requires_grad_() for t in ops]
+    with torch.enable_grad():
+        ref = pgs.solve_pgs_reference(*plain[:4], dep, it, plain[4] if x0 is not None else None)
+        want = torch.autograd.grad(ref, plain, x_bar.double())
+    keep, near, every_env = slice(None), 0, None
+    if b.dtype == torch.float32:
+        every_env = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
+        xs = torch.stack([pgs._launch(a, b, lo, hi, dep, t, x0) for t in range(1, it)] + [x])
+        want, near_envs = pgs_ab.plain_backward_along(ops, dep, xs, x_bar)
+        keep, near = ~near_envs, int(near_envs.sum())
+        if near > SWEEPS_NEAR_TIE * b.shape[0]:
+            raise AssertionError(f"sweeps: {label}: {near} of {b.shape[0]} envs have a clip near a tie")
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(("A", "b", "lo", "hi", "x0"), got, want):
+        scale = w.abs().max().item()
+        err, over = over_tol(g.double()[keep], w[keep], *((1e-4, 1e-5 * scale) if every_env is not None else (1e-12, 1e-12 * scale)))
+        if over > 0 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"sweeps: K1's backward disagrees with the plain version on {label} in {name}-bar: max "
+                                 f"|kernel - plain| {err:.3e} (max |grad| {scale:.3e}; {near} envs near a tie left out)")
+        worst = max(worst, err)
+    return worst, near, every_env
+
+
+def sweeps_against_plain(label, operands, dep, it, x0, gen):
+    """K1's backward on these operands (from x0 when it is given) for a
+    random cotangent, held by backward_against_plain."""
+    from tds_tpu_torch.contact import pgs
+
+    a, b, lo, hi = operands
+    x = pgs._launch(a, b, lo, hi, dep, it, x0)
+    x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0)
+    return backward_against_plain(label, operands, dep, it, x0, x, x_bar, got)
+
+
+def sweeps_timing(label, operands, dep, it, x0, gen):
+    """The backward's device time alone (median of 100 launches on x after
+    each sweep made before, tools/pgs_ab.py's Kernel), the wrapper's (which
+    first relaunches the forward for the saved sweeps), the plain
+    version's autograd (event span, host-paced), the bound and the launch
+    shape."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import pgs_ab
+
+    a, b, lo, hi = operands
+    bsz, n = b.shape
+    warm = x0 is not None
+    kernel = pgs_ab.Kernel("backward", warm, list(operands) + ([x0] if warm else []), list(dep), gen)
+    x_bar = kernel.x_bar
+    lib = pgs._library()
+    ms = device_ms(lambda: kernel.run(lib, it), rounds=5, per_round=20)
+    x = pgs._launch(a, b, lo, hi, dep, it, x0)
+    wrapper_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0), rounds=5, per_round=20)
+    inputs = [t.clone().requires_grad_() for t in list(operands) + ([x0] if warm else [])]
+    with torch.enable_grad():
+        ref = pgs.solve_pgs_reference(*inputs[:4], dep, it, inputs[4] if warm else None)
+    plain_ms = span_ms(lambda: torch.autograd.grad(ref, inputs, x_bar, retain_graph=True), reps=3)
+    bound_us, bound_by = pgs_ab.bound_us("backward", warm, it, b)
+    shape = pgs.launch_shape(b.dtype, n, bsz, backward=True, warm=warm, iterations=it)
+    log(f"sweeps (a): K1 backward {label} ({shape['form']}): {ms * 1e3:.2f} us on the device alone, {wrapper_ms * 1e3:.2f} "
+        f"us through the wrapper (with its {max(it - 1, 0)} forward launches for the saved sweeps), plain "
+        f"{plain_ms * 1e3:.1f} us (event span, host-paced), bound {bound_us:.3f} us ({bound_by}), "
+        f"{ms * 1e3 / bound_us:.1f}x the bound")
+    log_launch_shape(f"sweeps (a): K1 backward {label}", shape)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_timing": "event span, host-paced",
+            "bound_ms": bound_us / 1e3, "bound_by": bound_by, "design": shape["form"], **launch_fields(shape)}
+
+
+def sweeps_kernels(card):
+    """(a): K1's backward past one sweep and from x0 at SWEEPS_CASES, float32
+    and float64 at the case's batch on random problems with the ties of
+    tests/test_torch_pgs_grad.py in envs 1 and 2, held by
+    backward_against_plain, the float32 one timed on its operands; on the
+    Panda push's three solves of a step mid-stroke (phase 18's, 10 sweeps),
+    timed at n = 24. Returns the timed rows by (rows, batch, sweeps, from
+    x0) and the largest difference by form."""
+    from tds_tpu_torch.contact import pgs
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows, worst = {}, {}
+    for n, batch, it, warm in SWEEPS_CASES:
+        for dtype in (torch.float32, torch.float64):
+            operands, dep, x0 = warm_problem(batch, n, dtype, gen)
+            if batch >= 3:
+                n_c = n // 3 if n % 3 == 0 else max(1, n // 2)
+                operands[1][1, :n_c] = -10.0 * operands[1][1, :n_c].abs() - 50.0 * operands[0][1, :n_c, :n_c].abs().sum(-1) - 1.0
+                operands[1][2] = 0.0
+            start = x0 if warm else None
+            label = f"random B={batch} n={n} it={it} {'from x0 ' if warm else ''}{str(dtype)[6:]}"
+            err, near, every_env = sweeps_against_plain(label, operands, tuple(dep), it, start, gen)
+            form = pgs.form(dtype, n, backward=True, warm=warm, iterations=it)
+            worst[form] = max(worst.get(form, 0.0), err)
+            log(f"sweeps (a): K1 backward {label} ({form}): max |kernel - plain| {err:.3e}"
+                + (f" on {batch - near} envs ({near} near a tie), {every_env:.3e} against the plain autograd over every env"
+                   if every_env is not None else ""))
+            if dtype == torch.float32:
+                rows[n, batch, it, warm] = {"max_abs_err": err, "envs_near_a_tie": near,
+                                            "max_abs_err_every_env_vs_plain_autograd": every_env,
+                                            **sweeps_timing(label, operands, tuple(dep), it, start, gen)}
+            else:
+                rows[n, batch, it, warm]["float64_max_abs_err"] = err
+    calls = RECORDED.get("panda_calls")
+    if calls is None:  # phase 21 alone: the Panda push's step 401 as tools/pgs_ab.py --panda takes it
+        from tds_tpu_torch.tools import pgs_ab
+
+        calls = [(*ops, dep, it) for ops, dep, it in pgs_ab.panda_problems()]
+    for k, (a, b, lo, hi, dep, it) in enumerate(calls):
+        label = f"the Panda push's solve {k} B={b.shape[0]} n={b.shape[1]} it={it} float32"
+        err, near, every_env = sweeps_against_plain(label, [a, b, lo, hi], tuple(dep), it, None, gen)
+        form = pgs.form(b.dtype, b.shape[1], backward=True, iterations=it)
+        worst[form] = max(worst.get(form, 0.0), err)
+        log(f"sweeps (a): K1 backward on {label} ({form}): max |kernel - plain| {err:.3e} on {b.shape[0] - near} envs "
+            f"({near} near a tie), {every_env:.3e} against the plain autograd over every env")
+        if b.shape[1] == 24:
+            rows["panda"] = {"max_abs_err": err, "envs_near_a_tie": near,
+                             **sweeps_timing(label, [a, b, lo, hi], tuple(dep), it, None, gen)}
+    return rows, worst
+
+
+def sweeps_paths():
+    """(b): the public paths the new instances run on, each instance's
+    wrapper count set to 0 just before and read just after: the ball
+    loss's gradient (tools/ball_loss.py, float64, a new world so that its
+    VJP graph is captured: K1's backward at n = 3 and 4 sweeps in the
+    warm-up and the capture), and mlcp.solve_pgs from x0 at SWEEPS_PATHS
+    (float32, SWEEPS_PATH_SWEEPS sweeps) under torch.autograd.grad and
+    torch.func.jvp, each path's x0-bar held by backward_against_plain.
+    Returns {(path, kernel): (form, launches)}."""
+    from tds_tpu_torch.contact import mlcp, pgs
+    from tds_tpu_torch.tools import ball_loss
+
+    out = {}
+    shots = torch.tensor([ball_loss.VELOCITY, (1.2, -0.6)], dtype=torch.float64, device="cuda")
+    world = ball_loss.ball_world()
+    pgs.backward_launches = 0
+    _, grad = ball_loss.gradient(world, shots, BALL_LOSS_STEPS)
+    torch.cuda.synchronize()
+    out["ball loss", "backward"] = (pgs.form(torch.float64, 3, backward=True, iterations=world.solver.pgs_iterations),
+                                    pgs.backward_launches)
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError("sweeps (b): the ball loss's gradient is not finite")
+    gen = torch.Generator(device="cuda").manual_seed(212)
+    for n, batch in SWEEPS_PATHS:
+        (a, b, lo, hi), dep, x0 = warm_problem(batch, n, torch.float32, gen)
+        start = x0.clone().requires_grad_()
+        pgs.warm_launches = pgs.warm_backward_launches = pgs.warm_jvp_launches = 0
+        it = SWEEPS_PATH_SWEEPS
+        x = mlcp.solve_pgs(a, b, lo, hi, dep, start, it)
+        (g,) = torch.autograd.grad((x * x).sum(), start)
+        _, x_dot = torch.func.jvp(lambda s: mlcp.solve_pgs(a, b, lo, hi, dep, s, it), (x0,), (torch.ones_like(x0),))
+        torch.cuda.synchronize()
+        path = f"mlcp.solve_pgs B={batch} n={n}"
+        out[path, "forward"] = (pgs.form(torch.float32, n, warm=True, iterations=it), pgs.warm_launches)
+        out[path, "backward"] = (pgs.form(torch.float32, n, backward=True, warm=True, iterations=it), pgs.warm_backward_launches)
+        out[path, "jvp"] = (pgs.form(torch.float32, n, jvp=True, warm=True, iterations=it), pgs.warm_jvp_launches)
+        if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(x_dot).all())):
+            raise AssertionError(f"sweeps (b): {path}: its gradient or tangent is not finite")
+        # the x0-bar of the loss sum(x^2) the path took, against the plain version (all five gradients' rows)
+        x = x.detach()
+        got = pgs._launch_backward(a, b, lo, hi, tuple(dep), it, x, 2 * x, x0)
+        if not torch.equal(got[4], g):
+            raise AssertionError(f"sweeps (b): {path}: its x0-bar differs from the backward kernel's on the same x")
+        err, near, _ = backward_against_plain(path, [a, b, lo, hi], tuple(dep), it, x0, x, 2 * x, got)
+        log(f"sweeps (b): {path}: the backward's gradients against the plain version: max |kernel - plain| {err:.3e} on "
+            f"{batch - near} envs ({near} near a tie)")
+    for (path, kind), (form, count) in out.items():
+        log(f"sweeps (b): {path}: K1 {kind} ({form}) wrapper launches {count}")
+        if count < 1:
+            raise AssertionError(f"sweeps (b): {path} launched K1's {kind} ({form}) no time")
+    return out
+
+
+def warm_fault_case(card):
+    """(c): the float32 row-per-lane warm forward and JVP on tools/pgs_ab.py
+    --warm's and --jvp --warm's n = 24, B = 4096 problem (its random cases
+    from seed 0), where they lay past the float32 tolerance until their
+    sums ran in double: within rtol 1e-5, atol 1e-6 (max|x'|) of the plain
+    versions in float64, timed. The blocked forward from x0 and at 10
+    sweeps at BLOCKED_CASES against the plain version in float64, timed."""
+    from tds_tpu_torch.contact import pgs
+    from tds_tpu_torch.tools import pgs_ab
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernel = next(c for c in pgs_ab.random_cases("jvp", (12, 24, 48, 105), None, 1, True, gen) if c[0] == 24)[3][0]
+    (a, b, lo, hi, x0), dep, tangents = kernel.operands, tuple(kernel.dep), kernel.tangents
+    plain = [t.double() for t in kernel.operands]
+    x = pgs._launch(a, b, lo, hi, dep, 1, x0)
+    x_err, x_over = over_tol(x.double(), pgs.solve_pgs_reference(*plain[:4], dep, 1, plain[4]), 1e-5, 1e-6)
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, 1, plain[4])
+    got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, 1, x0, tangents[4])
+    dot_err, dot_over = over_tol(got_dot.double(), want_dot, 1e-5, 1e-6 * max(1.0, want_dot.abs().max().item()))
+    if x_over > 0 or dot_over > 0 or over_tol(got_x.double(), want_x, 1e-5, 1e-6)[1] > 0:
+        raise AssertionError(f"warm fault (c): the float32 warm row-per-lane instances lie {x_err:.3e} (x) and {dot_err:.3e} "
+                             "(x') from the plain versions in float64, past rtol 1e-5, atol 1e-6")
+    lib = pgs._library()
+    out = {"forward": {"max_abs_err": x_err, "ms": device_ms(lambda: kernel.solve(lib, 1), rounds=5, per_round=20),
+                       "plain_ms": span_ms(lambda: pgs.solve_pgs_reference(a, b, lo, hi, dep, 1, x0), reps=3)},
+           "jvp": {"max_abs_err": dot_err, "ms": device_ms(lambda: kernel.run(lib, 1), rounds=5, per_round=20),
+                   "plain_ms": span_ms(lambda: pgs.solve_pgs_jvp_reference(a, b, lo, hi, tangents, dep, 1, x0), reps=3)}}
+    for kind in ("forward", "jvp"):
+        out[kind]["plain_timing"] = "event span, host-paced"
+        bound_us, bound_by = pgs_ab.bound_us(kind, True, 1, b)
+        out[kind].update(bound_ms=bound_us / 1e3, bound_by=bound_by)
+        log(f"warm fault (c): K1 {kind} from x0 on pgs_ab --warm's B=4096 n=24 float32 problem (row per lane): max |kernel - "
+            f"plain float64| {out[kind]['max_abs_err']:.3e} (rtol 1e-5, atol 1e-6{' max|x' + chr(39) + '|' if kind == 'jvp' else ''}), "
+            f"{out[kind]['ms'] * 1e3:.2f} us, bound {bound_us:.3f} us ({bound_by})")
+    for n, batch, it, warm in BLOCKED_CASES:
+        operands, dep, x0 = warm_problem(batch, n, torch.float32, gen)
+        start = x0 if warm else None
+        got = pgs._launch(*operands, tuple(dep), it, start)
+        want = pgs.solve_pgs_reference(*(t.double() for t in operands), dep, it, None if start is None else start.double())
+        err, over = over_tol(got.double(), want, 1e-5, 1e-6)
+        if over > 0:
+            raise AssertionError(f"warm fault (c): the blocked forward B={batch} n={n} it={it} lies {err:.3e} from the plain "
+                                 "version in float64")
+        ms = device_ms(lambda: pgs._launch(*operands, tuple(dep), it, start), rounds=5, per_round=20)
+        bound_us, bound_by = pgs_ab.bound_us("forward", warm, it, operands[1])
+        out[f"blocked n={n} it={it}{' from x0' if warm else ''}"] = {"max_abs_err": err, "ms": ms, "bound_ms": bound_us / 1e3}
+        log(f"warm fault (c): K1 blocked forward B={batch} n={n} it={it}{' from x0' if warm else ''} float32: max |kernel - "
+            f"plain float64| {err:.3e}, {ms * 1e3:.2f} us, bound {bound_us:.3f} us ({bound_by})")
+    return out
+
+
+def phase_sweeps(card):
+    """Phase 21: K1's backward past one sweep and from x0 (the "linearised
+    sweeps" instances, A's upper part staged whole or streamed from L2),
+    the blocked forward past one sweep, and the repaired float32 warm
+    instances. Returns the kernels line's entries and the numbers."""
+    from tds_tpu_torch.contact import pgs
+
+    with sub_phase("sweeps (a) seconds"):
+        rows, worst = sweeps_kernels(card)
+    with sub_phase("sweeps (b) seconds"):
+        paths = sweeps_paths()
+    with sub_phase("warm fault (c) seconds"):
+        fault = warm_fault_case(card)
+    common = {"route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None,
+              "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel; its gradient is jax.grad of "
+                          "tds_tpu/contact/mlcp.py:94 solve_pgs)"}
+    whole, streamed = pgs.FORMS[5], pgs.FORMS[4]
+    ball = paths["ball loss", "backward"]
+    public = paths[f"mlcp.solve_pgs B={SWEEPS_PATHS[1][1]} n={SWEEPS_PATHS[1][0]}", "backward"]
+    if ball[0] != whole or public[0] != streamed:
+        raise AssertionError(f"sweeps: the ball loss's backward ran {ball[0]}, mlcp.solve_pgs at n = 105 {public[0]}")
+    main_whole, main_streamed = rows[3, 4096, 4, False], rows[105, 1024, SWEEPS_PATH_SWEEPS, True]
+    others = [{"rows": n, "batch": batch, "iterations": it, "from_x0": warm, **row}
+              for (n, batch, it, warm), row in ((k, v) for k, v in rows.items() if k != "panda")]
+    entries = [
+        {"name": "pgs backward sweeps, A whole", **common, "launches": ball[1], **main_whole,
+         "max_abs_err_every_case": worst.get(whole, 0.0), "shape": "B=4096 n=3 iterations=4 float32",
+         "main_path": f"the {BALL_LOSS_STEPS}-step ball loss's gradient (n = 3, 4 sweeps), phase 21 (b)",
+         "panda_n24_it10": rows.get("panda"),
+         "other_cases": [r for r in others if r["design"] == whole]},
+        {"name": "pgs backward sweeps, upper streamed", **common, "launches": public[1], **main_streamed,
+         "max_abs_err_every_case": worst.get(streamed, 0.0),
+         "shape": f"B=1024 n=105 iterations={SWEEPS_PATH_SWEEPS} from x0 float32",
+         "main_path": f"mlcp.solve_pgs from x0 at B=1024 n=105, {SWEEPS_PATH_SWEEPS} sweeps, under grad, phase 21 (b)",
+         "other_cases": [r for r in others if r["design"] == streamed]},
+    ]
+    n24 = f"mlcp.solve_pgs B={SWEEPS_PATHS[0][1]} n={SWEEPS_PATHS[0][0]}"
+    for kind, name in (("forward", "pgs warm start row per lane (double sums)"), ("jvp", "pgs warm start jvp row per lane (double sums)")):
+        entries.append({"name": name, "route": "cuda", "source": "tds_tpu_torch/csrc/pgs_sweep.cuh", "library_ms": None,
+                        "replaces": "tds_tpu/contact/pallas_pgs.py:52 (_pgs_kernel from x0: tds_tpu/contact/mlcp.py:94 solve_pgs"
+                                    + (", its JVP)" if kind == "jvp" else ")"),
+                        "launches": paths[n24, kind][1], "shape": "B=4096 n=24 iterations=1 from x0 float32",
+                        "launches_at": f"{SWEEPS_PATH_SWEEPS} sweeps",
+                        "main_path": f"{n24} from x0 under grad and torch.func.jvp, phase 21 (b)", **fault[kind]})
+    numbers = {f"k1_{k.replace(' ', '_').replace('=', '')}_us": v["ms"] * 1e3 for k, v in fault.items() if k.startswith("blocked")}
+    for e in entries:
+        log(f"sweeps: {json.dumps(e)}")
+    return entries, numbers
+
+
+
+
 @contextlib.contextmanager
 def sub_phase(label):
     """A line of the seconds the block took, under ``label``."""
@@ -5482,14 +5814,15 @@ def main():
     collision, collision_numbers = timed(phase_collision, card, card_line)
     rest, rest_numbers = timed(phase_rest, card, card_line)
     api, api_numbers = timed(phase_api, card, card_line)
+    sweeps, sweeps_numbers = timed(phase_sweeps, card)
     # the paths' numbers on a line of their own, so that the kernels line stays short
     numbers = {f"main_path_{k}": v for k, v in main_path.items() if k != "launches"}
     for part in (humanoid, terrain, ppo_numbers, floating_numbers, mpc_numbers, collision_numbers, rest_numbers,
-                 api_numbers, timed(phase_graphs, start_s)):
+                 api_numbers, sweeps_numbers, timed(phase_graphs, start_s)):
         numbers.update(part)
     print(json.dumps({"numbers": numbers}))
     print(json.dumps({"kernels": [kernel, *k1_instances(kernel, k1_rows), backward, jvp, *floating, *mpc, *collision, *rest,
-                                  *api, mega, *probes]}))
+                                  *api, *sweeps, mega, *probes]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
 
 
@@ -5508,5 +5841,9 @@ if __name__ == "__main__":
         card_name, card_text = phase_device()
         timed(phase_build)
         timed(phase_api, card_peaks(card_name), card_text)
+    elif sys.argv[1:2] == ["--sweeps-only"]:  # phase 21 alone, after phases 1 and 2; prints no result line
+        card_name, card_text = phase_device()
+        timed(phase_build)
+        timed(phase_sweeps, card_peaks(card_name))
     else:
         main()

@@ -11,10 +11,13 @@
   A's lower triangle staged in shared memory), and "streaming" where an
   env's staging does not fit a block (n > 335 in float32, > 236 in
   float64); through :class:`PGSFunction`, whose backward is the kernel's
-  backward in the same file (``tds_pgs_backward_*``: "linearised", or
-  "streaming" past n = 328 in float32 and 229 in float64), so gradients
-  reach A, b, lo and hi on the card as ``jax.grad`` of the unrolled sweep
-  gives them;
+  backward in the same file (``tds_pgs_backward_*``: "linearised" for one
+  sweep, from x = 0 or a warm start; for two sweeps or more "linearised
+  sweeps", with A's part above the diagonal streamed from L2 or, where
+  that keeps as many envs resident, "linearised sweeps, A whole" in shared
+  memory; "streaming" past the staged forms' limits, n = 328 in float32
+  and 229 in float64 for one sweep), so gradients reach A, b, lo and hi
+  on the card as ``jax.grad`` of the unrolled sweep gives them;
 - on CPU tensors it runs :func:`solve_pgs_reference`, the plain version,
   which autograd differentiates;
 - anything else raises. No switch sends a CUDA tensor to the plain version,
@@ -77,9 +80,9 @@ jvp_launches = 0
 warm_launches = 0
 warm_backward_launches = 0
 warm_jvp_launches = 0
-# the kernels' forms, by the code tds_pgs_form returns
-FORMS = ("row per lane", "blocked", "streaming", "linearised")
-# the kernels tds_pgs_form and launch_shape name: K1, its backward, its JVP
+# the kernels' forms, by the code tds_pgs_instance_form returns
+FORMS = ("row per lane", "blocked", "streaming", "linearised", "linearised sweeps", "linearised sweeps, A whole")
+# the kernels tds_pgs_instance_form and launch_shape name: K1, its backward, its JVP
 _WHICH = {"forward": 0, "backward": 1, "jvp": 2}
 
 
@@ -380,14 +383,16 @@ def solve_pgs_jvp_reference(a_mat, b, lo, hi, tangents, limit_dependency: Sequen
     )
 
 
-def form(dtype: torch.dtype, n: int, backward: bool = False, jvp: bool = False) -> str:
+def form(dtype: torch.dtype, n: int, backward: bool = False, jvp: bool = False, warm: bool = False,
+         iterations: int = 1) -> str:
     """The form of the kernel (with ``backward``, of its backward; with
-    ``jvp``, of its forward mode) that runs for n rows in ``dtype``: one of
+    ``jvp``, of its forward mode) that runs for n rows in ``dtype``, from a
+    warm start with ``warm``, at ``iterations`` sweeps: one of
     :data:`FORMS`."""
     if n < 1 or dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no PGS kernel for n = {n} in {dtype}")
-    which = _which(backward, jvp)
-    return FORMS[_library().tds_pgs_form(int(dtype == torch.float64), n, _WHICH[which])]
+    f64, which = int(dtype == torch.float64), _WHICH[_which(backward, jvp)]
+    return FORMS[_library().tds_pgs_instance_form(f64, n, which, int(warm), iterations)]
 
 
 def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False, jvp: bool = False,
@@ -395,10 +400,10 @@ def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward
     """How the kernel (with ``backward``, its backward; with ``jvp``, its
     forward mode) launches for n rows in ``dtype`` at ``batch`` envs on
     ``device``, from a warm start with ``warm``, at ``iterations`` sweeps
-    (the forward from x = 0 has instances for one sweep and for more): its
-    ``form`` and ``cuda_build.launch_shape``'s fields, resident warps per SM
-    and waves among them."""
-    name = form(dtype, n, backward, jvp)
+    (the forward from x = 0 has instances for one sweep and for more, the
+    backward likewise): its ``form`` and ``cuda_build.launch_shape``'s
+    fields, resident warps per SM and waves among them."""
+    name = form(dtype, n, backward, jvp, warm, iterations)
     args = (int(dtype == torch.float64), n, _WHICH[_which(backward, jvp)], int(warm), iterations)
     return {"form": name, **cuda_build.launch_shape(_library().tds_pgs_instance_launch_shape, args, batch, device)}
 
@@ -418,8 +423,8 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = bind(ctypes.CDLL(str(build())))
-    lib.tds_pgs_form.argtypes = [ctypes.c_int] * 3
-    lib.tds_pgs_form.restype = ctypes.c_int
+    lib.tds_pgs_instance_form.argtypes = [ctypes.c_int] * 5
+    lib.tds_pgs_instance_form.restype = ctypes.c_int
     return lib
 
 

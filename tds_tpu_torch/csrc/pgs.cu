@@ -93,7 +93,10 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
 #include <type_traits>
+#include <utility>
 
 #include "pgs_sweep.cuh"
 
@@ -111,16 +114,30 @@ struct Lanes {
 
 // The minimum resident blocks the row-per-lane kernels are built for: 0
 // (no minimum) for the zero start's one-sweep instances (Split false),
-// which compile as they did; 1 for the float64 instances that split the
-// sweeps (Split: more sweeps, a warm start, the forward mode), with which
-// ptxas keeps every value in registers (without it, to fit more blocks, it
-// spilled 8-24 B a thread in N = 12 and 16). Float32 keeps no minimum: the
-// N = 24 forward mode then takes 118 registers and 16 warps an SM, and
-// 20.35 us at B = 4096, against 149 registers, 12 warps and 22.4 us with
-// a minimum of 1 (on an H100 80GB HBM3).
-template <typename T, bool Split>
+// which compile as they did; for the instances that split the sweeps
+// (Split: more sweeps, a warm start) 1 in float64, with which ptxas keeps
+// every value in registers (without it, to fit more blocks, it spilled
+// 8-24 B a thread in N = 12 and 16), and in float32, whose sums run in
+// double, a register cap for each N that holds them (with no minimum
+// ptxas took 48 registers and spilled 8-16 B at N = 8, 16 and 24; the
+// warm N = 24 instance spilled 8 B at a cap of 102 registers and the warm
+// N = 32 one at 170; on an H100 80GB HBM3). The forward mode (pgs_jvp_rows) keeps a minimum of 1
+// for float64 and for N = 32 (whose float32 instance spilled 16 B without
+// it) and none for the other float32 N: with it the float32 N = 24
+// instance took 219 registers, 8 warps an SM and 34.5 us from x0 at B =
+// 4096, against 116, 16 and 27.7 us.
+template <typename T, bool Split, int N, bool Warm = false>
 struct RowBlocks {
-  static constexpr int kMin = Split && sizeof(T) == 8 ? 1 : 0;
+  static constexpr int kMin = !Split ? 0
+                              : sizeof(T) == 8 ? 1
+                              : N >= 32 ? (Warm ? 1 : 3)
+                              : N >= 24 ? (Warm ? 3 : 5)
+                                        : 6;
+};
+
+template <typename T, int N>
+struct JvpBlocks {
+  static constexpr int kMin = sizeof(T) == 8 || N == 32 ? 1 : 0;
 };
 
 // The row-per-lane instance N for n <= 32 rows: the smallest of 8, 12, 16,
@@ -137,7 +154,7 @@ inline int instance_rows(int n) {
 // row-per-lane kernel as it was before padding existed; Split as in
 // pgs_sweeps (K1 launches the instance without it for at most one sweep).
 template <typename T, int N, int G, bool Split = false>
-__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split>::kMin)
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N>::kMin)
 pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
            const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
            int batch, int iterations) {
@@ -162,7 +179,7 @@ pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict
 // n < N: rows n..N-1 are identity rows in registers. With Warm (any
 // n <= N) the sweeps start from x0 (B, n), the padding rows from 0.
 template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
-__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split>::kMin)
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N, Warm>::kMin)
 pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                   const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
                   int batch, int n, int iterations, const T* __restrict__ x0) {
@@ -187,13 +204,13 @@ pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __r
   row.dep = real ? dep[r] : -1;
   T x[N];
   T start = T(0), start_dep = T(0);  // x0 of the lane's row and of its dependency
-  T upper = T(0);                    // the row's columns after it against x0
+  SweepAcc<T, Split> upper = 0;      // the row's columns after it against x0
   if (Warm) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const T v = j < n ? x0[e * n + j] : T(0);
       x[j] = v;
-      if (j > lane) upper += row.a[j] * v;
+      if (j > lane) upper += SweepAcc<T, Split>(row.a[j]) * SweepAcc<T, Split>(v);
     }
     start = real ? x0[e * n + r] : T(0);
     start_dep = row.dep >= 0 ? x0[e * n + row.dep] : T(0);
@@ -310,8 +327,8 @@ __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict
   }
 }
 
-// The forms, as tds_pgs_form reports them.
-enum Form { kRowPerLane = 0, kBlocked = 1, kStreaming = 2, kLinearised = 3 };
+// The forms, as tds_pgs_instance_form reports them.
+enum Form { kRowPerLane = 0, kBlocked = 1, kStreaming = 2, kLinearised = 3, kSweeps = 4, kSweepsWhole = 5 };
 
 // cp.async of one 4- or 8-byte value from global to shared memory (the
 // sources are aligned to their type only), and the group fences.
@@ -333,16 +350,16 @@ __device__ __forceinline__ void copy_wait() {
 
 __host__ __device__ __forceinline__ int triangle(int r) { return r * (r + 1) / 2; }
 
-// One exchange step of transposed_sum on doubles: of the 2 Half values
-// left, each lane keeps the half its lane bit `Offset` names and adds its
-// partner's copy of it; then the next step.
-template <int R, int Half, int Offset>
-__device__ __forceinline__ void halve(double (&v)[R], int lane) {
+// One exchange step of transposed_sum: of the 2 Half values left, each
+// lane keeps the half its lane bit `Offset` names and adds its partner's
+// copy of it; then the next step.
+template <int R, int Half, int Offset, typename V>
+__device__ __forceinline__ void halve(V (&v)[R], int lane) {
   if constexpr (Half >= 1) {
     const bool high = lane & Offset;
 #pragma unroll
     for (int m = 0; m < Half; ++m) {
-      const double keep = high ? v[m + Half] : v[m];
+      const V keep = high ? v[m + Half] : v[m];
       v[m] = keep + __shfl_xor_sync(0xffffffffu, high ? v[m] : v[m + Half], Offset);
     }
     halve<R, Half / 2, Offset / 2>(v, lane);
@@ -353,8 +370,8 @@ __device__ __forceinline__ void halve(double (&v)[R], int lane) {
 // lane l gets the total of v[l / (32 / R)]. The exchanges (halve) take
 // R - 1 shuffles, butterfly steps log2(32 / R) more, where a butterfly each
 // takes 5 R. v is consumed.
-template <int R>
-__device__ __forceinline__ double transposed_sum(double (&v)[R], int lane) {
+template <int R, typename V>
+__device__ __forceinline__ V transposed_sum(V (&v)[R], int lane) {
   static_assert(R == 8 || R == 16, "8 or 16 values a lane");
   halve<R, R / 2, 16>(v, lane);
 #pragma unroll
@@ -555,6 +572,31 @@ inline cudaError_t allow_smem(const void* fn, long long smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
+// The resident envs per SM of `fn` with `per_env` bytes an env, `lanes`
+// lanes each, at `most`, most / 2, ... envs a block (whole warps, each
+// block's shared memory within 227 KB): the shape that keeps the most
+// envs resident, the larger block at a tie (envs 0: none fits).
+struct Occupancy {
+  int envs = 0;
+  long long smem = 0;
+  int per_sm = -1;
+};
+
+inline Occupancy most_resident(const void* fn, long long per_env, int most, int lanes) {
+  Occupancy best;
+  for (int envs = most; envs * lanes >= kWarp; envs /= 2) {
+    const long long smem = envs * per_env;
+    int blocks = 0;
+    if (smem > kSmemMax || allow_smem(fn, smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, envs * lanes, static_cast<size_t>(smem)) !=
+            cudaSuccess) {
+      continue;
+    }
+    if (blocks * envs > best.per_sm) best = {envs, smem, blocks * envs};
+  }
+  return best;
+}
+
 // A kernel's launch for n rows: the kernel, its form, lanes per env, envs
 // per block and dynamic shared memory per block (fn null: no kernel).
 struct Plan {
@@ -634,13 +676,9 @@ int launch_split(const T* a, const T* b, const T* lo, const T* hi, const int* de
       const cudaError_t err = allow_smem(p.fn, p.smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
-      if (p.form == kBlocked) {
-        pgs_kernel_blocked<T><<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n, iterations,
-                                                                    nullptr);
-      } else {
-        pgs_kernel_per_warp<T, false, Split><<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n,
-                                                                                  iterations, nullptr);
-      }
+      // the blocked and streaming kernels take the same arguments
+      const auto kernel = reinterpret_cast<decltype(&pgs_kernel_per_warp<T, false, Split>)>(const_cast<void*>(p.fn));
+      kernel<<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n, iterations, nullptr);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -731,9 +769,10 @@ int launch_warm(const void* a, const void* b, const void* lo, const void* hi, co
 // and writes A-bar whole (zeros above the diagonal with one sweep:
 // autograd takes a dense (B, n, n) gradient), b-bar, lo-bar and hi-bar.
 //
-// "linearised" (every n whose staging fits a block): the saved sweeps fix
-// every p_i, s_i and so the clip's factors, so the walk is linear in g and
-// only one multiply-add a row stays on the chain. For sweep t, in reverse:
+// "linearised" (one sweep from x = 0, every n whose staging fits a block):
+// the saved sweeps fix every p_i, s_i and so the clip's factors, so the
+// walk is linear in g and only one multiply-add a row stays on the chain.
+// For sweep t, in reverse:
 // (a) in parallel, each row's p_i from x after sweeps t and t - 1 (a
 // mat-vec), s_i, and the factors of the clip's adjoint for g = 1 (p-bar =
 // m_i g, l-bar = ml_i g, h-bar = mh_i g, each in {0, 1/4, 1/2, 1}), with
@@ -753,11 +792,55 @@ int launch_warm(const void* a, const void* b, const void* lo, const void* hi, co
 // the previous sweep's x-bar. A's lower triangle, x after both sweeps,
 // x-bar, b, lo, hi, p, f, e, c, d and dep sit in shared memory (27,300 B
 // an env at n = 105 in f32, 888 B at n = 12), staged as the blocked
-// forward stages them, the last block's rows first; the columns above the
-// diagonal (sweeps after the first) come from L2. G = 16 lanes for
+// forward stages them, the last block's rows first. G = 16 lanes for
 // n <= 16 (two envs a warp), else 32.
 //
-// "streaming" (n > 328 in f32, > 229 in f64): a warp per env, lane l owns
+// "linearised sweeps" (two sweeps or more, from x = 0 or x0:
+// pgs_backward_sweeps): the same (a) and (b), with what the later sweeps
+// and x0 add kept on chip. The one-sweep design read x after sweeps t and t - 1 from global
+// memory again at each sweep, walked each row's columns above the diagonal
+// a lane a row from L2 (the lanes' addresses n apart), read and wrote
+// A-bar, b-bar, lo-bar and hi-bar in global memory at every sweep, and
+// formed x-bar of sweep t - 1 with every lane walking all n rows of A
+// from L2 (152.5 us from x0 at n = 105, B = 1024, f32, a 28.0 us bound;
+// 39.2-40.9 us at n = 3 with 4 sweeps, the forward 14.2-14.5; on an H100
+// 80GB HBM3). Here:
+// - x before every sweep (x0 or 0, then each saved sweep) is staged once,
+//   with the vectors, in the first cp.async group; c of every sweep is
+//   kept in shared memory, and A-bar_ii's sum c_i p_i, lo-bar and hi-bar
+//   are summed across sweeps there (in the order of the sweeps, the last
+//   first). After the last sweep visited, A-bar_ij = sum_t c_i(t) x_j(t)
+//   (this sweep's x for j < i, the previous sweep's for j > i) and
+//   b-bar_i = -sum_t c_i(t) are written once, coalesced, and nothing is
+//   read back.
+// - A's part above the diagonal: "A whole" stages it in shared memory too
+//   (columns packed: A_ij, i < j, at triangle(j - 1) + i, copied from A's
+//   rows as the triangle is, a block's rows a group), so that (a)'s sums
+//   over the columns after each row and x-bar's pass read shared memory
+//   with consecutive lanes on consecutive addresses. Where it would cost
+//   resident envs (n = 48 and 105 in f32: the paths' batches fill a wave
+//   with the triangle alone), "upper streamed": one coalesced pass over
+//   A's rows in L2 after each sweep (upper_pass: 8 rows at a time, lanes
+//   across the columns, the loads issued first) forms both x-bar of sweep
+//   t - 1 and the next sweep's sums over the columns after each row,
+//   u_i = sum_{j > i} A_ij x_j(t - 2), which (a) then reads from shared
+//   memory; one such pass at entry forms the last sweep's. The plan takes
+//   "A whole" where it keeps at least the resident envs of "upper
+//   streamed" (cudaOccupancyMaxActiveBlocksPerMultiprocessor of each, and
+//   4, 2 or 1 envs a block, whichever keeps the most resident; G = 16
+//   runs "A whole" only).
+// Its sums run in T, as the one-sweep design's (in double, 197.3 us from x0
+// at n = 105, B = 1024, f32, against 152.1 in T). One sweep from x0 keeps
+// the first design, which it does not beat there: 155.1 against 151.7 us
+// at n = 105, 15.0 against 12.8 at n = 12, 90.1 against 74.3 at n = 48
+// (B = 4096, f32); past one sweep it does: 3 sweeps from 0 at n = 48
+// 145.8 against 300.4 us, at n = 105 434.8 against 640.6, the Panda
+// push's n = 24 at 10 sweeps 156.3 against 212.3 (all on an H100 80GB
+// HBM3 at 700 W).
+//
+// "streaming" (past the staged forms' limits: n > 328 in f32, > 229 in
+// f64 for one sweep from 0, fewer rows with more sweeps): a warp per env,
+// lane l owns
 // the columns j = l (mod 32); this sweep's x, the previous sweep's and
 // x-bar sit in shared memory (3n values a warp), each row's p_i is a
 // butterfly over the warp, and row i of A-bar goes straight to global
@@ -783,6 +866,10 @@ bool linearised_fits(int n) {
   return n >= 1 && linearised_env_bytes<T>(n) <= kSmemMax;
 }
 
+// Launched for one sweep (or none), from x = 0 or from x0;
+// pgs_backward_sweeps runs two or more. Its code is the first design's, for
+// every count (its branches for t > 0 are no longer launched), so that the
+// one-sweep instances compile to what they were.
 template <typename T, int G, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
@@ -946,6 +1033,273 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
   }
 }
 
+// The packed layout of A's part above the diagonal in the "A whole"
+// staging: column j's rows 0..j-1 at triangle(j - 1), so that consecutive
+// rows of a column and (the triangular numbers of 32 consecutive columns
+// being distinct mod 32, mod 16 within a half-warp for 8-byte values) one
+// row across consecutive columns both meet distinct banks.
+__host__ __device__ __forceinline__ int upper_at(int i, int j) { return triangle(j - 1) + i; }
+
+// Rows [r0, r1) of an env's A, the columns after the diagonal, into the
+// packed upper part, G lanes walking each row (loads coalesced).
+template <typename T>
+__device__ __forceinline__ void stage_upper_rows(T* up, const T* a_env, int n, int r0, int r1, int lane, int G) {
+  for (int r = r0; r < r1; ++r) {
+    const T* src = a_env + (long long)r * n;
+    for (int c = r + 1 + lane; c < n; c += G) copy_async(up + upper_at(r, c), src + c);
+  }
+}
+
+// Bytes of shared memory of one env of pgs_backward_sweeps for `iterations`
+// sweeps (with `whole`, A's upper part staged too): the triangle, x before
+// each sweep and after the last, c of each sweep, 11 vectors of n (x-bar,
+// b, lo, hi, f, e, d, u, lo-bar, hi-bar and A-bar's diagonal) and dep,
+// rounded up to 16.
+template <typename T>
+__host__ __device__ __forceinline__ long long sweeps_env_bytes(int n, int iterations, bool whole) {
+  const long long values = (long long)triangle(n) + (whole ? (long long)triangle(n - 1) : 0LL) +
+                           (2LL * iterations + 1) * n + 11LL * n;
+  return (values * sizeof(T) + 4LL * n + 15) / 16 * 16;
+}
+
+// One coalesced pass over an env's A above the diagonal in global memory
+// (L2), the warp together: R = 8 rows at a time, lanes across the columns,
+// the loads of up to 4 chunks of 32 columns issued first (a chunk a round
+// trip was 152 us from x0 at n = 105, B = 1024, f32: the parent's time,
+// on an H100 80GB HBM3). With c, x-bar_j +=
+// sum over i < j of c_i A_ij (each lane adds to its own columns); with z,
+// u_i = sum over j > i of A_ij z_j, handed to the rows' lanes by
+// transposed_sum. The sums run in T, as the one-sweep backward's.
+template <typename T>
+__device__ __forceinline__ void upper_pass(const T* a_env, int n, const T* c, T* xbar, const T* z, T* u, int lane) {
+  constexpr int R = 8;       // rows a group
+  constexpr int kChunks = 4;  // chunks of 32 columns whose loads are in flight together
+  for (int i0 = 0; i0 < n; i0 += R) {
+    T p[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) p[m] = T(0);
+#pragma unroll 1
+    for (int b0 = (i0 + 1) / kWarp * kWarp; b0 < n; b0 += kChunks * kWarp) {
+      T arj[kChunks][R];
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        const int jc = min(b0 + q * kWarp + lane, n - 1);
+#pragma unroll
+        for (int m = 0; m < R; ++m) arj[q][m] = a_env[(long long)min(i0 + m, n - 1) * n + jc];
+      }
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        const int j = b0 + q * kWarp + lane;
+        const int jc = min(j, n - 1);
+        T v = T(0);
+        const T zj = z != nullptr ? z[jc] : T(0);
+#pragma unroll
+        for (int m = 0; m < R; ++m) {
+          if (i0 + m < j && j < n) {
+            if (c != nullptr) v += c[i0 + m] * arj[q][m];
+            p[m] += arj[q][m] * zj;
+          }
+        }
+        if (c != nullptr && j < n) xbar[j] += v;
+      }
+    }
+    if (z != nullptr) {
+      const T total = transposed_sum(p, lane);  // row i0 + lane / 4's
+      const int i = i0 + lane / (kWarp / R);
+      if (lane % (kWarp / R) == 0 && i < n) u[i] = total;
+    }
+  }
+}
+
+// Two sweeps or more, from x = 0 or (Warm; x0 and x0_bar then not null)
+// from x0; Whole: A's upper part staged ("A whole"), else read by
+// upper_pass ("upper streamed").
+template <typename T, int G, bool Warm, bool Whole>
+__global__ void __launch_bounds__(kThreads, 1)
+pgs_backward_sweeps(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
+                    const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
+                    const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
+                    T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations,
+                    const T* __restrict__ x0, T* __restrict__ x0_bar) {
+  static_assert(Whole || G == kWarp, "upper_pass takes a whole warp");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x % G;
+  const int group = threadIdx.x / G;
+  const long long env = (long long)blockIdx.x * (blockDim.x / G) + group;
+  const bool active = env < batch;
+  const long long e = active ? env : batch - 1;  // a valid env to read from
+  T* abar_env = a_bar + e * n * n;
+  const int its = iterations;  // 2 or more (pgs_backward_linearised runs 0 and 1)
+  T* tri = reinterpret_cast<T*>(smem_raw + group * sweeps_env_bytes<T>(n, its, Whole));
+  T* up = tri + triangle(n);                   // with Whole, A above the diagonal
+  T* xv = up + (Whole ? triangle(n - 1) : 0);  // x before sweep s at xv + s n (x0 or 0 at s = 0)
+  T* cv = xv + (its + 1) * n;                  // c of sweep t at cv + t n
+  T* xbar = cv + its * n;                      // the adjoint of x after the sweep
+  T* bs = xbar + n;
+  T* los = bs + n;
+  T* his = los + n;
+  T* fs = his + n;
+  T* es = fs + n;
+  T* ds = es + n;
+  T* us = ds + n;   // without Whole, each row's columns after it against the previous sweep's x
+  T* lob = us + n;  // lo-bar, hi-bar and A-bar's diagonal, summed over the sweeps
+  T* hib = lob + n;
+  T* dg = hib + n;
+  int* deps = reinterpret_cast<int*>(dg + n);
+  const T* a_env = a + e * n * n;
+  const int blocks = (n + G - 1) / G;
+  const long long sweep = (long long)batch * n;  // xs's stride from one sweep to the next
+  // group 0: the vectors, x before each sweep and after the last, and the
+  // last block's rows; then a group a block of rows, issued two blocks
+  // ahead (the first sweep visited waits for them)
+  for (int j = lane; j < n; j += G) {
+    const long long q = e * n + j;
+    copy_async(bs + j, b + q);
+    copy_async(los + j, lo + q);
+    copy_async(his + j, hi + q);
+    copy_async(deps + j, dep + j);
+    copy_async(xbar + j, x_bar + q);
+    if (Warm) {
+      copy_async(xv + j, x0 + q);
+    } else {
+      xv[j] = T(0);
+    }
+    for (int t = 0; t < its; ++t) copy_async(xv + (t + 1) * n + j, xs + t * sweep + q);
+  }
+  auto stage_block = [&](int k) {
+    if (k < 0) return;
+    const int r0 = k * G, r1 = min(n, r0 + G);
+    stage_rows(tri, a_env, n, r0, r1, lane, G);
+    if (Whole) stage_upper_rows(up, a_env, n, r0, r1, lane, G);
+  };
+  stage_block(blocks - 1);
+  copy_commit();
+  stage_block(blocks - 2);
+  copy_commit();
+  if (!Whole) {
+    // the last sweep's sums after each row, while the triangle lands
+    copy_wait<1>();
+    __syncwarp();
+    upper_pass<T>(a_env, n, nullptr, nullptr, xv + (its - 1) * n, us, lane);
+  }
+  for (int t = its - 1; t >= 0; --t) {
+    const bool first = t == its - 1;  // the first sweep visited stores the sums over the sweeps, the others add
+    const bool upper = Warm || t > 0;  // the sweep reads x before it (x = 0 before the first from 0)
+    T* cs = cv + t * n;
+    const T* xt = xv + (t + 1) * n;  // x after the sweep: what rows read before them
+    const T* xp = xv + t * n;        // x before it: what rows read after them
+    for (int k = blocks - 1; k >= 0; --k) {
+      const int k0 = k * G;
+      const int k1 = min(n, k0 + G);
+      if (first) {
+        copy_wait<1>();  // block k's rows have landed; block k - 1's may not have
+        __syncwarp();
+        stage_block(k - 2);
+        copy_commit();
+      }
+      const int r = k0 + lane;
+      const bool row = r < n;
+      const int rr = row ? r : n - 1;  // lanes past n shadow the last row
+      const T* trow = tri + triangle(rr);
+      // (a) p, s and the clip's factors of row rr, from the x it read
+      T sum = T(0);
+#pragma unroll 4
+      for (int j = 0; j < k0; ++j) sum += trow[j] * xt[j];
+      for (int j = k0; j < k0 + G; ++j) sum += j < rr ? trow[j] * xt[j] : T(0);
+      if (upper) {
+        if (Whole) {
+          for (int j = k0 + 1; j < n; ++j) sum += j > rr ? up[upper_at(rr, j)] * xp[j] : T(0);
+        } else {
+          sum += us[rr];
+        }
+      }
+      const T aii = trow[rr];
+      const T p = (bs[rr] - sum) / aii;
+      const int d = deps[rr];
+      const T xd = d >= 0 ? (d < rr ? xt[d] : xp[d]) : T(0);
+      const T s = d >= 0 ? (xd > T(0) ? xd : T(0)) : T(1);
+      T mp, ml, mh;
+      clip_factors(p, los[rr] * s, his[rr] * s, mp, ml, mh);
+      const T f = -mp / aii;
+      const T ef = d >= 0 ? (ml * los[rr] + mh * his[rr]) * relu_slope(xd) : T(0);
+      if (row) {
+        fs[r] = f;
+        es[r] = ef;
+      }
+      __syncwarp();
+      // (b) g of the block's rows: the later blocks' rows, then the chain
+      T acc = xbar[rr];
+      for (int i = k1; i < n; ++i) {
+        acc += cs[i] * tri[triangle(i) + rr];
+        acc += deps[i] == rr ? ds[i] : T(0);
+      }
+#pragma unroll 4
+      for (int m = k1 - k0 - 1; m >= 0; --m) {
+        const int i = k0 + m;
+        const T w = lane < m ? fs[i] * tri[triangle(i) + rr] + (deps[i] == rr ? es[i] : T(0)) : T(0);
+        acc += w * __shfl_sync(0xffffffffu, acc, m, G);
+      }
+      const T g = acc;
+      const T c = f * g;
+      if (row) {
+        cs[r] = c;
+        ds[r] = ef * g;
+        lob[r] = first ? ml * g * s : lob[r] + ml * g * s;
+        hib[r] = first ? mh * g * s : hib[r] + mh * g * s;
+        dg[r] = first ? c * p : dg[r] + c * p;
+      }
+      __syncwarp();
+    }
+    if (upper) {
+      // x-bar of x before the sweep (x0's at t = 0): the rows whose dep is
+      // at or after them (each added by the lane that owns its column),
+      // then the sum over i < j of c_i A_ij
+      for (int j = lane; j < n; j += G) xbar[j] = T(0);
+      for (int i = 0; i < n; ++i) {
+        const int d = deps[i];
+        if (d >= i && lane == d % G) xbar[d] += ds[i];
+      }
+      if (Whole) {
+        for (int j0 = 0; j0 < n; j0 += G) {
+          const int j = min(j0 + lane, n - 1);
+          T v = T(0);
+          for (int i = 0; i < min(n, j0 + G - 1); ++i) v += i < j ? cs[i] * up[upper_at(i, j)] : T(0);
+          if (j0 + lane < n) xbar[j] += v;
+        }
+      } else {
+        // and the next sweep's sums after each row (x before it: x = 0 before the first from 0)
+        const bool next = t > 1 || (Warm && t == 1);
+        upper_pass<T>(a_env, n, cs, xbar, next ? xv + (t - 1) * n : nullptr, us, lane);
+      }
+      __syncwarp();
+    }
+  }
+  if (active) {
+    // b-bar, lo-bar, hi-bar, x0-bar and A-bar, each written once
+    for (int j = lane; j < n; j += G) {
+      const long long q = e * n + j;
+      T v = -cv[(its - 1) * n + j];
+      for (int t = its - 2; t >= 0; --t) v -= cv[t * n + j];
+      b_bar[q] = v;
+      lo_bar[q] = lob[j];
+      hi_bar[q] = hib[j];
+      if (Warm) x0_bar[q] = xbar[j];
+    }
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      T* abar_row = abar_env + (long long)i * n;
+      for (int j = lane; j < n; j += G) {
+        T v = dg[i];
+        if (j != i) {
+          const int after = j < i ? 1 : 0;  // this sweep's x before the row, the previous sweep's after it
+          v = cv[(its - 1) * n + i] * xv[(its - 1 + after) * n + j];
+          for (int t = its - 2; t >= 0; --t) v += cv[t * n + i] * xv[(t + after) * n + j];
+        }
+        abar_row[j] = v;
+      }
+    }
+  }
+}
 template <typename T, bool Warm = false>
 __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                       const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
@@ -1030,17 +1384,48 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
   }
 }
 
-template <typename T, bool Warm = false>
-Plan backward_plan(int n) {
+template <typename T, int G, bool Warm, bool Whole>
+const void* sweeps_kernel() {
+  return reinterpret_cast<const void*>(&pgs_backward_sweeps<T, G, Warm, Whole>);
+}
+
+// The backward's launch for n rows and `iterations` sweeps: one sweep (or
+// none) "linearised"; more "linearised sweeps", "A whole" where it keeps
+// at least the resident envs of "upper streamed"; "streaming" past the
+// staged forms' limits.
+template <typename T, bool Warm>
+Plan backward_plan_uncached(int n, int iterations) {
   Plan p;
-  if (linearised_fits<T>(n)) {
-    p.fn = n <= 16 ? reinterpret_cast<const void*>(&pgs_backward_linearised<T, 16, Warm>)
-                   : reinterpret_cast<const void*>(&pgs_backward_linearised<T, 32, Warm>);
-    p.form = kLinearised;
-    p.lanes = n <= 16 ? 16 : 32;
-    // n <= 16 needs under 2 KB an env: its blocks keep 8 envs, whole warps
-    staged_shape(linearised_env_bytes<T>(n), kThreads / p.lanes, &p.envs, &p.smem);
+  const int lanes = n <= 16 ? 16 : kWarp;
+  if (iterations <= 1) {
+    if (linearised_fits<T>(n)) {
+      p.fn = n <= 16 ? reinterpret_cast<const void*>(&pgs_backward_linearised<T, 16, Warm>)
+                     : reinterpret_cast<const void*>(&pgs_backward_linearised<T, 32, Warm>);
+      p.form = kLinearised;
+      p.lanes = lanes;
+      // n <= 16 needs under 2 KB an env: its blocks keep 8 envs, whole warps
+      staged_shape(linearised_env_bytes<T>(n), kThreads / p.lanes, &p.envs, &p.smem);
+      return p;
+    }
   } else if (n >= 1) {
+    const int most = kThreads / lanes;
+    Occupancy streamed;
+    const void* whole_fn = lanes == 16 ? sweeps_kernel<T, 16, Warm, true>() : sweeps_kernel<T, 32, Warm, true>();
+    const Occupancy whole = most_resident(whole_fn, sweeps_env_bytes<T>(n, iterations, true), most, lanes);
+    if (lanes == kWarp) {
+      streamed = most_resident(sweeps_kernel<T, 32, Warm, false>(), sweeps_env_bytes<T>(n, iterations, false), most,
+                               lanes);
+    }
+    if (whole.envs > 0 && whole.per_sm >= streamed.per_sm) {
+      p = {whole_fn, kSweepsWhole, lanes, whole.envs, whole.smem};
+      return p;
+    }
+    if (streamed.envs > 0) {
+      p = {sweeps_kernel<T, 32, Warm, false>(), kSweeps, lanes, streamed.envs, streamed.smem};
+      return p;
+    }
+  }
+  if (n >= 1) {
     p.fn = reinterpret_cast<const void*>(&pgs_backward_per_warp<T, Warm>);
     p.form = kStreaming;
     p.lanes = kWarp;
@@ -1049,44 +1434,39 @@ Plan backward_plan(int n) {
   return p;
 }
 
+// backward_plan_uncached, kept for each (n, iterations) past one sweep: its
+// occupancy queries (and the shared memory opt-ins they need) run once.
+template <typename T, bool Warm = false>
+Plan backward_plan(int n, int iterations = 1) {
+  if (iterations <= 1) return backward_plan_uncached<T, Warm>(n, iterations);
+  static std::mutex mutex;
+  static std::map<std::pair<int, int>, Plan> plans;
+  const std::lock_guard<std::mutex> lock(mutex);
+  const auto key = std::make_pair(n, iterations);
+  auto it = plans.find(key);
+  if (it == plans.end()) it = plans.emplace(key, backward_plan_uncached<T, Warm>(n, iterations)).first;
+  return it->second;
+}
+
 // x0 and x0_bar (B, n) with Warm (a warm start and its adjoint), else null.
 template <typename T, bool Warm = false>
 int backward(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* xs,
              const void* x_bar, void* a_bar, void* b_bar, void* lo_bar, void* hi_bar, int batch, int n,
              int iterations, void* stream, const void* x0 = nullptr, void* x0_bar = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = backward_plan<T, Warm>(n);
+  const Plan p = backward_plan<T, Warm>(n, iterations);
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(p.fn, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
   const int threads = p.envs * p.lanes;
-  const T* a_t = static_cast<const T*>(a);
-  const T* b_t = static_cast<const T*>(b);
-  const T* lo_t = static_cast<const T*>(lo);
-  const T* hi_t = static_cast<const T*>(hi);
-  const int* dep_t = static_cast<const int*>(dep);
-  const T* xs_t = static_cast<const T*>(xs);
-  const T* xbar_t = static_cast<const T*>(x_bar);
-  T* abar_t = static_cast<T*>(a_bar);
-  T* bbar_t = static_cast<T*>(b_bar);
-  T* lobar_t = static_cast<T*>(lo_bar);
-  T* hibar_t = static_cast<T*>(hi_bar);
-  const T* x0_t = static_cast<const T*>(x0);
-  T* x0bar_t = static_cast<T*>(x0_bar);
-  if (p.form == kStreaming) {
-    pgs_backward_per_warp<T, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t, abar_t,
-                                                                   bbar_t, lobar_t, hibar_t, batch, n, iterations,
-                                                                   x0_t, x0bar_t);
-  } else if (p.lanes == 16) {
-    pgs_backward_linearised<T, 16, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t,
-                                                                         abar_t, bbar_t, lobar_t, hibar_t, batch, n,
-                                                                         iterations, x0_t, x0bar_t);
-  } else {
-    pgs_backward_linearised<T, 32, Warm><<<blocks, threads, p.smem, s>>>(a_t, b_t, lo_t, hi_t, dep_t, xs_t, xbar_t,
-                                                                         abar_t, bbar_t, lobar_t, hibar_t, batch, n,
-                                                                         iterations, x0_t, x0bar_t);
-  }
+  // every backward kernel takes the same arguments
+  const auto kernel = reinterpret_cast<decltype(&pgs_backward_per_warp<T, Warm>)>(const_cast<void*>(p.fn));
+  kernel<<<blocks, threads, p.smem, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(lo), static_cast<const T*>(hi),
+      static_cast<const int*>(dep), static_cast<const T*>(xs), static_cast<const T*>(x_bar), static_cast<T*>(a_bar),
+      static_cast<T*>(b_bar), static_cast<T*>(lo_bar), static_cast<T*>(hi_bar), batch, n, iterations,
+      static_cast<const T*>(x0), static_cast<T*>(x0_bar));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1151,7 +1531,7 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
 // tangent x0' (B, n) and take every column from the first sweep on.
 
 template <typename T, int N, int G, bool Warm = false>
-__global__ void __launch_bounds__(kThreads, RowBlocks<T, true>::kMin)
+__global__ void __launch_bounds__(kThreads, JvpBlocks<T, N>::kMin)
 pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo, const T* __restrict__ hi,
              const T* __restrict__ a_dot, const T* __restrict__ b_dot, const T* __restrict__ lo_dot,
              const T* __restrict__ hi_dot, const int* __restrict__ dep, T* __restrict__ x_out,
@@ -1182,16 +1562,16 @@ pgs_jvp_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restri
   T x[N];
   T mine, mined;
   T start_dep = T(0), start_dep_dot = T(0);  // x0 and x0' of the row's dependency
-  UpperSums<T> upper = {T(0), T(0), T(0)};   // the row's columns after it: A x0, A' x0, A x0'
+  UpperSums upper = {0.0, 0.0, 0.0};          // the row's columns after it: A x0, A' x0, A x0'
   if (Warm) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const T v = j < n ? x0[e * n + j] : T(0);
       x[j] = v;
       if (j > lane && j < tangent.cols) {
-        upper.x += row.a[j] * v;
-        upper.a_dot_x += tangent.a[j] * v;
-        upper.x_dot += row.a[j] * x0_dot[e * n + j];
+        upper.x += double(row.a[j]) * double(v);
+        upper.a_dot_x += double(tangent.a[j]) * double(v);
+        upper.x_dot += double(row.a[j]) * double(x0_dot[e * n + j]);
       }
     }
     mine = real ? x0[k] : T(0);
@@ -1511,7 +1891,7 @@ int jvp(const void* a, const void* b, const void* lo, const void* hi, const void
 template <typename T>
 Plan instance_plan(int n, int which, bool warm, int iterations) {
   if (which == 2) return warm ? jvp_plan<T, true>(n) : jvp_plan<T>(n);
-  if (which == 1) return warm ? backward_plan<T, true>(n) : backward_plan<T>(n);
+  if (which == 1) return warm ? backward_plan<T, true>(n, iterations) : backward_plan<T>(n, iterations);
   if (warm) return forward_plan<T, true>(n);
   return iterations > 1 ? forward_plan<T, false, true>(n) : forward_plan<T>(n);
 }
@@ -1655,11 +2035,11 @@ extern "C" int tds_pgs_instance_launch_shape(int f64, int n, int which, int warm
                           : instance_plan<float>(n, which, warm, iterations), out);
 }
 
-// The form that runs for n rows in float32 (f64 = 0) or float64 (f64 = 1),
-// of the forward (which = 0), the backward (1) or the forward mode (2): 0
-// row per lane, 1 blocked, 2 streaming, 3 linearised; -1 for no kernel.
-extern "C" int tds_pgs_form(int f64, int n, int which) {
-  if (which == 2) return f64 ? jvp_plan<double>(n).form : jvp_plan<float>(n).form;
-  if (which == 1) return f64 ? backward_plan<double>(n).form : backward_plan<float>(n).form;
-  return f64 ? forward_plan<double>(n).form : forward_plan<float>(n).form;
+// The form of the instance tds_pgs_instance_launch_shape describes: 0 row
+// per lane, 1 blocked, 2 streaming, 3 linearised, 4 linearised sweeps with
+// A's upper part streamed from L2, 5 with A whole in shared memory (the
+// backward past one sweep); -1 for no kernel.
+extern "C" int tds_pgs_instance_form(int f64, int n, int which, int warm, int iterations) {
+  return f64 ? instance_plan<double>(n, which, warm, iterations).form
+             : instance_plan<float>(n, which, warm, iterations).form;
 }

@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 // Lane i's row of the problem: A_i., b_i, lo_i, hi_i and dep_i (-1: none).
 template <typename T, int N>
 struct LaneRow {
@@ -68,29 +70,70 @@ __device__ __forceinline__ void opaque(double& v) { asm volatile("" : "+d"(v)); 
 // of K1's zero-start instances for one sweep, which K1 launches for at most
 // one sweep from x = 0; K1 launches the Split instances for every other
 // start and count, so that the one-sweep paths compile to what they were.
+// The Split instances carry the lane's sums (prefix, next, upper) in double
+// in both types, as the blocked and streaming forms do: in float32 their
+// float sums from x0 strayed 1.94e-6 from the plain sweep in float64 at
+// n = 24, B = 4096, past the float32 tolerance (rtol 1e-5, atol 1e-6; on an
+// H100 80GB HBM3). In float32 the chain then keeps b_i minus the sum so far
+// (`prefix`) and multiplies it, rounded once, by 1 / A_ii taken before the
+// sweeps, so that a double FMA and two conversions take the place of the
+// float FMA, subtraction and divide on it.
+
+// The type of a sweep's running sums: double with Split, else T.
+template <typename T, bool Split>
+using SweepAcc = typename std::conditional<Split, double, T>::type;
+
+// v in double, converted where it is used: a plain conversion of a row's
+// entry is the same at every sweep, and the compiler then hoists the N
+// conversions out of the sweep loop and holds them in 2N more registers
+// (ptxas spilled 8-16 B a thread in the float32 N = 16 and 24 instances,
+// and the N = 24 forward mode took 192 registers, not 117).
+__device__ __forceinline__ double widen(float v) {
+  double d;
+  asm volatile("cvt.f64.f32 %0, %1;" : "=d"(d) : "f"(v));
+  return d;
+}
+__device__ __forceinline__ double widen(double v) { return v; }
 
 template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
 __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int iterations, T mine = T(0),
-                                        T x_dep = T(0), T upper = T(0)) {
+                                        T x_dep = T(0), SweepAcc<T, Split> upper = 0) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
+  using Acc = SweepAcc<T, Split>;
+  // float32 with Split: prefix holds b_i less the row's sum so far
+  constexpr bool kRemainder = Split && std::is_same<T, float>::value;
   const int lane = threadIdx.x % G;
   if (!Warm) {
 #pragma unroll
     for (int j = 0; j < N; ++j) x[j] = T(0);
   }
+  T inv = T(0);  // with kRemainder, 1 / the lane's A_ii
+  if constexpr (kRemainder) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) inv = lane == i ? row.a[i] : inv;
+    inv = T(1) / inv;
+  }
   for (int it = 0; it < iterations; ++it) {
     // the lane's row over the columns done so far: with Split, those after
     // it (the previous sweep's x) first, then those before it
-    T prefix = Split ? upper : T(0);
-    T next = T(0);
+    Acc prefix = Split ? upper : Acc(0);
+    if constexpr (kRemainder) prefix = widen(row.b) - prefix;
+    Acc next = Acc(0);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      T delta = prefix;
-      if (!Split && (Warm || it > 0)) {
+      T xi;
+      if constexpr (kRemainder) {
+        xi = T(prefix) * inv;
+      } else if (Split) {
+        xi = T(Acc(row.b) - prefix) / row.a[i];
+      } else {
+        T delta = prefix;
+        if (Warm || it > 0) {
 #pragma unroll
-        for (int j = i + 1; j < N; ++j) delta += row.a[j] * x[j];
+          for (int j = i + 1; j < N; ++j) delta += row.a[j] * x[j];
+        }
+        xi = (row.b - delta) / row.a[i];
       }
-      T xi = (row.b - delta) / row.a[i];
       const T s = row.dep >= 0 ? (x_dep > T(0) ? x_dep : T(0)) : T(1);
       // clip(xi, lo*s, hi*s) = min(max(xi, lo*s), hi*s), as jnp.clip
       const T l = row.lo * s;
@@ -101,8 +144,14 @@ __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int
       mine = lane == i ? x[i] : mine;
       x_dep = row.dep == i ? x[i] : x_dep;
       if (Split) opaque(x_dep);
-      prefix = lane > i ? prefix + row.a[i] * x[i] : prefix;
-      if (Split) next = lane < i ? next + row.a[i] * x[i] : next;
+      if constexpr (kRemainder) {
+        const double a = widen(row.a[i]), xv = widen(x[i]);
+        prefix = lane > i ? prefix - a * xv : prefix;
+        next = lane < i ? next + a * xv : next;
+      } else {
+        prefix = lane > i ? prefix + Acc(row.a[i]) * Acc(x[i]) : prefix;
+        if (Split) next = lane < i ? next + Acc(row.a[i]) * Acc(x[i]) : next;
+      }
     }
     upper = next;
   }
@@ -141,10 +190,10 @@ struct LaneTangent {
 };
 
 // A lane's row's sums over its columns j > lane that a sweep of
-// pgs_jvp_sweeps starts from: A against x, A' against x, A against x'.
-template <typename T>
+// pgs_jvp_sweeps starts from: A against x, A' against x, A against x'. In
+// double in both types, as every sum of pgs_jvp_sweeps.
 struct UpperSums {
-  T x, a_dot_x, x_dot;
+  double x, a_dot_x, x_dot;
 };
 
 // The forward-mode (JVP) counterpart of pgs_sweeps: the same sweeps over
@@ -171,10 +220,14 @@ struct UpperSums {
 // and `upper` the lane's row's sums over its columns j > lane: A x0, A' x0
 // and A x0') and returns (x, x') of the lane's row in (mine, mined) on
 // lanes below N (with Warm the caller sets both to x0 and x0' of the row).
+// The sums (of the chains, of c, and those after each row) run in double in
+// both types, as pgs_sweeps' with Split: in float32 their float sums from
+// x0 strayed 3.2e-6 from the plain version in float64 in x' at n = 24,
+// B = 4096, past rtol 1e-5, atol 1e-6 max|x'| (on an H100 80GB HBM3).
 template <typename T, int N, int G, bool Warm = false>
 __device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], const LaneRow<T, N>& row, const LaneTangent<T>& tangent,
                                                int iterations, T& mine, T& mined, T x_dep = T(0), T xd_dep = T(0),
-                                               UpperSums<T> upper = {T(0), T(0), T(0)}) {
+                                               UpperSums upper = {0.0, 0.0, 0.0}) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   const int lane = threadIdx.x % G;
   if (!Warm) {
@@ -190,11 +243,11 @@ __device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], const LaneRow<T, N>& r
   for (int it = 0; it < iterations; ++it) {
     const bool last = it + 1 == iterations;
     // (1) the primal chain, from the row's columns after it
-    T sum = upper.x, next = T(0);
+    double sum = upper.x, next = 0.0;
     T u = T(0), dep_at = T(0);  // u and x_dep of the lane's row, as its row saw them
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const T ui = (row.b - sum) / row.a[i];
+      const T ui = T(double(row.b) - sum) / row.a[i];
       const T s = has_dep ? (x_dep > T(0) ? x_dep : T(0)) : T(1);
       const T l = row.lo * s;
       const T h = row.hi * s;
@@ -206,39 +259,41 @@ __device__ __forceinline__ void pgs_jvp_sweeps(T (&x)[N], const LaneRow<T, N>& r
       mine = lane == i ? x[i] : mine;
       x_dep = row.dep == i ? x[i] : x_dep;
       opaque(x_dep);
-      sum = lane > i ? sum + row.a[i] * x[i] : sum;
-      next = lane < i ? next + row.a[i] * x[i] : next;
+      const double a = widen(row.a[i]), xv = widen(x[i]);
+      sum = lane > i ? sum + a * xv : sum;
+      next = lane < i ? next + a * xv : next;
     }
     upper.x = next;
     // (2) c: A''s columns after the row (the previous sweep's x), then
     // before it, and u A'_ii; the columns after it for the next sweep
-    T c = upper.a_dot_x, c_next = T(0);
+    double c = upper.a_dot_x, c_next = 0.0;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      if (j < lane && j < tangent.cols) c += tangent.a[j] * x[j];
-      if (j > lane && j < tangent.cols && !last) c_next += tangent.a[j] * x[j];
+      if (j < lane && j < tangent.cols) c += double(tangent.a[j]) * double(x[j]);
+      if (j > lane && j < tangent.cols && !last) c_next += double(tangent.a[j]) * double(x[j]);
     }
-    c += u * aii_dot;
+    c += double(u) * double(aii_dot);
     upper.a_dot_x = c_next;
     const T s = has_dep ? (dep_at > T(0) ? dep_at : T(0)) : T(1);
     T mp, ml, mh;
     clip_factors(u, row.lo * s, row.hi * s, mp, ml, mh);
     const T k1 = mp / aii;
-    const T bc = tangent.b - c;
+    const double bc = double(tangent.b) - c;
     const T k0 = (ml * tangent.lo + mh * tangent.hi) * s;
     const T k2 = has_dep ? (ml * row.lo + mh * row.hi) * relu_slope(dep_at) : T(0);
     // (3) the tangent chain, from the row's columns after it (the previous
     // sweep's x')
-    T sumd = upper.x_dot, nextd = T(0);
+    double sumd = upper.x_dot, nextd = 0.0;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const T xdi = k1 * (bc - sumd) + (k0 + k2 * xd_dep);
+      const T xdi = T(double(k1) * (bc - sumd) + double(k0 + k2 * xd_dep));
       const T xdm = __shfl_sync(0xffffffffu, xdi, i, G);
       mined = lane == i ? xdm : mined;
       xd_dep = row.dep == i ? xdm : xd_dep;
       opaque(xd_dep);
-      sumd = lane > i ? sumd + row.a[i] * xdm : sumd;
-      nextd = lane < i ? nextd + row.a[i] * xdm : nextd;
+      const double a = widen(row.a[i]), xd = widen(xdm);
+      sumd = lane > i ? sumd + a * xd : sumd;
+      nextd = lane < i ? nextd + a * xd : nextd;
     }
     upper.x_dot = nextd;
   }

@@ -6,26 +6,35 @@ of ``csrc/`` (an earlier commit's), on the card:
         [--iterations 1] [--rows 12 24 48 105] [--batch B] [--panda]
 
 Each row count runs at its path's batch (4096; the humanoid's 105 rows at
-1024) unless ``--batch`` names one. Both libraries solve the same random
+1024) unless ``--batch`` names one (``--batch 2``: the ball loss's). Both
+libraries solve the same random
 problems (``chip_smoke.py``'s layout; with ``--warm`` an x0 of normal draws
 and, for the forward mode, its tangent) in float32 and float64, at
 ``--iterations`` sweeps. ``--panda`` takes instead the operands of the
 three solves of a Panda push step mid-stroke (``tools/panda_push.py``,
 4096 scenes in float32, step 401, after 400 replayed steps: n = 3, 24, 3 at
-their own 10 sweeps). Where the design promises the same bits (the zero
+their own 10 sweeps; with ``--warm`` an x0 of normal draws beside them).
+Where the design promises the same bits (the zero
 start's first sweep, forward and backward, every n) the tool holds the
 two libraries to each other bit for bit; elsewhere it holds each to the
 plain version (``chip_smoke.py``'s tolerances: the forward's ``pgs_tol``,
 the backward's rtol 1e-4 and atol 1e-5 max|grad| in float32, 1e-12
 relative in float64, the forward mode's rtol 1e-5 and atol 1e-6 max|x'|
 in float32; from a warm start the float32 cases against the plain
-version in float64, and past the first sweep every float32 case so)
-and prints each one's largest difference and verdict, beside the
-float32 plain version's own difference from the float64 one. It then
+version in float64, and past the first sweep every float32 case so; a
+float32 backward against :func:`plain_backward_along`, the plain version
+in float64 along each library's own sweeps, on the envs with no clip
+near a tie) and prints each one's largest difference and verdict, beside
+the float32 plain version's own difference from the float64 one (and
+for a float32 backward each library's difference from the plain version
+in float64 over every env, which a clip decided the other way near a tie
+moves, and its envs near a tie). It then
 times both on the float32 problem in turns (other, this, this, other),
 each turn the median of 100 CUDA-event-timed launches, and the same
 launch with 0 sweeps (the forward: A staged or loaded and x written; the
-backward: the gradients zeroed), beside each library's launch shape. It
+backward: the gradients zeroed), beside each library's launch shape and
+the case's bound (the bytes the function must move over 3.35 TB/s or its
+flops over 67 TFLOP/s, an H100's peaks: ``chip_smoke.py``'s counts). It
 prints one JSON line per problem and exits 1 when a pair differs in a bit
 or a library lies past its tolerance. Both libraries are built with nvcc
 into ``build/kernels/``.
@@ -46,6 +55,9 @@ from tds_tpu_torch.utils.timing import device_ms
 
 PATH_BATCH = {105: 1024}  # the humanoid's; every other row count's path runs 4096 envs
 PANDA_BATCH, PANDA_STEP = 4096, 400
+# an H100's memory rate (bytes/s) and float32 and float64 rates outside the
+# tensor cores (flop/s), NVIDIA's data sheet: chip_smoke.py's peaks
+PEAKS = (3.35e12, 67e12, 34e12)
 
 
 def problem(batch, n, dtype, generator, warm):
@@ -62,6 +74,73 @@ def problem(batch, n, dtype, generator, warm):
     ops = [a, b, lo, hi] + ([torch.randn(batch, n, generator=generator, dtype=torch.float64, device=dev)] if warm else [])
     dep = [-1] * n_c + [k % n_c for k in range(n - n_c)]
     return [t.to(dtype).contiguous() for t in ops], dep
+
+
+def bound_us(kind, warm, iterations, b):
+    """The least time (us) of K1's ``kind`` (forward, backward or jvp) at
+    ``iterations`` sweeps on operands whose b is ``b``, and what bounds it:
+    chip_smoke.py's counts (``pgs_bound``, ``k1_backward_bound``,
+    ``k1_jvp_bound``; from x0, ``warm_bounds``: every column from the first
+    sweep, x0 read and its adjoint or tangent moved too) over PEAKS."""
+    bsz, n = b.shape
+    size = b.element_size()
+    a_values = n * n if warm or iterations > 1 else n * (n + 1) // 2
+    per_column, per_row = {"forward": (2, 4), "backward": (5, 20), "jvp": (6, 30)}[kind]
+    # the first sweep from x = 0 takes row i's i columns before it, every other sweep n - 1
+    first = sum(per_column * (n - 1 if warm else i) + per_row for i in range(n))
+    later = max(iterations - 1, 0) * n * (per_column * (n - 1) + per_row)
+    vectors = {"forward": 4, "backward": 7 + max(iterations - 1, 0), "jvp": 8}[kind] + (warm and (2 if kind == "jvp" else 1))
+    values = {"forward": a_values, "backward": a_values + n * n, "jvp": 2 * a_values}[kind]
+    n_bytes = size * bsz * (values + vectors * n) + 4 * n
+    n_ops = bsz * (first + later) if iterations else 0
+    t_bytes, t_ops = n_bytes / PEAKS[0] * 1e6, n_ops / PEAKS[1 if size == 4 else 2] * 1e6
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tie_margin(n):
+    """How near its bound (relative to the size of its row's terms) a clip
+    lies when a float32 forward's own rounding of the row's update may
+    decide it the other way: 32 float32 ulps where a row-per-lane instance
+    sums in float32 (n <= 32), 4 where the sums run in double and the
+    update is rounded once."""
+    return 4e-6 if n <= 32 else 2.4e-7
+
+
+def plain_backward_along(operands, dep, xs, x_bar):
+    """The plain version's gradients (autograd, float64; x0-bar last with
+    x0) along a kernel's own sweeps: ``xs`` (T, B, n), x after each sweep of
+    the kernel's forward on ``operands`` (a, b, lo, hi[, x0]), the state its
+    backward reads. Each row's update is computed in float64 from the
+    kernel's x so far and then takes the kernel's value, its derivative
+    unchanged: every clip is decided on the kernel's trajectory, so the
+    comparison holds the backward's arithmetic and not the forward's
+    rounding, which near a tie decides a clip the other way and moves a
+    gradient by a whole term. Also returns, for each env, whether one of
+    its clips lies within ``tie_margin(n)`` of its bound but not on it: the
+    kernel's own rounding of that update may have decided it the other
+    way."""
+    inputs = [t.double().clone().requires_grad_() for t in operands]
+    a, b, lo, hi = inputs[:4]
+    bsz, n = b.shape
+    eps = tie_margin(n)
+    near = torch.zeros(bsz, dtype=torch.bool, device=b.device)
+    with torch.enable_grad():
+        x = inputs[4] if len(inputs) > 4 else torch.zeros_like(b)
+        for t in range(xs.shape[0]):
+            for i in range(n):
+                terms = a[:, i, :] * x
+                u = (b[:, i] - (terms.sum(-1) - terms[:, i])) / a[:, i, i]
+                s = torch.maximum(x[:, dep[i]], torch.zeros_like(u)) if dep[i] >= 0 else torch.ones_like(u)
+                lo_i, hi_i = lo[:, i] * s, hi[:, i] * s
+                with torch.no_grad():
+                    size = (b[:, i].abs() + terms.abs().sum(-1) - terms[:, i].abs()) / a[:, i, i].abs()
+                    gap = torch.minimum((u - lo_i).abs(), (u - hi_i).abs())
+                    near |= (gap > 0) & (gap < eps * size)
+                xi = torch.minimum(torch.maximum(u, lo_i), hi_i)
+                x = x.clone()
+                x[:, i] = xi + (xs[t, :, i].double() - xi).detach()
+        grads = torch.autograd.grad(x, inputs, x_bar.double(), allow_unused=True, materialize_grads=True)
+    return list(grads), near
 
 
 def panda_problems():
@@ -177,6 +256,11 @@ class Kernel:
         tangents = [t.to(dtype) for t in self.tangents]
         return list(pgs.solve_pgs_jvp_reference(*ops[:4], tangents, self.dep, iterations, x0))
 
+    def plain_along(self, lib, iterations):
+        """The backward's plain gradients along ``lib``'s own sweeps and the
+        envs near a tie (:func:`plain_backward_along`)."""
+        return plain_backward_along(self.operands, self.dep, self.sweeps(lib, iterations), self.x_bar)
+
     def tolerance(self, n, index, want):
         """(rtol, atol) of result ``index`` (``want`` its plain value)."""
         f32 = self.operands[1].dtype == torch.float32
@@ -206,12 +290,16 @@ def agreement(libs, kernels, iterations):
     """The libraries' agreement on each kernel: bit for bit where the design
     promises it (the zero start's first sweep of the forward and the
     backward), else each library's largest difference from the plain
-    version and whether it lies within the tolerance; where a float32
-    kernel is held to the plain version in float64, the float32 plain
-    version's own largest difference from it and its verdict beside them.
-    Returns (the report, whether it passes)."""
+    version and whether it lies within the tolerance (a float32 backward:
+    along the library's own sweeps, on the envs with no clip near a tie);
+    where a float32 kernel is held to the plain version in float64, the
+    float32 plain version's own largest difference from it and its verdict
+    beside them, and for a float32 backward each library's difference from
+    it over every env and its envs near a tie. Returns (the report, whether
+    it passes)."""
     same, errs, within = {}, {name: 0.0 for name in libs}, {name: True for name in libs}
     own_err, own_within, checked = 0.0, True, False
+    all_envs, near_tie = {name: 0.0 for name in libs}, {name: 0 for name in libs}
     for kernel in kernels:
         got = {name: kernel.run(lib, iterations) for name, lib in libs.items()}
         b = kernel.operands[1]
@@ -220,9 +308,16 @@ def agreement(libs, kernels, iterations):
             same[str(b.dtype)[6:]] = all(torch.equal(g, o) for g, o in zip(got["this"], got["other"]))
             continue
         want = kernel.plain(iterations)
-        for name in libs:
-            for index, (g, w) in enumerate(zip(got[name], want)):
-                err, over = excess(g, w, *kernel.tolerance(n, index, w))
+        along = kernel.kind == "backward" and b.dtype == torch.float32
+        for name, lib in libs.items():
+            ref, keep = want, slice(None)
+            if along:
+                ref, near = kernel.plain_along(lib, iterations)
+                keep = ~near
+                near_tie[name] += int(near.sum())
+                all_envs[name] = max([all_envs[name]] + [excess(g, w, 0.0, 0.0)[0] for g, w in zip(got[name], want)])
+            for index, (g, w) in enumerate(zip(got[name], ref)):
+                err, over = excess(g[keep], w[keep], *kernel.tolerance(n, index, w))
                 errs[name] = max(errs[name], err)
                 within[name] = within[name] and over <= 0 and bool(torch.isfinite(g).all())
         if b.dtype == torch.float32 and want[0].dtype == torch.float64:
@@ -239,6 +334,9 @@ def agreement(libs, kernels, iterations):
         ok = ok and all(within.values())
     if checked:
         report["plain_float32_vs_float64"] = {"max_abs_err": own_err, "within_tolerance": own_within}
+    if any(near_tie.values()) or any(all_envs.values()):
+        report["float32_backward_vs_plain_float64_every_env"] = all_envs
+        report["float32_backward_envs_near_a_tie"] = near_tie
     return report, ok
 
 
@@ -274,6 +372,19 @@ def timed(libs, kernel, iterations):
             "this_0_sweeps_ms": times["this", 0], "other_0_sweeps_ms": times["other", 0]}
 
 
+def random_cases(kind, rows, batch, iterations, warm, generator):
+    """[(n, batch, iterations, kernels, "random")] as ``main`` runs them:
+    each row count's float32 and float64 problem drawn from ``generator``
+    in turn, then each case's kernels (their cotangents and tangents drawn
+    in turn), so that a seed gives every case the same operands run after
+    run (a test can rebuild a case of a run from it)."""
+    problems = [(n, batch or PATH_BATCH.get(n, 4096)) for n in rows]
+    problems = [(n, bsz, [problem(bsz, n, dtype, generator, warm) for dtype in (torch.float32, torch.float64)])
+                for n, bsz in problems]
+    return [(n, bsz, iterations, [Kernel(kind, warm, ops, dep, generator) for ops, dep in probs], "random")
+            for n, bsz, probs in problems]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="another copy of tds_tpu_torch/csrc")
@@ -295,22 +406,22 @@ def main(argv=None):
     name = "backward" if args.backward else "jvp" if args.jvp else "forward"
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.panda:
-        cases = [(ops[1].shape[1], ops[1].shape[0], it, [(ops, dep)], f"panda solve {k}")
-                 for k, (ops, dep, it) in enumerate(panda_problems())]
-    else:
         cases = []
-        for n in args.rows:
-            batch = args.batch or PATH_BATCH.get(n, 4096)
-            problems = [problem(batch, n, dtype, gen, args.warm) for dtype in (torch.float32, torch.float64)]
-            cases.append((n, batch, args.iterations, problems, "random"))
+        for k, (ops, dep, it) in enumerate(panda_problems()):
+            if args.warm:
+                ops = ops + [torch.randn(ops[1].shape, generator=gen, dtype=ops[1].dtype, device=ops[1].device)]
+            cases.append((ops[1].shape[1], ops[1].shape[0], it, [Kernel(name, args.warm, ops, dep, gen)], f"panda solve {k}"))
+    else:
+        cases = random_cases(name, args.rows, args.batch, args.iterations, args.warm, gen)
     failed = False
-    for n, batch, iterations, problems, operands in cases:
-        kernels = [Kernel(name, args.warm, ops, dep, gen) for ops, dep in problems]
+    for n, batch, iterations, kernels, operands in cases:
         report, ok = agreement(libs, kernels, iterations)
         failed = failed or not ok
+        bound, bound_by = bound_us(name, args.warm, iterations, kernels[0].operands[1])
         line = {"kernel": name, "warm": args.warm, "operands": operands, "iterations": iterations, "rows": n,
-                "batch": batch, "form": pgs.form(torch.float32, n, args.backward, args.jvp), **report, "ok": ok,
-                **timed(libs, kernels[0], iterations), **shapes(libs, kernels[0], n, batch, iterations), "card": card}
+                "batch": batch, "form": pgs.form(torch.float32, n, args.backward, args.jvp, args.warm, iterations),
+                **report, "ok": ok, **timed(libs, kernels[0], iterations), "bound_us": bound, "bound_by": bound_by,
+                **shapes(libs, kernels[0], n, batch, iterations), "card": card}
         print(json.dumps(line), flush=True)
     return 1 if failed else 0
 

@@ -516,3 +516,168 @@ def test_no_forward_or_forward_mode_instance_has_local_memory(cuda_device):
     for warm in (False, True):
         jvp = pgs.launch_shape(torch.float32, 105, 1024, jvp=True, warm=warm)
         assert jvp["form"] == "blocked" and jvp["resident_warps_per_sm"] >= max(8, forward["resident_warps_per_sm"]), jvp
+
+
+# -- K1's backward past its first sweep, and the blocked forward's limit
+# from x0 ------------------------------------------------------------------
+# groups of 16 lanes (3, 12, 16), of 32 (17-32), the blocked n (33-105)
+SWEEPS_ROWS = (3, 12, 16, 17, 24, 32, 33, 48, 65, 105)
+WHOLE, STREAMED = "linearised sweeps, A whole", "linearised sweeps"
+
+
+def _plain_grads(operands, dep, iterations, x_bar, x0=None):
+    """The plain version's autograd gradients (x0-bar last with x0) in
+    float64 on the same operands."""
+    plain = [t.double().clone().requires_grad_() for t in operands + ([x0] if x0 is not None else [])]
+    x = pgs.solve_pgs_reference(*plain[:4], dep, iterations, plain[4] if x0 is not None else None)
+    return [g.cpu() for g in torch.autograd.grad(x, plain, x_bar.double())]
+
+
+@pytest.mark.parametrize("iterations", [3, 4, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", SWEEPS_ROWS)
+def test_backward_past_the_first_sweep_matches_plain(cuda_device, n, dtype, iterations):
+    """K1's backward at 3, 4 and 10 sweeps from x = 0 ("linearised sweeps":
+    x before each sweep staged once, A-bar written once after the last sweep
+    visited; A's upper part staged whole in shared memory or streamed from
+    L2, as the plan picks for n: whole at n <= 16) against the plain
+    version's autograd in float64 on the same operands, on the interleaved
+    layout with ties in envs 1 and 2: float64 within 1e-12 relative,
+    float32 within rtol 1e-4 and atol 1e-5 max|grad|."""
+    operands, _, dep = _jvp_problem(37, n, 5 * n + iterations, dtype, "interleaved", cuda_device)
+    x_bar = torch.from_numpy(np.random.default_rng(n).normal(size=(37, n))).to(cuda_device, dtype)
+    want = _plain_grads(operands, dep, iterations, x_bar)
+    form = pgs.form(dtype, n, backward=True, iterations=iterations)
+    assert form == WHOLE if n <= 16 else form in (WHOLE, STREAMED), form
+    x = pgs._launch(*operands, tuple(dep), iterations)
+    got = pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar)
+    _assert_grads_close([g.double() for g in got], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_plan_picks_each_sweeps_form_on_the_paths_row_counts(cuda_device, dtype):
+    """Both ways of holding A's upper part run on the row counts the tests
+    above take, from x = 0 at 3 and 10 sweeps and from x0 at 3: "A whole"
+    at the fewest rows (n = 3), "upper streamed" at the humanoid's 105."""
+    for warm, iterations in ((False, 3), (False, 10), (True, 3)):
+        forms = [pgs.form(dtype, n, backward=True, warm=warm, iterations=iterations) for n in SWEEPS_ROWS]
+        assert forms[0] == WHOLE and forms[-1] == STREAMED, (warm, iterations, forms)
+
+
+def _last_n(dtype, forms, **kwargs):
+    """The largest n < 500 whose kernel (``pgs.form``'s ``kwargs``) takes one
+    of ``forms``."""
+    return max(n for n in range(1, 500) if pgs.form(dtype, n, **kwargs) in forms)
+
+
+@pytest.mark.parametrize("iterations", [3, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_backward_sweeps_both_sides_of_their_limits(cuda_device, dtype, iterations):
+    """The limits the backward past one sweep brings, each n against the
+    plain version's autograd in float64 at B = 3 (a random problem), from
+    x = 0 and from x0 (at two sweeps; one sweep from x0 runs "linearised"):
+    the last n at which the plan holds A whole and the next ("upper
+    streamed"), the last n whose "upper streamed" staging fits and the
+    next ("streaming"); n = 16 and 17 (groups of 16 lanes, then 32)."""
+    assert pgs.form(dtype, 105, backward=True, warm=True) == "linearised"
+    cases = []
+    for warm, it in ((False, iterations), (True, 2)):
+        whole = _last_n(dtype, (WHOLE,), backward=True, warm=warm, iterations=it)
+        staged = _last_n(dtype, (WHOLE, STREAMED), backward=True, warm=warm, iterations=it)
+        cases += [(whole, it, warm, WHOLE), (whole + 1, it, warm, STREAMED), (staged, it, warm, STREAMED),
+                  (staged + 1, it, warm, "streaming"), (16, it, warm, WHOLE)]
+        cases.append((17, it, warm, pgs.form(dtype, 17, backward=True, warm=warm, iterations=it)))
+    for n, it, warm, form in cases:
+        assert pgs.form(dtype, n, backward=True, warm=warm, iterations=it) == form, (n, it, warm)
+        operands, _, dep = _jvp_problem(3, n, n, dtype, "normals first", cuda_device)
+        x0 = torch.randn(3, n, dtype=dtype, device=cuda_device) if warm else None
+        x_bar = torch.ones(3, n, dtype=dtype, device=cuda_device)
+        want = _plain_grads(operands, dep, it, x_bar, x0)
+        x = pgs._launch(*operands, tuple(dep), it, x0)
+        got = pgs._launch_backward(*operands, tuple(dep), it, x, x_bar, x0)
+        _assert_grads_close([g.double() for g in got], want, dtype)
+        if warm:
+            scale = want[4].abs().max().item()
+            tol = dict(rtol=1e-4, atol=1e-5 * scale) if dtype == torch.float32 else dict(rtol=1e-12, atol=1e-12 * scale)
+            torch.testing.assert_close(got[4].double().cpu(), want[4], **tol)
+
+
+# (rows, batch, sweeps, from x0): the ball loss's n = 3 at 4 sweeps, the
+# Panda push's n = 24 at 10, the humanoid's n = 105 from x0 at 3 (the
+# "upper streamed" form's public path) and at 10
+PATH_CASES = ((3, 4096, 4, False), (24, 4096, 10, False), (105, 1024, 3, True), (105, 1024, 10, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,batch,iterations,warm", PATH_CASES)
+def test_backward_sweeps_at_the_paths_batches(cuda_device, n, batch, iterations, warm, dtype):
+    """The backward past one sweep at the paths' batches on the interleaved
+    layout with ties in envs 1 and 2: float64 against the plain version's
+    autograd within 1e-12 relative over every env; float32 against the
+    plain version in float64 along the kernel's own sweeps
+    (``tools/pgs_ab.py``'s ``plain_backward_along``) within rtol 1e-4 and
+    atol 1e-5 max|grad| on the envs with no clip near a tie, at most 5% of
+    them (where the float32 forward's rounding may decide a clip the other
+    way; against the plain autograd a whole term of a gradient moves)."""
+    from tds_tpu_torch.tools import pgs_ab
+
+    operands, _, dep = _jvp_problem(batch, n, 7 * n + iterations, dtype, "interleaved", cuda_device)
+    x0 = torch.from_numpy(np.random.default_rng(n).normal(size=(batch, n))).to(cuda_device, dtype) if warm else None
+    x_bar = torch.from_numpy(np.random.default_rng(n + 1).normal(size=(batch, n))).to(cuda_device, dtype)
+    x = pgs._launch(*operands, tuple(dep), iterations, x0)
+    got = [g.double() for g in pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar, x0)]
+    ops = operands + ([x0] if warm else [])
+    if dtype == torch.float64:
+        want, keep = [w.to(cuda_device) for w in _plain_grads(operands, dep, iterations, x_bar, x0)], slice(None)
+    else:
+        xs = torch.stack([pgs._launch(*operands, tuple(dep), t, x0) for t in range(1, iterations)] + [x])
+        want, near = pgs_ab.plain_backward_along(ops, dep, xs, x_bar)
+        assert int(near.sum()) <= 0.05 * batch, int(near.sum())
+        keep = ~near
+    for name, g, w in zip(("A", "b", "lo", "hi", "x0"), got, want):
+        scale = w.abs().max().item()
+        tol = dict(rtol=1e-12, atol=1e-12 * scale) if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-5 * scale)
+        torch.testing.assert_close(g[keep], w[keep], **tol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_forward_from_x0_both_sides_of_its_limit(cuda_device, dtype):
+    """The last n whose blocked forward from x0 and past one sweep fits a
+    block and the next (streaming): from x0 at 1 sweep and from x = 0 at 3,
+    against the plain version in float64 at B = 3."""
+    last = _last_n(dtype, ("blocked",), warm=True)
+    assert last == _last_n(dtype, ("blocked",), iterations=3) == _last_n(dtype, ("blocked",))
+    for n, form in ((last, "blocked"), (last + 1, "streaming")):
+        operands, _, dep = _jvp_problem(3, n, n, dtype, "normals first", cuda_device)
+        x0 = torch.randn(3, n, dtype=dtype, device=cuda_device)
+        plain = [t.double() for t in operands]
+        for it, start in ((1, x0), (3, None)):
+            assert pgs.form(dtype, n, warm=start is not None, iterations=it) == form
+            want = pgs.solve_pgs_reference(*plain, dep, it, None if start is None else start.double())
+            got = pgs._launch(*operands, tuple(dep), it, start)
+            torch.testing.assert_close(got.double().cpu(), want.cpu(), **_tolerance(dtype, n))
+
+
+def test_new_instances_have_no_local_memory_and_a_block_resident(cuda_device):
+    """Every instance of the backward past one sweep that the plan launches
+    (from x0 at 1, 2 and 3 sweeps, from x = 0 at 3 and 10), and of the
+    blocked forward past one sweep, float32 and float64, at the paths' row
+    counts, the edges of the groups and blocks and both sides of the staged
+    limits: 0 bytes of local memory, at least one block resident an SM;
+    among them each "linearised sweeps" instance (A whole with groups of 16
+    and of 32 lanes, upper streamed; from x = 0 and from x0)."""
+    for dtype in (torch.float32, torch.float64):
+        staged = _last_n(dtype, (WHOLE, STREAMED), backward=True, warm=True, iterations=2)
+        whole = _last_n(dtype, (WHOLE,), backward=True, warm=True, iterations=2)
+        blocked = _last_n(dtype, ("blocked",), warm=True)
+        seen = set()
+        for n in (3, 8, 12, 16, 17, 24, 32, 33, 48, 65, 97, 105, whole, whole + 1, staged, staged + 1, blocked, blocked + 1):
+            for warm, it in ((True, 1), (True, 2), (True, 3), (False, 3), (False, 10)):
+                shape = pgs.launch_shape(dtype, n, 4096, backward=True, warm=warm, iterations=it)
+                assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] >= 1, (dtype, n, warm, it, shape)
+                seen.add((shape["form"], shape["lanes_per_env"], warm))
+                if n > 32:
+                    shape = pgs.launch_shape(dtype, n, 4096, warm=warm, iterations=it)
+                    assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] >= 1, (dtype, n, warm, it, shape)
+        for warm in (False, True):
+            assert {(WHOLE, 16, warm), (WHOLE, 32, warm), (STREAMED, 32, warm)} <= seen, (dtype, seen)

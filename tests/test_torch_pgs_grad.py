@@ -6,7 +6,8 @@ Both take the vector-Jacobian product with the same cotangent of x, so
 every entry of the gradients of A, b, lo and hi is compared. The problems
 are tests/test_pallas_pgs.py's (normal rows, then two friction rows per
 contact bounded by +-0.5 times the normal impulse), at n = 3, 12, 24 and
-48 rows, one and two sweeps, in batches that hold:
+48 rows, one and two sweeps, and at n = 3 and 12 with 4 and 10 sweeps (the
+ball loss's 4, the Panda push's 10), in batches that hold:
 
 - random envs, away from every tie;
 - envs whose normal impulses are all exactly 0 (b pushes them below their
@@ -20,6 +21,11 @@ side; ``torch.clamp`` and ``clamp_min``, which the plain version used
 before, pass all of it to x, and fail the tie cases. On problems away from
 the kinks ``torch.autograd.gradcheck`` holds the plain version's gradient
 against its own finite differences.
+
+The plain backward along a kernel's own sweeps (``tools/pgs_ab.py``'s
+``plain_backward_along``, which the card's checks hold a float32 backward
+to) is held to the same JAX results on the plain version's own sweeps, and
+its flag of the clips near a tie to a problem built with one.
 
 Plain models of the order in which ``csrc/pgs.cu`` computes (the blocked
 forward of n > 32 and the linearised backward of every n, rows in blocks
@@ -40,6 +46,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tds_tpu.contact.mlcp import solve_pgs as j_solve_pgs  # noqa: E402
 from tds_tpu_torch.contact import pgs  # noqa: E402
+from tds_tpu_torch.tools import pgs_ab  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,8 +128,13 @@ def _assert_close(got, want, label):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * scale, err_msg=label)
 
 
-@pytest.mark.parametrize("iterations", [1, 2])
-@pytest.mark.parametrize("n", [3, 12, 24, 48])
+# (n, sweeps): the paths' row counts at one and two sweeps, then the sweeps
+# past the first that the kernels' backward takes (the ball loss's 4, the
+# Panda push's 10)
+SWEEP_CASES = [(n, it) for n in (3, 12, 24, 48) for it in (1, 2)] + [(n, it) for n in (3, 12) for it in (4, 10)]
+
+
+@pytest.mark.parametrize("n,iterations", SWEEP_CASES)
 @pytest.mark.parametrize("kind", ["random", "ties"])
 @pytest.mark.parametrize("solve", [pgs.solve_pgs_reference, pgs.solve_pgs], ids=["reference", "solve_pgs"])
 def test_gradients_match_jax(solve, kind, n, iterations):
@@ -308,3 +320,46 @@ def test_deps_problems_reach_both_sides_and_the_ties():
     assert dep[0] == 61 and dep[3] == 4 and dep[5] == 4 and dep[64] == 1
     x = pgs.solve_pgs_reference(*(torch.from_numpy(v) for v in (a, b, lo, hi)), dep, 1)
     assert torch.all(x[1, 1:63:3] == 0) and torch.all(x[2] == 0) and torch.any(x[0] != 0)
+
+
+# -- the plain backward along a kernel's own sweeps --------------------------
+
+
+@pytest.mark.parametrize("n,iterations", SWEEP_CASES)
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_plain_backward_along_its_own_sweeps_matches_jax(kind, n, iterations):
+    """``pgs_ab.plain_backward_along`` on the plain version's own sweeps in
+    float64 is the plain backward: jax.vjp's gradients of A, b, lo and hi
+    within 1e-12 relative, the tie envs' exact ties among them, and no env
+    near a tie."""
+    seed = n + 100 * iterations
+    a, b, lo, hi, dep = _problem(n, seed, kind)
+    ops = [torch.from_numpy(v) for v in (a, b, lo, hi)]
+    xs = torch.stack([pgs.solve_pgs_reference(*ops, dep, t) for t in range(1, iterations + 1)])
+    got, near = pgs_ab.plain_backward_along(ops, dep, xs, torch.from_numpy(_cotangent(n, b.shape)))
+    _, want = _jax_case(n, seed, kind, iterations)
+    for name, g, w in zip(("A", "b", "lo", "hi"), got, want):
+        _assert_close(g.numpy(), w, name)
+    assert near.shape == (4,) and not near.any()
+
+
+def test_plain_backward_along_flags_a_clip_near_its_bound():
+    """From x0 = (0, 2) on two normal rows, row 0's first update is
+    b_0 - 1: 1e-7 in env 0 (near its bound 0 next to terms of size 2, where
+    a float32 rounding can decide the clip), 0.5 in env 1, exactly 0 in
+    env 2 (a tie, the same in every precision): only env 0 is flagged.
+    Each later row reads the sweeps given: with env 0's x_0 taken as 0,
+    row 1's gradient of A_10 (-x_0 c_1 / A_11) is 0."""
+    a = torch.tensor([[1.0, 0.5], [0.5, 1.0]], dtype=torch.float64).expand(3, 2, 2)
+    b = torch.tensor([[1.0 + 1e-7, 2.0], [1.5, 2.0], [1.0, 2.0]], dtype=torch.float64)
+    lo, hi = torch.zeros(3, 2, dtype=torch.float64), torch.full((3, 2), 1e5, dtype=torch.float64)
+    x0 = torch.tensor([[0.0, 2.0]] * 3, dtype=torch.float64)
+    xs = pgs.solve_pgs_reference(a, b, lo, hi, [-1, -1], 1, x0)[None]
+    x_bar = torch.tensor([[0.0, 1.0]] * 3, dtype=torch.float64)
+    grads, near = pgs_ab.plain_backward_along([a, b, lo, hi, x0], [-1, -1], xs, x_bar)
+    assert near.tolist() == [True, False, False]
+    assert grads[0][0, 1, 0].item() == -xs[0, 0, 0].item() != 0.0
+    along = xs.clone()
+    along[0, 0, 0] = 0.0
+    grads, _ = pgs_ab.plain_backward_along([a, b, lo, hi, x0], [-1, -1], along, x_bar)
+    assert grads[0][0, 1, 0].item() == 0.0

@@ -3,7 +3,8 @@
 relative:
 
 - ``tds_tpu_torch.contact.mlcp.solve_pgs(a, b, lo, hi, dep, x0, iterations)``
-  at n = 3, 12, 24 and 48 rows, 1 and 3 sweeps: its values, its
+  at n = 3, 12, 24 and 48 rows, 1 and 3 sweeps, and at n = 3 and 12 with 4
+  and 10 sweeps: its values, its
   vector-Jacobian product with respect to all five operands (``jax.vjp``,
   so ``jax.grad`` of any loss) and its Jacobian-vector product (``jax.jvp``)
   with tangents of all five; x0 nonzero, some of its entries outside their
@@ -31,6 +32,10 @@ from tds_tpu_torch.contact import mlcp, pgs  # noqa: E402
 
 RTOL = 1e-12
 ROWS, SWEEPS = (3, 12, 24, 48), (1, 3)
+# (n, sweeps): every row count at 1 and 3 sweeps, and the sweeps past the
+# first that the kernels' backward takes (the ball loss's 4, the Panda
+# push's 10)
+SWEEP_CASES = [(n, it) for n in ROWS for it in SWEEPS] + [(n, it) for n in (3, 12) for it in (4, 10)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -102,8 +107,7 @@ def _close(got, want, label):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * scale, err_msg=label)
 
 
-@pytest.mark.parametrize("iterations", SWEEPS)
-@pytest.mark.parametrize("n", ROWS)
+@pytest.mark.parametrize("n,iterations", SWEEP_CASES)
 def test_mlcp_solve_pgs_matches_jax(n, iterations):
     """Values, the VJP in all five operands and the JVP with tangents of all
     five against the JAX package's, on a batch with a random env and the

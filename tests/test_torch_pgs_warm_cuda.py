@@ -2,11 +2,13 @@
 device against the port's plain versions: the forward, the backward
 (x0-bar among its gradients) and the JVP (x0' among its tangents), in all
 three forms of each (row per lane, blocked or linearised, streaming: n = 3,
-12, 24, 33, 48, 105 and 340), float32 and float64, 0, 1, 3 and 10 sweeps,
+12, 24, 33, 48, 105 and 340), float32 and float64, 0, 1, 3, 4 and 10 sweeps,
 on random problems with x0 nonzero and some of its entries outside their
 rows' bounds, at batches that fill no whole block; the forward and the JVP
 again with envs at the kinks (every normal impulse pulled to 0, and b =
-x0 = 0), and the float32 row per lane form at n = 24 on 4096 envs.
+x0 = 0), and the float32 row per lane form at n = 24 on 4096 envs, on
+its own problem and on ``tools/pgs_ab.py --warm``'s (where its float32
+instances lay past the tolerance until their sums ran in double).
 Float64 within 1e-12
 relative; float32 within rtol 1e-5 / atol 1e-6 (x), rtol 1e-4 / atol 1e-5
 max|grad| (the backward), rtol 1e-5 / atol 1e-6 max|x'| (the JVP), held to
@@ -62,7 +64,7 @@ def _assert_within(got, want, rtol, atol, label):
     assert (err - (atol + rtol * want.abs())).max().item() <= 0, f"{label}: max |kernel - plain| {err.max().item():.3e}"
 
 
-@pytest.mark.parametrize("iterations", (0, 1, 3, 10))
+@pytest.mark.parametrize("iterations", (0, 1, 3, 4, 10))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 @pytest.mark.parametrize("n,batch", ROWS)
 def test_warm_kernels_match_the_plain_versions(cuda_device, n, batch, dtype, iterations):
@@ -131,6 +133,27 @@ def test_warm_row_per_lane_float32_at_a_paths_batch(cuda_device):
     _assert_within(pgs._launch(a, b, lo, hi, dep, 1, x0), pgs.solve_pgs_reference(*plain[:4], dep, 1, plain[4]),
                    1e-5, 1e-6, "x")
     tangents = [torch.randn(t.shape, generator=gen, dtype=torch.float32, device=cuda_device) for t in ops]
+    want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, 1, plain[4])
+    got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, 1, x0, tangents[4])
+    _assert_within(got_x, want_x, 1e-5, 1e-6, "jvp x")
+    _assert_within(got_dot, want_dot, 1e-5, 1e-6 * max(1.0, want_dot.abs().max().item()), "x'")
+
+
+def test_the_float32_warm_fault_problem(cuda_device):
+    """tools/pgs_ab.py --warm's and --jvp --warm's problem at n = 24, B =
+    4096 (its random cases from seed 0, the float32 one at n = 24), where
+    the float32 row-per-lane warm forward lay 1.94e-6 from the plain
+    version in float64 in x and its JVP 3.2e-6 in x', past the tolerances
+    (float sums from x0): within rtol 1e-5, atol 1e-6 (max|x'|) now."""
+    from tds_tpu_torch.tools import pgs_ab
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    kernel = next(c for c in pgs_ab.random_cases("jvp", (12, 24, 48, 105), None, 1, True, gen) if c[0] == 24)[3][0]
+    (a, b, lo, hi, x0), dep, tangents = kernel.operands, tuple(kernel.dep), kernel.tangents
+    assert b.shape == (4096, 24) and b.dtype == torch.float32 and pgs.form(b.dtype, 24, warm=True) == "row per lane"
+    plain = [t.double() for t in kernel.operands]
+    _assert_within(pgs._launch(a, b, lo, hi, dep, 1, x0), pgs.solve_pgs_reference(*plain[:4], dep, 1, plain[4]),
+                   1e-5, 1e-6, "x")
     want_x, want_dot = pgs.solve_pgs_jvp_reference(*plain[:4], [t.double() for t in tangents], dep, 1, plain[4])
     got_x, got_dot = pgs._launch_jvp(a, b, lo, hi, *tangents[:4], dep, 1, x0, tangents[4])
     _assert_within(got_x, want_x, 1e-5, 1e-6, "jvp x")
