@@ -348,14 +348,23 @@ prints no final line (each phase and sub-phase prints its seconds):
    streamed from L2) at n = 3 (4 sweeps), 12, 48 and 105 (from x0 at 1
    and 3 sweeps, from zero at 10) at the paths' batches, on the operands
    it is timed on: float64 against the plain version's autograd, float32
-   against the plain version in float64 along the kernel's own sweeps
-   (``tools/pgs_ab.py``'s ``plain_backward_along``) on the envs with no
-   clip near a tie; timed in float32 alone and through the wrapper; and on
-   the Panda push's three solves of phase 18 (10 sweeps); (b) the public
-   paths, each wrapper's count set to 0 just before and read just after:
-   the ball loss's gradient and ``mlcp.solve_pgs`` from x0 at 3 sweeps
-   (n = 24 and 105) under grad, its x0-bar held as in (a), and
-   ``torch.func.jvp``; (c) the float32 warm
+   against the plain version in float64 along the forward's own sweeps,
+   those it saved (``tools/pgs_ab.py``'s ``plain_backward_along``), on the
+   envs with no clip near a tie; timed in float32 alone, through the
+   wrapper, beside the forward with and without its saves and a gradient
+   through ``solve_pgs``; and on the Panda push's three solves of phase 18
+   (10 sweeps); (b) the public paths, each wrapper's count set to 0 just
+   before and read just after: the ball loss's gradient (one forward, which
+   saves its sweeps, a replayed VJP step, by the wrapper's count and in a
+   trace) and ``mlcp.solve_pgs`` from x0 at 3 sweeps (n = 24 and 105)
+   under grad (one forward and one backward launch a gradient), its saved
+   sweeps held row by row against the plain version in float64 along
+   them (``tools/pgs_ab.py``'s ``plain_forward_along``), its gradients
+   held as in (a), and ``torch.func.jvp``; ``mlcp.solve_pgs``
+   under grad at the bindings' default 50 sweeps (n = 24, B = 4096,
+   float32, from x0 = 0): one forward and one backward launch, held along
+   its own sweeps, timed (the parent tree's times stand in PERF.md, from
+   ``tools/pgs_ab.py --gradient``); (c) the float32 warm
    row-per-lane forward and JVP on ``tools/pgs_ab.py --warm``'s n = 24,
    B = 4096 problem within rtol 1e-5, atol 1e-6 of float64, and the
    blocked forward from x0 and at 10 sweeps, timed;
@@ -374,7 +383,9 @@ ball loss (n = 3); K1 on the MPC walk and on the bf16 Delassus operands
 (n = 12); K1 on the Panda push's three solves (n = 3, 24, 3, 10 sweeps)
 and on the mesh stack (n = 24); K2 and K1 on the mocap dance and K1 on the
 compat script (n = 12, B = 1); K1's warm-start forward, backward and JVP
-and K1 on the humanoid PPO path (n = 105, B = 256); K2, K3, K4); the last
+and K1 on the humanoid PPO path (n = 105, B = 256); K1's backward past one
+sweep in both forms, K1's saving forward at 50 sweeps and the float32
+warm row-per-lane forward and JVP of phase 21; K2, K3, K4); the last
 line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``tds_tpu``.
 """
@@ -580,6 +591,10 @@ SWEEPS_CASES = ((3, 4096, 4, False), (3, 2, 4, False), (12, 4096, 1, True), (48,
                 (12, 4096, 3, True), (48, 4096, 3, True), (105, 1024, 3, True), (12, 4096, 10, False),
                 (48, 4096, 10, False), (105, 1024, 10, False))
 SWEEPS_NEAR_TIE, SWEEPS_PATHS, SWEEPS_PATH_SWEEPS = 0.05, ((24, 4096), (105, 1024)), 3
+# phase 21 (b): mlcp.solve_pgs under grad at the bindings' default sweeps
+# (compat.TinyMultiBodyConstraintSolver's pgs_iterations_), n = 24, B = 4096,
+# float32, from x0 = 0
+BINDINGS_SWEEPS = 50
 BLOCKED_CASES = ((48, 4096, 1, True), (105, 1024, 1, True), (48, 4096, 10, False), (105, 1024, 10, False))
 
 
@@ -2687,10 +2702,9 @@ def k1_backward_case(label, operands, dep, it, card, gen, timing=True, prefix="g
     a, b, lo, hi = operands
     bsz, n = b.shape
     dep = tuple(dep)
-    with torch.no_grad():
-        x = pgs.solve_pgs(a, b, lo, hi, dep, it)
+    x, xs = pgs._launch(a, b, lo, hi, dep, it, save=True)  # x and the sweeps the backward reads
     x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
-    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, xs=xs)
     inputs = [t.clone().requires_grad_() for t in operands]
     with torch.enable_grad():
         ref_x = pgs.solve_pgs_reference(*inputs, dep, it)
@@ -2709,7 +2723,7 @@ def k1_backward_case(label, operands, dep, it, card, gen, timing=True, prefix="g
     out = {"max_abs_err": worst, "margin": margin}
     if not timing:
         return out
-    ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar), rounds=5, per_round=20)
+    ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, xs=xs), rounds=5, per_round=20)
     # 0 sweeps: the gradients zeroed, the floor of the stores
     sweepless_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, 0, x, x_bar), rounds=5, per_round=20)
     plain_ms = span_ms(lambda: torch.autograd.grad(ref_x, inputs, x_bar, retain_graph=True), reps=5)
@@ -5085,12 +5099,12 @@ def k1_warm_case(label, operands, dep, x0, it, gen):
     f32 = b.dtype == torch.float32
     dep = tuple(dep)
     plain = [t.double() for t in (a, b, lo, hi, x0)]
-    x = pgs._launch(a, b, lo, hi, dep, it, x0)
+    x, xs = pgs._launch(a, b, lo, hi, dep, it, x0, save=True)
     ref = pgs.solve_pgs_reference(*plain[:4], dep, it, plain[4])
     rtol, atol = pgs_tol(b.dtype, n) if f32 else (1e-12, 1e-12)
     worst = {"forward": over_tol(x.double(), ref, rtol, atol)}
     x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
-    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0, xs)
     inputs = [t.clone().requires_grad_() for t in plain]
     with torch.enable_grad():
         want = torch.autograd.grad(pgs.solve_pgs_reference(*inputs[:4], dep, it, inputs[4]), inputs, x_bar.double())
@@ -5429,12 +5443,13 @@ def phase_api(card, card_line):
 
 
 # -- phase 21 --------------------------------------------------------------
-def backward_against_plain(label, operands, dep, it, x0, x, x_bar, got):
+def backward_against_plain(label, operands, dep, it, x0, x, x_bar, got, xs):
     """K1's backward ``got`` (the gradients, x0-bar last from x0, for the
-    cotangent ``x_bar`` of x = the forward's output on ``operands``) against
+    cotangent ``x_bar`` of x = the forward's output on ``operands``, ``xs``
+    its saved sweeps) against
     the plain version in float64 on the same operands. Float64: its
-    autograd, 1e-12 relative, every env. Float32: along the kernel's own
-    sweeps (the forward relaunched as the wrapper does; tools/pgs_ab.py's
+    autograd, 1e-12 relative, every env. Float32: along the forward's own
+    sweeps (those it saved for the backward; tools/pgs_ab.py's
     plain_backward_along), rtol 1e-4 and atol 1e-5 max|grad|, on the envs
     with no clip near a tie (where the float32 forward's rounding may
     decide a clip the other way and move a gradient by a whole term), of
@@ -5453,8 +5468,7 @@ def backward_against_plain(label, operands, dep, it, x0, x, x_bar, got):
     keep, near, every_env = slice(None), 0, None
     if b.dtype == torch.float32:
         every_env = max((g.double() - w).abs().max().item() for g, w in zip(got, want))
-        xs = torch.stack([pgs._launch(a, b, lo, hi, dep, t, x0) for t in range(1, it)] + [x])
-        want, near_envs = pgs_ab.plain_backward_along(ops, dep, xs, x_bar)
+        want, near_envs = pgs_ab.plain_backward_along(ops, dep, torch.cat([xs, x[None]]) if it > 1 else x[None], x_bar)
         keep, near = ~near_envs, int(near_envs.sum())
         if near > SWEEPS_NEAR_TIE * b.shape[0]:
             raise AssertionError(f"sweeps: {label}: {near} of {b.shape[0]} envs have a clip near a tie")
@@ -5476,18 +5490,20 @@ def sweeps_against_plain(label, operands, dep, it, x0, gen):
     from tds_tpu_torch.contact import pgs
 
     a, b, lo, hi = operands
-    x = pgs._launch(a, b, lo, hi, dep, it, x0)
+    x, xs = pgs._launch(a, b, lo, hi, dep, it, x0, save=True)
     x_bar = torch.randn(b.shape, generator=gen, dtype=b.dtype, device=b.device)
-    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0)
-    return backward_against_plain(label, operands, dep, it, x0, x, x_bar, got)
+    got = pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0, xs)
+    return backward_against_plain(label, operands, dep, it, x0, x, x_bar, got, xs)
 
 
 def sweeps_timing(label, operands, dep, it, x0, gen):
-    """The backward's device time alone (median of 100 launches on x after
-    each sweep made before, tools/pgs_ab.py's Kernel), the wrapper's (which
-    first relaunches the forward for the saved sweeps), the plain
-    version's autograd (event span, host-paced), the bound and the launch
-    shape."""
+    """The backward's device time alone (median of 100 launches on the
+    sweeps the forward saved, tools/pgs_ab.py's Kernel), through its wrapper
+    (``_launch_backward`` on those sweeps: no forward relaunched), the
+    forward alone without and with its saves, a gradient as a user takes
+    it (``torch.autograd.grad`` of ``solve_pgs``: the saving forward and
+    the backward), the plain version's autograd (event span, host-paced),
+    the bounds and the launch shape."""
     from tds_tpu_torch.contact import pgs
     from tds_tpu_torch.tools import pgs_ab
 
@@ -5498,21 +5514,33 @@ def sweeps_timing(label, operands, dep, it, x0, gen):
     x_bar = kernel.x_bar
     lib = pgs._library()
     ms = device_ms(lambda: kernel.run(lib, it), rounds=5, per_round=20)
-    x = pgs._launch(a, b, lo, hi, dep, it, x0)
-    wrapper_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0), rounds=5, per_round=20)
+    x, xs = pgs._launch(a, b, lo, hi, dep, it, x0, save=True)
+    wrapper_ms = device_ms(lambda: pgs._launch_backward(a, b, lo, hi, dep, it, x, x_bar, x0, xs), rounds=5, per_round=20)
+    forward_ms = device_ms(lambda: kernel.solve(lib, it), rounds=5, per_round=20)
+    saving_ms = device_ms(lambda: kernel.solve_saving(lib, it), rounds=5, per_round=20)
     inputs = [t.clone().requires_grad_() for t in list(operands) + ([x0] if warm else [])]
+
+    def gradient():
+        return torch.autograd.grad(pgs.solve_pgs(*inputs[:4], dep, it, inputs[4] if warm else None), inputs, x_bar)
+
+    gradient_ms = device_ms(gradient, rounds=5, per_round=10, backlog_ms=40)
     with torch.enable_grad():
         ref = pgs.solve_pgs_reference(*inputs[:4], dep, it, inputs[4] if warm else None)
     plain_ms = span_ms(lambda: torch.autograd.grad(ref, inputs, x_bar, retain_graph=True), reps=3)
     bound_us, bound_by = pgs_ab.bound_us("backward", warm, it, b)
+    saving_bound_us = pgs_ab.bound_us("forward", warm, it, b, saving=True)[0]
     shape = pgs.launch_shape(b.dtype, n, bsz, backward=True, warm=warm, iterations=it)
     log(f"sweeps (a): K1 backward {label} ({shape['form']}): {ms * 1e3:.2f} us on the device alone, {wrapper_ms * 1e3:.2f} "
-        f"us through the wrapper (with its {max(it - 1, 0)} forward launches for the saved sweeps), plain "
-        f"{plain_ms * 1e3:.1f} us (event span, host-paced), bound {bound_us:.3f} us ({bound_by}), "
-        f"{ms * 1e3 / bound_us:.1f}x the bound")
+        f"us through the wrapper (on the saved sweeps), plain {plain_ms * 1e3:.1f} us (event span, host-paced), bound "
+        f"{bound_us:.3f} us ({bound_by}), {ms * 1e3 / bound_us:.1f}x the bound; the forward {forward_ms * 1e3:.2f} us, "
+        f"saving its {max(it - 1, 0)} sweeps {saving_ms * 1e3:.2f} us (bound {saving_bound_us:.3f} us); a gradient "
+        f"through solve_pgs {gradient_ms * 1e3:.2f} us (bound {saving_bound_us + bound_us:.3f} us)")
     log_launch_shape(f"sweeps (a): K1 backward {label}", shape)
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_timing": "event span, host-paced",
-            "bound_ms": bound_us / 1e3, "bound_by": bound_by, "design": shape["form"], **launch_fields(shape)}
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "forward_ms": forward_ms, "saving_forward_ms": saving_ms,
+            "gradient_ms": gradient_ms, "saving_forward_bound_ms": saving_bound_us / 1e3,
+            "gradient_bound_ms": (saving_bound_us + bound_us) / 1e3, "plain_ms": plain_ms,
+            "plain_timing": "event span, host-paced", "bound_ms": bound_us / 1e3, "bound_by": bound_by,
+            "design": shape["form"], **launch_fields(shape)}
 
 
 def sweeps_kernels(card):
@@ -5566,57 +5594,198 @@ def sweeps_kernels(card):
     return rows, worst
 
 
+def traced_k1(fn, forward_expected):
+    """(forward kernels, backward kernels) of K1 in a torch.profiler trace
+    of ``fn()``: kernel names holding "pgs_kernel" (every forward instance)
+    and "pgs_backward" (every backward one); the trace is taken again while
+    the forward's count differs from ``forward_expected`` (counted_trace)."""
+    events, _, _, forward = counted_trace(fn, "pgs_kernel", forward_expected)
+    return forward, sum(1 for name, _ in events if "pgs_backward" in name)
+
+
 def sweeps_paths():
-    """(b): the public paths the new instances run on, each instance's
-    wrapper count set to 0 just before and read just after: the ball
-    loss's gradient (tools/ball_loss.py, float64, a new world so that its
-    VJP graph is captured: K1's backward at n = 3 and 4 sweeps in the
-    warm-up and the capture), and mlcp.solve_pgs from x0 at SWEEPS_PATHS
-    (float32, SWEEPS_PATH_SWEEPS sweeps) under torch.autograd.grad and
-    torch.func.jvp, each path's x0-bar held by backward_against_plain.
-    Returns {(path, kernel): (form, launches)}."""
+    """(b): the public paths the saving forward and the new backward
+    instances run on, each instance's wrapper count set to 0 just before
+    and read just after:
+    - the ball loss's gradient (tools/ball_loss.py, float64, a new world so
+      that its graphs are captured: in the VJP graph's warm-up and capture
+      K1's forward at n = 3 and 4 sweeps saves its sweeps and its backward
+      runs once each; the forward graph's warm-up and capture launch the
+      forward without saves), and a trace of a replayed GRAD_PROFILE_STEPS-
+      step gradient: one forward kernel a VJP step beside the forward
+      graph's one a step, one backward kernel a VJP step;
+    - mlcp.solve_pgs from x0 at SWEEPS_PATHS (float32, SWEEPS_PATH_SWEEPS
+      sweeps) under torch.autograd.grad (one forward and one backward launch
+      by the wrapper's counts and in a trace of one gradient) and
+      torch.func.jvp, each path's saved sweeps and x held row by row
+      against the plain version in float64 along them (tools/pgs_ab.py's
+      plain_forward_along at the 4-ulp margin of an instance that sums in
+      double) and its gradients by backward_against_plain on them;
+    - bindings_case's 50 sweeps.
+    Returns {(path, kernel): (form, launches)} and bindings_case's rows."""
     from tds_tpu_torch.contact import mlcp, pgs
-    from tds_tpu_torch.tools import ball_loss
+    from tds_tpu_torch.tools import ball_loss, pgs_ab
 
     out = {}
     shots = torch.tensor([ball_loss.VELOCITY, (1.2, -0.6)], dtype=torch.float64, device="cuda")
     world = ball_loss.ball_world()
-    pgs.backward_launches = 0
+    it = world.solver.pgs_iterations
+    pgs.launches = pgs.backward_launches = 0
     _, grad = ball_loss.gradient(world, shots, BALL_LOSS_STEPS)
     torch.cuda.synchronize()
-    out["ball loss", "backward"] = (pgs.form(torch.float64, 3, backward=True, iterations=world.solver.pgs_iterations),
-                                    pgs.backward_launches)
+    out["ball loss", "forward"] = (pgs.form(torch.float64, 3, iterations=it), pgs.launches)
+    out["ball loss", "backward"] = (pgs.form(torch.float64, 3, backward=True, iterations=it), pgs.backward_launches)
     if not bool(torch.isfinite(grad).all()):
         raise AssertionError("sweeps (b): the ball loss's gradient is not finite")
+    if (pgs.launches, pgs.backward_launches) != (4, 2):
+        raise AssertionError(f"sweeps (b): the ball loss's graphs launched K1's forward {pgs.launches} and its backward "
+                             f"{pgs.backward_launches} times (4 and 2: one forward without saves in the forward graph's "
+                             "warm-up and capture, one saving forward and one backward in the VJP graph's)")
+    ball_loss.gradient(world, shots, GRAD_PROFILE_STEPS)
+    forward, backward = traced_k1(lambda: ball_loss.gradient(world, shots, GRAD_PROFILE_STEPS), 2 * GRAD_PROFILE_STEPS)
+    out["ball loss", "replayed"] = (forward, backward)
+    log(f"sweeps (b): a replayed {GRAD_PROFILE_STEPS}-step ball loss gradient ran K1's forward {forward} times (the "
+        f"forward graph's {GRAD_PROFILE_STEPS} and the VJP graph's) and its backward {backward} times (torch.profiler): "
+        f"{(forward - GRAD_PROFILE_STEPS) / GRAD_PROFILE_STEPS:.0f} forward launch a replayed VJP step")
+    if (forward, backward) != (2 * GRAD_PROFILE_STEPS, GRAD_PROFILE_STEPS):
+        raise AssertionError(f"sweeps (b): {forward} forward and {backward} backward kernels in a replayed "
+                             f"{GRAD_PROFILE_STEPS}-step gradient")
     gen = torch.Generator(device="cuda").manual_seed(212)
     for n, batch in SWEEPS_PATHS:
         (a, b, lo, hi), dep, x0 = warm_problem(batch, n, torch.float32, gen)
         start = x0.clone().requires_grad_()
-        pgs.warm_launches = pgs.warm_backward_launches = pgs.warm_jvp_launches = 0
         it = SWEEPS_PATH_SWEEPS
+        pgs.warm_launches = pgs.warm_backward_launches = pgs.warm_jvp_launches = 0
+
+        def gradient():
+            return torch.autograd.grad((mlcp.solve_pgs(a, b, lo, hi, dep, start, it) ** 2).sum(), start)
+
         x = mlcp.solve_pgs(a, b, lo, hi, dep, start, it)
         (g,) = torch.autograd.grad((x * x).sum(), start)
+        torch.cuda.synchronize()
+        counts = (pgs.warm_launches, pgs.warm_backward_launches)
         _, x_dot = torch.func.jvp(lambda s: mlcp.solve_pgs(a, b, lo, hi, dep, s, it), (x0,), (torch.ones_like(x0),))
         torch.cuda.synchronize()
         path = f"mlcp.solve_pgs B={batch} n={n}"
-        out[path, "forward"] = (pgs.form(torch.float32, n, warm=True, iterations=it), pgs.warm_launches)
-        out[path, "backward"] = (pgs.form(torch.float32, n, backward=True, warm=True, iterations=it), pgs.warm_backward_launches)
+        out[path, "forward"] = (pgs.form(torch.float32, n, warm=True, iterations=it), counts[0])
+        out[path, "backward"] = (pgs.form(torch.float32, n, backward=True, warm=True, iterations=it), counts[1])
         out[path, "jvp"] = (pgs.form(torch.float32, n, jvp=True, warm=True, iterations=it), pgs.warm_jvp_launches)
+        out[path, "replayed"] = traced_k1(gradient, 1)
         if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(x_dot).all())):
             raise AssertionError(f"sweeps (b): {path}: its gradient or tangent is not finite")
+        if counts != (1, 1) or out[path, "replayed"] != (1, 1):
+            raise AssertionError(f"sweeps (b): {path}: a gradient launched K1's forward and backward {counts} times by the "
+                                 f"wrapper's counts, {out[path, 'replayed']} in a trace (1 and 1)")
         # the x0-bar of the loss sum(x^2) the path took, against the plain version (all five gradients' rows)
         x = x.detach()
-        got = pgs._launch_backward(a, b, lo, hi, tuple(dep), it, x, 2 * x, x0)
-        if not torch.equal(got[4], g):
-            raise AssertionError(f"sweeps (b): {path}: its x0-bar differs from the backward kernel's on the same x")
-        err, near, _ = backward_against_plain(path, [a, b, lo, hi], tuple(dep), it, x0, x, 2 * x, got)
-        log(f"sweeps (b): {path}: the backward's gradients against the plain version: max |kernel - plain| {err:.3e} on "
+        y, xs = pgs._launch(a, b, lo, hi, tuple(dep), it, x0, save=True)
+        got = pgs._launch_backward(a, b, lo, hi, tuple(dep), it, y, 2 * y, x0, xs)
+        if not (torch.equal(y, x) and torch.equal(got[4], g)):
+            raise AssertionError(f"sweeps (b): {path}: its x or x0-bar differs from the kernels' on the same operands")
+        # the saving instance's own sweeps and x, row by row against the plain version in float64 along them
+        x_err, x_over = pgs_ab.plain_forward_along([a, b, lo, hi, x0], dep, torch.cat([xs, x[None]]), double_sums=True)
+        if x_over > 0:
+            raise AssertionError(f"sweeps (b): {path}: a row's update lies {x_err:.3e} from the plain one in float64 "
+                                 "from the kernel's x before it, past its rounding")
+        err, near, _ = backward_against_plain(path, [a, b, lo, hi], tuple(dep), it, x0, x, 2 * x, got, xs)
+        log(f"sweeps (b): {path}: each row's update within {x_err:.3e} of the plain one in float64 along the forward's "
+            f"own sweeps; the backward's gradients against the plain version: max |kernel - plain| {err:.3e} on "
             f"{batch - near} envs ({near} near a tie)")
+    bindings, bindings_counts = bindings_case(gen)
+    out.update(bindings_counts)
     for (path, kind), (form, count) in out.items():
+        if kind == "replayed":  # (forward, backward) kernels in a trace
+            log(f"sweeps (b): {path}: K1's forward {form} and backward {count} times in a trace of a gradient")
+            continue
         log(f"sweeps (b): {path}: K1 {kind} ({form}) wrapper launches {count}")
         if count < 1:
             raise AssertionError(f"sweeps (b): {path} launched K1's {kind} ({form}) no time")
-    return out
+    return out, bindings
+
+
+def bindings_case(gen):
+    """(b): mlcp.solve_pgs under torch.autograd.grad at the bindings'
+    default BINDINGS_SWEEPS sweeps (compat.TinyMultiBodyConstraintSolver),
+    n = 24, B = 4096, float32, from x0 = 0 (random operands, the gradients
+    of sum(x^2) in all five): one forward launch, saving its 49 sweeps, and
+    one backward launch by the wrapper's counts and in a trace; x and the
+    saved sweeps against the plain version in float64 along the forward's
+    own sweeps (tools/pgs_ab.py's plain_forward_along: each row's rounding,
+    at the 4-ulp margin of an instance that sums in double; over 50 sweeps
+    A's conditioning amplifies it), and x's distance from the plain forward
+    in float64 no larger than the float32 plain forward's own; the
+    gradients held along the forward's own sweeps by
+    backward_against_plain; timed: the gradient through the wrapper
+    (device), the saving forward and the forward without saves alone, the
+    backward alone, the plain version's forward, each with its bound.
+    Returns its rows and counts."""
+    from tds_tpu_torch.contact import mlcp, pgs
+    from tds_tpu_torch.tools import pgs_ab
+
+    n, batch, it = 24, 4096, BINDINGS_SWEEPS
+    (a, b, lo, hi), dep, _ = warm_problem(batch, n, torch.float32, gen)
+    x0 = torch.zeros_like(b)
+    inputs = [t.clone().requires_grad_() for t in (a, b, lo, hi, x0)]
+
+    def gradient():
+        x = mlcp.solve_pgs(*inputs[:4], dep, inputs[4], it)
+        return x, torch.autograd.grad((x * x).sum(), inputs)
+
+    pgs.warm_launches = pgs.warm_backward_launches = 0
+    x, grads = gradient()
+    torch.cuda.synchronize()
+    counts = (pgs.warm_launches, pgs.warm_backward_launches)
+    replayed = traced_k1(gradient, 1)
+    path = f"mlcp.solve_pgs B={batch} n={n} {it} sweeps from x0 = 0"
+    if counts != (1, 1) or replayed != (1, 1):
+        raise AssertionError(f"sweeps (b): {path}: a gradient launched K1's forward and backward {counts} times by the "
+                             f"wrapper's counts, {replayed} in a trace (1 and 1)")
+    x = x.detach()
+    y, xs = pgs._launch(a, b, lo, hi, tuple(dep), it, x0, save=True)
+    got = pgs._launch_backward(a, b, lo, hi, tuple(dep), it, y, 2 * y, x0, xs)
+    if not (torch.equal(y, x) and all(torch.equal(g, k) for g, k in zip(grads, got))):
+        raise AssertionError(f"sweeps (b): {path}: its x or gradients differ from the kernels' on the same operands")
+    # the forward against the plain version in float64 along its own sweeps, each row's update from the
+    # kernel's x before it; over 50 sweeps A's conditioning amplifies each float32 version's rounding, so
+    # x end to end is held to the float32 plain forward's own distance from the plain one in float64
+    x_err, x_over = pgs_ab.plain_forward_along([a, b, lo, hi, x0], dep, torch.cat([xs, x[None]]), double_sums=True)
+    if x_over > 0:
+        raise AssertionError(f"sweeps (b): {path}: a row's update lies {x_err:.3e} from the plain one in float64 "
+                             "from the kernel's x before it, past its rounding")
+    plain64 = pgs.solve_pgs_reference(*(t.double() for t in (a, b, lo, hi, x0)[:4]), dep, it, x0.double())
+    end_err = (x.double() - plain64).abs().max().item()
+    plain32_err = (pgs.solve_pgs_reference(a, b, lo, hi, dep, it, x0).double() - plain64).abs().max().item()
+    if not end_err <= plain32_err:
+        raise AssertionError(f"sweeps (b): {path}: x lies {end_err:.3e} from the plain forward in float64, farther than "
+                             f"the float32 plain forward's {plain32_err:.3e}")
+    err, near, every_env = backward_against_plain(path, [a, b, lo, hi], tuple(dep), it, x0, x, 2 * x, got, xs)
+    kernel = pgs_ab.Kernel("backward", True, [a, b, lo, hi, x0], list(dep), gen)
+    lib = pgs._library()
+    gradient_ms = device_ms(gradient, rounds=5, per_round=10, backlog_ms=40)
+    forward_ms = device_ms(lambda: kernel.solve(lib, it), rounds=5, per_round=20)
+    saving_ms = device_ms(lambda: kernel.solve_saving(lib, it), rounds=5, per_round=20)
+    backward_ms = device_ms(lambda: kernel.run(lib, it), rounds=5, per_round=20)
+    plain_ms = span_ms(lambda: pgs.solve_pgs_sweeps_reference(a, b, lo, hi, dep, it, x0), reps=1)
+    bound_us = {k: pgs_ab.bound_us(kind, True, it, b, saving=saving) for k, kind, saving in
+                (("forward", "forward", False), ("saving", "forward", True), ("backward", "backward", False))}
+    log(f"sweeps (b): {path}: each row's update within {x_err:.3e} of the plain one in float64 along its own sweeps (x "
+        f"{end_err:.3e} from the plain forward in float64, the float32 plain forward {plain32_err:.3e}); its gradients "
+        f"max |kernel - plain| {err:.3e} on {batch - near} envs ({near} near a tie), {every_env:.3e} against the plain "
+        f"autograd over every env; a gradient through the wrapper {gradient_ms * 1e3:.2f} us on the device (bound "
+        f"{bound_us['saving'][0] + bound_us['backward'][0]:.3f} us), the saving forward {saving_ms * 1e3:.2f} us (bound {bound_us['saving'][0]:.3f} us), "
+        f"without saves {forward_ms * 1e3:.2f} us, the backward alone {backward_ms * 1e3:.2f} us (bound "
+        f"{bound_us['backward'][0]:.3f} us), the plain forward {plain_ms:.1f} ms (event span, host-paced)")
+    rows = {"max_abs_err": x_err, "x_vs_plain_float64": end_err, "plain_float32_vs_float64": plain32_err,
+            "gradient_max_abs_err": err, "envs_near_a_tie": near,
+            "max_abs_err_every_env_vs_plain_autograd": every_env, "gradient_ms": gradient_ms,
+            "ms": saving_ms, "forward_ms": forward_ms, "backward_ms": backward_ms,
+            "plain_ms": plain_ms, "plain_timing": "event span, host-paced", "bound_ms": bound_us["saving"][0] / 1e3,
+            "bound_by": bound_us["saving"][1], "backward_bound_ms": bound_us["backward"][0] / 1e3,
+            "gradient_bound_ms": (bound_us["saving"][0] + bound_us["backward"][0]) / 1e3}
+    counts_out = {(path, "forward"): (pgs.form(torch.float32, n, warm=True, iterations=it), counts[0]),
+                  (path, "backward"): (pgs.form(torch.float32, n, backward=True, warm=True, iterations=it), counts[1]),
+                  (path, "replayed"): replayed}
+    return rows, counts_out
 
 
 def warm_fault_case(card):
@@ -5680,7 +5849,7 @@ def phase_sweeps(card):
     with sub_phase("sweeps (a) seconds"):
         rows, worst = sweeps_kernels(card)
     with sub_phase("sweeps (b) seconds"):
-        paths = sweeps_paths()
+        paths, bindings = sweeps_paths()
     with sub_phase("warm fault (c) seconds"):
         fault = warm_fault_case(card)
     common = {"route": "cuda", "source": "tds_tpu_torch/csrc/pgs.cu", "library_ms": None,
@@ -5692,12 +5861,17 @@ def phase_sweeps(card):
     if ball[0] != whole or public[0] != streamed:
         raise AssertionError(f"sweeps: the ball loss's backward ran {ball[0]}, mlcp.solve_pgs at n = 105 {public[0]}")
     main_whole, main_streamed = rows[3, 4096, 4, False], rows[105, 1024, SWEEPS_PATH_SWEEPS, True]
+    bindings_path = f"mlcp.solve_pgs B=4096 n=24 {BINDINGS_SWEEPS} sweeps from x0 = 0"
     others = [{"rows": n, "batch": batch, "iterations": it, "from_x0": warm, **row}
               for (n, batch, it, warm), row in ((k, v) for k, v in rows.items() if k != "panda")]
     entries = [
         {"name": "pgs backward sweeps, A whole", **common, "launches": ball[1], **main_whole,
          "max_abs_err_every_case": worst.get(whole, 0.0), "shape": "B=4096 n=3 iterations=4 float32",
          "main_path": f"the {BALL_LOSS_STEPS}-step ball loss's gradient (n = 3, 4 sweeps), phase 21 (b)",
+         "replayed_forward_and_backward_in_a_gradient": paths["ball loss", "replayed"],
+         "bindings_n24_it50": {"launches": paths[bindings_path, "backward"][1], "ms": bindings["backward_ms"],
+                               "bound_ms": bindings["backward_bound_ms"], "max_abs_err": bindings["gradient_max_abs_err"],
+                               "envs_near_a_tie": bindings["envs_near_a_tie"]},
          "panda_n24_it10": rows.get("panda"),
          "other_cases": [r for r in others if r["design"] == whole]},
         {"name": "pgs backward sweeps, upper streamed", **common, "launches": public[1], **main_streamed,
@@ -5706,6 +5880,10 @@ def phase_sweeps(card):
          "main_path": f"mlcp.solve_pgs from x0 at B=1024 n=105, {SWEEPS_PATH_SWEEPS} sweeps, under grad, phase 21 (b)",
          "other_cases": [r for r in others if r["design"] == streamed]},
     ]
+    entries.append({"name": "pgs saving forward, row per lane", **common, "source": "tds_tpu_torch/csrc/pgs_sweep.cuh",
+                    "launches": paths[bindings_path, "forward"][1], **bindings,
+                    "shape": f"B=4096 n=24 iterations={BINDINGS_SWEEPS} from x0 = 0 float32",
+                    "main_path": f"{bindings_path} under grad (the bindings' default sweeps), phase 21 (b)"})
     n24 = f"mlcp.solve_pgs B={SWEEPS_PATHS[0][1]} n={SWEEPS_PATHS[0][0]}"
     for kind, name in (("forward", "pgs warm start row per lane (double sums)"), ("jvp", "pgs warm start jvp row per lane (double sums)")):
         entries.append({"name": name, "route": "cuda", "source": "tds_tpu_torch/csrc/pgs_sweep.cuh", "library_ms": None,

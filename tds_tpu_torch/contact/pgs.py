@@ -17,7 +17,11 @@
   that keeps as many envs resident, "linearised sweeps, A whole" in shared
   memory; "streaming" past the staged forms' limits, n = 328 in float32
   and 229 in float64 for one sweep), so gradients reach A, b, lo and hi
-  on the card as ``jax.grad`` of the unrolled sweep gives them;
+  on the card as ``jax.grad`` of the unrolled sweep gives them. Past one
+  sweep the backward reads x after each sweep as the forward computed it:
+  when a backward can follow (:func:`saves_sweeps`) the forward's launch
+  also stores x after each sweep but the last (``tds_pgs_solve_saving_*``),
+  so that a gradient costs one forward launch and one backward launch;
 - on CPU tensors it runs :func:`solve_pgs_reference`, the plain version,
   which autograd differentiates;
 - anything else raises. No switch sends a CUDA tensor to the plain version,
@@ -55,9 +59,9 @@ Importing this module builds nothing. :func:`launch_shape` reports a
 kernel's form, lanes per env, envs per block and resident warps per SM on
 the card for any n, start and sweep count.
 
-``launches`` counts the forward kernel's launches, ``backward_launches``
-the backward kernel's and ``jvp_launches`` the forward mode's, from the
-zero start; ``warm_launches``, ``warm_backward_launches`` and
+``launches`` counts the forward kernel's launches (saving its sweeps or
+not), ``backward_launches`` the backward kernel's and ``jvp_launches`` the
+forward mode's, from the zero start; ``warm_launches``, ``warm_backward_launches`` and
 ``warm_jvp_launches`` count the warm-start instances' launches; a caller
 may reset any of them to 0.
 """
@@ -82,8 +86,9 @@ warm_backward_launches = 0
 warm_jvp_launches = 0
 # the kernels' forms, by the code tds_pgs_instance_form returns
 FORMS = ("row per lane", "blocked", "streaming", "linearised", "linearised sweeps", "linearised sweeps, A whole")
-# the kernels tds_pgs_instance_form and launch_shape name: K1, its backward, its JVP
-_WHICH = {"forward": 0, "backward": 1, "jvp": 2}
+# the kernels tds_pgs_instance_form and launch_shape name: K1, its backward,
+# its JVP, K1 saving its sweeps for the backward
+_WHICH = {"forward": 0, "backward": 1, "jvp": 2, "saving": 3}
 
 
 def solve_pgs_reference(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int, x0=None):
@@ -105,6 +110,18 @@ def solve_pgs_reference(a_mat, b, lo, hi, limit_dependency: Sequence[int], itera
     return x
 
 
+def solve_pgs_sweeps_reference(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int, x0=None):
+    """The plain version of K1's saving forward: x after each of the
+    ``iterations`` sweeps, (iterations, ..., n), the last what
+    :func:`solve_pgs_reference` returns; the kernel returns that one as x
+    and the others as its saved sweeps."""
+    sweeps, x = [], x0
+    for _ in range(iterations):
+        x = solve_pgs_reference(a_mat, b, lo, hi, limit_dependency, 1, x)
+        sweeps.append(x)
+    return torch.stack(sweeps) if sweeps else b.new_zeros((0,) + tuple(b.shape))
+
+
 def solve_pgs(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int, x0=None):
     """PGS on a batch: a_mat (B, n, n), b/lo/hi (B, n) -> x (B, n), from
     x = 0 or from the warm start ``x0`` (B, n). The kernel on a CUDA
@@ -118,13 +135,42 @@ def solve_pgs(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int
         return solve_pgs_reference(a_mat, b, lo, hi, limit_dependency, iterations, x0)
     if device.type != "cuda":
         raise ValueError(f"no PGS implementation for device {device}")
+    return _solve_kernel(a_mat, b, lo, hi, limit_dependency, iterations, x0)
+
+
+def _solve_kernel(a_mat, b, lo, hi, limit_dependency: Sequence[int], iterations: int, x0=None):
+    """:func:`solve_pgs`'s card path: :class:`PGSFunction`, its forward
+    saving its sweeps when a backward can follow (:func:`saves_sweeps`)."""
     dep = tuple(int(d) for d in limit_dependency)
-    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in operands):
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in (a_mat, b, lo, hi, x0) if t is not None):
         # under a torch.func transform: the rules below see the plain tensors
         a_mat, b, lo, hi = (t.contiguous() for t in (a_mat, b, lo, hi))
         x0 = None if x0 is None else x0.contiguous()
     _check_operands(a_mat, b, lo, hi, dep, int(iterations), x0)
-    return PGSFunction.apply(a_mat, b, lo, hi, dep, int(iterations), x0)
+    save = saves_sweeps((a_mat, b, lo, hi, x0), int(iterations))
+    out = PGSFunction.apply(a_mat, b, lo, hi, dep, int(iterations), x0, save)
+    return out[0] if save else out
+
+
+def saves_sweeps(operands, iterations: int) -> bool:
+    """Whether K1's forward on ``operands`` (A, b, lo, hi and x0 or None)
+    saves x after each sweep for its backward: past one sweep, when a
+    backward can follow, that is when grad is enabled and an operand
+    requires grad or is wrapped by a ``torch.func`` transform that
+    differentiates in reverse (``grad``, ``vjp``, ``jacrev``). Under
+    ``torch.no_grad()``, with operands without grad, and under
+    ``torch.func.jvp``, ``jacfwd`` or ``vmap`` alone it does not."""
+    tensors = [t for t in operands if t is not None]
+    if iterations < 2 or not torch.is_grad_enabled():
+        return False
+    if any(t.requires_grad for t in tensors):
+        return True
+    if not any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors):
+        return False
+    from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+
+    grad = torch._C._functorch.TransformType.Grad
+    return any(i.key() == grad for i in retrieve_all_functorch_interpreters())
 
 
 def _fold(info, in_dims, tensors):
@@ -147,49 +193,71 @@ def _unfold(t, size):
     return t.reshape(size, -1, *t.shape[1:])
 
 
+def _fold_sweeps(info, in_dim, xs):
+    """A vmap rule's saved sweeps (iterations - 1, B, n) with the vmapped
+    dimension folded into B, as :func:`_fold` folds the operands: a
+    contiguous (iterations - 1, T B, n); None stays None."""
+    if xs is None:
+        return None
+    size = info.batch_size
+    xs = xs.unsqueeze(1).expand(xs.shape[0], size, *xs.shape[1:]) if in_dim is None else xs.movedim(in_dim, 1)
+    return xs.reshape(xs.shape[0], size * xs.shape[2], *xs.shape[3:]).contiguous()
+
+
 class PGSFunction(torch.autograd.Function):
     """The kernel as an autograd function: the forward launches K1 (from
     the warm start x0 when it is given, else from 0) and saves A, b, lo,
-    hi, x0 and x; the backward launches K1's backward kernel (for
-    ``iterations`` > 1 after relaunching the forward at 1 .. iterations - 1
-    sweeps from the same start, to recover x after each sweep), which with
-    x0 also gives x0-bar; the JVP launches K1's forward-mode kernel on the
-    saved operands and the tangents (zeros for an operand without one); the
-    vmap rule folds the vmapped dimension into B. Takes checked operands
-    (:func:`solve_pgs` checks them); x0 is the last argument and may be
-    left out."""
+    hi, x0 and x; with ``save`` (:func:`saves_sweeps`) the same launch also
+    stores x after each sweep but the last, returned after x as a tensor
+    without gradient (iterations - 1, B, n) and saved beside it. The
+    backward launches K1's backward kernel on those sweeps (one launch, no
+    forward relaunched), which with x0 also gives x0-bar; the JVP launches
+    K1's forward-mode kernel on the saved operands and the tangents (zeros
+    for an operand without one); the vmap rule folds the vmapped dimension
+    into B (into the sweeps' second). Takes checked operands
+    (:func:`solve_pgs` checks them); x0 and ``save`` are the last arguments
+    and may be left out."""
 
     @staticmethod
-    def forward(a_mat, b, lo, hi, dep, iterations, x0=None):
-        return _launch(a_mat, b, lo, hi, dep, iterations, x0)
+    def forward(a_mat, b, lo, hi, dep, iterations, x0=None, save=False):
+        return _launch(a_mat, b, lo, hi, dep, iterations, x0, save=save)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        a_mat, b, lo, hi, dep, iterations, *warm = inputs
-        x0 = warm[0] if warm else None
-        ctx.save_for_backward(a_mat, b, lo, hi, x0, output)
+        a_mat, b, lo, hi, dep, iterations, *rest = inputs
+        x0 = rest[0] if rest else None
+        ctx.save = len(rest) > 1 and bool(rest[1])
+        x, xs = output if ctx.save else (output, None)
+        if ctx.save:
+            ctx.mark_non_differentiable(xs)
+            ctx.set_materialize_grads(False)  # the sweeps' gradient is never used: no zeros of their size
+        ctx.save_for_backward(a_mat, b, lo, hi, x0, x, xs)
         ctx.save_for_forward(a_mat, b, lo, hi, x0)
         ctx.dep, ctx.iterations, ctx.inputs = dep, iterations, len(inputs)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, x_bar):
-        a_mat, b, lo, hi, x0, x = ctx.saved_tensors
-        grads = PGSBackward.apply(a_mat, b, lo, hi, ctx.dep, ctx.iterations, x, x_bar.contiguous(), x0)
-        return (*grads[:4], None, None, grads[4] if x0 is not None else None)[: ctx.inputs]
+    def backward(ctx, x_bar, *_):
+        a_mat, b, lo, hi, x0, x, xs = ctx.saved_tensors
+        grads = PGSBackward.apply(a_mat, b, lo, hi, ctx.dep, ctx.iterations, x, x_bar.contiguous(), x0, xs)
+        return (*grads[:4], None, None, grads[4] if x0 is not None else None, None)[: ctx.inputs]
 
     @staticmethod
-    def jvp(ctx, a_dot, b_dot, lo_dot, hi_dot, _dep, _iterations, x0_dot=None):
+    def jvp(ctx, a_dot, b_dot, lo_dot, hi_dot, _dep, _iterations, x0_dot=None, _save=None):
         operands = ctx.saved_tensors[:5]
         dots = [None if p is None else torch.zeros_like(p) if d is None else d.contiguous()
                 for p, d in zip(operands, (a_dot, b_dot, lo_dot, hi_dot, x0_dot))]
-        return PGSJVP.apply(*operands[:4], *dots[:4], ctx.dep, ctx.iterations, operands[4], dots[4])[1]
+        x_dot = PGSJVP.apply(*operands[:4], *dots[:4], ctx.dep, ctx.iterations, operands[4], dots[4])[1]
+        return (x_dot, None) if ctx.save else x_dot
 
     @staticmethod
-    def vmap(info, in_dims, a_mat, b, lo, hi, dep, iterations, x0=None):
+    def vmap(info, in_dims, a_mat, b, lo, hi, dep, iterations, x0=None, save=False):
         operands = _fold(info, in_dims[:4] + (in_dims[6] if len(in_dims) > 6 else None,), (a_mat, b, lo, hi, x0))
-        x = PGSFunction.apply(*operands[:4], dep, iterations, operands[4])
-        return _unfold(x, info.batch_size), 0
+        out = PGSFunction.apply(*operands[:4], dep, iterations, operands[4], save)
+        if not save:
+            return _unfold(out, info.batch_size), 0
+        x, xs = out
+        return (_unfold(x, info.batch_size), xs.reshape(xs.shape[0], info.batch_size, -1, *xs.shape[2:])), (0, 1)
 
 
 class PGSJVP(torch.autograd.Function):
@@ -215,23 +283,24 @@ class PGSJVP(torch.autograd.Function):
 
 class PGSBackward(torch.autograd.Function):
     """K1's backward: (A-bar, b-bar, lo-bar, hi-bar), and x0-bar after them
-    when a warm start x0 is given (the last argument), from the forward's
-    operands, its x and x-bar, one launch of the backward kernel; the vmap
-    rule folds the vmapped dimension into B (``torch.func.jacrev`` vmaps
-    the cotangents)."""
+    when a warm start x0 is given, from the forward's operands, its x, its
+    saved sweeps xs (past one sweep) and x-bar, one launch of the backward
+    kernel; the vmap rule folds the vmapped dimension into B (into the
+    sweeps' second; ``torch.func.jacrev`` vmaps the cotangents)."""
 
     @staticmethod
-    def forward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0=None):
-        return _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0)
+    def forward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0=None, xs=None):
+        return _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0, xs)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        tensors = _fold(info, in_dims[:4] + in_dims[6:], args[:4] + args[6:])
-        grads = PGSBackward.apply(*tensors[:4], *args[4:6], *tensors[4:])
+    def vmap(info, in_dims, a_mat, b, lo, hi, dep, iterations, x, x_bar, x0=None, xs=None):
+        dims = tuple(in_dims) + (None,) * (10 - len(in_dims))
+        tensors = _fold(info, dims[:4] + dims[6:9], (a_mat, b, lo, hi, x, x_bar, x0))
+        grads = PGSBackward.apply(*tensors[:4], dep, iterations, *tensors[4:], _fold_sweeps(info, dims[9], xs))
         return tuple(_unfold(g, info.batch_size) for g in grads), (0,) * len(grads)
 
 
@@ -257,19 +326,29 @@ def _check_operands(a_mat, b, lo, hi, dep, iterations, x0=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(a_mat, b, lo, hi, dep, iterations, x0=None):
+def _launch(a_mat, b, lo, hi, dep, iterations, x0=None, save=False):
     """x after ``iterations`` sweeps: one launch of K1, of its zero start's
-    instances, or of its warm-start instances from ``x0``."""
+    instances, or of its warm-start instances from ``x0``. With ``save``,
+    (x, xs): the same launch also stores xs (iterations - 1, B, n), x after
+    each sweep but the last, the backward's saved state."""
     global launches, warm_launches
     bsz, n = b.shape
     x = torch.empty_like(b)
+    xs = b.new_empty((max(iterations - 1, 0), bsz, n)) if save else None
     if bsz == 0:
-        return x
+        return (x, xs) if save else x
     f64 = b.dtype == torch.float64
     dep_t = constant(dep, torch.int32, b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        if x0 is None:
+        if save:
+            fn = _library().tds_pgs_solve_saving_f64 if f64 else _library().tds_pgs_solve_saving_f32
+            rc = fn(
+                a_mat.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), dep_t.data_ptr(),
+                None if x0 is None else x0.data_ptr(), x.data_ptr(), xs.data_ptr() if xs.numel() else None,
+                bsz, n, iterations, stream,
+            )
+        elif x0 is None:
             fn = _library().tds_pgs_solve_f64 if f64 else _library().tds_pgs_solve_f32
             rc = fn(
                 a_mat.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(),
@@ -287,32 +366,37 @@ def _launch(a_mat, b, lo, hi, dep, iterations, x0=None):
         launches += 1
     else:
         warm_launches += 1
-    return x
+    return (x, xs) if save else x
 
 
-def _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0=None):
+def _launch_backward(a_mat, b, lo, hi, dep, iterations, x, x_bar, x0=None, xs=None):
     """(A-bar, b-bar, lo-bar, hi-bar), and x0-bar after them from a warm
     start ``x0``, for the adjoint ``x_bar`` of the forward's output ``x``:
     one launch of the backward kernel on the forward's operands and x after
-    each sweep."""
+    each sweep, the forward's own: ``xs`` (iterations - 1, B, n), what the
+    forward saved (``_launch(..., save=True)``), and x. Raises past one
+    sweep without them (no forward is relaunched)."""
     global backward_launches, warm_backward_launches
     bsz, n = b.shape
     if x_bar.shape != x.shape or x_bar.dtype != x.dtype or x_bar.device != x.device:
         raise ValueError(f"x_bar is {tuple(x_bar.shape)} {x_bar.dtype} on {x_bar.device}, x {tuple(x.shape)} {x.dtype}")
+    if iterations > 1 and (xs is None or tuple(xs.shape) != (iterations - 1, bsz, n) or xs.dtype != x.dtype
+                           or xs.device != x.device or not xs.is_contiguous()):
+        got = None if xs is None else (tuple(xs.shape), xs.dtype, str(xs.device))
+        raise ValueError(f"the backward through {iterations} sweeps takes the forward's saved sweeps, contiguous "
+                         f"({iterations - 1}, {bsz}, {n}) {x.dtype} on {x.device}; got {got}")
     grads = (torch.empty_like(a_mat), torch.empty_like(b), torch.empty_like(lo), torch.empty_like(hi))
     if x0 is not None:
         grads += (torch.empty_like(x0),)
     if bsz == 0:
         return grads
-    # x after sweeps 1 .. iterations: the forward recomputes the earlier
-    # ones bit for bit (each launch starts from x = 0, or from x0)
-    xs = torch.stack([_launch(a_mat, b, lo, hi, dep, t, x0) for t in range(1, iterations)] + [x]) if iterations else x[None]
     f64 = b.dtype == torch.float64
     dep_t = constant(dep, torch.int32, b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        operands = (a_mat.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), dep_t.data_ptr(), xs.data_ptr(),
-                    x_bar.data_ptr())
+        saved = xs.data_ptr() if iterations > 1 else None
+        operands = (a_mat.data_ptr(), b.data_ptr(), lo.data_ptr(), hi.data_ptr(), dep_t.data_ptr(), saved,
+                    x.data_ptr(), x_bar.data_ptr())
         if x0 is None:
             fn = _library().tds_pgs_backward_f64 if f64 else _library().tds_pgs_backward_f32
             rc = fn(*operands, *(g.data_ptr() for g in grads), bsz, n, iterations, stream)
@@ -384,34 +468,36 @@ def solve_pgs_jvp_reference(a_mat, b, lo, hi, tangents, limit_dependency: Sequen
 
 
 def form(dtype: torch.dtype, n: int, backward: bool = False, jvp: bool = False, warm: bool = False,
-         iterations: int = 1) -> str:
+         iterations: int = 1, saving: bool = False) -> str:
     """The form of the kernel (with ``backward``, of its backward; with
-    ``jvp``, of its forward mode) that runs for n rows in ``dtype``, from a
-    warm start with ``warm``, at ``iterations`` sweeps: one of
+    ``jvp``, of its forward mode; with ``saving``, of the forward that
+    saves its sweeps for the backward) that runs for n rows in ``dtype``,
+    from a warm start with ``warm``, at ``iterations`` sweeps: one of
     :data:`FORMS`."""
     if n < 1 or dtype not in (torch.float32, torch.float64):
         raise ValueError(f"no PGS kernel for n = {n} in {dtype}")
-    f64, which = int(dtype == torch.float64), _WHICH[_which(backward, jvp)]
+    f64, which = int(dtype == torch.float64), _WHICH[_which(backward, jvp, saving)]
     return FORMS[_library().tds_pgs_instance_form(f64, n, which, int(warm), iterations)]
 
 
 def launch_shape(dtype: torch.dtype, n: int, batch: int, device="cuda", backward: bool = False, jvp: bool = False,
-                 warm: bool = False, iterations: int = 1) -> dict:
+                 warm: bool = False, iterations: int = 1, saving: bool = False) -> dict:
     """How the kernel (with ``backward``, its backward; with ``jvp``, its
-    forward mode) launches for n rows in ``dtype`` at ``batch`` envs on
-    ``device``, from a warm start with ``warm``, at ``iterations`` sweeps
-    (the forward from x = 0 has instances for one sweep and for more, the
-    backward likewise): its ``form`` and ``cuda_build.launch_shape``'s
-    fields, resident warps per SM and waves among them."""
-    name = form(dtype, n, backward, jvp, warm, iterations)
-    args = (int(dtype == torch.float64), n, _WHICH[_which(backward, jvp)], int(warm), iterations)
+    forward mode; with ``saving``, the forward that saves its sweeps)
+    launches for n rows in ``dtype`` at ``batch`` envs on ``device``, from
+    a warm start with ``warm``, at ``iterations`` sweeps (the forward from
+    x = 0 has instances for one sweep and for more, the backward likewise):
+    its ``form`` and ``cuda_build.launch_shape``'s fields, resident warps
+    per SM and waves among them."""
+    name = form(dtype, n, backward, jvp, warm, iterations, saving)
+    args = (int(dtype == torch.float64), n, _WHICH[_which(backward, jvp, saving)], int(warm), iterations)
     return {"form": name, **cuda_build.launch_shape(_library().tds_pgs_instance_launch_shape, args, batch, device)}
 
 
-def _which(backward: bool, jvp: bool) -> str:
-    if backward and jvp:
-        raise ValueError("backward and jvp name different kernels")
-    return "backward" if backward else "jvp" if jvp else "forward"
+def _which(backward: bool, jvp: bool, saving: bool = False) -> str:
+    if backward + jvp + saving > 1:
+        raise ValueError("backward, jvp and saving name different kernels")
+    return "backward" if backward else "jvp" if jvp else "saving" if saving else "forward"
 
 
 def build() -> Path:
@@ -429,26 +515,17 @@ def _library():
 
 
 def bind(lib):
-    """Declares the C functions that every library built from csrc/pgs.cu
-    has (an earlier commit's too: ``tools/pgs_ab.py`` binds one)."""
-    for fn in (lib.tds_pgs_solve_f32, lib.tds_pgs_solve_f64):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for fn in (lib.tds_pgs_backward_f32, lib.tds_pgs_backward_f64):
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    if hasattr(lib, "tds_pgs_jvp_f32"):  # an earlier commit's library may have no forward mode
-        for fn in (lib.tds_pgs_jvp_f32, lib.tds_pgs_jvp_f64):
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    """Declares the C functions of a library built from csrc/pgs.cu."""
+    for fns, pointers in (((lib.tds_pgs_solve_f32, lib.tds_pgs_solve_f64), 6),
+                          ((lib.tds_pgs_solve_saving_f32, lib.tds_pgs_solve_saving_f64), 8),
+                          ((lib.tds_pgs_backward_f32, lib.tds_pgs_backward_f64), 12),
+                          ((lib.tds_pgs_jvp_f32, lib.tds_pgs_jvp_f64), 11),
+                          ((lib.tds_pgs_solve_warm_f32, lib.tds_pgs_solve_warm_f64), 7),
+                          ((lib.tds_pgs_backward_warm_f32, lib.tds_pgs_backward_warm_f64), 14),
+                          ((lib.tds_pgs_jvp_warm_f32, lib.tds_pgs_jvp_warm_f64), 13)):
+        for fn in fns:
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-    if hasattr(lib, "tds_pgs_solve_warm_f32"):  # nor a warm start
-        for fns, pointers in (((lib.tds_pgs_solve_warm_f32, lib.tds_pgs_solve_warm_f64), 7),
-                              ((lib.tds_pgs_backward_warm_f32, lib.tds_pgs_backward_warm_f64), 13),
-                              ((lib.tds_pgs_jvp_warm_f32, lib.tds_pgs_jvp_warm_f64), 13)):
-            for fn in fns:
-                fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-    if hasattr(lib, "tds_pgs_instance_launch_shape"):  # nor each instance's launch shape
-        lib.tds_pgs_instance_launch_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-        lib.tds_pgs_instance_launch_shape.restype = ctypes.c_int
+    lib.tds_pgs_instance_launch_shape.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tds_pgs_instance_launch_shape.restype = ctypes.c_int
     return lib

@@ -90,6 +90,22 @@
 // The ragged edge (every form): a group past the end of the batch reads
 // the last env's operands, runs the sweeps with the rest of its warp (the
 // shuffles need every lane) and stores nothing.
+//
+// Saved sweeps (every form past one sweep, from x = 0 or x0): when the
+// wrapper expects a backward it passes xs (iterations - 1, B, n), and the
+// launch stores x after each sweep but the last there, so that the
+// backward reads the forward's own sweeps: lane i its x_i in the row-per-
+// lane form, the warp its env's x from shared memory, coalesced, in the
+// blocked and streaming forms. That adds (iterations - 1) B n values
+// written to the bytes. The stores are instances of their own (a Save
+// template flag), launched only with xs: the instances a forward without
+// grad launches never read the pointer (it comes last in every forward
+// kernel's parameters) and compile to exactly what they did before it
+// existed. (A pointer tested once a sweep in the same instances took 2-28
+// more registers in most of the Split ones, and in the float32 padded
+// N = 24 one (n = 17-23) from x = 0 a resident block an SM: 6 at 77
+// registers against 7 at 72; the blocked ones 152 more instructions;
+// cuobjdump, built for an H100 80GB HBM3.)
 
 #include <cuda_runtime.h>
 
@@ -125,14 +141,23 @@ struct Lanes {
 // for float64 and for N = 32 (whose float32 instance spilled 16 B without
 // it) and none for the other float32 N: with it the float32 N = 24
 // instance took 219 registers, 8 warps an SM and 34.5 us from x0 at B =
-// 4096, against 116, 16 and 27.7 us.
-template <typename T, bool Split, int N, bool Warm = false>
+// 4096, against 116, 16 and 27.7 us. The saving instances (Save) keep
+// their twins' caps but two: in float32 at N <= 16 from x0, where ptxas
+// spilled 4-8 B at the twin's cap of 80 registers and at 96, 4; in float64
+// at N = 24 from x0, where the saved sweeps took 156 registers against the
+// twin's 128 and a resident block an SM (112.4 against 95.1 us at n = 24,
+// B = 4096, 10 sweeps, on an H100 80GB HBM3), 4: the twin's count.
+template <typename T, bool Split, int N, bool Warm = false, bool Save = false>
 struct RowBlocks {
-  static constexpr int kMin = !Split ? 0
-                              : sizeof(T) == 8 ? 1
-                              : N >= 32 ? (Warm ? 1 : 3)
-                              : N >= 24 ? (Warm ? 3 : 5)
-                                        : 6;
+  static constexpr int kTwin = !Split ? 0
+                               : sizeof(T) == 8 ? 1
+                               : N >= 32 ? (Warm ? 1 : 3)
+                               : N >= 24 ? (Warm ? 3 : 5)
+                                         : 6;
+  static constexpr int kMin = !(Save && Warm) ? kTwin
+                              : sizeof(T) == 4 && N < 24 ? 4
+                              : sizeof(T) == 8 && N >= 24 && N < 32 ? 4
+                                                                    : kTwin;
 };
 
 template <typename T, int N>
@@ -153,11 +178,14 @@ inline int instance_rows(int n) {
 // n == N: the instance for exactly N rows (n = 12 and 24 among them), the
 // row-per-lane kernel as it was before padding existed; Split as in
 // pgs_sweeps (K1 launches the instance without it for at most one sweep).
-template <typename T, int N, int G, bool Split = false>
-__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N>::kMin)
+// With Save (and Split), xs (iterations - 1, B, n): x after each sweep but
+// the last (every forward kernel takes xs last, so that the instances
+// without Save keep their code).
+template <typename T, int N, int G, bool Split = false, bool Save = false>
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N, false, Save>::kMin)
 pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
            const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-           int batch, int iterations) {
+           int batch, int iterations, T* __restrict__ xs) {
   const int lane = threadIdx.x % G;
   const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const bool active = env < batch;
@@ -172,17 +200,18 @@ pgs_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict
   row.hi = hi[e * N + i];
   row.dep = dep[i];
   T x[N];
-  const T mine = pgs_sweeps<T, N, G, false, Split>(x, row, iterations);
+  T* saved = Save && active && lane < N ? xs + e * N + lane : nullptr;
+  const T mine = pgs_sweeps<T, N, G, false, Split, Save>(x, row, iterations, T(0), T(0), 0, saved, batch * N);
   if (active && lane < N) x_out[e * N + lane] = mine;
 }
 
 // n < N: rows n..N-1 are identity rows in registers. With Warm (any
 // n <= N) the sweeps start from x0 (B, n), the padding rows from 0.
-template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
-__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N, Warm>::kMin)
+template <typename T, int N, int G, bool Warm = false, bool Split = Warm, bool Save = false>
+__global__ void __launch_bounds__(kThreads, RowBlocks<T, Split, N, Warm, Save>::kMin)
 pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                   const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                  int batch, int n, int iterations, const T* __restrict__ x0) {
+                  int batch, int n, int iterations, const T* __restrict__ x0, T* __restrict__ xs) {
   const int lane = threadIdx.x % G;
   const long long env = (long long)blockIdx.x * (kThreads / G) + threadIdx.x / G;
   const bool active = env < batch;
@@ -215,7 +244,8 @@ pgs_kernel_padded(const T* __restrict__ a, const T* __restrict__ b, const T* __r
     start = real ? x0[e * n + r] : T(0);
     start_dep = row.dep >= 0 ? x0[e * n + row.dep] : T(0);
   }
-  const T mine = pgs_sweeps<T, N, G, Warm, Split>(x, row, iterations, start, start_dep, upper);
+  T* saved = Save && active && lane < n ? xs + e * n + lane : nullptr;
+  const T mine = pgs_sweeps<T, N, G, Warm, Split, Save>(x, row, iterations, start, start_dep, upper, saved, batch * n);
   if (active && lane < n) x_out[e * n + lane] = mine;
 }
 
@@ -266,11 +296,13 @@ using StreamAcc = typename std::conditional<Split, double, T>::type;
 // n > 32: one warp per env, envs_per_block warps a block, x in shared
 // memory (n values a warp). Each row's loads are issued while the row
 // before it is reduced and clipped, so the chain of dependent rows waits on
-// a shuffle reduction and a divide a row, not on a memory round trip.
-template <typename T, bool Warm = false, bool Split = Warm>
+// a shuffle reduction and a divide a row, not on a memory round trip. With
+// Save, xs as pgs_kernel's: the warp stores x from shared memory after
+// each sweep but the last, coalesced.
+template <typename T, bool Warm = false, bool Split = Warm, bool Save = false>
 __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                     const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                                    int batch, int n, int iterations, const T* __restrict__ x0) {
+                                    int batch, int n, int iterations, const T* __restrict__ x0, T* __restrict__ xs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -320,6 +352,10 @@ __global__ void pgs_kernel_per_warp(const T* __restrict__ a, const T* __restrict
       if (lane == i % kWarp) x[i] = xi;
       __syncwarp();
       cur = next;
+    }
+    if (Save && it + 1 < iterations && active) {
+      T* saved = xs + (long long)it * batch * n + e * n;
+      for (int j = lane; j < n; j += kWarp) saved[j] = x[j];
     }
   }
   if (active) {
@@ -455,11 +491,13 @@ struct Resident {
   static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
 };
 
-template <typename T, bool Warm = false>
+// With Save, xs as pgs_kernel's: the warp stores x from shared memory after
+// each sweep but the last, coalesced.
+template <typename T, bool Warm = false, bool Save = false>
 __global__ void __launch_bounds__(kThreads, Resident<T>::kBlocks)
 pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                    const T* __restrict__ hi, const int* __restrict__ dep, T* __restrict__ x_out,
-                   int batch, int n, int iterations, const T* __restrict__ x0) {
+                   int batch, int n, int iterations, const T* __restrict__ x0, T* __restrict__ xs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -538,6 +576,10 @@ pgs_kernel_blocked(const T* __restrict__ a, const T* __restrict__ b, const T* __
       if (row) x[r] = mine;
       __syncwarp();
     }
+    if (Save && it + 1 < iterations && active) {
+      T* saved = xs + (long long)it * batch * n + e * n;
+      for (int j = lane; j < n; j += kWarp) saved[j] = x[j];
+    }
   }
   if (active) {
     for (int j = lane; j < n; j += kWarp) x_out[e * n + j] = x[j];
@@ -607,37 +649,38 @@ struct Plan {
   long long smem = 0;
 };
 
-template <typename T, int N, bool Warm, bool Split>
+template <typename T, int N, bool Warm, bool Split, bool Save>
 const void* row_kernel(int n) {
-  if (n == N && !Warm) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G, Split>);
-  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G, Warm, Split>);
+  if (n == N && !Warm) return reinterpret_cast<const void*>(&pgs_kernel<T, N, Lanes<N>::G, Split, Save>);
+  return reinterpret_cast<const void*>(&pgs_kernel_padded<T, N, Lanes<N>::G, Warm, Split, Save>);
 }
 
 // With Warm the plan of the warm-start instances: the same forms and
 // shapes, the row-per-lane form through pgs_kernel_padded for every n.
-// Split: the instances for more than one sweep (always with Warm).
-template <typename T, bool Warm = false, bool Split = Warm>
+// Split: the instances for more than one sweep (always with Warm). Save:
+// the saving instances (with Split, or the blocked form).
+template <typename T, bool Warm = false, bool Split = Warm, bool Save = false>
 Plan forward_plan(int n) {
   Plan p;
   const int rows = instance_rows(n);
   if (rows != 0) {
     switch (rows) {
-      case 8: p.fn = row_kernel<T, 8, Warm, Split>(n); break;
-      case 12: p.fn = row_kernel<T, 12, Warm, Split>(n); break;
-      case 16: p.fn = row_kernel<T, 16, Warm, Split>(n); break;
-      case 24: p.fn = row_kernel<T, 24, Warm, Split>(n); break;
-      default: p.fn = row_kernel<T, 32, Warm, Split>(n); break;
+      case 8: p.fn = row_kernel<T, 8, Warm, Split, Save>(n); break;
+      case 12: p.fn = row_kernel<T, 12, Warm, Split, Save>(n); break;
+      case 16: p.fn = row_kernel<T, 16, Warm, Split, Save>(n); break;
+      case 24: p.fn = row_kernel<T, 24, Warm, Split, Save>(n); break;
+      default: p.fn = row_kernel<T, 32, Warm, Split, Save>(n); break;
     }
     p.form = kRowPerLane;
     p.lanes = rows <= 16 ? 16 : 32;
     p.envs = kThreads / p.lanes;
   } else if (blocked_fits<T>(n)) {
-    p.fn = reinterpret_cast<const void*>(&pgs_kernel_blocked<T, Warm>);
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_blocked<T, Warm, Save>);
     p.form = kBlocked;
     p.lanes = kWarp;
     staged_shape(blocked_env_bytes<T>(n), kThreads / kWarp, &p.envs, &p.smem);
   } else if (n > 32) {
-    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T, Warm, Split>);
+    p.fn = reinterpret_cast<const void*>(&pgs_kernel_per_warp<T, Warm, Split, Save>);
     p.form = kStreaming;
     p.lanes = kWarp;
     streaming_shape((long long)n * sizeof(T), &p.envs, &p.smem);  // x
@@ -645,90 +688,63 @@ Plan forward_plan(int n) {
   return p;
 }
 
-template <typename T, int N, bool Split>
-void launch_rows(const T* a, const T* b, const T* lo, const T* hi, const int* dep, T* x, int batch, int n,
-                 int iterations, cudaStream_t s) {
-  constexpr int G = Lanes<N>::G;
-  constexpr int envs = kThreads / G;
-  const int blocks = (batch + envs - 1) / envs;
-  if (n == N) {
-    pgs_kernel<T, N, G, Split><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, iterations);
-  } else {
-    pgs_kernel_padded<T, N, G, false, Split><<<blocks, kThreads, 0, s>>>(a, b, lo, hi, dep, x, batch, n, iterations,
-                                                                       nullptr);
-  }
-}
+// Every forward kernel takes the same arguments (a, b, lo, hi, dep, x, batch,
+// n, iterations, x0, xs) but pgs_kernel, which takes neither n nor x0.
+template <typename T>
+using ForwardKernel = void (*)(const T*, const T*, const T*, const T*, const int*, T*, int, int, int, const T*, T*);
 
-// K1 from x = 0: the instances without Split for at most one sweep (the
-// paths' launches, as they were), with Split for more.
-template <typename T, bool Split>
-int launch_split(const T* a, const T* b, const T* lo, const T* hi, const int* dep, T* x, int batch, int n,
-                 int iterations, cudaStream_t s) {
-  switch (instance_rows(n)) {
-    case 8: launch_rows<T, 8, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
-    case 12: launch_rows<T, 12, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
-    case 16: launch_rows<T, 16, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
-    case 24: launch_rows<T, 24, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
-    case 32: launch_rows<T, 32, Split>(a, b, lo, hi, dep, x, batch, n, iterations, s); break;
-    default: {
-      const Plan p = forward_plan<T, false, Split>(n);
-      if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      const cudaError_t err = allow_smem(p.fn, p.smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
-      // the blocked and streaming kernels take the same arguments
-      const auto kernel = reinterpret_cast<decltype(&pgs_kernel_per_warp<T, false, Split>)>(const_cast<void*>(p.fn));
-      kernel<<<blocks, p.envs * kWarp, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n, iterations, nullptr);
-    }
+// One launch of K1's forward by its plan: x0 null from x = 0, xs null
+// without Save.
+template <typename T, bool Warm, bool Split, bool Save>
+int launch_plan(const T* a, const T* b, const T* lo, const T* hi, const int* dep, const T* x0, T* x, T* xs, int batch,
+                int n, int iterations, cudaStream_t s) {
+  const Plan p = forward_plan<T, Warm, Split, Save>(n);
+  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(p.fn, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
+  const int threads = p.envs * p.lanes;
+  if (p.form == kRowPerLane && n == instance_rows(n) && !Warm) {
+    // pgs_kernel: exactly N rows from x = 0
+    const auto kernel = reinterpret_cast<void (*)(const T*, const T*, const T*, const T*, const int*, T*, int, int, T*)>(
+        const_cast<void*>(p.fn));
+    kernel<<<blocks, threads, 0, s>>>(a, b, lo, hi, dep, x, batch, iterations, xs);
+  } else {
+    const auto kernel = reinterpret_cast<ForwardKernel<T>>(const_cast<void*>(p.fn));
+    kernel<<<blocks, threads, p.smem, s>>>(a, b, lo, hi, dep, x, batch, n, iterations, x0, xs);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1 from x = 0 (x0 null) or from the warm start x0 (B, n): from x = 0 the
+// instances without Split for at most one sweep (the paths' launches, as
+// they were), with Split for more; from x0 the Warm instances (the zero
+// start's are untouched). xs (iterations - 1, B, n) or null: with it the
+// saving instances, which store x after each sweep but the last there.
 template <typename T>
-int launch(const void* a, const void* b, const void* lo, const void* hi,
-           const void* dep, void* x, int batch, int n, int iterations,
-           void* stream) {
+int launch(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* x0, void* x,
+           void* xs, int batch, int n, int iterations, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* a_t = static_cast<const T*>(a);
   const T* b_t = static_cast<const T*>(b);
   const T* lo_t = static_cast<const T*>(lo);
   const T* hi_t = static_cast<const T*>(hi);
   const int* dep_t = static_cast<const int*>(dep);
+  const T* x0_t = static_cast<const T*>(x0);
   T* x_t = static_cast<T*>(x);
-  if (iterations > 1) return launch_split<T, true>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s);
-  return launch_split<T, false>(a_t, b_t, lo_t, hi_t, dep_t, x_t, batch, n, iterations, s);
-}
-
-// K1 from the warm start x0 (B, n): the forward's three forms, each
-// instantiated with Warm (the zero start's instances above are untouched).
-template <typename T>
-int launch_warm(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* x0,
-                void* x, int batch, int n, int iterations, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = forward_plan<T, true>(n);
-  if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(p.fn, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = static_cast<int>((batch + p.envs - 1) / p.envs);
-  const int threads = p.envs * p.lanes;
-#define TDS_WARM_ARGS static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(lo), \
-    static_cast<const T*>(hi), static_cast<const int*>(dep), static_cast<T*>(x), batch, n, iterations, \
-    static_cast<const T*>(x0)
-  if (p.form == kBlocked) {
-    pgs_kernel_blocked<T, true><<<blocks, threads, p.smem, s>>>(TDS_WARM_ARGS);
-  } else if (p.form == kStreaming) {
-    pgs_kernel_per_warp<T, true><<<blocks, threads, p.smem, s>>>(TDS_WARM_ARGS);
-  } else {
-    switch (instance_rows(n)) {
-      case 8: pgs_kernel_padded<T, 8, Lanes<8>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
-      case 12: pgs_kernel_padded<T, 12, Lanes<12>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
-      case 16: pgs_kernel_padded<T, 16, Lanes<16>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
-      case 24: pgs_kernel_padded<T, 24, Lanes<24>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
-      default: pgs_kernel_padded<T, 32, Lanes<32>::G, true><<<blocks, threads, 0, s>>>(TDS_WARM_ARGS); break;
-    }
+  T* xs_t = static_cast<T*>(xs);
+#define TDS_FORWARD_ARGS a_t, b_t, lo_t, hi_t, dep_t, x0_t, x_t, xs_t, batch, n, iterations, s
+  const bool save = xs != nullptr && iterations > 1;
+  // the row-per-lane saving instances step from one sweep to the next by an int, B n
+  if (save && (long long)batch * n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (x0 != nullptr) {
+    return save ? launch_plan<T, true, true, true>(TDS_FORWARD_ARGS) : launch_plan<T, true, true, false>(TDS_FORWARD_ARGS);
   }
-#undef TDS_WARM_ARGS
-  return static_cast<int>(cudaGetLastError());
+  if (iterations > 1) {
+    return save ? launch_plan<T, false, true, true>(TDS_FORWARD_ARGS) : launch_plan<T, false, true, false>(TDS_FORWARD_ARGS);
+  }
+  return launch_plan<T, false, false, false>(TDS_FORWARD_ARGS);
+#undef TDS_FORWARD_ARGS
 }
 
 // ---------------------------------------------------------------------------
@@ -751,15 +767,17 @@ int launch_warm(const void* a, const void* b, const void* lo, const void* hi, co
 // lo-bar_i += l-bar s_i, hi-bar_i += h-bar s_i and, through the max,
 // x-bar_dep += (l-bar lo_i + h-bar hi_i) (1 if x_dep > 0, 1/2 if 0, else 0).
 //
-// Saved state: x after every sweep, xs (iterations, B, n), which the
-// wrapper (contact/pgs.py) fills from the forward's output and, for
-// iterations > 1, from forward launches of 1 .. iterations-1 sweeps, which
-// compute the same sweeps bit for bit. x before sweep 0 is 0, or a warm
+// Saved state: x after every sweep, the forward's own: xs (iterations - 1,
+// B, n), x after each sweep but the last, which the forward stores as it
+// sweeps when the wrapper (contact/pgs.py) asks (a backward can follow),
+// and x (B, n), its output: both from the same forward instance, so that
+// every clip is undone as that forward decided it. x
+// before sweep 0 is 0, or a warm
 // start x0 (B, n): the Warm instances read it where the zero start's read
 // 0 (and the first sweep's columns above the diagonal, which a zero start
 // skips), and write x0-bar, the adjoint of x left when sweep 0 is undone:
 // the x-bar "of sweep -1". Each row's p_i is recomputed from
-// xs; its sum runs in another order than the forward's, so p_i may differ
+// the saved x; its sum runs in another order than the forward's, so p_i may differ
 // from the forward's by rounding, which moves A-bar_ii by as much and picks
 // another branch of the clip only where p_i lies within rounding of a
 // bound without sitting on it.
@@ -866,6 +884,13 @@ bool linearised_fits(int n) {
   return n >= 1 && linearised_env_bytes<T>(n) <= kSmemMax;
 }
 
+// x after sweep t (0-based) of `iterations`: the forward's output x for the
+// last, else its saved sweep t in xs, `sweep` = B n values apart.
+template <typename T>
+__device__ __forceinline__ const T* sweep_x(const T* xs, const T* x, int t, int iterations, long long sweep) {
+  return t + 1 == iterations ? x : xs + t * sweep;
+}
+
 // Launched for one sweep (or none), from x = 0 or from x0;
 // pgs_backward_sweeps runs two or more. Its code is the first design's, for
 // every count (its branches for t > 0 are no longer launched), so that the
@@ -874,7 +899,7 @@ template <typename T, int G, bool Warm = false>
 __global__ void __launch_bounds__(kThreads)
 pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                         const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
-                        const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
+                        const T* __restrict__ x, const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
                         T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations,
                         const T* __restrict__ x0, T* __restrict__ x0_bar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -918,7 +943,7 @@ pgs_backward_linearised(const T* __restrict__ a, const T* __restrict__ b, const 
     copy_async(his + j, hi + e * n + j);
     copy_async(deps + j, dep + j);
     copy_async(xbar + j, x_bar + e * n + j);
-    copy_async(xt + j, xs + (iterations - 1) * sweep + e * n + j);
+    copy_async(xt + j, x + e * n + j);
     if (iterations > 1) {
       copy_async(xp + j, xs + (iterations - 2) * sweep + e * n + j);
     } else {
@@ -1118,7 +1143,7 @@ template <typename T, int G, bool Warm, bool Whole>
 __global__ void __launch_bounds__(kThreads, 1)
 pgs_backward_sweeps(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                     const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
-                    const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
+                    const T* __restrict__ x, const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
                     T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n, int iterations,
                     const T* __restrict__ x0, T* __restrict__ x0_bar) {
   static_assert(Whole || G == kWarp, "upper_pass takes a whole warp");
@@ -1164,7 +1189,7 @@ pgs_backward_sweeps(const T* __restrict__ a, const T* __restrict__ b, const T* _
     } else {
       xv[j] = T(0);
     }
-    for (int t = 0; t < its; ++t) copy_async(xv + (t + 1) * n + j, xs + t * sweep + q);
+    for (int t = 0; t < its; ++t) copy_async(xv + (t + 1) * n + j, sweep_x(xs, x, t, its, sweep) + q);
   }
   auto stage_block = [&](int k) {
     if (k < 0) return;
@@ -1303,10 +1328,9 @@ pgs_backward_sweeps(const T* __restrict__ a, const T* __restrict__ b, const T* _
 template <typename T, bool Warm = false>
 __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ lo,
                                       const T* __restrict__ hi, const int* __restrict__ dep, const T* __restrict__ xs,
-                                      const T* __restrict__ x_bar, T* __restrict__ a_bar, T* __restrict__ b_bar,
-                                      T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch, int n,
-                                      int iterations, const T* __restrict__ x0,
-                                      T* __restrict__ x0_bar) {
+                                      const T* __restrict__ x, const T* __restrict__ x_bar, T* __restrict__ a_bar,
+                                      T* __restrict__ b_bar, T* __restrict__ lo_bar, T* __restrict__ hi_bar, int batch,
+                                      int n, int iterations, const T* __restrict__ x0, T* __restrict__ x0_bar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -1326,9 +1350,10 @@ __global__ void pgs_backward_per_warp(const T* __restrict__ a, const T* __restri
   for (int t = iterations - 1; t >= 0; --t) {
     const bool store = t == iterations - 1;  // the first sweep visited stores, the others add
     __syncwarp();
+    const long long sweep = (long long)batch * n;
     for (int j = lane; j < n; j += kWarp) {
-      xt[j] = xs[((long long)t * batch + e) * n + j];
-      xp[j] = t > 0 ? xs[((long long)(t - 1) * batch + e) * n + j] : (Warm ? x0[e * n + j] : T(0));
+      xt[j] = sweep_x(xs, x, t, iterations, sweep)[e * n + j];
+      xp[j] = t > 0 ? xs[(t - 1) * sweep + e * n + j] : (Warm ? x0[e * n + j] : T(0));
     }
     __syncwarp();
     for (int i = n - 1; i >= 0; --i) {
@@ -1451,8 +1476,8 @@ Plan backward_plan(int n, int iterations = 1) {
 // x0 and x0_bar (B, n) with Warm (a warm start and its adjoint), else null.
 template <typename T, bool Warm = false>
 int backward(const void* a, const void* b, const void* lo, const void* hi, const void* dep, const void* xs,
-             const void* x_bar, void* a_bar, void* b_bar, void* lo_bar, void* hi_bar, int batch, int n,
-             int iterations, void* stream, const void* x0 = nullptr, void* x0_bar = nullptr) {
+             const void* x, const void* x_bar, void* a_bar, void* b_bar, void* lo_bar, void* hi_bar, int batch,
+             int n, int iterations, void* stream, const void* x0 = nullptr, void* x0_bar = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Plan p = backward_plan<T, Warm>(n, iterations);
   if (p.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1464,9 +1489,9 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
   const auto kernel = reinterpret_cast<decltype(&pgs_backward_per_warp<T, Warm>)>(const_cast<void*>(p.fn));
   kernel<<<blocks, threads, p.smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(lo), static_cast<const T*>(hi),
-      static_cast<const int*>(dep), static_cast<const T*>(xs), static_cast<const T*>(x_bar), static_cast<T*>(a_bar),
-      static_cast<T*>(b_bar), static_cast<T*>(lo_bar), static_cast<T*>(hi_bar), batch, n, iterations,
-      static_cast<const T*>(x0), static_cast<T*>(x0_bar));
+      static_cast<const int*>(dep), static_cast<const T*>(xs), static_cast<const T*>(x), static_cast<const T*>(x_bar),
+      static_cast<T*>(a_bar), static_cast<T*>(b_bar), static_cast<T*>(lo_bar), static_cast<T*>(hi_bar), batch, n,
+      iterations, static_cast<const T*>(x0), static_cast<T*>(x0_bar));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1477,7 +1502,7 @@ int backward(const void* a, const void* b, const void* lo, const void* hi, const
 // unrolled sweep, jax.jacfwd through contact included). Given tangents
 // (A', b', lo', hi') of the operands it computes x and its tangent x'
 // together, sweep by sweep, so that no sweep is saved (unlike the
-// backward, which replays the forward to recover x after each sweep).
+// backward, which reads x after each sweep as the forward saved it).
 // Per row, u = (b_i - delta_i) / A_ii and
 //   u' = (b'_i - delta'_i - u A'_ii) / A_ii,  delta'_i = sum_{j != i} A'_ij x_j + A_ij x'_j,
 // s = max(x_dep, 0), s' = x'_dep max'(x_dep); l = lo_i s, l' = lo'_i s +
@@ -1892,8 +1917,10 @@ template <typename T>
 Plan instance_plan(int n, int which, bool warm, int iterations) {
   if (which == 2) return warm ? jvp_plan<T, true>(n) : jvp_plan<T>(n);
   if (which == 1) return warm ? backward_plan<T, true>(n, iterations) : backward_plan<T>(n, iterations);
-  if (warm) return forward_plan<T, true>(n);
-  return iterations > 1 ? forward_plan<T, false, true>(n) : forward_plan<T>(n);
+  const bool save = which == 3 && iterations > 1;
+  if (warm) return save ? forward_plan<T, true, true, true>(n) : forward_plan<T, true>(n);
+  if (iterations <= 1) return forward_plan<T>(n);
+  return save ? forward_plan<T, false, true, true>(n) : forward_plan<T, false, true>(n);
 }
 
 // The launch-shape query behind tds_pgs_instance_launch_shape below.
@@ -1927,61 +1954,78 @@ extern "C" int tds_pgs_solve_f32(const void* a, const void* b, const void* lo,
                                  const void* hi, const void* dep, void* x,
                                  int batch, int n, int iterations,
                                  void* stream) {
-  return launch<float>(a, b, lo, hi, dep, x, batch, n, iterations, stream);
+  return launch<float>(a, b, lo, hi, dep, nullptr, x, nullptr, batch, n, iterations, stream);
 }
 
 extern "C" int tds_pgs_solve_f64(const void* a, const void* b, const void* lo,
                                  const void* hi, const void* dep, void* x,
                                  int batch, int n, int iterations,
                                  void* stream) {
-  return launch<double>(a, b, lo, hi, dep, x, batch, n, iterations, stream);
+  return launch<double>(a, b, lo, hi, dep, nullptr, x, nullptr, batch, n, iterations, stream);
 }
 
 // K1 from a warm start: tds_pgs_solve_*'s operands and x0 (B, n), the x
 // the first sweep starts from.
 extern "C" int tds_pgs_solve_warm_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
                                       const void* x0, void* x, int batch, int n, int iterations, void* stream) {
-  return launch_warm<float>(a, b, lo, hi, dep, x0, x, batch, n, iterations, stream);
+  return launch<float>(a, b, lo, hi, dep, x0, x, nullptr, batch, n, iterations, stream);
 }
 
 extern "C" int tds_pgs_solve_warm_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
                                       const void* x0, void* x, int batch, int n, int iterations, void* stream) {
-  return launch_warm<double>(a, b, lo, hi, dep, x0, x, batch, n, iterations, stream);
+  return launch<double>(a, b, lo, hi, dep, x0, x, nullptr, batch, n, iterations, stream);
+}
+
+// K1 saving its sweeps for the backward: tds_pgs_solve_*'s operands, x0
+// (B, n) or null (the zero start), x (B, n) and xs (iterations - 1, B, n),
+// x after each sweep but the last, written by the same launch (the saving
+// instances of the forward's forms: the same sweeps as without xs).
+extern "C" int tds_pgs_solve_saving_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                        const void* x0, void* x, void* xs, int batch, int n, int iterations,
+                                        void* stream) {
+  return launch<float>(a, b, lo, hi, dep, x0, x, xs, batch, n, iterations, stream);
+}
+
+extern "C" int tds_pgs_solve_saving_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
+                                        const void* x0, void* x, void* xs, int batch, int n, int iterations,
+                                        void* stream) {
+  return launch<double>(a, b, lo, hi, dep, x0, x, xs, batch, n, iterations, stream);
 }
 
 // K1's backward: a, b, lo, hi (the forward's operands), dep, xs
-// (iterations, B, n): x after each sweep, the last the forward's output,
-// and x_bar (B, n), all contiguous on the current device; writes a_bar
-// (B, n, n) whole and b_bar, lo_bar, hi_bar (B, n). Launches on `stream`
-// without synchronising and returns cudaGetLastError().
+// (iterations - 1, B, n; null for at most one sweep) and x (B, n): x after
+// each sweep, as tds_pgs_solve_saving_* writes them, and x_bar (B, n), all
+// contiguous on the current device; writes a_bar (B, n, n) whole and
+// b_bar, lo_bar, hi_bar (B, n). Launches on `stream` without synchronising
+// and returns cudaGetLastError().
 extern "C" int tds_pgs_backward_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
-                                    const void* xs, const void* x_bar, void* a_bar, void* b_bar, void* lo_bar,
-                                    void* hi_bar, int batch, int n, int iterations, void* stream) {
-  return backward<float>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream);
+                                    const void* xs, const void* x, const void* x_bar, void* a_bar, void* b_bar,
+                                    void* lo_bar, void* hi_bar, int batch, int n, int iterations, void* stream) {
+  return backward<float>(a, b, lo, hi, dep, xs, x, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream);
 }
 
 extern "C" int tds_pgs_backward_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
-                                    const void* xs, const void* x_bar, void* a_bar, void* b_bar, void* lo_bar,
-                                    void* hi_bar, int batch, int n, int iterations, void* stream) {
-  return backward<double>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream);
+                                    const void* xs, const void* x, const void* x_bar, void* a_bar, void* b_bar,
+                                    void* lo_bar, void* hi_bar, int batch, int n, int iterations, void* stream) {
+  return backward<double>(a, b, lo, hi, dep, xs, x, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream);
 }
 
-// K1's backward from a warm start: tds_pgs_backward_*'s arguments, xs
-// from forward launches that started from x0 (B, n), and x0_bar (B, n),
+// K1's backward from a warm start: tds_pgs_backward_*'s arguments, the
+// sweeps of a forward that started from x0 (B, n), and x0_bar (B, n),
 // written whole: the adjoint of x0.
 extern "C" int tds_pgs_backward_warm_f32(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
-                                         const void* xs, const void* x_bar, const void* x0, void* a_bar, void* b_bar,
-                                         void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n, int iterations,
-                                         void* stream) {
-  return backward<float, true>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations, stream,
-                               x0, x0_bar);
+                                         const void* xs, const void* x, const void* x_bar, const void* x0, void* a_bar,
+                                         void* b_bar, void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n,
+                                         int iterations, void* stream) {
+  return backward<float, true>(a, b, lo, hi, dep, xs, x, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations,
+                               stream, x0, x0_bar);
 }
 
 extern "C" int tds_pgs_backward_warm_f64(const void* a, const void* b, const void* lo, const void* hi, const void* dep,
-                                         const void* xs, const void* x_bar, const void* x0, void* a_bar, void* b_bar,
-                                         void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n, int iterations,
-                                         void* stream) {
-  return backward<double, true>(a, b, lo, hi, dep, xs, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations,
+                                         const void* xs, const void* x, const void* x_bar, const void* x0, void* a_bar,
+                                         void* b_bar, void* lo_bar, void* hi_bar, void* x0_bar, int batch, int n,
+                                         int iterations, void* stream) {
+  return backward<double, true>(a, b, lo, hi, dep, xs, x, x_bar, a_bar, b_bar, lo_bar, hi_bar, batch, n, iterations,
                                 stream, x0, x0_bar);
 }
 
@@ -2022,9 +2066,10 @@ extern "C" int tds_pgs_jvp_warm_f64(const void* a, const void* b, const void* lo
 
 // The launch shape of the instance that runs for n rows in float32
 // (f64 = 0) or float64 (f64 = 1), of the forward (which = 0), the backward
-// (1) or the forward mode (2), from a warm start (warm = 1) or from x = 0,
-// at `iterations` sweeps (the forward from x = 0 has instances for at most
-// one sweep and for more), on the current device: out[0] lanes per env,
+// (1), the forward mode (2) or the saving forward (3: the forward that
+// stores its sweeps for the backward, past one sweep), from a warm start
+// (warm = 1) or from x = 0, at `iterations` sweeps (the forward from x = 0
+// has instances for at most one sweep and for more), on the current device: out[0] lanes per env,
 // out[1] envs per block, out[2] threads per block, out[3] shared memory per
 // block (bytes, static and dynamic), out[4] resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[5] registers per

@@ -70,6 +70,12 @@ __device__ __forceinline__ void opaque(double& v) { asm volatile("" : "+d"(v)); 
 // of K1's zero-start instances for one sweep, which K1 launches for at most
 // one sweep from x = 0; K1 launches the Split instances for every other
 // start and count, so that the one-sweep paths compile to what they were.
+// With Save (K1's saving forward: its Split instances launched when a
+// backward can follow), `saved` takes the lane's x after each sweep but the
+// last, `saved_stride` apart (null on the lanes that store nothing), so
+// that the backward reads the forward's own sweeps; the instances without
+// Save (K2's, and K1's for every forward without grad) never read it and
+// compile to what they were before it existed.
 // The Split instances carry the lane's sums (prefix, next, upper) in double
 // in both types, as the blocked and streaming forms do: in float32 their
 // float sums from x0 strayed 1.94e-6 from the plain sweep in float64 at
@@ -95,9 +101,10 @@ __device__ __forceinline__ double widen(float v) {
 }
 __device__ __forceinline__ double widen(double v) { return v; }
 
-template <typename T, int N, int G, bool Warm = false, bool Split = Warm>
+template <typename T, int N, int G, bool Warm = false, bool Split = Warm, bool Save = false>
 __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int iterations, T mine = T(0),
-                                        T x_dep = T(0), SweepAcc<T, Split> upper = 0) {
+                                        T x_dep = T(0), SweepAcc<T, Split> upper = 0, T* saved = nullptr,
+                                        int saved_stride = 0) {
   static_assert(N <= G && (G == 16 || G == 32), "a group of 16 or 32 lanes holds one row per lane");
   using Acc = SweepAcc<T, Split>;
   // float32 with Split: prefix holds b_i less the row's sum so far
@@ -154,6 +161,12 @@ __device__ __forceinline__ T pgs_sweeps(T (&x)[N], const LaneRow<T, N>& row, int
       }
     }
     upper = next;
+    if constexpr (Save) {
+      if (saved != nullptr && it + 1 < iterations) {
+        *saved = mine;
+        saved += saved_stride;
+      }
+    }
   }
   return mine;
 }

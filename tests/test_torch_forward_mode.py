@@ -186,10 +186,13 @@ class _Kernels:
     def __init__(self):
         self.calls = []
 
-    def forward(self, a, b, lo, hi, dep, it, x0=None):
+    def forward(self, a, b, lo, hi, dep, it, x0=None, save=False):
         assert x0 is None, "these rules run from the zero start"
         _plain(a, b, lo, hi)
         self.calls.append(("forward", b.shape[0]))
+        if save:  # the saving launch: x and x after each sweep but the last
+            sweeps = pgs.solve_pgs_sweeps_reference(a, b, lo, hi, dep, it)
+            return sweeps[-1], sweeps[:-1].contiguous()
         return pgs.solve_pgs_reference(a, b, lo, hi, dep, it)
 
     def jvp(self, a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, it, x0=None, x0_dot=None):
@@ -198,9 +201,11 @@ class _Kernels:
         self.calls.append(("jvp", b.shape[0]))
         return pgs.solve_pgs_jvp_reference(a, b, lo, hi, (a_dot, b_dot, lo_dot, hi_dot), dep, it)
 
-    def backward(self, a, b, lo, hi, dep, it, x, x_bar, x0=None):
+    def backward(self, a, b, lo, hi, dep, it, x, x_bar, x0=None, xs=None):
         assert x0 is None, "these rules run from the zero start"
-        _plain(a, b, lo, hi, x, x_bar)
+        _plain(a, b, lo, hi, x, x_bar, xs)
+        # the sweeps the forward saved reach the backward beside its operands (folded alike under vmap)
+        assert xs is None if it <= 1 else torch.equal(torch.cat([xs, x[None]]), pgs.solve_pgs_sweeps_reference(a, b, lo, hi, dep, it))
         self.calls.append(("backward", b.shape[0]))
         inputs = [t.detach().requires_grad_() for t in (a, b, lo, hi)]
         with torch.enable_grad():
@@ -266,7 +271,7 @@ def card_path(monkeypatch):
     monkeypatch.setattr(pgs, "_launch", kernels.forward)
     monkeypatch.setattr(pgs, "_launch_jvp", kernels.jvp)
     monkeypatch.setattr(pgs, "_launch_backward", kernels.backward)
-    monkeypatch.setattr(pgs, "solve_pgs", lambda a, b, lo, hi, dep, it: pgs.PGSFunction.apply(a, b, lo, hi, tuple(dep), it))
+    monkeypatch.setattr(pgs, "solve_pgs", lambda a, b, lo, hi, dep, it: pgs._solve_kernel(a, b, lo, hi, tuple(dep), it))
     monkeypatch.setattr(graphs, "_entry", lambda body, carry, consts, key, device, chunk: _Entry(kernels.calls, key))
     monkeypatch.setattr(graphs, "_vjp_entry", lambda body, carry, consts, key, device: _VJP(body))
     monkeypatch.setattr(contact_loss, "scan", lambda body, carry, consts, length, key: graphs._card_scan(

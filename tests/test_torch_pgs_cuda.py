@@ -23,6 +23,13 @@ sides of the row-per-lane and the staged forms' limits, 1, 3 and 10
 sweeps, ties included, at the same tolerances; no forward or forward-mode
 instance, zero start or warm, has local memory, and the blocked forward
 mode keeps at least the blocked forward's resident warps at n = 105.
+The forward's saved sweeps (what it stores for its backward past one
+sweep): its saved first sweep from x = 0 is its own (the Split instance's,
+not the one-sweep relaunch's, whose differing elements each case records),
+the saving forward's x is the forward's without saves and its saved sweeps
+are the launches of fewer sweeps from the same start, bit for bit in every
+form, start and type; a gradient past one sweep launches the forward once
+and the backward once.
 Every test here needs the card and skips without one. The file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs as
 
@@ -388,8 +395,8 @@ def test_jvp_both_sides_of_the_large_n_threshold(cuda_device, dtype):
 
 def test_torch_func_transforms_launch_the_kernels(cuda_device):
     """jacfwd (one forward and one JVP launch: the basis folded into the
-    batch), jacrev (one backward launch, and a forward launch for each
-    sweep count the backward recovers x after: 1 and 2), vmap (one forward
+    batch), jacrev (one forward launch, which saves its first sweep, and
+    one backward launch), vmap (one forward
     launch over T B rows) and forward AD through solve_pgs on the card,
     each equal to the same transform of the plain version in float64
     within 1e-12 relative."""
@@ -418,7 +425,7 @@ def test_torch_func_transforms_launch_the_kernels(cuda_device):
     close(got, want)
     before = counts()
     close(torch.func.jacrev(kernel, argnums=(0, 1))(b, a), want)
-    assert counts() == (before[0] + 2, before[1], before[2] + 1)
+    assert counts() == (before[0] + 1, before[1], before[2] + 1)
     batch = b + torch.randn((4,) + b.shape, dtype=b.dtype, device=b.device)
     before = counts()
     close([torch.func.vmap(kernel, in_dims=(0, None))(batch, a)], [torch.stack([plain(x, a) for x in batch])])
@@ -549,8 +556,8 @@ def test_backward_past_the_first_sweep_matches_plain(cuda_device, n, dtype, iter
     want = _plain_grads(operands, dep, iterations, x_bar)
     form = pgs.form(dtype, n, backward=True, iterations=iterations)
     assert form == WHOLE if n <= 16 else form in (WHOLE, STREAMED), form
-    x = pgs._launch(*operands, tuple(dep), iterations)
-    got = pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar)
+    x, xs = pgs._launch(*operands, tuple(dep), iterations, save=True)
+    got = pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar, xs=xs)
     _assert_grads_close([g.double() for g in got], want, dtype)
 
 
@@ -593,8 +600,8 @@ def test_backward_sweeps_both_sides_of_their_limits(cuda_device, dtype, iteratio
         x0 = torch.randn(3, n, dtype=dtype, device=cuda_device) if warm else None
         x_bar = torch.ones(3, n, dtype=dtype, device=cuda_device)
         want = _plain_grads(operands, dep, it, x_bar, x0)
-        x = pgs._launch(*operands, tuple(dep), it, x0)
-        got = pgs._launch_backward(*operands, tuple(dep), it, x, x_bar, x0)
+        x, xs = pgs._launch(*operands, tuple(dep), it, x0, save=True)
+        got = pgs._launch_backward(*operands, tuple(dep), it, x, x_bar, x0, xs)
         _assert_grads_close([g.double() for g in got], want, dtype)
         if warm:
             scale = want[4].abs().max().item()
@@ -603,18 +610,21 @@ def test_backward_sweeps_both_sides_of_their_limits(cuda_device, dtype, iteratio
 
 
 # (rows, batch, sweeps, from x0): the ball loss's n = 3 at 4 sweeps, the
-# Panda push's n = 24 at 10, the humanoid's n = 105 from x0 at 3 (the
+# Panda push's n = 24 at 10 and at the bindings' default 50
+# (TinyMultiBodyConstraintSolver), the humanoid's n = 105 from x0 at 3 (the
 # "upper streamed" form's public path) and at 10
-PATH_CASES = ((3, 4096, 4, False), (24, 4096, 10, False), (105, 1024, 3, True), (105, 1024, 10, False))
+PATH_CASES = ((3, 4096, 4, False), (24, 4096, 10, False), (24, 4096, 50, False), (105, 1024, 3, True),
+              (105, 1024, 10, False))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,batch,iterations,warm", PATH_CASES)
 def test_backward_sweeps_at_the_paths_batches(cuda_device, n, batch, iterations, warm, dtype):
     """The backward past one sweep at the paths' batches on the interleaved
-    layout with ties in envs 1 and 2: float64 against the plain version's
+    layout with ties in envs 1 and 2, on the sweeps the forward saved:
+    float64 against the plain version's
     autograd within 1e-12 relative over every env; float32 against the
-    plain version in float64 along the kernel's own sweeps
+    plain version in float64 along the forward's own sweeps, those it saved
     (``tools/pgs_ab.py``'s ``plain_backward_along``) within rtol 1e-4 and
     atol 1e-5 max|grad| on the envs with no clip near a tie, at most 5% of
     them (where the float32 forward's rounding may decide a clip the other
@@ -624,14 +634,13 @@ def test_backward_sweeps_at_the_paths_batches(cuda_device, n, batch, iterations,
     operands, _, dep = _jvp_problem(batch, n, 7 * n + iterations, dtype, "interleaved", cuda_device)
     x0 = torch.from_numpy(np.random.default_rng(n).normal(size=(batch, n))).to(cuda_device, dtype) if warm else None
     x_bar = torch.from_numpy(np.random.default_rng(n + 1).normal(size=(batch, n))).to(cuda_device, dtype)
-    x = pgs._launch(*operands, tuple(dep), iterations, x0)
-    got = [g.double() for g in pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar, x0)]
+    x, xs = pgs._launch(*operands, tuple(dep), iterations, x0, save=True)
+    got = [g.double() for g in pgs._launch_backward(*operands, tuple(dep), iterations, x, x_bar, x0, xs)]
     ops = operands + ([x0] if warm else [])
     if dtype == torch.float64:
         want, keep = [w.to(cuda_device) for w in _plain_grads(operands, dep, iterations, x_bar, x0)], slice(None)
     else:
-        xs = torch.stack([pgs._launch(*operands, tuple(dep), t, x0) for t in range(1, iterations)] + [x])
-        want, near = pgs_ab.plain_backward_along(ops, dep, xs, x_bar)
+        want, near = pgs_ab.plain_backward_along(ops, dep, torch.cat([xs, x[None]]), x_bar)
         assert int(near.sum()) <= 0.05 * batch, int(near.sum())
         keep = ~near
     for name, g, w in zip(("A", "b", "lo", "hi", "x0"), got, want):
@@ -681,3 +690,99 @@ def test_new_instances_have_no_local_memory_and_a_block_resident(cuda_device):
                     assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] >= 1, (dtype, n, warm, it, shape)
         for warm in (False, True):
             assert {(WHOLE, 16, warm), (WHOLE, 32, warm), (STREAMED, 32, warm)} <= seen, (dtype, seen)
+
+
+# -- the forward's saved sweeps ----------------------------------------------
+# the row-per-lane instances past one sweep (N = 8, 12, 24, 32), the blocked
+# form (48, 105) and the streaming one (340: past 335 rows in float32, 236 in
+# float64)
+SAVED_ROWS = (3, 12, 24, 32, 48, 105, 340)
+
+
+def _saved_problem(n, batch, dtype, seed, device):
+    """_rows_problem's interleaved operands with _ties' envs, dep and an x0
+    of normal draws, on ``device`` in ``dtype``."""
+    a, b, lo, hi, dep = _rows_problem(batch, n, seed=seed, layout="interleaved")
+    _ties(a, b, dep)
+    x0 = np.random.default_rng(seed).normal(size=(batch, n))
+    return [torch.from_numpy(v).to(device, dtype) for v in (a, b, lo, hi)], tuple(dep), torch.from_numpy(x0).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", (3, 12, 24, 32, 340))
+def test_the_saved_first_sweep_is_the_forwards_own(cuda_device, record_property, n, dtype):
+    """x after the first sweep as a forward of 4 sweeps from x = 0 saves it
+    is that forward's own: bit for bit what its Split instance computes in
+    one sweep (the warm instance from x0 = 0). Until the forward saved its
+    sweeps the backward got the one-sweep relaunch in its place, the
+    instance without Split, whose sums run in float in float32: the
+    elements where that relaunch differs are recorded
+    (``relaunch_elements_differing``), at B = 4096."""
+    operands, dep, _ = _saved_problem(n, 4096, dtype, 3 * n, cuda_device)
+    x, xs = pgs._launch(*operands, dep, 4, save=True)
+    own = pgs._launch(*operands, dep, 1, torch.zeros_like(x))
+    assert torch.equal(xs[0], own)
+    assert torch.equal(x, pgs._launch(*operands, dep, 4))
+    relaunch = pgs._launch(*operands, dep, 1)
+    differing = int((relaunch != own).sum())
+    record_property("relaunch_elements_differing", differing)
+    record_property("relaunch_max_abs_diff", (relaunch.double() - own.double()).abs().max().item())
+    print(f"n={n} {dtype}: the one-sweep relaunch differs from the forward's own first sweep in {differing} of "
+          f"{own.numel()} elements")
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["zero start", "from x0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", SAVED_ROWS)
+def test_saved_sweeps_equal_the_relaunches(cuda_device, n, dtype, warm):
+    """In every form and both types the saving forward's x is the forward
+    without saves' bit for bit, and its saved sweeps are what a launch of
+    t sweeps from the same start gives, t = 1 .. T - 1 (from x = 0, t >= 2
+    and the blocked form's t = 1: the instances the forward runs; from x0,
+    the warm relaunches an earlier wrapper gave the backward), at 10
+    sweeps, at a batch that fills no whole block."""
+    operands, dep, x0 = _saved_problem(n, 37, dtype, n + 1, cuda_device)
+    start = x0 if warm else None
+    x, xs = pgs._launch(*operands, dep, 10, start, save=True)
+    assert xs.shape == (9, 37, n) and torch.equal(x, pgs._launch(*operands, dep, 10, start))
+    blocked = pgs.form(dtype, n, iterations=10) == "blocked"
+    for t in range(1 if warm or blocked else 2, 10):
+        assert torch.equal(xs[t - 1], pgs._launch(*operands, dep, t, start)), t
+
+
+@pytest.mark.parametrize("iterations", [2, 4, 10, 50])
+@pytest.mark.parametrize("warm", [False, True], ids=["zero start", "from x0"])
+@pytest.mark.parametrize("n", (3, 24, 48))
+def test_a_gradient_launches_the_forward_once_and_the_backward_once(cuda_device, n, warm, iterations):
+    """torch.autograd.grad of solve_pgs past one sweep: one forward launch
+    (it saves its sweeps) and one backward launch, each of its start's
+    counter by one and the other start's not at all, and the gradients the
+    backward kernel's on the forward's saved sweeps, bit for bit."""
+    operands, dep, x0 = _saved_problem(n, 64, torch.float32, n, cuda_device)
+    inputs = [t.clone().requires_grad_() for t in operands + ([x0] if warm else [])]
+    counters = ("launches", "warm_launches", "backward_launches", "warm_backward_launches")
+    before = {c: getattr(pgs, c) for c in counters}
+    x = pgs.solve_pgs(*inputs[:4], dep, iterations, inputs[4] if warm else None)
+    x_bar = torch.ones_like(x)
+    got = torch.autograd.grad(x, inputs, x_bar)
+    torch.cuda.synchronize()
+    moved = {c: getattr(pgs, c) - before[c] for c in counters}
+    want = {"launches": 0, "warm_launches": 0, "backward_launches": 0, "warm_backward_launches": 0}
+    want.update({"warm_launches": 1, "warm_backward_launches": 1} if warm else {"launches": 1, "backward_launches": 1})
+    assert moved == want
+    y, xs = pgs._launch(*operands, dep, iterations, x0 if warm else None, save=True)
+    kernel = pgs._launch_backward(*operands, dep, iterations, y, x_bar, x0 if warm else None, xs)
+    assert torch.equal(x.detach(), y) and all(torch.equal(g, k) for g, k in zip(got, kernel))
+
+
+def test_saving_instances_have_no_local_memory(cuda_device):
+    """The saving forward's instances (past one sweep, from x = 0 and from
+    x0, every form, both types) have no local memory and a block resident
+    an SM, in the form of the forward without saves at the same n."""
+    for dtype in (torch.float32, torch.float64):
+        for n in SAVED_ROWS + (8, 16, 20, 65):
+            for warm in (False, True):
+                saving = pgs.launch_shape(dtype, n, 4096, warm=warm, iterations=3, saving=True)
+                plain = pgs.launch_shape(dtype, n, 4096, warm=warm, iterations=3)
+                assert saving["local_bytes"] == 0 and saving["blocks_per_sm"] >= 1, (dtype, n, warm, saving)
+                assert saving["form"] == plain["form"], (dtype, n, warm, saving, plain)

@@ -156,8 +156,11 @@ class _WarmKernels:
     def __init__(self):
         self.calls = []
 
-    def forward(self, a, b, lo, hi, dep, it, x0=None):
+    def forward(self, a, b, lo, hi, dep, it, x0=None, save=False):
         self.calls.append(("forward", b.shape[0], x0 is not None))
+        if save:  # the saving launch: x and x after each sweep but the last
+            sweeps = pgs.solve_pgs_sweeps_reference(a, b, lo, hi, dep, it, x0)
+            return sweeps[-1], sweeps[:-1].contiguous()
         return pgs.solve_pgs_reference(a, b, lo, hi, dep, it, x0)
 
     def jvp(self, a, b, lo, hi, a_dot, b_dot, lo_dot, hi_dot, dep, it, x0=None, x0_dot=None):
@@ -165,7 +168,9 @@ class _WarmKernels:
         tangents = (a_dot, b_dot, lo_dot, hi_dot) + (() if x0 is None else (x0_dot,))
         return pgs.solve_pgs_jvp_reference(a, b, lo, hi, tangents, dep, it, x0)
 
-    def backward(self, a, b, lo, hi, dep, it, x, x_bar, x0=None):
+    def backward(self, a, b, lo, hi, dep, it, x, x_bar, x0=None, xs=None):
+        # the sweeps the forward saved from x0 reach the backward beside its operands (folded alike under vmap)
+        assert xs is None if it <= 1 else torch.equal(torch.cat([xs, x[None]]), pgs.solve_pgs_sweeps_reference(a, b, lo, hi, dep, it, x0))
         self.calls.append(("backward", b.shape[0], x0 is not None))
         inputs = [t.detach().requires_grad_() for t in (a, b, lo, hi) + (() if x0 is None else (x0,))]
         with torch.enable_grad():
@@ -192,7 +197,7 @@ def test_pgs_function_carries_the_warm_start(warm_kernels):
     dep = tuple(dep)
 
     def kernel(x0, bb):
-        return pgs.PGSFunction.apply(a, bb, lo, hi, dep, 2, x0)
+        return pgs._solve_kernel(a, bb, lo, hi, dep, 2, x0)
 
     def plain(x0, bb):
         return pgs.solve_pgs_reference(a, bb, lo, hi, dep, 2, x0)

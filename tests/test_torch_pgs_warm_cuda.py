@@ -1,6 +1,7 @@
 """K1's warm-start instances (``csrc/pgs.cu`` ``tds_pgs_*_warm_*``) on a CUDA
 device against the port's plain versions: the forward, the backward
-(x0-bar among its gradients) and the JVP (x0' among its tangents), in all
+(x0-bar among its gradients, on the sweeps the saving forward stored) and
+the JVP (x0' among its tangents), in all
 three forms of each (row per lane, blocked or linearised, streaming: n = 3,
 12, 24, 33, 48, 105 and 340), float32 and float64, 0, 1, 3, 4 and 10 sweeps,
 on random problems with x0 nonzero and some of its entries outside their
@@ -16,7 +17,8 @@ the plain versions run in float64 on the same float32 operands (from a
 warm start the float32 plain sweep's own rounding exceeds those
 tolerances at n >= 48, where the blocked kernels sum in double). Then the
 public path: ``mlcp.solve_pgs`` under ``torch.autograd`` and
-``torch.func.jvp`` launches the warm-start kernels (the zero start's
+``torch.func.jvp`` launches the warm-start kernels (one forward for the
+gradient, which saves its sweep, and one for the JVP's x; the zero start's
 counters do not move), and ``x0=None`` keeps the zero start's kernels,
 which agree with the warm ones from x0 = 0. Every test
 here needs the card and skips without one; no JAX:
@@ -72,13 +74,13 @@ def test_warm_kernels_match_the_plain_versions(cuda_device, n, batch, dtype, ite
     a, b, lo, hi, x0 = ops
     plain = [t.double() for t in ops]
     f32 = dtype == torch.float32
-    x = pgs._launch(a, b, lo, hi, dep, iterations, x0)
+    x, xs = pgs._launch(a, b, lo, hi, dep, iterations, x0, save=True)
     _assert_within(x, pgs.solve_pgs_reference(*plain[:4], dep, iterations, plain[4]),
                    *((1e-5, 1e-6) if f32 else (1e-12, 1e-12)), "x")
     if iterations == 0:
         assert torch.equal(x, x0)
     x_bar = torch.randn(b.shape, generator=gen, dtype=dtype, device=cuda_device)
-    grads = pgs._launch_backward(a, b, lo, hi, dep, iterations, x, x_bar, x0)
+    grads = pgs._launch_backward(a, b, lo, hi, dep, iterations, x, x_bar, x0, xs)
     inputs = [t.clone().requires_grad_() for t in plain]
     want = torch.autograd.grad(pgs.solve_pgs_reference(*inputs[:4], dep, iterations, inputs[4]), inputs, x_bar.double(),
                                allow_unused=True, materialize_grads=True)
@@ -170,8 +172,8 @@ def test_the_public_path_launches_the_warm_kernels(cuda_device):
     (g,) = torch.autograd.grad(x.sum(), start)
     _, x_dot = torch.func.jvp(lambda s: mlcp.solve_pgs(a, b, lo, hi, dep, s, 2), (x0,), (torch.ones_like(x0),))
     torch.cuda.synchronize()
-    # the backward relaunches the forward at 1 sweep to recover x after it
-    assert pgs.warm_launches >= 2 and pgs.warm_backward_launches == 1 and pgs.warm_jvp_launches == 1
+    # the gradient's forward saves its sweep for the backward (no relaunch); the JVP's primal is a forward too
+    assert pgs.warm_launches == 2 and pgs.warm_backward_launches == 1 and pgs.warm_jvp_launches == 1
     assert (pgs.launches, pgs.backward_launches, pgs.jvp_launches) == before
     plain = x0.double().requires_grad_()
     want = torch.autograd.grad(pgs.solve_pgs_reference(*(t.double() for t in (a, b, lo, hi)), dep, 2, plain).sum(), plain)[0]
